@@ -1,0 +1,144 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
+entry point. It is compiled by ``nvcc`` for ``sm_90a`` into a shared library
+under ``build/repro_torch/`` (listed in ``.gitignore``), named by a hash of
+the source and flags, at first use, and loaded with ``ctypes``. Nothing is
+compiled or loaded when this module is imported: the CPU tests import every
+module on machines without ``nvcc``.
+
+``launch_counts`` holds one integer per kernel. A wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = [
+    "KERNELS",
+    "BUILD_DIR",
+    "build_all",
+    "load",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    name: str          # launch-count key and library stem
+    source: str        # file under csrc/
+    entry: str         # exported C function
+    argtypes: tuple    # ctypes argument types of ``entry``
+    replaces: str      # the Pallas kernel this one replaces (file:line)
+
+
+KERNELS = {
+    "paged_decode": Kernel(
+        name="paged_decode",
+        source="paged_decode.cu",
+        entry="paged_decode_bf16",
+        # q, k_pool, v_pool, phys, logical, lens, q_lens, out,
+        # B, C, Hq, Hkv, D, n_blocks, page, window, scale, stream
+        argtypes=(_P,) * 8 + (_I,) * 8 + (_F, _P),
+        replaces="src/repro/kernels/flash_decode.py:122",
+    ),
+}
+
+launch_counts = {name: 0 for name in KERNELS}
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("NVCC"),
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set NVCC or CUDA_HOME); the port's CUDA kernels are "
+        "compiled from src/repro_torch/csrc at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / KERNELS[name].source).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names=None, *, verbose: bool = False) -> dict[str, dict]:
+    """Compile every kernel in ``names`` (default: all) whose library is
+    missing, one ``nvcc`` per source, all started together. Returns
+    ``{name: {"path", "seconds", "log"}}``; ``verbose`` adds ``-Xptxas -v``
+    (registers, shared memory and spills per kernel, in ``log``). Raises
+    with the compiler's output if any build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    out: dict[str, dict] = {}
+    for name in names:
+        path = library_path(name)
+        if path.exists() and not verbose:
+            out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC / KERNELS[name].source)]
+        jobs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, path, time.perf_counter(),
+        )
+    failed = []
+    for name, (proc, tmp, path, t0) in jobs.items():
+        log, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, path)
+        out[name] = {"path": str(path), "seconds": secs, "log": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(path))
+        spec = KERNELS[name]
+        fn = getattr(lib, spec.entry)
+        fn.argtypes = list(spec.argtypes)
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,208 @@
+"""Serving launcher: init params from a seed and serve synthetic requests
+through the port's continuous ServeEngine.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
+      --page-size 64 --max-len 1024
+
+The flags are the JAX launcher's (``repro.launch.serve``) plus ``--device``
+(default ``cuda``; with no GPU the launcher raises unless ``--device cpu``
+is given). Flags of features not ported yet exit with an error naming the
+ROADMAP item. ``--llc-every`` defaults to 0 here (the LLC sampler is not
+ported); the JAX launcher's default is 8.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.core.schedule import Order
+from repro_torch.models import build_model
+from repro_torch.serve import Request, ServeEngine, supports_continuous
+
+_AUTOTUNE_CACHE = "artifacts/hillclimb/autotune_cache.jsonl"
+
+
+def pick_scheduler(choice: str, cfg) -> str:
+    if choice == "auto":
+        if not supports_continuous(cfg):
+            raise NotImplementedError(
+                f"scheduler=auto: {cfg.name} (family={cfg.family}, window="
+                f"{cfg.window}) needs the static scheduler, which is not ported "
+                "yet: ROADMAP §A7"
+            )
+        return "continuous"
+    return choice
+
+
+def _unported(args) -> list[str]:
+    """Flags set to a feature the port does not have yet."""
+    checks = [
+        (args.attn_order == "auto", "--attn-order auto", "A8 online order adaptation"),
+        (args.adapt_epoch != 8, "--adapt-epoch", "A8 online order adaptation"),
+        (args.adapt_hysteresis != 0.05, "--adapt-hysteresis", "A8 online order adaptation"),
+        (args.adapt_confirm != 2, "--adapt-confirm", "A8 online order adaptation"),
+        (args.autotune_cache != _AUTOTUNE_CACHE, "--autotune-cache",
+         "A8 online order adaptation"),
+        (args.llc_every > 0, "--llc-every > 0", "A8 LLC sampling"),
+        (args.llc_capacity_mib is not None, "--llc-capacity-mib", "A8 LLC sampling"),
+        (args.admission == "optimistic", "--admission optimistic", "A9 resilience"),
+        (args.max_preemptions != 2, "--max-preemptions", "A9 resilience"),
+        (args.chaos_step_fail > 0, "--chaos-step-fail", "A9 resilience (faults)"),
+        (args.chaos_fetch_fail > 0, "--chaos-fetch-fail", "A9/A10 faults"),
+        (args.host_pages is not None, "--host-pages", "A10 tiered KV memory"),
+        (args.spill_watermark is not None, "--spill-watermark", "A10 tiered KV memory"),
+        (args.prefetch_depth != 2, "--prefetch-depth", "A10 tiered KV memory"),
+        (args.draft != "none", "--draft", "A11 speculative decoding"),
+        (args.draft_model is not None, "--draft-model", "A11 speculative decoding"),
+        (args.draft_len != 4, "--draft-len", "A11 speculative decoding"),
+        (args.ckpt_dir is not None, "--ckpt-dir", "A12 checkpoints"),
+    ]
+    return [f"{flag} is not ported yet: ROADMAP §{item}" for bad, flag, item in checks if bad]
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--ckpt-dir", default=None, help="restore params from here")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--attn-order", default="sawtooth",
+                    choices=[o.value for o in Order] + ["auto"],
+                    help="KV traversal order of the paged attention walk")
+    ap.add_argument("--snake-group", type=int, default=None,
+                    help="block_snake reversal window in KV pages")
+    ap.add_argument("--adapt-epoch", type=int, default=8)
+    ap.add_argument("--adapt-hysteresis", type=float, default=0.05)
+    ap.add_argument("--adapt-confirm", type=int, default=2)
+    ap.add_argument("--autotune-cache", default=_AUTOTUNE_CACHE, metavar="PATH")
+    ap.add_argument("--scheduler", default="auto", choices=["auto", "static", "continuous"])
+    ap.add_argument("--page-size", type=int, default=None, help="KV page rows")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="tokens per ragged mixed step (default: batch size + one chunk)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prompt tokens per prefill chunk (default: 4 pages)")
+    ap.add_argument("--no-prefix-sharing", action="store_true",
+                    help="disable prefix-page sharing / copy-on-write dedup")
+    ap.add_argument("--admission", default="reserve", choices=["reserve", "optimistic"])
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bound on the arrived waiting queue (newest are shed)")
+    ap.add_argument("--admit-watermark", type=float, default=None,
+                    help="pool-occupancy fraction at which admission pauses")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request wall-clock deadline from engine start")
+    ap.add_argument("--max-preemptions", type=int, default=2)
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="allocatable KV pool pages (default: every slot's worst case)")
+    ap.add_argument("--host-pages", type=int, default=None)
+    ap.add_argument("--spill-watermark", type=float, default=None)
+    ap.add_argument("--prefetch-depth", type=int, default=2)
+    ap.add_argument("--draft", default="none", choices=["none", "ngram", "model"])
+    ap.add_argument("--draft-len", type=int, default=4, metavar="K")
+    ap.add_argument("--draft-model", default=None, metavar="ARCH")
+    ap.add_argument("--chaos-step-fail", type=int, default=0, metavar="N")
+    ap.add_argument("--chaos-fetch-fail", type=int, default=0, metavar="N")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="dump the obs metrics registry as JSONL here")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write the span trace as Chrome-trace JSON here")
+    ap.add_argument("--llc-every", type=int, default=0,
+                    help="LLC gauge sampling cadence (not ported: must stay 0)")
+    ap.add_argument("--llc-capacity-mib", type=float, default=None)
+    ap.add_argument("--log-every", type=int, default=0, metavar="STEPS",
+                    help="print a one-line stats summary every N mixed steps")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    errors = _unported(args)
+    if args.scheduler == "static":
+        errors.append("--scheduler static is not ported yet: ROADMAP §A7")
+    if errors:
+        ap.error("; ".join(errors))
+    if args.attn_order == "block_snake" and args.snake_group is None:
+        valid = ", ".join(repr(o.value) for o in Order)
+        ap.error(
+            "traversal order 'block_snake' needs --snake-group (the reversal "
+            f"window in KV pages); valid orders are: {valid}"
+        )
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = cfg.with_(attn_order=args.attn_order, snake_group=args.snake_group)
+    lm = build_model(cfg, device=args.device)
+    params = lm.init(0)
+
+    eng = ServeEngine(
+        lm,
+        params,
+        batch_size=args.batch_size,
+        max_len=args.max_len,
+        scheduler=pick_scheduler(args.scheduler, cfg),
+        page_size=args.page_size,
+        token_budget=args.token_budget,
+        prefill_chunk=args.prefill_chunk,
+        prefix_sharing=not args.no_prefix_sharing,
+        log_every_steps=args.log_every,
+        admission=args.admission,
+        max_queue=args.max_queue,
+        admit_watermark=args.admit_watermark,
+        pool_pages=args.pool_pages,
+        device=args.device,
+    )
+    rng = np.random.default_rng(0)
+    reqs = [
+        Request(
+            tokens=rng.integers(2, cfg.vocab, size=rng.integers(4, 32)).astype(np.int32),
+            max_new_tokens=args.max_new,
+            temperature=args.temperature,
+            rid=i,
+            deadline_s=args.deadline_s,
+        )
+        for i in range(args.requests)
+    ]
+    t0 = time.time()
+    results = eng.generate(reqs)
+    dt = time.time() - t0
+    ok = [r for r in results if r.status == "ok"]
+    tok = sum(r.steps for r in results)
+    print(f"served {len(results)} requests, {tok} tokens in {dt:.2f}s ({tok/dt:.1f} tok/s)")
+    if len(ok) < len(results):
+        by: dict[str, int] = {}
+        for r in results:
+            by[r.status] = by.get(r.status, 0) + 1
+        print("  statuses: " + ", ".join(f"{k}={v}" for k, v in sorted(by.items())))
+    stats = eng.last_stats
+    if stats is not None:
+        print(
+            f"  {stats.mixed_steps} mixed steps ({stats.wide_steps} wide), "
+            f"{stats.pages_adopted} prefix pages adopted "
+            f"({stats.prompt_tokens_adopted} tokens), "
+            f"{stats.cow_forks} CoW forks"
+        )
+    for r in results[:4]:
+        print(f"  rid={r.rid} -> {r.tokens.tolist()}")
+
+    if args.metrics_out:
+        from repro_torch.obs import write_metrics_jsonl
+
+        n = write_metrics_jsonl(eng.obs, args.metrics_out, extra={"arch": args.arch})
+        print(f"wrote {n} metric series -> {args.metrics_out}")
+    if args.trace_out:
+        eng.tracer.write(args.trace_out)
+        print(f"wrote {len(eng.tracer.events())} trace events -> {args.trace_out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,37 @@
+from repro_torch.serve.engine import (
+    CONTINUOUS_FAMILIES,
+    REQUEST_STATUSES,
+    GenerationResult,
+    Request,
+    ServeEngine,
+    StepStats,
+    supports_continuous,
+)
+from repro_torch.serve.kv_pool import (
+    AdmissionError,
+    PagedKVPool,
+    PagePool,
+    PoolError,
+    PoolExhausted,
+    assemble_cache_view,
+)
+from repro_torch.serve.scheduler import ContinuousScheduler, Slot, StepItem
+
+__all__ = [
+    "CONTINUOUS_FAMILIES",
+    "REQUEST_STATUSES",
+    "GenerationResult",
+    "Request",
+    "ServeEngine",
+    "StepStats",
+    "supports_continuous",
+    "AdmissionError",
+    "PagedKVPool",
+    "PagePool",
+    "PoolError",
+    "PoolExhausted",
+    "assemble_cache_view",
+    "ContinuousScheduler",
+    "Slot",
+    "StepItem",
+]

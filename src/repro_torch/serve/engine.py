@@ -1,0 +1,554 @@
+"""Continuous-batching serve engine over a shared paged KV pool.
+
+A port of the continuous path of ``repro.serve.engine.ServeEngine``. Each
+iteration plans one ragged **mixed step** (``serve.scheduler``): every
+decoding slot contributes a q_len=1 row and the rest of the token budget
+goes to prompts as prefill chunks. The step runs eagerly through
+``LM.decode_step`` over the pool (``serve.kv_pool``), whose pages are
+written in place and walked in the paper's traversal order; the effective
+reversal group comes from ``resolve_order_group(cfg.attn_order,
+cfg.snake_group, blocks_per_seq)``. A step has one of two widths: 1 when
+every row decodes, ``prefill_chunk`` otherwise. Identical prompt prefixes
+share pages (adoption + copy-on-write).
+
+Sampling is per row: greedy at temperature 0 (argmax in the logits' dtype,
+first maximum on ties, as the reference), otherwise a Gumbel-max draw from
+``softmax(logits / T)`` with noise from a generator seeded by a
+counter-based hash of (engine seed, request seed, sample index). The draws
+cannot match ``jax.random``; a request's sampled stream depends only on
+those three numbers, not on its slot or its neighbours.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): the static scheduler, speculative drafters, the host KV tier, fault
+injection and optimistic admission, online order adaptation and LLC
+sampling, and sharded serving.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.schedule import resolve_order_group
+from repro_torch.device import resolve_device
+from repro_torch.models.model import LM, build_model
+from repro_torch.obs.metrics import Registry
+from repro_torch.obs.trace import Tracer
+from repro_torch.serve.kv_pool import PagedKVPool, assemble_cache_view
+from repro_torch.serve.scheduler import ContinuousScheduler
+
+__all__ = [
+    "Request",
+    "GenerationResult",
+    "StepStats",
+    "ServeEngine",
+    "CONTINUOUS_FAMILIES",
+    "REQUEST_STATUSES",
+    "supports_continuous",
+    "sample_seed",
+    "sample_token",
+]
+
+CONTINUOUS_FAMILIES = ("dense",)
+REQUEST_STATUSES = ("ok", "deadline", "cancelled", "shed", "failed")
+
+# Engine arguments of features that later slices port, with the value that
+# means "off". Any other value raises NotImplementedError naming the item.
+_UNPORTED = {
+    "mesh": (None, "A14 sharded serving"),
+    "pcfg": (None, "A14 sharded serving"),
+    "llc_every": (0, "A8 LLC sampling"),
+    "llc_capacity_bytes": (None, "A8 LLC sampling"),
+    "adapt_order": (False, "A8 online order adaptation"),
+    "adapt_epoch": (8, "A8 online order adaptation"),
+    "adapt_hysteresis": (0.05, "A8 online order adaptation"),
+    "adapt_confirm": (2, "A8 online order adaptation"),
+    "adapt_shared_threshold": (0.25, "A8 online order adaptation"),
+    "autotune_cache": (None, "A8 online order adaptation"),
+    "max_preemptions": (2, "A9 resilience (preemption)"),
+    "faults": (None, "A9 resilience (fault injection)"),
+    "host_pages": (None, "A10 tiered KV memory"),
+    "spill_watermark": (None, "A10 tiered KV memory"),
+    "prefetch_depth": (2, "A10 tiered KV memory"),
+    "drafter": (None, "A11 speculative decoding"),
+    "draft_len": (4, "A11 speculative decoding"),
+}
+
+
+def supports_continuous(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` can serve under the port's continuous scheduler: a
+    ported token-only full-attention family."""
+    return cfg.family in CONTINUOUS_FAMILIES and cfg.moe is None and cfg.window is None
+
+
+@dataclasses.dataclass
+class Request:
+    tokens: np.ndarray            # prompt (1D int32)
+    max_new_tokens: int = 32
+    temperature: float = 0.0      # 0 = greedy
+    rid: int = 0
+    seed: Optional[int] = None    # sampling stream id; defaults to the
+                                  # request's submission index
+    eos_id: Optional[int] = None  # overrides ModelConfig.eos_id
+    arrival: int = 0              # step arrival time
+    deadline_s: Optional[float] = None
+                                  # wall-clock budget from engine start,
+                                  # checked at step boundaries
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    rid: int
+    tokens: np.ndarray            # generated tokens (without prompt)
+    steps: int
+    ttft_s: float = 0.0           # wall time, engine start -> first token
+    tpot_s: float = 0.0           # mean time per token after the first
+                                  # (NaN when <= 1 token was generated)
+    status: str = "ok"            # one of REQUEST_STATUSES
+
+
+@dataclasses.dataclass
+class StepStats:
+    """Deterministic per-stream work counters of the continuous path (the
+    fields the port can produce, named as the reference's)."""
+
+    mixed_steps: int = 0          # ragged mixed steps dispatched
+    wide_steps: int = 0           # steps at chunk width (any prefill row)
+    pages_adopted: int = 0        # prefix pages adopted instead of computed
+    prompt_tokens_adopted: int = 0
+    cow_forks: int = 0
+    shed: int = 0
+    deadline_miss: int = 0
+    cancelled: int = 0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _tpot(elapsed_after_first: float, n_tok: int) -> float:
+    return (elapsed_after_first / (n_tok - 1)) if n_tok > 1 else math.nan
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def sample_seed(engine_seed: int, seed: int, index: int) -> int:
+    """Counter-based 63-bit seed of one draw: a hash of (engine seed,
+    request seed, sample index), independent of slot and step."""
+    h = _splitmix64(int(engine_seed) & _MASK64)
+    h = _splitmix64(h ^ (int(seed) & _MASK64))
+    h = _splitmix64(h ^ (int(index) & _MASK64))
+    return h >> 1
+
+
+def sample_token(logits: torch.Tensor, temperature: float, seed: int) -> torch.Tensor:
+    """One draw from ``softmax(logits / T)`` (logits (V,)) by Gumbel-max,
+    with noise from a generator on the logits' device seeded by ``seed``."""
+    gen = torch.Generator(device=logits.device).manual_seed(int(seed))
+    u = torch.rand(logits.shape, generator=gen, device=logits.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=1e-20, max=1.0 - 1e-7)))
+    return torch.argmax(logits.float() / max(float(temperature), 1e-6) + gumbel)
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        lm: LM,
+        params,
+        *,
+        batch_size: int = 8,
+        max_len: int = 1024,
+        seed: int = 0,
+        scheduler: str = "continuous",
+        page_size: Optional[int] = None,
+        token_budget: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        prefix_sharing: bool = True,
+        registry: Optional[Registry] = None,
+        tracer: Optional[Tracer] = None,
+        log_every_steps: int = 0,
+        admission: str = "reserve",
+        max_queue: Optional[int] = None,
+        admit_watermark: Optional[float] = None,
+        pool_pages: Optional[int] = None,
+        device="cuda",
+        **unported,
+    ):
+        """Serve ``lm`` with ``params`` under the continuous scheduler on
+        ``device`` (default ``"cuda"``; raises when no GPU is present unless
+        ``device="cpu"`` is given). The model is rebuilt with the paged KV
+        layout (``page_size`` pages, default ``kv_block``, capped at
+        ``max_len``); ``token_budget`` tokens per step (default: one per
+        slot plus one prefill chunk) are split across decode rows and
+        ``prefill_chunk``-token prompt chunks (default: 4 pages).
+        ``prefix_sharing=False`` disables page dedup. ``max_queue`` sheds the
+        newest arrived requests beyond it; ``admit_watermark`` pauses
+        admission at that pool occupancy. Metrics go to ``registry`` and
+        spans to ``tracer`` (fresh per engine by default)."""
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"ServeEngine() got an unexpected keyword argument {name!r}")
+            off, item = _UNPORTED[name]
+            if value != off:
+                raise NotImplementedError(
+                    f"ServeEngine({name}={value!r}) is not ported yet: ROADMAP §{item}"
+                )
+        if scheduler == "static":
+            raise NotImplementedError(
+                "scheduler='static' (fixed groups through LM.prefill) is not "
+                "ported yet: ROADMAP §A7 with kernels §B2/§B3"
+            )
+        if scheduler != "continuous":
+            raise ValueError(f"unknown scheduler {scheduler!r}")
+        if admission == "optimistic":
+            raise NotImplementedError(
+                "admission='optimistic' (oversubscribed pool + preemption) is "
+                "not ported yet: ROADMAP §A9"
+            )
+        if admission != "reserve":
+            raise ValueError(f"unknown admission discipline {admission!r}")
+        self.device = resolve_device(device)
+        if lm.device != self.device:
+            raise ValueError(f"model built on {lm.device}, engine asked for {self.device}")
+        cfg = lm.cfg
+        if not supports_continuous(cfg):
+            raise NotImplementedError(
+                "continuous scheduling needs a ported token-only full-attention "
+                f"family {CONTINUOUS_FAMILIES} (got family={cfg.family!r}, "
+                f"window={cfg.window}); other families: ROADMAP §A13"
+            )
+        if max_len <= 0:
+            raise ValueError(
+                f"max_len={max_len} gives a zero-capacity KV cache (it must be "
+                "positive); use max_len > 0"
+            )
+        page = min(page_size or cfg.page_size or cfg.kv_block, max_len)
+        self.lm = build_model(cfg.with_(kv_layout="paged", page_size=page), device=self.device)
+        self._page = page
+        self._chunk = max(1, min(prefill_chunk or 4 * page, max_len))
+        self._budget = token_budget
+        self.scheduler = scheduler
+        self.params = params
+        self.eos = cfg.eos_id
+        self.prefix_sharing = prefix_sharing
+        self.admission = admission
+        self.max_queue = max_queue
+        self.pool_pages = pool_pages
+        self._watermark = 1.0 if admit_watermark is None else admit_watermark
+        self._cap = max_len
+        self._cancelled: set[int] = set()
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.seed = int(seed)
+        self._step_widths: set[int] = set()
+        self.last_pool: Optional[PagedKVPool] = None
+
+        # ---- telemetry (same series names as the reference engine) ----
+        self.obs = registry if registry is not None else Registry()
+        self.tracer = tracer if tracer is not None else Tracer()
+        self._log_every = log_every_steps
+        self.last_stats: Optional[StepStats] = None
+        r = self.obs
+        self._m_tok_decode = r.counter("serve.step.tokens", kind="decode")
+        self._m_tok_prefill = r.counter("serve.step.tokens", kind="prefill")
+        self._m_generated = r.counter("serve.tokens.generated")
+        self._m_steps_wide = r.counter("serve.steps", width="wide")
+        self._m_steps_narrow = r.counter("serve.steps", width="narrow")
+        self._m_req_admitted = r.counter("serve.requests", event="admitted")
+        self._m_req_finished = r.counter("serve.requests", event="finished")
+        self._m_req_requeued = r.counter("serve.requests", event="requeued")
+        self._m_compiles = r.counter("serve.compiles")
+        self._m_ttft = r.histogram("serve.ttft_s")
+        self._m_tpot = r.histogram("serve.tpot_s")
+        self._m_step_time = r.histogram("serve.step_time_s")
+        self._m_queue = r.gauge("serve.queue_depth")
+        self._m_active = r.gauge("serve.active_slots")
+        self._m_budget = r.gauge("serve.budget_utilization")
+        self._m_shed = r.counter("serve.shed")
+        self._m_deadline = r.counter("serve.deadline_miss")
+        self._m_cancel = r.counter("serve.cancelled")
+        self._m_failed = r.counter("serve.failed")
+        self._m_admit_paused = r.gauge("serve.admission_paused")
+
+    def cancel(self, rid: int) -> None:
+        """Retire request ``rid`` at the next step boundary with
+        ``status="cancelled"`` (unknown rids are remembered)."""
+        self._cancelled.add(int(rid))
+
+    def _eos_for(self, r: Request) -> int:
+        return self.eos if r.eos_id is None else r.eos_id
+
+    def generate(self, requests: Sequence[Request]) -> list[GenerationResult]:
+        return self._generate_continuous(requests)
+
+    def compiled_step_count(self) -> int:
+        """Distinct step widths used so far (at most two: 1 and the chunk
+        width) — the counterpart of the reference's compiled variants."""
+        return len(self._step_widths)
+
+    def _record_result(self, res: GenerationResult) -> None:
+        self._m_req_finished.inc()
+        self._m_generated.inc(res.steps)
+        if res.status == "ok":
+            self._m_ttft.observe(res.ttft_s)
+            self._m_tpot.observe(res.tpot_s)
+        elif res.status == "deadline":
+            self._m_deadline.inc()
+        elif res.status == "cancelled":
+            self._m_cancel.inc()
+        elif res.status == "shed":
+            self._m_shed.inc()
+        elif res.status == "failed":
+            self._m_failed.inc()
+
+    # ---- the mixed step ------------------------------------------------------
+
+    @torch.no_grad()
+    def _mixed_step(self, tokens, pool, qlens, order_group, temps, seeds, counts) -> np.ndarray:
+        """One ragged step: (n_slots, width) tokens -> the sampled token at
+        every chunk position, as a host array (greedy everywhere; a
+        sampling row draws at its last valid position, the only one the
+        host reads, with sample index ``counts[row]``)."""
+        caches = assemble_cache_view(
+            pool.pages, pool.block_tables, pool.lens, qlens, order_group, device=self.device
+        )
+        tok = torch.as_tensor(tokens, device=self.device)
+        logits, _ = self.lm.decode_step(self.params, tok, caches)
+        toks = torch.argmax(logits, dim=-1)
+        for b in np.flatnonzero((temps > 0.0) & (qlens > 0)):
+            p = int(qlens[b]) - 1
+            toks[b, p] = sample_token(
+                logits[b, p], float(temps[b]), sample_seed(self.seed, seeds[b], counts[b])
+            )
+        return toks.to(torch.int32).cpu().numpy()
+
+    # ---- continuous path -----------------------------------------------------
+
+    def _generate_continuous(self, requests: Sequence[Request]) -> list[GenerationResult]:
+        cfg = self.lm.cfg
+        n_slots = self.batch_size
+        sched = ContinuousScheduler(
+            n_slots, token_budget=self._budget, prefill_chunk=self._chunk
+        )
+        sched.submit(list(requests))
+        idx_of = {id(r): i for i, r in enumerate(requests)}  # default seeds
+        pool = PagedKVPool(
+            cfg, cfg.n_layers, n_slots, self._cap,
+            device=self.device,
+            prefix_sharing=self.prefix_sharing,
+            registry=self.obs,
+            admission=self.admission,
+            n_pages=self.pool_pages,
+        )
+        self.last_pool = pool
+        order_group = resolve_order_group(cfg.attn_order, cfg.snake_group, pool.blocks_per_seq)
+
+        results: dict[int, GenerationResult] = {}
+        cur = np.full((n_slots,), self.eos, np.int32)  # last sampled token
+        temps = np.zeros((n_slots,), np.float32)
+        seeds = np.zeros((n_slots,), np.int64)
+        counts = np.zeros((n_slots,), np.int64)
+        t0 = time.perf_counter()
+        first_t: dict[int, float] = {}
+        tr = self.tracer
+
+        def resolve(r, tokens: list, status: str) -> None:
+            now = time.perf_counter()
+            n_tok = len(tokens)
+            ttft = first_t.pop(id(r), now) - t0
+            res = GenerationResult(
+                rid=r.rid,
+                tokens=np.asarray(tokens, np.int32),
+                steps=n_tok,
+                ttft_s=ttft,
+                tpot_s=_tpot((now - t0) - ttft, n_tok),
+                status=status,
+            )
+            results[id(r)] = res
+            self._cancelled.discard(r.rid)
+            self._record_result(res)
+
+        def finish(slot: int, status: str = "ok") -> None:
+            st = sched.retire(slot)
+            pool.release(slot)
+            cur[slot] = self.eos
+            temps[slot] = 0.0
+            resolve(st.request, list(st.generated), status)
+
+        step = 0
+        n_steps = n_wide = 0
+        while sched.has_work():
+            t_iter = time.perf_counter()
+            with tr.span("serve.step", step=step):
+                # ---- step-boundary lifecycle checks ----
+                if self._cancelled:
+                    for r in sched.drain_waiting(lambda r: r.rid in self._cancelled):
+                        resolve(r, [], "cancelled")
+                    for i in list(sched.active_slots()):
+                        if sched.slots[i].request.rid in self._cancelled:
+                            finish(i, "cancelled")
+                now_s = time.perf_counter() - t0
+                for r in sched.drain_waiting(
+                    lambda r: r.deadline_s is not None and now_s > r.deadline_s
+                ):
+                    resolve(r, [], "deadline")
+                for i in list(sched.active_slots()):
+                    r = sched.slots[i].request
+                    if r.deadline_s is not None and now_s > r.deadline_s:
+                        finish(i, "deadline")
+
+                # Admission: fill free slots with arrived requests while the
+                # pool can reserve their (sharing-reduced) worst case.
+                paused = pool.occupancy() >= self._watermark and bool(sched.active_slots())
+                self._m_admit_paused.set(float(paused))
+                while not paused and (slot := sched.free_slot()) is not None:
+                    req = sched.pop_admissible(step)
+                    if req is None:
+                        break
+                    st = self._admit(req, slot, sched, pool, temps, seeds, counts,
+                                     idx_of.get(id(req), 0))
+                    if st is None:
+                        sched.requeue(req)  # no pages yet; retry after retirements
+                        self._m_req_requeued.inc()
+                        break
+                    self._m_req_admitted.inc()
+                    if st.done:  # zero-limit request: emits nothing
+                        finish(slot)
+
+                if self.max_queue is not None:
+                    for r in sched.shed_over(step, self.max_queue):
+                        resolve(r, [], "shed")
+
+                with tr.span("serve.plan_step"):
+                    plan = sched.plan_step()
+                for it in plan:
+                    pool.ensure_writable(it.slot, it.q_len)
+                self._m_queue.set(len(sched.waiting))
+                self._m_active.set(len(sched.active_slots()))
+                if not plan:
+                    if sched.waiting:
+                        nxt = sched.next_arrival()
+                        step = max(step + 1, nxt if nxt is not None else step + 1)
+                        continue
+                    break
+                planned = sum(it.q_len for it in plan)
+                self._m_budget.set(planned / sched.token_budget)
+
+                width = 1 if all(it.q_len == 1 for it in plan) else self._chunk
+                if width not in self._step_widths:
+                    self._step_widths.add(width)
+                    self._m_compiles.inc()
+                    tr.instant("serve.compile", width=width, variants=len(self._step_widths))
+                tokens = np.full((n_slots, width), self.eos, np.int32)
+                qlens = np.zeros((n_slots,), np.int32)
+                n_decode = n_prefill = 0
+                for it in plan:
+                    st = sched.slots[it.slot]
+                    if it.is_prefill:
+                        seg = st.prompt[st.prompt_pos : st.prompt_pos + it.q_len]
+                        tokens[it.slot, : len(seg)] = seg
+                        n_prefill += it.q_len
+                    else:
+                        tokens[it.slot, 0] = cur[it.slot]
+                        n_decode += 1
+                    qlens[it.slot] = it.q_len
+
+                # The device span closes once the sampled tokens are on the
+                # host, so it brackets the step's device time.
+                with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned):
+                    toks = self._mixed_step(tokens, pool, qlens, order_group, temps, seeds, counts)
+                step += 1
+                n_steps += 1
+                n_wide += width > 1
+                self._m_tok_decode.inc(n_decode)
+                self._m_tok_prefill.inc(n_prefill)
+                (self._m_steps_wide if width > 1 else self._m_steps_narrow).inc()
+                for it in plan:
+                    st = sched.slots[it.slot]
+                    pool.advance(it.slot, it.q_len)
+                    if it.is_prefill:
+                        st.prompt_pos += it.q_len
+                        if not it.finishes_prompt:
+                            continue
+                        # Prompt complete: publish its frozen pages for later
+                        # admissions to adopt, then take the first sample.
+                        pool.register_prompt(it.slot, st.prompt)
+                    tok = int(toks[it.slot, it.q_len - 1])
+                    if id(st.request) not in first_t:
+                        first_t[id(st.request)] = time.perf_counter()
+                    counts[it.slot] += 1
+                    cur[it.slot] = tok
+                    if st.record(tok):
+                        finish(it.slot)
+                pool.emit_gauges()
+            self._m_step_time.observe(time.perf_counter() - t_iter)
+            if self._log_every and n_steps and n_steps % self._log_every == 0:
+                self._log_stats_line(n_steps, pool, sched)
+
+        self._m_admit_paused.set(0.0)
+        by_status: dict[str, int] = {}
+        for res in results.values():
+            by_status[res.status] = by_status.get(res.status, 0) + 1
+        self.last_stats = StepStats(
+            mixed_steps=n_steps,
+            wide_steps=n_wide,
+            pages_adopted=pool.shared_hits,
+            prompt_tokens_adopted=pool.shared_tokens,
+            cow_forks=pool.cow_forks,
+            shed=by_status.get("shed", 0),
+            deadline_miss=by_status.get("deadline", 0),
+            cancelled=by_status.get("cancelled", 0),
+        )
+        return [results[id(r)] for r in requests]
+
+    def _log_stats_line(self, n_steps: int, pool, sched) -> None:
+        v = self.obs.value
+        print(
+            f"[serve] step {n_steps}: "
+            f"queue={len(sched.waiting)} active={len(sched.active_slots())} "
+            f"tokens dec/pre={v('serve.step.tokens', kind='decode'):.0f}"
+            f"/{v('serve.step.tokens', kind='prefill'):.0f} "
+            f"gen={v('serve.tokens.generated'):.0f} "
+            f"pool free={pool.alloc.free_count} "
+            f"occ={v('pool.occupancy_frac'):.0%} "
+            f"adopted={pool.shared_hits} cow={pool.cow_forks}"
+        )
+
+    def _admit(self, req: Request, slot: int, sched, pool, temps, seeds, counts, idx: int):
+        """Admit ``req`` into ``slot``: the pool adopts any registered shared
+        prefix and reserves the rest; the prompt's other tokens run through
+        the mixed step as chunks. Returns the placed ``Slot``, or None if
+        the pool lacks pages."""
+        cap = self._cap
+        prompt = np.asarray(req.tokens, np.int32)[-cap:]
+        if len(prompt) == 0:
+            prompt = np.full((1,), self.eos, np.int32)  # empty prompt -> 1 pad
+        new_limit = max(0, min(req.max_new_tokens, cap - len(prompt) + 1))
+        if new_limit == 0:
+            st = sched.place(slot, req, eos_id=self._eos_for(req), new_limit=0)
+            st.done = True
+            return st
+        shared = pool.admit(slot, prompt, new_limit)
+        if shared is None:
+            return None
+        st = sched.place(
+            slot, req, eos_id=self._eos_for(req), new_limit=new_limit,
+            prompt=prompt, prompt_pos=shared,
+        )
+        temps[slot] = req.temperature
+        seeds[slot] = idx if req.seed is None else req.seed
+        counts[slot] = 0
+        return st

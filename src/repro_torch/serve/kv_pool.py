@@ -1,0 +1,419 @@
+"""Shared paged KV pool for continuous batching, with refcounted
+copy-on-write prefix sharing.
+
+A port of ``repro.serve.kv_pool``. The host side (free list, block tables,
+lengths, refcounts, prefix registry, reservations) is numpy and Python and
+follows the reference line for line; the parity tests drive both pools in
+lock step. The device side is one K and one V tensor of shape
+(L, n_pages, page, Hkv, hd), updated in place by the mixed step and by
+copy-on-write forks (the JAX pool is functional and rebinds fresh arrays).
+
+Page 0 is a reserved dummy: free slots and the invalid rows of a ragged
+step point their writes at it. Full prompt pages are registered in a
+content-hash registry (a rolling CRC over the chain of page tokens, with an
+exact token comparison on every hit); ``admit`` adopts a matching prefix
+(refcount bump, no compute) and the first write into a shared page forks it
+(``ensure_writable``). Admission reserves each request's worst case
+(``admission="reserve"``), so lazy growth and forks never fail mid-flight.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+
+__all__ = [
+    "PagePool",
+    "PagedKVPool",
+    "assemble_cache_view",
+    "PoolError",
+    "PoolExhausted",
+    "AdmissionError",
+]
+
+
+class PoolError(RuntimeError):
+    """Base of the serve pool's typed failures."""
+
+
+class PoolExhausted(PoolError):
+    """Page allocation could not be satisfied from the free list."""
+
+
+class AdmissionError(PoolError, ValueError):
+    """Admission-path misuse (occupied slot, unusable pool geometry)."""
+
+
+def assemble_cache_view(
+    pages: dict, block_table, lens, q_lens=None, order_group=None, *, device
+) -> dict:
+    """The cache dict ``decode_step`` takes: the pool tensors plus this
+    step's block table (B, n_blocks), lengths (B,), valid chunk rows (B,)
+    and effective reversal group, moved to ``device``. Unlike the JAX
+    package the host arrays are not tiled across layers: the eager layer
+    loop shares one copy."""
+    view = dict(pages)
+    view["block_table"] = torch.as_tensor(np.asarray(block_table), dtype=torch.int32, device=device)
+    view["len"] = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device=device)
+    if q_lens is not None:
+        view["q_len"] = torch.as_tensor(np.asarray(q_lens), dtype=torch.int32, device=device)
+    if order_group is not None:
+        view["order_group"] = int(order_group)
+    return view
+
+
+class PagePool:
+    """Host-side free-list allocator over physical page ids.
+
+    Page 0 is never handed out (reserved dummy). ``reserved`` tracks pages
+    promised to admitted-but-not-yet-written sequences; ``available`` is
+    what a new admission may claim.
+    """
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise AdmissionError(f"pool needs >= 2 pages (1 dummy), got {n_pages}")
+        self.n_pages = n_pages
+        self._free: list[int] = list(range(n_pages - 1, 0, -1))  # pop() -> low ids
+        self.reserved = 0
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def available(self) -> int:
+        return self.free_count - self.reserved
+
+    def alloc(self, n: int) -> list[int]:
+        if n > self.free_count:
+            raise PoolExhausted(
+                f"page pool exhausted: want {n}, free {self.free_count}"
+            )
+        return [self._free.pop() for _ in range(n)]
+
+    def free(self, ids) -> None:
+        self._free.extend(int(i) for i in ids)
+
+
+def _copy_page(dst: torch.Tensor, src_id: int, dst_id: int) -> None:
+    """In place: physical page ``src_id`` of every layer copied onto
+    ``dst_id`` (dst is (L, n_pages, ...)); O(page) traffic."""
+    dst[:, dst_id].copy_(dst[:, src_id])
+
+
+def _hash_step(h: int, page_tokens: np.ndarray) -> int:
+    """One link of the rolling prompt-page content hash. Collisions are
+    harmless — every registry hit is verified by exact token comparison."""
+    return zlib.crc32(np.ascontiguousarray(page_tokens, np.int32).tobytes(), h)
+
+
+class PagedKVPool:
+    """Device page pool + host block tables / lengths / refcounts / registry."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        n_layers: int,
+        n_slots: int,
+        max_len: int,
+        *,
+        device,
+        dtype=None,
+        prefix_sharing: bool = True,
+        registry=None,
+        admission: str = "reserve",
+        n_pages: Optional[int] = None,
+    ):
+        if cfg.window is not None:
+            raise ValueError("paged KV pools require full attention (window=None)")
+        if admission == "optimistic":
+            raise NotImplementedError(
+                "admission='optimistic' (oversubscribed pool + preemption) is "
+                "not ported yet: ROADMAP §A9"
+            )
+        if admission != "reserve":
+            raise AdmissionError(f"unknown admission discipline {admission!r}")
+        if cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                "kv_cache_dtype='int8' (quantized KV pages) is not ported yet: "
+                "ROADMAP §A5"
+            )
+        self.cfg = cfg
+        self.n_slots = n_slots
+        self.prefix_sharing = prefix_sharing
+        self.admission = admission
+        self.page, self.blocks_per_seq = T.page_geometry(cfg, max_len)
+        self.capacity = self.blocks_per_seq * self.page
+        if n_pages is None:
+            n_pages = n_slots * self.blocks_per_seq
+        if n_pages < self.blocks_per_seq:
+            raise AdmissionError(
+                f"pool of {n_pages} pages cannot fit one {self.blocks_per_seq}"
+                f"-page capacity row"
+            )
+        self.alloc = PagePool(n_pages + 1)  # +1 dummy page 0
+
+        shape = (n_layers, self.alloc.n_pages, self.page, cfg.n_kv_heads, cfg.hd)
+        dt = dtype or cfg.activation_dtype()
+        self.pages: dict[str, torch.Tensor] = {
+            name: torch.zeros(shape, dtype=dt, device=device)
+            for name in ("k_pages", "v_pages")
+        }
+
+        self.block_tables = np.zeros((n_slots, self.blocks_per_seq), np.int32)
+        self.lens = np.zeros((n_slots,), np.int32)
+        # Per-slot written high-water mark (the furthest position this slot
+        # itself made writable); the registry-coverage invariant polices it.
+        self._written = np.zeros((n_slots,), np.int32)
+        self._ref = np.zeros((self.alloc.n_pages,), np.int32)
+        self._slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
+        self._slot_reserved: list[int] = [0] * n_slots
+        # Prefix registry: parent-chain-hash -> (physical page, its tokens).
+        self._chain_next: dict[int, tuple[int, np.ndarray]] = {}
+        self._page_parent: dict[int, int] = {}
+        self.shared_hits = 0
+        self.shared_tokens = 0
+        self.cow_forks = 0
+        self._registry = registry
+        if registry is not None:
+            self._m_adopted = registry.counter("pool.pages_adopted")
+            self._m_adopted_tokens = registry.counter("pool.tokens_adopted")
+            self._m_cow = registry.counter("pool.cow_forks")
+            self.emit_gauges()
+
+    # ---- admission / lifecycle ----------------------------------------------
+
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page)
+
+    def match_prefix(self, prompt: np.ndarray) -> tuple[int, list[int]]:
+        """Longest registered prefix of ``prompt``: (tokens covered, pages).
+        A final partial page match is adopted too (its first write forks);
+        coverage is capped at ``len(prompt) - 1`` so the last prompt token
+        always runs through the model."""
+        prompt = np.asarray(prompt, np.int32)
+        if not self.prefix_sharing or len(prompt) <= 1:
+            return 0, []
+        page = self.page
+        limit = min(len(prompt) - 1, self.capacity)
+        h, covered, pids = 0, 0, []
+        while covered < limit:
+            ent = self._chain_next.get(h)
+            if ent is None:
+                break
+            pid, ptoks = ent
+            seg = prompt[covered : covered + page]
+            if (
+                len(seg) == page
+                and covered + page <= limit
+                and np.array_equal(ptoks, seg)
+            ):
+                pids.append(pid)
+                covered += page
+                h = _hash_step(h, ptoks)
+                continue
+            rem = prompt[covered:limit]
+            if rem.size and np.array_equal(ptoks[: rem.size], rem):
+                pids.append(pid)
+                covered = limit
+            break
+        return covered, pids
+
+    def admit(self, slot: int, prompt: np.ndarray, max_new: int) -> Optional[int]:
+        """Admit a request into ``slot``: adopt the shared prefix and reserve
+        the worst case of owned pages. Returns the number of prompt tokens
+        adopted (0 if none), or None when the pool lacks pages."""
+        if self._slot_pages[slot] or self._slot_reserved[slot] or self.lens[slot]:
+            raise AdmissionError(f"slot {slot} is occupied")
+        prompt = np.asarray(prompt, np.int32)
+        prompt_len = min(len(prompt), self.capacity)
+        covered, pids = self.match_prefix(prompt)
+        # Adopted pages strictly below the write boundary are never written
+        # again; a partially covered tail page forks on its first write.
+        n_safe = covered // self.page
+        worst = self.pages_for(min(prompt_len + max_new, self.capacity))
+        need = max(worst - n_safe, 0)
+        if self.alloc.available < need:
+            return None
+        for pid in pids:
+            self._ref[pid] += 1
+        self.shared_hits += len(pids)
+        self.shared_tokens += covered
+        if self._registry is not None and pids:
+            self._m_adopted.inc(len(pids))
+            self._m_adopted_tokens.inc(covered)
+        self._slot_pages[slot] = list(pids)
+        self._slot_reserved[slot] = need
+        self.alloc.reserved += need
+        self.block_tables[slot] = 0
+        self.block_tables[slot, : len(pids)] = pids
+        self.lens[slot] = covered
+        self._written[slot] = 0  # adopted prefix KV was written by the donor
+        return covered
+
+    def _take_page(self, slot: int) -> int:
+        if self._slot_reserved[slot] <= 0:
+            raise AssertionError("allocation beyond reservation")
+        (pid,) = self.alloc.alloc(1)
+        self.alloc.reserved -= 1
+        self._slot_reserved[slot] -= 1
+        self._ref[pid] = 1
+        return pid
+
+    def _unregister(self, pid: int) -> None:
+        parent = self._page_parent.pop(pid, None)
+        if parent is not None and self._chain_next.get(parent, (None,))[0] == pid:
+            del self._chain_next[parent]
+
+    def ensure_writable(self, slot: int, n: int = 1) -> None:
+        """Make positions ``[len, len+n)`` of ``slot`` writable: materialize
+        missing pages, copy-on-write-fork shared ones, unregister a
+        sole-owned registered page about to diverge."""
+        start = int(self.lens[slot])
+        end = min(start + n, self.capacity)
+        if end <= start:
+            return
+        held = self._slot_pages[slot]
+        for pg in range(start // self.page, (end - 1) // self.page + 1):
+            if pg < len(held):
+                pid = held[pg]
+                if self._ref[pid] > 1:
+                    nid = self._take_page(slot)
+                    self.cow_forks += 1
+                    if self._registry is not None:
+                        self._m_cow.inc()
+                    for name in self.pages:
+                        _copy_page(self.pages[name], pid, nid)
+                    self._ref[pid] -= 1
+                    held[pg] = nid
+                    self.block_tables[slot, pg] = nid
+                elif pid in self._page_parent:
+                    self._unregister(pid)
+            else:
+                pid = self._take_page(slot)
+                held.append(pid)
+                self.block_tables[slot, pg] = pid
+        self._written[slot] = max(int(self._written[slot]), end)
+
+    def advance(self, slot: int, n: int = 1) -> None:
+        """Record ``n`` written tokens (host mirror of the device len+q_len)."""
+        self.lens[slot] = min(self.lens[slot] + n, self.capacity)
+
+    def register_prompt(self, slot: int, prompt: np.ndarray) -> None:
+        """Publish ``slot``'s full prompt pages in the prefix registry (once,
+        when the prompt is fully cached). A link already registered with the
+        same content is refreshed to this slot's copy; a divergent chain on
+        the hash link ends registration (first wins)."""
+        if not self.prefix_sharing:
+            return
+        prompt = np.asarray(prompt, np.int32)
+        page = self.page
+        held = self._slot_pages[slot]
+        h = 0
+        for j in range(min(len(prompt) // page, len(held))):
+            ptoks = prompt[j * page : (j + 1) * page]
+            pid = held[j]
+            ent = self._chain_next.get(h)
+            if ent is not None and not np.array_equal(ent[1], ptoks):
+                break
+            if ent is None or ent[0] != pid:
+                if ent is not None:
+                    self._page_parent.pop(ent[0], None)
+                self._chain_next[h] = (pid, ptoks.copy())
+                self._page_parent[pid] = h
+            h = _hash_step(h, ptoks)
+
+    def occupancy(self) -> float:
+        """Held fraction of the allocatable pool (admission watermark)."""
+        n_alloc = self.alloc.n_pages - 1
+        return (n_alloc - self.alloc.free_count) / max(n_alloc, 1)
+
+    def release(self, slot: int) -> None:
+        """Release every page ``slot`` holds. Idempotent."""
+        if (
+            not self._slot_pages[slot]
+            and not self._slot_reserved[slot]
+            and not self.lens[slot]
+        ):
+            self.block_tables[slot] = 0
+            return
+        for pid in self._slot_pages[slot]:
+            self._ref[pid] -= 1
+            if self._ref[pid] == 0:
+                self._unregister(pid)
+                self.alloc.free([pid])
+        self.alloc.reserved -= self._slot_reserved[slot]
+        self._slot_pages[slot] = []
+        self._slot_reserved[slot] = 0
+        self.block_tables[slot] = 0
+        self.lens[slot] = 0
+        self._written[slot] = 0
+
+    # ---- invariants ----------------------------------------------------------
+
+    def check_invariants(self) -> None:
+        """Assert conservation and consistency: free + distinct-held ==
+        allocatable pages, refcounts equal the number of holders,
+        reservations agree, every block-table entry is a held page or the
+        dummy, and no registered page extends past its slot's live len into
+        positions that slot wrote."""
+        held: dict[int, int] = {}
+        for pages in self._slot_pages:
+            assert len(set(pages)) == len(pages), "slot holds a page twice"
+            for pid in pages:
+                held[pid] = held.get(pid, 0) + 1
+        assert self.alloc.free_count + len(held) == self.alloc.n_pages - 1, (
+            f"page leak: free={self.alloc.free_count} held={len(held)} "
+            f"of {self.alloc.n_pages - 1}"
+        )
+        for pid, cnt in held.items():
+            assert pid != 0, "dummy page held by a slot"
+            assert self._ref[pid] == cnt, (pid, self._ref[pid], cnt)
+        assert (self._ref >= 0).all(), "negative refcount"
+        for pid in range(1, self.alloc.n_pages):
+            if pid not in held:
+                assert self._ref[pid] == 0, f"freed page {pid} has refs"
+                assert pid not in self._page_parent, f"freed page {pid} registered"
+        assert self.alloc.reserved == sum(self._slot_reserved) >= 0
+        for slot in range(self.n_slots):
+            n_logical = -(-int(self.lens[slot]) // self.page)
+            assert len(self._slot_pages[slot]) >= n_logical, (
+                slot, len(self._slot_pages[slot]), n_logical
+            )
+            for pg, pid in enumerate(self._slot_pages[slot]):
+                assert self.block_tables[slot, pg] == pid
+                end = (pg + 1) * self.page
+                assert not (
+                    pid in self._page_parent
+                    and int(self.lens[slot]) < end <= int(self._written[slot])
+                ), (
+                    f"registered page {pid} of slot {slot} extends past live "
+                    f"len {int(self.lens[slot])} into written tail "
+                    f"(page end {end}, written {int(self._written[slot])})"
+                )
+            for pg in range(len(self._slot_pages[slot]), self.blocks_per_seq):
+                assert self.block_tables[slot, pg] == 0
+        for parent, (pid, _) in self._chain_next.items():
+            assert self._page_parent.get(pid) == parent
+
+    # ---- telemetry -----------------------------------------------------------
+
+    def emit_gauges(self, registry=None) -> None:
+        """Publish occupancy and sharing state as ``pool.*`` gauges."""
+        registry = registry if registry is not None else self._registry
+        if registry is None:
+            return
+        n_alloc = self.alloc.n_pages - 1  # dummy page 0 excluded
+        held = n_alloc - self.alloc.free_count
+        registry.gauge("pool.pages_free").set(self.alloc.free_count)
+        registry.gauge("pool.pages_reserved").set(self.alloc.reserved)
+        registry.gauge("pool.occupancy_frac").set(held / max(n_alloc, 1))
+        registry.gauge("pool.shared_pages").set(int((self._ref > 1).sum()))
+        registry.gauge("pool.registered_pages").set(len(self._page_parent))

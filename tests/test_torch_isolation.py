@@ -1,0 +1,123 @@
+"""The port stands alone: no JAX and nothing of the JAX package, and its
+entry points run on the card unless the caller names the CPU."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.serve import ServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without a GPU")
+
+
+def test_every_module_imports_without_jax_or_repro():
+    """A fresh interpreter imports every module of the port and chip_smoke
+    (without running it); neither jax nor repro may be loaded."""
+    mods = _modules()
+    assert "repro_torch.serve.engine" in mods and "repro_torch.launch.serve" in mods
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_source_names_jax_or_the_reference_package():
+    files = sorted((SRC / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
+    cfg = get_config("deepseek-7b").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    lm = build_model(cfg, device="cpu")
+    params = lm.init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(lm, params)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launch_serve.main(["--arch", "deepseek-7b", "--reduced"])
+    with pytest.raises(ValueError, match="unsupported device"):
+        build_model(cfg, device="meta")
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(no_cuda, tmp_path):
+    """Without a card it exits non-zero and prints no result, in the
+    repository and as a lone copy."""
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for script in (ROOT / "chip_smoke.py", lone):
+        out = subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                             cwd=script.parent, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+
+
+def test_launcher_serves_on_the_cpu_when_asked(capsys):
+    launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--batch-size", "2", "--max-new", "4",
+                       "--max-len", "64", "--page-size", "8"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 12 tokens" in out
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--draft", "ngram"], "A11"),
+    (["--host-pages", "4"], "A10"),
+    (["--admission", "optimistic"], "A9"),
+    (["--llc-every", "8"], "A8"),
+    (["--attn-order", "auto"], "A8"),
+    (["--adapt-epoch", "4"], "A8"),
+    (["--adapt-hysteresis", "0.1"], "A8"),
+    (["--adapt-confirm", "3"], "A8"),
+    (["--autotune-cache", "cache.jsonl"], "A8"),
+    (["--max-preemptions", "3"], "A9"),
+    (["--prefetch-depth", "4"], "A10"),
+    (["--scheduler", "static"], "A7"),
+])
+def test_launcher_refuses_unported_flags(flag, item, capsys):
+    with pytest.raises(SystemExit) as exc:
+        launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu", *flag])
+    assert exc.value.code == 2
+    assert item in capsys.readouterr().err
+
+
+def test_launcher_auto_scheduler_needs_a_ported_family():
+    with pytest.raises(NotImplementedError, match="A7"):
+        launch_serve.pick_scheduler("auto", get_config("mixtral-8x7b"))
+    assert launch_serve.pick_scheduler("auto", get_config("deepseek-7b")) == "continuous"
