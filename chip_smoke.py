@@ -7,17 +7,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), the kernels'
    build from ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
-2. kernel matrix: the paged-attention CUDA kernel against its plain PyTorch
-   version on the card, over orders x GQA x chunk widths x page sizes x
-   windows, with ragged q_lens, a free row and a shuffled block table;
-3. main path: full-width deepseek-7b (random weights from a seed) served by
-   the continuous ServeEngine, with the kernel's launch count checked
-   against layers x mixed steps; then a small bf16 model whose logits with
-   the kernel must agree with the plain version's; with ``--profile`` half
-   of the main path's requests run once more under torch.profiler, which
-   gives the device's busy and idle share and its time by kind of kernel;
-4. kernel times at the main path's shapes (one narrow and one wide step):
-   the kernel, its bound, the plain version and one library call;
+2. kernel matrices, each CUDA kernel against its plain PyTorch version on
+   the card: the paged kernel (B1) over orders x GQA x chunk widths x page
+   sizes x windows, with ragged q_lens, a free row and a shuffled block
+   table; the flash forward (B2) over orders x causal x windows x GQA x
+   head dims x lengths, o and lse, with its recorded KV-tile walk held to
+   the port's Traversal; the contiguous decode (B3) over orders x GQA x
+   windows x chunks x head dims with ragged lengths and a row of length 0;
+3. main paths on full-width deepseek-7b (random weights from a seed, built
+   once): served by the continuous ServeEngine, with ``paged_decode``
+   launches == layers x mixed steps; then by the static ServeEngine (the
+   default scheduler), with ``flash_fwd`` launches == layers x prefills,
+   ``contig_decode`` launches == layers x decode steps and no
+   ``paged_decode`` launch. Then small bf16 models whose logits with the
+   kernels must agree with the plain versions', on both paths. With
+   ``--profile`` half of each path's requests run once more under
+   torch.profiler, which gives the device's busy and idle share and its
+   time by kind of kernel;
+4. kernel times at the main paths' shapes (B1: one narrow and one wide
+   step; B2: the second prefill group; B3: its decode steps): the kernel,
+   its bound, the plain version and one library call;
 5. the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -41,7 +50,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 2e-2        # abs, bf16 outputs vs the plain version in f32
-SMALL_MODEL_TOL = 5e-2   # abs on logits of the small bf16 model
+LSE_TOL = 2e-3           # abs, the flash forward's float32 lse
+SMALL_MODEL_TOL = 5e-2   # abs on logits of the small bf16 models
 
 # Data-sheet peaks by card name: (bytes/s, dense bf16 flop/s).
 _PEAKS = (
@@ -181,6 +191,131 @@ def phase_kernel_matrix() -> float:
     return worst
 
 
+def _bf16(gen, shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _visible_rows(sq, skv, causal, window):
+    r = torch.arange(sq, device="cuda")[:, None]
+    c = torch.arange(skv, device="cuda")[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
+    if causal:
+        ok &= c <= r
+    if window is not None:
+        ok &= c > r - window
+    return ok.any(-1)
+
+
+def phase_flash_matrix() -> float:
+    """B2 against its plain version (o on every row that sees a key, lse
+    too; rows that see none are exact zeros), and the KV tiles each block
+    walked against the port's Traversal at the kernel's tile sizes, equal
+    as integers."""
+    from repro_torch.core.attention import flash_attention
+    from repro_torch.core.schedule import Order
+    from repro_torch.kernels.flash_attention import (
+        BLOCK_M,
+        BLOCK_N,
+        flash_attention_fwd,
+        kernel_traversal,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    b, hkv, sg = 2, 2, 2
+    cases = [(s, s, causal, window) for s in (1, 77, 300, 700) for causal in (True, False)
+             for window in (None, 100)]
+    cases.append((300, 131, False, None))
+    worst, n, n_visits = 0.0, 0, 0
+    for d in (64, 128):
+        for g in (1, 4):
+            for sq, skv, causal, window in cases:
+                q = _bf16(gen, (b, sq, hkv * g, d))
+                k, v = _bf16(gen, (b, skv, hkv, d)), _bf16(gen, (b, skv, hkv, d))
+                vis = _visible_rows(sq, skv, causal, window)
+                errs = []
+                for order in Order:
+                    tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
+                                          snake_group=sg)
+                    visit = torch.full((b * hkv, tr.grid_rows, tr.n_kv), -2, dtype=torch.int32,
+                                       device="cuda")
+                    o, lse = flash_attention_fwd(q, k, v, order=order, causal=causal,
+                                                 window=window, snake_group=sg, return_lse=True,
+                                                 visit_out=visit)
+                    ro, rl = flash_attention(q.float(), k.float(), v.float(), order=order,
+                                             causal=causal, window=window, q_block=BLOCK_M,
+                                             kv_block=BLOCK_N, snake_group=sg, return_lse=True)
+                    torch.cuda.synchronize()
+                    case = (f"D={d} G={g} Sq={sq} Skv={skv} causal={causal} window={window} "
+                            f"order={order.value}")
+                    if not torch.isfinite(o.float()).all():
+                        raise AssertionError(f"flash_fwd non-finite output: {case}")
+                    if (~vis).any() and o[:, ~vis].abs().max().item() != 0.0:
+                        raise AssertionError(f"flash_fwd rows that see nothing are not zero: {case}")
+                    err = (o.float() - ro)[:, vis].abs().max().item()
+                    err_lse = (lse - rl)[:, vis].abs().max().item()
+                    if err > KERNEL_TOL or err_lse > LSE_TOL:
+                        raise AssertionError(f"flash_fwd disagrees with its plain version: {case}: "
+                                             f"o {err:.3e} (tol {KERNEL_TOL}), lse {err_lse:.3e} "
+                                             f"(tol {LSE_TOL})")
+                    want = [tr.kv_order(i % tr.n_q, local_iter=i) for i in range(tr.grid_rows)]
+                    want = torch.tensor([w + [-1] * (tr.n_kv - len(w)) for w in want],
+                                        dtype=torch.int32, device="cuda")
+                    if not torch.equal(visit, want[None].expand_as(visit)):
+                        raise AssertionError(f"flash_fwd walked another order than the "
+                                             f"Traversal's: {case}")
+                    n_visits += visit.numel()
+                    errs.append(err)
+                    worst = max(worst, err)
+                    n += 1
+                print(f"[flash] D={d} G={g} Sq={sq} Skv={skv} causal={causal} window={window}: "
+                      f"max_abs_err by order {[f'{e:.2e}' for e in errs]} ok, walk == Traversal")
+    print(f"[flash] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL}); "
+          f"{n_visits} recorded tile visits equal the Traversal's")
+    return worst
+
+
+def phase_decode_matrix() -> float:
+    """B3 against its plain version on rows of positive length; a row of
+    length 0 gives exact zeros. S_max 300 is not a multiple of the chunk."""
+    from repro_torch.core.attention import decode_attention
+    from repro_torch.core.schedule import Order
+    from repro_torch.kernels.flash_decode import flash_decode_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    b, hkv, s_max = 5, 2, 300
+    lens = torch.tensor([300, 0, 129, 7, 255], dtype=torch.int32, device="cuda")
+    ok = lens > 0
+    worst, n = 0.0, 0
+    for d in (64, 128):
+        for g in (1, 4, 8):
+            q = _bf16(gen, (b, 1, hkv * g, d))
+            k, v = _bf16(gen, (b, s_max, hkv, d)), _bf16(gen, (b, s_max, hkv, d))
+            for window in (None, 100):
+                ref = decode_attention(q.float(), k.float(), v.float(), lens, window=window)
+                errs = []
+                for chunk in (128, 512):
+                    for order in Order:
+                        out = flash_decode_fwd(q, k, v, lens, order=order, window=window,
+                                               chunk=chunk, snake_group=2)
+                        torch.cuda.synchronize()
+                        o = out.float()
+                        case = f"D={d} G={g} window={window} chunk={chunk} order={order.value}"
+                        if not torch.isfinite(o).all() or o[~ok].abs().max().item() != 0.0:
+                            raise AssertionError(f"contig_decode: non-finite or non-zero empty "
+                                                 f"row: {case}")
+                        err = (o - ref)[ok].abs().max().item()
+                        if err > KERNEL_TOL:
+                            raise AssertionError(f"contig_decode disagrees with its plain "
+                                                 f"version: {case}: {err:.3e}")
+                        errs.append(err)
+                        worst = max(worst, err)
+                        n += 1
+                print(f"[decode] D={d} G={g} window={window}: max_abs_err over chunks x orders "
+                      f"{max(errs):.3e} ok")
+    print(f"[decode] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL})")
+    return worst
+
+
 # ---- phase 3 ------------------------------------------------------------------
 
 
@@ -200,24 +335,30 @@ def _main_requests(vocab: int, seed: int = 0):
     return reqs
 
 
-def phase_main_path(profile: bool = False) -> dict:
+def build_main_model():
+    """Full-width deepseek-7b with random weights from seed 0, shared by
+    both main paths."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cuda_lib
     from repro_torch.models import build_model
-    from repro_torch.serve import Request, ServeEngine
 
     cfg = get_config("deepseek-7b")
     t0 = time.perf_counter()
     lm = build_model(cfg, device="cuda")
     params = lm.init(0)
     torch.cuda.synchronize()
-    n_params = sum(
-        t.numel() for t in _leaves(params)
-    )
+    n_params = sum(t.numel() for t in _leaves(params))
     print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {n_params / 1e9:.2f} B params "
           f"({cfg.param_dtype}), init {time.perf_counter() - t0:.1f} s")
-    eng = ServeEngine(lm, params, batch_size=8, max_len=1024, page_size=64, device="cuda")
+    return cfg, lm, params
+
+
+def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(lm, params, scheduler="continuous", batch_size=8, max_len=1024,
+                      page_size=64, device="cuda")
 
     # Every logit the engine computes is checked for NaN/inf on the device.
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
@@ -281,29 +422,103 @@ def phase_main_path(profile: bool = False) -> dict:
     }
     print("[serve] " + json.dumps(out))
     if profile:
-        phase_profile(eng, cfg)
-    del eng, params, lm
+        phase_profile(eng, cfg, "continuous", ("serve.device_step",))
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
+    """The same 12 requests through the static engine: two groups of 8 rows
+    (the second padded), each one prefill and 31 decode steps."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(lm, params, scheduler="static", batch_size=8, max_len=1024, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    calls = {"prefill": 0, "decode": 0}
+
+    def checked(fn, key):
+        def run(*args):
+            logits, caches = fn(*args)
+            bad.add_((~torch.isfinite(logits)).sum())
+            calls[key] += 1
+            return logits, caches
+        return run
+
+    eng.lm = dataclasses.replace(lm, prefill=checked(lm.prefill, "prefill"),
+                                 decode_step=checked(lm.decode_step, "decode"))
+    rng = np.random.default_rng(98)
+    eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                          max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+
+    reqs = _main_requests(cfg.vocab)
+    eng.tracer.clear()
+    calls.update(prefill=0, decode=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+
+    statuses = [r.status for r in results]
+    assert all(s == "ok" for s in statuses), statuses
+    assert all(r.steps == 32 and len(r.tokens) == 32 for r in results), [r.steps for r in results]
+    assert int(bad.item()) == 0, f"{int(bad.item())} non-finite logits"
+    assert calls == {"prefill": 2, "decode": 62}, calls
+    assert launches["flash_fwd"] == cfg.n_layers * calls["prefill"], (launches, calls)
+    assert launches["contig_decode"] == cfg.n_layers * calls["decode"], (launches, calls)
+    assert launches["paged_decode"] == 0, launches
+
+    spans: dict[str, list] = {"serve.prefill": [], "serve.decode_step": []}
+    for ev in eng.tracer.events():
+        if ev.name in spans:
+            spans[ev.name].append(ev.dur_ns / 1e6)
+    tokens = sum(r.steps for r in results)
+    out = {
+        "requests": len(results),
+        "tokens": tokens,
+        "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_p50_s": float(np.median([r.ttft_s for r in results])),
+        "tpot_p50_s": float(np.nanmedian([r.tpot_s for r in results])),
+        "prefill_calls": calls["prefill"],
+        "decode_calls": calls["decode"],
+        "prefill_ms_mean": float(np.mean(spans["serve.prefill"])),
+        "decode_step_ms_mean": float(np.mean(spans["serve.decode_step"])),
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("[static] " + json.dumps(out))
+    if profile:
+        phase_profile(eng, cfg, "static", tuple(spans))
+    del eng
     torch.cuda.empty_cache()
     return out
 
 
 def _kernel_kind(name: str) -> str:
-    if "paged_decode" in name:
-        return "paged_decode"
+    for kernel in ("paged_decode", "flash_fwd", "contig_decode"):
+        if kernel in name:
+            return kernel
     if any(k in name.lower() for k in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")):
         return "matmul"
     return "other"
 
 
-def phase_profile(eng, cfg) -> dict:
+def phase_profile(eng, cfg, label: str, step_spans: tuple) -> dict:
     """Half of the main path's requests (16 new tokens each, to keep the
     trace small) under torch.profiler: device busy time (the union of kernel
     intervals) against the host's wall time, and device time by kind of
-    kernel."""
+    kernel. A step is one span named in ``step_spans``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reqs = [dataclasses.replace(r, max_new_tokens=16) for r in _main_requests(cfg.vocab)[:6]]
+    eng.tracer.clear()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -325,12 +540,13 @@ def phase_profile(eng, cfg) -> dict:
             acc = table.setdefault(key, [0.0, 0])
             acc[0] += dur / 1e6
             acc[1] += 1
-    steps = eng.last_stats.mixed_steps
+    steps = sum(ev.name in step_spans for ev in eng.tracer.events())
     out = {
+        "path": label,
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-        "mixed_steps": steps,
+        "steps": steps,
         "kernels": len(kernels),
         "kernels_per_step": len(kernels) / max(steps, 1),
         "by_kind_s": {k: v[0] for k, v in by_kind.items()},
@@ -397,6 +613,45 @@ def phase_small_model() -> float:
     print(f"[small] bf16 model logits, kernel vs plain: max_abs_err={worst:.3e} "
           f"(tol {SMALL_MODEL_TOL})")
     assert worst <= SMALL_MODEL_TOL, worst
+    return worst
+
+
+def phase_small_static() -> float:
+    """Small bf16 models (head dim 64, GQA 4:2) on the static path: prefill
+    logits and 12 decode steps with the kernels against the plain versions,
+    both fed the same tokens, with full attention and with a 48-position
+    window (a ring buffer the prompt and decode steps overrun)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    base = get_config("deepseek-7b").reduced().with_(
+        dtype="bfloat16", param_dtype="bfloat16", d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=64, d_ff=512, vocab=1024,
+    )
+    worst = 0.0
+    for window in (None, 48):
+        runs = {}
+        for impl in ("cuda", "torch"):
+            cfg = base.with_(attn_impl=impl, window=window)
+            lm = build_model(cfg, device="cuda")
+            params = lm.init(7)
+            rng = np.random.default_rng(3)
+            toks = torch.as_tensor(rng.integers(2, cfg.vocab, size=(2, 40)), device="cuda")
+            logits, caches = lm.prefill(params, {"tokens": toks}, 96)
+            seq = [logits.float()]
+            nxt = torch.as_tensor(rng.integers(2, cfg.vocab, size=(12, 2, 1)), device="cuda")
+            for step in range(12):
+                logits, caches = lm.decode_step(params, nxt[step], caches)
+                seq.append(logits.float())
+            runs[impl] = seq
+        err = 0.0
+        for a, b in zip(runs["cuda"], runs["torch"]):
+            assert torch.isfinite(a).all()
+            err = max(err, (a - b).abs().max().item())
+        print(f"[small-static] bf16 model window={window}, kernels vs plain: prefill + 12 "
+              f"decode steps max_abs_err={err:.3e} (tol {SMALL_MODEL_TOL})")
+        assert err <= SMALL_MODEL_TOL, err
+        worst = max(worst, err)
     return worst
 
 
@@ -497,6 +752,98 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
     return out
 
 
+def _time_record(fns: dict, nbytes: int, flops: float, dev_info: dict) -> dict:
+    """Kernel, wrapper, plain, library, kernel: two kernel readings bracket
+    the others."""
+    t_kern = _median_ms(fns["kernel"])
+    t_wrap = _median_ms(fns["wrapper"])
+    t_plain = _median_ms(fns["plain"])
+    t_lib = _median_ms(fns["library"])
+    t_kern2 = _median_ms(fns["kernel"])
+    t_bytes = nbytes / dev_info["bw"] * 1e3
+    t_ops = flops / dev_info["peak"] * 1e3
+    return {
+        "kernel_ms": min(t_kern, t_kern2),
+        "kernel_ms_runs": [t_kern, t_kern2],
+        "wrapper_ms": t_wrap,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes,
+        "flops": flops,
+        "plain_ms": t_plain,
+        "library_ms": t_lib,
+    }
+
+
+def phase_static_kernel_times(dev_info: dict) -> dict:
+    """B2 at the static path's second prefill (B 8, Sq = Skv = 700, 32 heads
+    of 128, causal, sawtooth) and B3 at its decode steps (B 8, lengths
+    700-731 by row, S_max 1024). Bytes: each input read once, each output
+    written once (B3: K and V below each row's length only); flops: 4 per
+    visible (query, key) pair and head dim."""
+    from repro_torch.core.attention import decode_attention, flash_attention
+    from repro_torch.kernels.flash_attention import (
+        BLOCK_M,
+        BLOCK_N,
+        flash_attention_fwd,
+        launch_flash_fwd,
+    )
+    from repro_torch.kernels.flash_decode import flash_decode_fwd, launch_contig_decode
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, h, d, s = 8, 32, 128, 700
+    q, k, v = _bf16(gen, (b, s, h, d)), _bf16(gen, (b, s, h, d)), _bf16(gen, (b, s, h, d))
+    out = torch.empty_like(q)
+    kw = dict(order="sawtooth", causal=True)
+    got = flash_attention_fwd(q, k, v, **kw)
+    ref = flash_attention(q.float(), k.float(), v.float(), q_block=BLOCK_M, kv_block=BLOCK_N, **kw)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    prefill = _time_record(
+        {
+            "kernel": lambda: launch_flash_fwd(q, k, v, out, **kw),
+            "wrapper": lambda: flash_attention_fwd(q, k, v, **kw),
+            "plain": lambda: flash_attention(q, k, v, q_block=BLOCK_M, kv_block=BLOCK_N, **kw),
+            "library": lambda: sdpa(qt, kt, vt, is_causal=True),
+        },
+        nbytes=4 * b * s * h * d * 2, flops=4.0 * b * h * d * s * (s + 1) / 2, dev_info=dev_info,
+    )
+    prefill.update(shape={"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True},
+                   max_abs_err=(got.float() - ref).abs().max().item(),
+                   library_max_abs_diff=(got.float() - lib.float()).abs().max().item())
+    print("[time] flash_fwd prefill: " + json.dumps(prefill))
+
+    s_max = 1024
+    rng = np.random.default_rng(7)
+    lens0 = [int(x) for x in rng.integers(700, 732, size=b)]
+    lens = torch.tensor(lens0, dtype=torch.int32, device="cuda")
+    qd = _bf16(gen, (b, 1, h, d))
+    kc, vc = _bf16(gen, (b, s_max, h, d)), _bf16(gen, (b, s_max, h, d))
+    got = flash_decode_fwd(qd, kc, vc, lens, order="sawtooth")
+    ref = decode_attention(qd.float(), kc.float(), vc.float(), lens)
+    qdt, kct, vct = (x.transpose(1, 2).contiguous() for x in (qd, kc, vc))
+    mask = (torch.arange(s_max, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+    torch.cuda.synchronize()
+    decode = _time_record(
+        {
+            "kernel": lambda: launch_contig_decode(qd, kc, vc, lens, order="sawtooth"),
+            "wrapper": lambda: flash_decode_fwd(qd, kc, vc, lens, order="sawtooth"),
+            "plain": lambda: decode_attention(qd, kc, vc, lens),
+            "library": lambda: sdpa(qdt, kct, vct, attn_mask=mask),
+        },
+        nbytes=sum(lens0) * h * d * 2 * 2 + 2 * b * h * d * 2,
+        flops=4.0 * sum(lens0) * h * d, dev_info=dev_info,
+    )
+    decode.update(shape={"B": b, "S_max": s_max, "lens": lens0, "Hq": h, "Hkv": h, "D": d},
+                  max_abs_err=(got.float() - ref).abs().max().item())
+    print("[time] contig_decode step: " + json.dumps(decode))
+    for rec in (prefill, decode):
+        assert rec["max_abs_err"] <= KERNEL_TOL, rec["max_abs_err"]
+    return {"flash_fwd": prefill, "contig_decode": decode}
+
+
 def _alternating_orders(q, k, v, bt, lens, qls, nb) -> dict:
     """Per-launch time of launch pairs whose rows' lengths differ by one, as
     two consecutive decode steps do, with the pages walked in cyclic and in
@@ -520,10 +867,31 @@ def _alternating_orders(q, k, v, bt, lens, qls, nb) -> dict:
     return {"cyclic": min(runs["cyclic"]), "sawtooth": min(runs["sawtooth"]), "runs": runs}
 
 
+def _entry(name: str, launches: int, max_abs_err: float, rec: dict, **extra) -> dict:
+    from repro_torch.kernels import cuda_lib
+
+    spec = cuda_lib.KERNELS[name]
+    return {
+        "name": spec.name,
+        "route": "cuda",
+        "source": f"src/repro_torch/csrc/{spec.source}",
+        "replaces": spec.replaces,
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": rec["kernel_ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+        "wrapper_ms": rec["wrapper_ms"],
+        **extra,
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also run the main path's requests under torch.profiler")
+                    help="also run half of each main path's requests under torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test runs on the GPU only",
@@ -532,34 +900,38 @@ def main(argv=None) -> int:
     _port()
     dev_info = phase_device()
     worst = phase_kernel_matrix()
-    main_path = phase_main_path(profile=args.profile)
+    flash_worst = phase_flash_matrix()
+    decode_worst = phase_decode_matrix()
+    cfg, lm, params = build_main_model()
+    main_path = phase_main_path(cfg, lm, params, profile=args.profile)
+    static = phase_static_path(cfg, lm, params, profile=args.profile)
+    del lm, params
+    torch.cuda.empty_cache()
     small = phase_small_model()
+    small_static = phase_small_static()
     times = phase_kernel_times(dev_info, main_path)
+    static_times = phase_static_kernel_times(dev_info)
 
-    from repro_torch.kernels import cuda_lib
-
-    spec = cuda_lib.KERNELS["paged_decode"]
-    narrow = times["narrow"]
-    entry = {
-        "name": spec.name,
-        "route": "cuda",
-        "source": f"src/repro_torch/csrc/{spec.source}",
-        "replaces": spec.replaces,
-        "launches": main_path["launches"]["paged_decode"],
-        "max_abs_err": max(worst, narrow["max_abs_err"], times["wide"]["max_abs_err"]),
-        "ms": narrow["kernel_ms"],
-        "plain_ms": narrow["plain_ms"],
-        "bound_ms": narrow["bound_ms"],
-        "bound_by": narrow["bound_by"],
-        "library_ms": narrow["library_ms"],
-        "wrapper_ms": narrow["wrapper_ms"],
-        "wide": {k: times["wide"][k] for k in
-                 ("kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "small_model_max_abs_err": small,
-    }
+    narrow, wide = times["narrow"], times["wide"]
+    fwd, dec = static_times["flash_fwd"], static_times["contig_decode"]
+    kernels = [
+        _entry("paged_decode", main_path["launches"]["paged_decode"],
+               max(worst, narrow["max_abs_err"], wide["max_abs_err"]), narrow,
+               wide={k: wide[k] for k in ("kernel_ms", "wrapper_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+               small_model_max_abs_err=small),
+        _entry("flash_fwd", static["launches"]["flash_fwd"], max(flash_worst, fwd["max_abs_err"]),
+               fwd, launches_per_prefill=static["launches"]["flash_fwd"] / static["prefill_calls"],
+               small_model_max_abs_err=small_static),
+        _entry("contig_decode", static["launches"]["contig_decode"],
+               max(decode_worst, dec["max_abs_err"]), dec,
+               launches_per_decode_step=static["launches"]["contig_decode"]
+               / static["decode_calls"],
+               small_model_max_abs_err=small_static),
+    ]
     print(dev_info["smi"])
-    print("checked kernels: " + json.dumps([spec.name]))
-    print(json.dumps({"kernels": [entry]}))
+    print("checked kernels: " + json.dumps([k["name"] for k in kernels]))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,
         "device": {

@@ -1,12 +1,25 @@
-"""Plain PyTorch ragged paged attention: the oracle of the paged kernel.
+"""Plain PyTorch attention: the oracles of the port's attention kernels.
 
-A port of ``repro.core.attention.paged_decode_attention``: a blockwise
-online softmax over a row's pages in visit order, accumulated in float32.
-``repro_torch.kernels.flash_decode`` uses it for tensors on the CPU, and the
-chip smoke test holds the CUDA kernel against it on the card.
+A port of ``repro.core.attention``:
 
-Layouts: q (B, C, Hq, D); pools (n_pages, page, Hkv, D); block_table
-(B, n_blocks) int32. Hq % Hkv == 0 (GQA).
+  * ``mha_reference``: full-materialization attention (small shapes only);
+  * ``flash_attention``: blockwise online-softmax attention, KV tiles
+    walked in the Traversal's order (split-Q, paper Alg. 1 and 4), with
+    the per-row log-sum-exp on request; the plain version of the flash
+    forward kernel;
+  * ``decode_attention``: one query position against a contiguous cache
+    (the plain version of the contiguous decode kernel), or the paged
+    layout when a block table is given;
+  * ``paged_decode_attention``: ragged attention over a paged pool, pages
+    in visit order (the plain version of the paged kernel).
+
+Everything accumulates in float32. The ``repro_torch.kernels`` wrappers
+use these for tensors on the CPU, and the chip smoke test holds each CUDA
+kernel against its plain version on the card.
+
+Layouts: q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D); decode q (B, C, Hq, D)
+against caches (B, S_max, Hkv, D) or pools (n_pages, page, Hkv, D) with a
+block_table (B, n_blocks) int32. Hq % Hkv == 0 (GQA).
 """
 
 from __future__ import annotations
@@ -15,15 +28,202 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import torch_dtype
 from repro_torch.core.schedule import (
     Order,
+    Traversal,
     page_visit_order,
     page_visit_order_dynamic,
 )
 
-__all__ = ["NEG_INF", "paged_decode_attention", "row_meta"]
+__all__ = [
+    "NEG_INF",
+    "mha_reference",
+    "flash_attention",
+    "decode_attention",
+    "paged_decode_attention",
+    "row_meta",
+]
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def _valid_mask(rows, cols, *, causal: bool, window: Optional[int], kv_len: int):
+    """Boolean visibility mask for global row indices ``rows`` (..., R, 1)
+    and column indices ``cols`` (..., 1, C)."""
+    m = cols < kv_len
+    if causal:
+        m = m & (cols <= rows)
+    if window is not None:
+        m = m & (cols > rows - window)
+    return m
+
+
+def mha_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Full-materialization attention. Small shapes / testing only."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq} % {hkv}")
+    g = hq // hkv
+    scale_ = d ** -0.5 if scale is None else scale
+    qf = q.float().reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale_
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    ok = _valid_mask(rows, cols, causal=causal, window=window, kv_len=skv)
+    s = s + torch.where(ok, 0.0, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _pad_to(x: torch.Tensor, axis: int, multiple: int) -> torch.Tensor:
+    rem = (-x.shape[axis]) % multiple
+    if rem == 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = rem
+    return torch.cat([x, x.new_zeros(shape)], dim=axis)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    order: Order | str = Order.CYCLIC,
+    causal: bool = False,
+    window: Optional[int] = None,
+    q_block: int = 128,
+    kv_block: int = 128,
+    scale: Optional[float] = None,
+    score_dtype: str = "float32",
+    snake_group: Optional[int] = None,
+    return_lse: bool = False,
+):
+    """Blockwise online-softmax attention, KV tiles in traversal order.
+
+    Every Q tile (all at once, as the reference vmaps them) walks the full
+    KV-tile range in ``Traversal.kv_step`` order and masks instead of
+    trimming. Scores and probabilities are in ``score_dtype``; m, l and the
+    accumulator in float32. ``return_lse=True`` also returns the per-row
+    log-sum-exp of the scaled scores, (B, Sq, Hq) float32. As in the
+    reference, masked scores take an additive ``NEG_INF`` bias; a row with
+    no visible key at all (possible only with a window and Sq > Skv) gets
+    no defined output.
+    """
+    order = Order.parse(order)
+    sdt = torch_dtype(score_dtype)
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq} % {hkv}")
+    g = hq // hkv
+    scale_ = d ** -0.5 if scale is None else scale
+    q_block = min(q_block, max(sq, 1))
+    kv_block = min(kv_block, max(skv, 1))
+    qp = _pad_to(q, 1, q_block)
+    kp = _pad_to(k, 1, kv_block)
+    vp = _pad_to(v, 1, kv_block)
+    nq, nkv = qp.shape[1] // q_block, kp.shape[1] // kv_block
+    tr = Traversal(
+        order=order, n_q=nq, n_kv=nkv, causal=causal, window=window,
+        q_block=q_block, kv_block=kv_block, n_groups=g, snake_group=snake_group,
+    )
+    dev = q.device
+    # (B, Hkv, G, nq, qb, D) queries; (B, Hkv, nkv, kb, D) keys/values.
+    qb_ = qp.reshape(b, nq, q_block, hkv, g, d).permute(0, 3, 4, 1, 2, 5).to(sdt) * scale_
+    kb_ = kp.reshape(b, nkv, kv_block, hkv, d).permute(0, 3, 1, 2, 4)
+    vb_ = vp.reshape(b, nkv, kv_block, hkv, d).permute(0, 3, 1, 2, 4)
+    tiles = torch.arange(nq, dtype=torch.int32, device=dev)
+    rows = (tiles[:, None] * q_block + torch.arange(q_block, device=dev)[None, :])[:, :, None]
+
+    m = torch.full((b, hkv, g, nq, q_block), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, hkv, g, nq, q_block, d), dtype=torch.float32, device=dev)
+    for j in range(nkv):
+        kv_j = torch.as_tensor(tr.kv_step(tiles, j), device=dev).long().expand(nq)
+        k_j = kb_[:, :, kv_j].float()                       # (B, Hkv, nq, kb, D)
+        v_j = vb_[:, :, kv_j]
+        s = torch.einsum("bhgqxd,bhqkd->bhgqxk", qb_.float(), k_j).to(sdt)
+        cols = (kv_j[:, None] * kv_block + torch.arange(kv_block, device=dev)[None, :])[:, None, :]
+        ok = _valid_mask(rows, cols, causal=causal, window=window, kv_len=skv)
+        s = s + torch.where(ok, 0.0, NEG_INF).to(sdt)       # (nq, qb, kb) bias
+        m_new = torch.maximum(m, s.amax(dim=-1).float())
+        p = torch.exp(s - m_new.to(sdt)[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1).float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqxk,bhqkd->bhgqxd", p.float(), v_j.to(sdt).float()
+        )
+        m = m_new
+    lse = m + torch.log(torch.where(l == 0.0, 1.0, l))
+    l = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l[..., None]).permute(0, 3, 4, 1, 2, 5).reshape(b, nq * q_block, hq, d)
+    out = out[:, :sq].to(q.dtype)
+    if not return_lse:
+        return out
+    lse = lse.permute(0, 3, 4, 1, 2).reshape(b, nq * q_block, hq)[:, :sq]
+    return out, lse
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    cache_len,
+    *,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    block_table: Optional[torch.Tensor] = None,
+    q_lens=None,
+    order: Order | str = Order.CYCLIC,
+    snake_group: Optional[int] = None,
+    order_group=None,
+) -> torch.Tensor:
+    """Single-position decode attention against a contiguous cache.
+
+    Contiguous layout: q (B, 1, Hq, D); caches (B, S_max, Hkv, D);
+    ``cache_len`` the valid prefix length, scalar or (B,). Position ``pos``
+    is visible iff ``pos < len`` and, with a window, ``pos > len - 1 -
+    window``. The result does not depend on a visit order. A row of length
+    0 has no defined output here (the kernel gives zeros). With
+    ``block_table`` the caches are paged pools: see
+    :func:`paged_decode_attention`.
+    """
+    if block_table is not None:
+        return paged_decode_attention(
+            q, k_cache, v_cache, cache_len, block_table, q_lens=q_lens, window=window,
+            scale=scale, order=order, snake_group=snake_group, order_group=order_group,
+        )
+    if q_lens is not None or order_group is not None:
+        raise ValueError("q_lens and order_group require the paged layout (block_table)")
+    b, one, hq, d = q.shape
+    if one != 1:
+        raise ValueError(f"contiguous decode takes a single query position, got {one}")
+    _, s_max, hkv, _ = k_cache.shape
+    g = hq // hkv
+    scale_ = d ** -0.5 if scale is None else scale
+    lens = torch.as_tensor(cache_len, device=q.device).expand(b)
+    qf = q.float().reshape(b, hkv, g, d)
+    s = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale_
+    pos = torch.arange(s_max, device=q.device)[None, :]
+    valid = pos < lens[:, None]
+    if window is not None:
+        valid &= pos > (lens[:, None] - 1 - window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(b, 1, hq, d).to(q.dtype)
 
 
 def row_meta(b: int, c: int, cache_len, q_lens, device) -> tuple[torch.Tensor, torch.Tensor]:

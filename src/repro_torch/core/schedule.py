@@ -1,23 +1,32 @@
-"""Page visit orders of the paper's KV traversal, for the paged serve path.
+"""The paper's KV traversal: tile orders of the flash forward grid and page
+visit orders of the paged serve path.
 
-The subset of ``repro.core.schedule`` (the Traversal IR) that ragged paged
-attention consumes. The three order families are one grouped-reversal
-arithmetic with different group sizes:
+The subset of ``repro.core.schedule`` (the Traversal IR) that the port's
+forward attention and ragged paged attention consume. The three order
+families are one grouped-reversal arithmetic with different group sizes:
 
   cyclic        : group 1, every pass scans pages 0..n-1;
   sawtooth      : group n, odd passes scan n-1..0 (paper Alg. 4);
   block_snake(g): the reversal applied within groups of ``g`` pages.
 
-During serving the parity driver of a row is its cache length after the
-step's write, so consecutive steps of one sequence reverse direction and the
-tail pages of step t are the first pages of step t+1. Every order is a
-permutation of the page range; online softmax makes the result invariant.
+On the forward grid (:class:`Traversal`) the parity key is the folded
+grid row (GQA group x Q tile) and the range is the row's causal/SWA-trimmed
+KV-tile range. During serving the parity key of a row is its cache
+length after the step's write, so consecutive steps of one sequence reverse
+direction and the tail pages of step t are the first pages of step t+1.
+Every order is a permutation of the range; online softmax makes the result
+invariant.
+
+Each lowering works on Python ints (the host form, which the tests and the
+CUDA kernel's recorded visit order are held to) and on int tensors (the
+vectorized form of the reference's traced arithmetic).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 
@@ -27,6 +36,10 @@ __all__ = [
     "resolve_order_group",
     "page_visit_order",
     "page_visit_order_dynamic",
+    "kv_index",
+    "kv_index_host",
+    "num_kv_tiles_for",
+    "Traversal",
 ]
 
 # Default block_snake group size (pages) when none is configured.
@@ -108,3 +121,179 @@ def page_visit_order(
     return _grouped_reversal(
         torch.as_tensor(parity), n_kv, _resolve_group(order, snake_group, n_kv)
     )
+
+
+def _is_host_int(*vals) -> bool:
+    return all(isinstance(v, int) and not isinstance(v, bool) for v in vals)
+
+
+def _snake_pos_tensor(parity, j, n, group) -> torch.Tensor:
+    """Vectorized grouped-snake position; every argument may be an int
+    tensor (broadcast together) or a Python int."""
+    j = torch.as_tensor(j, dtype=torch.int32)
+    group = torch.clamp(torch.as_tensor(group, dtype=torch.int32, device=j.device), min=1)
+    n = torch.as_tensor(n, dtype=torch.int32, device=j.device)
+    base = torch.div(j, group, rounding_mode="floor") * group
+    size = torch.minimum(group, n - base)
+    rev = base + (size - 1) - (j - base)
+    parity = torch.as_tensor(parity, dtype=torch.int32, device=j.device)
+    return torch.where(parity % 2 == 0, j, rev)
+
+
+def kv_index(order: Order | str, i, j, n_kv: int, *, snake_group: Optional[int] = None):
+    """KV tile index for parity key ``i``, inner step ``j``, range ``n_kv``
+    (Python ints, or int tensors broadcast together)."""
+    order = Order.parse(order)
+    if order is Order.CYCLIC:
+        return j
+    group = _resolve_group(order, snake_group, n_kv)
+    if _is_host_int(i, j):
+        return _snake_pos_host(int(i), int(j), n_kv, group)
+    return _snake_pos_tensor(i, j, n_kv, group)
+
+
+def kv_index_host(
+    order: Order | str, i: int, j: int, n_kv: int, *, snake_group: Optional[int] = None
+) -> int:
+    """Host (Python int) form of :func:`kv_index`."""
+    order = Order.parse(order)
+    if order is Order.CYCLIC:
+        return j
+    return _snake_pos_host(i, j, n_kv, _resolve_group(order, snake_group, n_kv))
+
+
+def num_kv_tiles_for(
+    q_tile: int, n_kv: int, *, causal: bool, q_block: int, kv_block: int
+) -> int:
+    """Number of KV tiles Q tile ``q_tile`` touches under causal trimming."""
+    if not causal:
+        return n_kv
+    last_row = (q_tile + 1) * q_block - 1
+    return min(n_kv, last_row // kv_block + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Traversal:
+    """One attention problem's forward traversal: ``n_q``/``n_kv`` sequence
+    tiles of ``q_block``/``kv_block`` rows, ``n_groups`` GQA query groups
+    folded along the row axis (grid rows = ``n_groups * n_q``, row ``i``
+    covering Q tile ``i % n_q``), causal/SWA trimming. ``snake_group``
+    parameterizes ``block_snake`` and is ignored by the other orders.
+
+    The transposed-grid lowerings of the reference (``q_bounds``,
+    ``stream_block_index``, ``stream_sweep``, ``wavefront``) serve the
+    backward kernels and come with the training slice.
+    """
+
+    order: Order
+    n_q: int
+    n_kv: int
+    causal: bool = False
+    window: Optional[int] = None
+    q_block: int = 128
+    kv_block: int = 128
+    n_groups: int = 1
+    snake_group: Optional[int] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "order", Order.parse(self.order))
+        if self.n_q <= 0 or self.n_kv <= 0:
+            raise ValueError(f"empty traversal: n_q={self.n_q} n_kv={self.n_kv}")
+        if self.n_groups <= 0:
+            raise ValueError(f"n_groups must be positive, got {self.n_groups}")
+        if self.snake_group is not None and self.snake_group < 1:
+            raise ValueError(f"snake_group must be >= 1, got {self.snake_group}")
+
+    @property
+    def grid_rows(self) -> int:
+        """Folded Q rows of the forward grid (GQA groups x sequence tiles)."""
+        return self.n_groups * self.n_q
+
+    def group_for(self, n: int) -> int:
+        """Effective reversal-group size over a trimmed range of ``n`` tiles."""
+        return _resolve_group(self.order, self.snake_group, n)
+
+    # ---- index arithmetic of the forward grid ----------------------------------
+
+    def kv_bounds_host(self, q_tile: int) -> tuple[int, int]:
+        """Inclusive [lo, hi] KV-tile range visible to sequence tile
+        ``q_tile`` (hi < lo when SWA leaves nothing)."""
+        if self.causal:
+            hi = min(self.n_kv - 1, (q_tile * self.q_block + self.q_block - 1) // self.kv_block)
+        else:
+            hi = self.n_kv - 1
+        lo = (
+            max(q_tile * self.q_block - (self.window - 1), 0) // self.kv_block
+            if self.window is not None
+            else 0
+        )
+        return lo, hi
+
+    def kv_bounds(self, i) -> tuple[torch.Tensor, torch.Tensor]:
+        """Vectorized [lo, hi] for folded grid rows ``i`` (an int tensor)."""
+        q_tile = torch.as_tensor(i, dtype=torch.int32) % self.n_q
+        if self.causal:
+            last_row = q_tile * self.q_block + (self.q_block - 1)
+            hi = torch.clamp(torch.div(last_row, self.kv_block, rounding_mode="floor"),
+                             max=self.n_kv - 1)
+        else:
+            hi = torch.full_like(q_tile, self.n_kv - 1)
+        if self.window is not None:
+            first = torch.clamp(q_tile * self.q_block - (self.window - 1), min=0)
+            lo = torch.div(first, self.kv_block, rounding_mode="floor")
+        else:
+            lo = torch.zeros_like(q_tile)
+        return lo, hi
+
+    def kv_block_index(self, i, j):
+        """(KV tile, valid) fetched at forward grid step (row ``i``, step
+        ``j``). Steps past the trimmed range clamp to its boundary tile with
+        ``valid`` False (the TPU kernel's elided fetch); a degenerate trim
+        gives one always-invalid boundary step. Python ints give ints; int
+        tensors give tensors."""
+        if _is_host_int(i, j):
+            lo, hi = self.kv_bounds_host(i % self.n_q)
+            raw = hi - lo + 1
+            steps = max(raw, 1)
+            jc = min(max(j, 0), steps - 1)
+            if self.order is not Order.CYCLIC:
+                jc = _snake_pos_host(i, jc, steps, self.group_for(steps))
+            return min(max(lo + jc, 0), self.n_kv - 1), j < raw
+        i = torch.as_tensor(i, dtype=torch.int32)
+        j = torch.as_tensor(j, dtype=torch.int32)
+        lo, hi = self.kv_bounds(i)
+        raw = hi - lo + 1
+        steps = torch.clamp(raw, min=1)
+        jc = torch.minimum(torch.clamp(j, min=0), steps - 1)
+        if self.order is Order.SAWTOOTH:
+            jc = _snake_pos_tensor(i, jc, steps, steps)
+        elif self.order is Order.BLOCK_SNAKE:
+            g = torch.clamp(steps, max=self.snake_group or DEFAULT_SNAKE_GROUP)
+            jc = _snake_pos_tensor(i, jc, steps, g)
+        return torch.clamp(lo + jc, 0, self.n_kv - 1), j < raw
+
+    def kv_step(self, i, j):
+        """Untrimmed KV tile of step ``j`` of pass ``i`` over the full
+        ``n_kv`` range: the blockwise path masks instead of trimming."""
+        return kv_index(self.order, i, j, self.n_kv, snake_group=self.snake_group)
+
+    # ---- host iterators ------------------------------------------------------
+
+    def kv_order(self, q_tile: int, local_iter: Optional[int] = None) -> list[int]:
+        """KV tile ids visited for ``q_tile``, trimmed, in traversal order;
+        ``local_iter`` is the parity key (default: ``q_tile``)."""
+        li = q_tile if local_iter is None else local_iter
+        lo, hi = self.kv_bounds_host(q_tile)
+        n = hi - lo + 1
+        return [
+            lo + kv_index_host(self.order, li, j, n, snake_group=self.snake_group)
+            for j in range(n)
+        ]
+
+    def fwd_grid_steps(self) -> Iterator[tuple[int, int, bool]]:
+        """Replay the folded forward grid: yields (row, kv tile, valid) for
+        every row and every one of the ``n_kv`` steps."""
+        for i in range(self.grid_rows):
+            for j in range(self.n_kv):
+                jj, valid = self.kv_block_index(i, j)
+                yield i, jj, valid

@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
-entry point. It is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/repro_torch/`` (listed in ``.gitignore``), named by a hash of
-the source and flags, at first use, and loaded with ``ctypes``. Nothing is
+entry point (the newer ones include ``csrc/common.cuh``). It is compiled by
+``nvcc`` for ``sm_90a`` into a shared library under ``build/repro_torch/``
+(listed in ``.gitignore``), named by a hash of the source, the headers and
+the flags, at first use, and loaded with ``ctypes``. Nothing is
 compiled or loaded when this module is imported: the CPU tests import every
 module on machines without ``nvcc``.
 
@@ -25,6 +26,7 @@ from pathlib import Path
 
 __all__ = [
     "KERNELS",
+    "ORDER_CODES",
     "BUILD_DIR",
     "build_all",
     "load",
@@ -61,7 +63,28 @@ KERNELS = {
         argtypes=(_P,) * 8 + (_I,) * 8 + (_F, _P),
         replaces="src/repro/kernels/flash_decode.py:122",
     ),
+    "flash_fwd": Kernel(
+        name="flash_fwd",
+        source="flash_fwd.cu",
+        entry="flash_fwd_bf16",
+        # q, k, v, o, lse, visit, B, Sq, Skv, Hq, Hkv, D, causal, window,
+        # order, snake, scale, stream
+        argtypes=(_P,) * 6 + (_I,) * 10 + (_F, _P),
+        replaces="src/repro/kernels/flash_attention.py:141",
+    ),
+    "contig_decode": Kernel(
+        name="contig_decode",
+        source="contig_decode.cu",
+        entry="contig_decode_bf16",
+        # q, k, v, lens, out, B, S_max, Hq, Hkv, D, window, chunk, order,
+        # snake, scale, stream
+        argtypes=(_P,) * 5 + (_I,) * 9 + (_F, _P),
+        replaces="src/repro/kernels/flash_decode.py:94",
+    ),
 }
+
+# Order family as the kernels take it (the ``order`` int argument).
+ORDER_CODES = {"cyclic": 0, "sawtooth": 1, "block_snake": 2}
 
 launch_counts = {name: 0 for name in KERNELS}
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -88,6 +111,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / KERNELS[name].source).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -108,7 +132,7 @@ def build_all(names=None, *, verbose: bool = False) -> dict[str, dict]:
             out[name] = {"path": str(path), "seconds": 0.0, "log": ""}
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-I", str(CSRC),
                "-o", str(tmp), str(CSRC / KERNELS[name].source)]
         jobs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

@@ -1,12 +1,23 @@
 """Device-dispatched attention ops that the model layers call.
 
-``attention_decode`` is the port of ``repro.kernels.ops.attention_decode``
-for the paged layout. ``impl``:
+A port of ``repro.kernels.ops``: ``attention`` (the full-sequence forward
+of ``LM.prefill``) and ``attention_decode`` (contiguous single-token decode
+and ragged paged chunks). ``impl``:
 
-  * ``"auto"``  — by the tensors' device: the CUDA kernel for CUDA tensors,
-    the plain PyTorch version for CPU tensors;
-  * ``"cuda"``  — the hand-written kernel (CUDA tensors only);
-  * ``"torch"`` — the plain PyTorch version on any device.
+  * ``"auto"``      — by the tensors' device: the CUDA kernel for CUDA
+    tensors, the plain PyTorch version for CPU tensors;
+  * ``"cuda"``      — the hand-written kernel (CUDA tensors only);
+  * ``"torch"``     — the plain PyTorch version (blockwise, traversal
+    order kept) on any device;
+  * ``"reference"`` — the full-materialization oracle (small shapes).
+
+The JAX package's backend names (``pallas``, ``pallas_interpret``, ``xla``,
+``jnp``) are not impls of the port and raise.
+
+``attention`` is a ``torch.autograd.Function`` whose backward raises: the
+fused flash backward (kernels B4–B6) comes with the training slice, and
+this op never recomputes through the forward instead. Serving runs under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
@@ -15,13 +26,79 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.attention import paged_decode_attention
+from repro_torch.core.attention import decode_attention, flash_attention
 from repro_torch.core.schedule import Order
-from repro_torch.kernels.flash_decode import paged_flash_decode_fwd
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_decode import flash_decode_fwd
+from repro_torch.kernels.ref import flash_attention_ref
 
-__all__ = ["attention_decode"]
+__all__ = ["attention", "attention_decode"]
 
-_IMPLS = ("auto", "cuda", "torch")
+_IMPLS = ("auto", "cuda", "torch", "reference")
+_JAX_IMPLS = ("pallas", "pallas_interpret", "xla", "jnp")
+
+
+def _resolve(impl: str, q: torch.Tensor, what: str) -> str:
+    if impl in _JAX_IMPLS:
+        raise ValueError(
+            f"unknown {what} impl {impl!r}: that is a backend of the JAX package; "
+            f"the port's impls are {_IMPLS}"
+        )
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown {what} impl {impl!r}; valid: {_IMPLS}")
+    if impl == "auto":
+        return "cuda" if q.is_cuda else "torch"
+    if impl == "cuda" and not q.is_cuda:
+        raise ValueError("impl='cuda' needs CUDA tensors")
+    return impl
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, cfg):
+        impl = cfg["impl"]
+        kw = dict(order=cfg["order"], causal=cfg["causal"], window=cfg["window"],
+                  scale=cfg["scale"], snake_group=cfg["snake_group"])
+        if impl == "cuda":
+            return flash_attention_fwd(q, k, v, **kw)
+        if impl == "torch":
+            return flash_attention(q, k, v, q_block=cfg["q_block"], kv_block=cfg["kv_block"],
+                                   score_dtype=cfg["score_dtype"], **kw)
+        return flash_attention_ref(q, k, v, causal=kw["causal"], window=kw["window"],
+                                   scale=kw["scale"])
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the backward of ops.attention (the fused flash backward, kernels "
+            "B4–B6) is not ported yet: ROADMAP §B4–B6 / §A12"
+        )
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    order: Order | str = Order.SAWTOOTH,
+    causal: bool = False,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    q_block: int = 256,
+    kv_block: int = 256,
+    impl: str = "auto",
+    score_dtype: str = "float32",
+    snake_group: Optional[int] = None,
+) -> torch.Tensor:
+    """Flash attention, layout (B, S, H, D); GQA via Hq > Hkv. ``q_block``
+    and ``kv_block`` tile the plain version; the CUDA kernel uses its own
+    tiles. ``snake_group`` sizes the ``block_snake`` reversal window."""
+    cfg = dict(
+        impl=_resolve(impl, q, "attention"), order=Order.parse(order), causal=causal,
+        window=window, scale=scale, q_block=q_block, kv_block=kv_block,
+        score_dtype=score_dtype, snake_group=snake_group,
+    )
+    return _Attention.apply(q, k, v, cfg)
 
 
 def attention_decode(
@@ -39,24 +116,18 @@ def attention_decode(
     snake_group: Optional[int] = None,
     order_group=None,
 ) -> torch.Tensor:
-    """Ragged attention of q (B, C, Hq, D) against paged KV pools
-    (n_pages, page, Hkv, D) through ``block_table`` (B, n_blocks), pages
-    visited in schedule order (``order_group`` overrides ``order``)."""
-    if block_table is None:
-        raise NotImplementedError(
-            "contiguous-cache decode (the _decode_kernel path of the static "
-            "scheduler) is not ported yet: ROADMAP §B3"
-        )
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown decode impl {impl!r}; valid: {_IMPLS}")
-    if impl == "auto":
-        impl = "cuda" if q.is_cuda else "torch"
+    """Decode attention vs a KV cache. Contiguous (no ``block_table``): q
+    (B, 1, Hq, D) against caches (B, S_max, Hkv, D) with valid length
+    ``cache_len``. Paged: ragged q (B, C, Hq, D) against pools (n_pages,
+    page, Hkv, D) through ``block_table`` (B, n_blocks), pages visited in
+    schedule order (``order_group`` overrides ``order``). ``reference``
+    computes what ``torch`` does (the reference's decode oracle is the
+    same function)."""
+    impl = _resolve(impl, q, "decode")
     kw = dict(
-        q_lens=q_lens, order=order, window=window, scale=scale,
+        window=window, scale=scale, block_table=block_table, q_lens=q_lens, order=order,
         snake_group=snake_group, order_group=order_group,
     )
     if impl == "cuda":
-        if not q.is_cuda:
-            raise ValueError("impl='cuda' needs CUDA tensors")
-        return paged_flash_decode_fwd(q, k_cache, v_cache, cache_len, block_table, **kw)
-    return paged_decode_attention(q, k_cache, v_cache, cache_len, block_table, **kw)
+        return flash_decode_fwd(q, k_cache, v_cache, cache_len, **kw)
+    return decode_attention(q, k_cache, v_cache, cache_len, **kw)

@@ -1,8 +1,13 @@
 """Serving launcher: init params from a seed and serve synthetic requests
-through the port's continuous ServeEngine.
+through the port's ServeEngine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
       --page-size 64 --max-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-7b \\
+      --reduced --device cpu --scheduler static
+
+``--scheduler auto`` (the default) picks the continuous scheduler where the
+config supports it and the static one otherwise, as the JAX launcher does.
 
 The flags are the JAX launcher's (``repro.launch.serve``) plus ``--device``
 (default ``cuda``; with no GPU the launcher raises unless ``--device cpu``
@@ -27,15 +32,16 @@ _AUTOTUNE_CACHE = "artifacts/hillclimb/autotune_cache.jsonl"
 
 
 def pick_scheduler(choice: str, cfg) -> str:
-    if choice == "auto":
-        if not supports_continuous(cfg):
-            raise NotImplementedError(
-                f"scheduler=auto: {cfg.name} (family={cfg.family}, window="
-                f"{cfg.window}) needs the static scheduler, which is not ported "
-                "yet: ROADMAP §A7"
-            )
-        return "continuous"
-    return choice
+    """``auto`` -> continuous where ``supports_continuous(cfg)``, else static."""
+    if choice != "auto":
+        return choice
+    ok = supports_continuous(cfg)
+    if not ok:
+        print(
+            f"scheduler=auto: {cfg.name} (family={cfg.family}, window={cfg.window}) "
+            "does not support continuous batching; using static groups"
+        )
+    return "continuous" if ok else "static"
 
 
 def _unported(args) -> list[str]:
@@ -126,8 +132,6 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     errors = _unported(args)
-    if args.scheduler == "static":
-        errors.append("--scheduler static is not ported yet: ROADMAP §A7")
     if errors:
         ap.error("; ".join(errors))
     if args.attn_order == "block_snake" and args.snake_group is None:

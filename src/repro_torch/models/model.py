@@ -2,10 +2,13 @@
 
   lm = build_model(cfg, device="cuda")
   params           = lm.init(seed)
+  logits, caches   = lm.prefill(params, {"tokens": tokens}, max_len)
   logits, caches   = lm.decode_step(params, tokens, caches)
 
-The port serves the dense decoder-only family through the paged ragged
-chunk step (``decode_step``). Other families, ``LM.prefill`` and
+The port serves the dense decoder-only family: ``prefill`` (the static
+serve path) builds contiguous caches, or paged ones when ``cfg.kv_layout``
+is ``"paged"``; ``decode_step`` is the single-token step over contiguous
+caches or the ragged chunk step over a paged pool. Other families and
 ``LM.loss`` are later slices of the port.
 """
 
@@ -32,6 +35,7 @@ class LM:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    prefill: Callable
     decode_step: Callable
 
 
@@ -50,6 +54,10 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
+
+
 def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
     def init(seed=0) -> dict:
         """Random params on ``device`` at the reference's scales, drawn from
@@ -66,15 +74,28 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
         return p
 
     @torch.no_grad()
+    def prefill(params, batch: dict, max_len: int):
+        """batch ``{"tokens": (B, S)}`` -> (logits (B, 1, vocab) of the last
+        position, caches of ``max_len`` positions holding the prompt; see
+        ``T.stack_prefill``). Every row's positions are ``0..S-1``."""
+        tokens = batch["tokens"]
+        x = _embed_tokens(params, cfg, tokens)
+        b, s = tokens.shape
+        h, caches = T.stack_prefill(params["layers"], cfg, x, _positions(b, s, x.device), max_len)
+        h = L.rmsnorm(params["ln_f"], h[:, -1:], cfg.norm_eps)
+        return _logits(params, cfg, h), caches
+
+    @torch.no_grad()
     def decode_step(params, tokens: torch.Tensor, caches: dict):
-        """Ragged chunk step: tokens (B, C) -> logits (B, C, vocab), with
-        the paged caches written in place (see ``T.stack_decode``)."""
+        """tokens (B, C) -> logits (B, C, vocab), with the caches written in
+        place (see ``T.stack_decode``): C = 1 over contiguous caches, a
+        ragged chunk over a paged pool."""
         x = _embed_tokens(params, cfg, tokens)
         h, caches = T.stack_decode(params["layers"], cfg, x, caches)
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return _logits(params, cfg, h), caches
 
-    return LM(cfg, device, init, decode_step)
+    return LM(cfg, device, init, prefill, decode_step)
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> LM:

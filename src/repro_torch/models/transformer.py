@@ -1,15 +1,26 @@
-"""Dense decoder stack over a paged KV cache: GQA attention with RoPE,
-SwiGLU FFN, and the ragged chunk step of the continuous serve engine.
+"""Dense decoder stack: GQA attention with RoPE and SWA, SwiGLU FFN, the
+full-sequence prefill that builds KV caches, and the decode steps over
+contiguous caches (the static serve path) and paged pools (the ragged chunk
+step of the continuous serve engine).
 
-A port of the paged decode path of ``repro.models.transformer``. The JAX
-package scans stacked layer params; here the layers are a list and
-``stack_decode`` is a Python loop. The paged cache is written in place:
-``k_pages``/``v_pages`` are the pool tensors (L, n_pages, page, Hkv, hd)
-and each layer writes its own slice. Invalid chunk rows (``t >= q_len``)
-are routed to the reserved dummy page 0, which no sequence owns and every
-read masks; duplicate writes there are harmless whichever one lands.
+A port of ``repro.models.transformer``. The JAX package scans stacked layer
+params; here the layers are a list and ``stack_prefill``/``stack_decode``
+are Python loops. Caches are allocated once for all layers and written in
+place (the reference is functional and builds one cache per layer inside
+its scan):
 
-All attention goes through ``repro_torch.kernels.ops.attention_decode``.
+  * contiguous: ``k``/``v`` (L, B, S, Hkv, hd) with ``S = max_len``, or
+    ``min(max_len, window)`` as a ring buffer for sliding-window configs,
+    and one ``len`` (a Python int) shared by the batch and the layers (the
+    reference keeps the same scalar per layer);
+  * paged: ``k_pages``/``v_pages`` (L, n_pages, page, Hkv, hd), one
+    ``block_table`` and per-row ``len`` (B,). Invalid chunk rows (``t >=
+    q_len``) are routed to the reserved dummy page 0, which no sequence owns
+    and every read masks; duplicate writes there are harmless whichever one
+    lands.
+
+Full-sequence attention goes through ``repro_torch.kernels.ops.attention``,
+decode through ``ops.attention_decode``.
 """
 
 from __future__ import annotations
@@ -24,14 +35,17 @@ from repro_torch.models import layers as L
 
 __all__ = [
     "attn_init",
+    "attn_apply",
     "attn_decode",
     "ffn_init",
     "ffn_apply",
     "layer_init",
     "stack_init",
+    "stack_prefill",
     "stack_decode",
     "page_geometry",
     "init_cache",
+    "fill_cache",
 ]
 
 
@@ -60,29 +74,101 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, *, d_in: Optional[int] = N
     }
 
 
-def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict):
-    """Ragged chunk step of one layer against its paged cache.
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """Roped q (B, S, Hq, hd) and k, and v (B, S, Hkv, hd) of x (B, S, d).
+    (The reference's cross-attention arguments come with the enc-dec
+    family, ROADMAP §A13.)"""
+    dt = cfg.activation_dtype()
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = L.dense(p["wq"], x, dtype=dt).reshape(b, s, cfg.n_heads, hd)
+    k = L.dense(p["wk"], x, dtype=dt).reshape(b, s, cfg.n_kv_heads, hd)
+    v = L.dense(p["wv"], x, dtype=dt).reshape(b, s, cfg.n_kv_heads, hd)
+    q = L.rope(q, positions, theta=cfg.rope_theta)
+    k = L.rope(k, positions, theta=cfg.rope_theta)
+    return q, k, v
 
-    x (B, C, d); ``cache`` holds this layer's ``k_pages``/``v_pages``
-    (n_pages, page, Hkv, hd), the ``block_table`` (B, n_blocks), ``len``
-    (B,) tokens already cached, and optionally ``q_len`` (B,) valid chunk
-    rows and ``order_group`` (the step's effective reversal group).
-    Returns (out (B, C, d), cache with ``len`` advanced by ``q_len``).
+
+def attn_apply(
+    p: dict,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    *,
+    positions: torch.Tensor,
+    return_kv: bool = False,
+):
+    """Full-sequence causal self-attention (prefill), windowed for SWA
+    configs. With ``return_kv`` also returns the (roped) k, v (B, S, Hkv,
+    hd)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    o = ops.attention(
+        q,
+        k,
+        v,
+        order=cfg.attn_order,
+        snake_group=cfg.snake_group,
+        causal=True,
+        window=cfg.window,
+        q_block=cfg.q_block,
+        kv_block=cfg.kv_block,
+        impl=cfg.attn_impl,
+        score_dtype=cfg.score_dtype,
+    )
+    b, s = o.shape[:2]
+    out = L.dense(p["wo"], o.reshape(b, s, -1), dtype=cfg.activation_dtype())
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+    """Decode step of one layer against its cache.
+
+    Paged (``cache`` holds ``k_pages``/``v_pages`` (n_pages, page, Hkv, hd),
+    the ``block_table`` (B, n_blocks), ``len`` (B,) tokens already cached,
+    and optionally ``q_len`` (B,) valid chunk rows and ``order_group``): x
+    (B, C, d) is a ragged chunk, ``len`` advances by ``q_len``.
+    Contiguous (``k``/``v`` (B, S, Hkv, hd), ``len`` an int): x (B, 1, d),
+    one token at position ``len`` for every row, ``len`` advances by one.
+    Returns (out (B, C, d), cache).
     """
-    if "k_pages" not in cache:
-        raise NotImplementedError(
-            "contiguous KV caches (the static scheduler's layout) are not "
-            "ported yet: ROADMAP §A7"
-        )
     dt = cfg.activation_dtype()
     b = x.shape[0]
     hd = cfg.hd
     q = L.dense(p["wq"], x, dtype=dt).reshape(b, -1, cfg.n_heads, hd)
     k = L.dense(p["wk"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
     v = L.dense(p["wv"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
-    o, cache = _attn_decode_paged(cfg, cache, q, k, v)
+    if "k_pages" in cache:
+        o, cache = _attn_decode_paged(cfg, cache, q, k, v)
+    else:
+        o, cache = _attn_decode_contiguous(cfg, cache, q, k, v)
     out = L.dense(p["wo"], o.reshape(b, o.shape[1], -1), dtype=dt)
     return out, cache
+
+
+def _attn_decode_contiguous(cfg: ModelConfig, cache: dict, q, k, v):
+    b, one = q.shape[:2]
+    if one != 1:
+        raise ValueError(f"contiguous decode takes a single query position, got {one}")
+    pos = int(cache["len"])
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=q.device)
+    q = L.rope(q, positions, theta=cfg.rope_theta)
+    k = L.rope(k, positions, theta=cfg.rope_theta)
+    s_max = cache["k"].shape[1]
+    write = pos % s_max if cfg.window is not None else pos  # SWA ring buffer
+    _cache_write(cfg, cache, "k", k, write)
+    _cache_write(cfg, cache, "v", v, write)
+    cache = dict(cache, len=pos + 1)
+    o = ops.attention_decode(
+        q,
+        cache["k"],
+        cache["v"],
+        min(pos + 1, s_max),
+        order=cfg.attn_order,
+        snake_group=cfg.snake_group,
+        impl=cfg.attn_impl,
+    )
+    return o, cache
 
 
 def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
@@ -149,31 +235,94 @@ def page_geometry(cfg: ModelConfig, max_len: int) -> tuple[int, int]:
     return page, -(-max_len // page)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None, device="cpu") -> dict:
-    """One layer's paged KV cache: zero pages (batch * n_blocks, page, Hkv,
-    hd), an identity ``block_table`` and zero ``len``."""
-    if cfg.kv_layout != "paged":
-        raise NotImplementedError(
-            "contiguous KV caches (the static scheduler's layout) are not "
-            "ported yet: ROADMAP §A7"
-        )
-    if cfg.window is not None:
-        raise ValueError(
-            "paged KV layout requires full attention; sliding-window "
-            "archs keep the ring-buffer layout (kv_layout='contiguous')"
-        )
+def init_cache(
+    cfg: ModelConfig, batch: int, max_len: int, *, dtype=None, device="cpu",
+    n_layers: Optional[int] = None,
+) -> dict:
+    """Zero KV cache of ``batch`` rows for ``max_len`` positions.
+
+    Contiguous (``cfg.kv_layout == "contiguous"``): ``k``/``v`` (B, S, Hkv,
+    hd) with ``S = max_len``, or ``min(max_len, window)`` (a ring buffer)
+    for sliding-window configs, and ``len`` 0. Paged: pages (batch *
+    n_blocks, page, Hkv, hd), an identity ``block_table`` and zero ``len``
+    (B,). With ``n_layers`` the tensors gain a leading layer axis (one
+    allocation for the whole stack); the other entries are shared.
+    """
     _int8_not_ported(cfg)
-    page, bpr = page_geometry(cfg, max_len)
-    shape = (batch * bpr, page, cfg.n_kv_heads, cfg.hd)
     dt = dtype or cfg.activation_dtype()
+    lead = () if n_layers is None else (n_layers,)
+    if cfg.kv_layout == "paged":
+        if cfg.window is not None:
+            raise ValueError(
+                "paged KV layout requires full attention; sliding-window "
+                "archs keep the ring-buffer layout (kv_layout='contiguous')"
+            )
+        page, bpr = page_geometry(cfg, max_len)
+        shape = lead + (batch * bpr, page, cfg.n_kv_heads, cfg.hd)
+        return {
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "block_table": torch.arange(batch * bpr, dtype=torch.int32, device=device).reshape(
+                batch, bpr
+            ),
+            "k_pages": torch.zeros(shape, dtype=dt, device=device),
+            "v_pages": torch.zeros(shape, dtype=dt, device=device),
+        }
+    size = min(max_len, cfg.window) if cfg.window is not None else max_len
+    shape = lead + (batch, size, cfg.n_kv_heads, cfg.hd)
     return {
-        "len": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "block_table": torch.arange(batch * bpr, dtype=torch.int32, device=device).reshape(
-            batch, bpr
-        ),
-        "k_pages": torch.zeros(shape, dtype=dt, device=device),
-        "v_pages": torch.zeros(shape, dtype=dt, device=device),
+        "len": 0,
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
     }
+
+
+def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, pos: int) -> None:
+    """Write ``val`` (B, s, H, D) at sequence offset ``pos``, in place. The
+    start is clamped so the slice fits, as ``dynamic_update_slice`` clamps
+    it in the reference. (Without int8 caches, which raise here, the
+    reference's ``_cache_read`` is the identity.)"""
+    _int8_not_ported(cfg)
+    buf = cache[name]
+    s = val.shape[1]
+    start = min(max(int(pos), 0), buf.shape[1] - s)
+    buf[:, start : start + s] = val.to(buf.dtype)
+
+
+def fill_cache(cfg: ModelConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """Write prefill K/V (B, s, Hkv, hd) into a fresh cache, in place, and
+    return it with ``len = s``. A contiguous cache keeps the last ``S``
+    positions when ``s >= S``; a sliding-window ring buffer then rolls them
+    by ``s % S`` so position p sits at index ``p % S``, where decode writes
+    it. A paged cache must have the identity block table of
+    :func:`init_cache`."""
+    if "k_pages" in cache:
+        return _fill_cache_paged(cfg, cache, k, v)
+    s = k.shape[1]
+    size = cache["k"].shape[1]
+    if s >= size:
+        k, v = k[:, -size:], v[:, -size:]
+        if cfg.window is not None:
+            shift = s % size
+            if shift:
+                k = torch.roll(k, shift, dims=1)
+                v = torch.roll(v, shift, dims=1)
+    _cache_write(cfg, cache, "k", k, 0)
+    _cache_write(cfg, cache, "v", v, 0)
+    return dict(cache, len=s)
+
+
+def _fill_cache_paged(cfg: ModelConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
+    b, s = k.shape[:2]
+    page = cache["k_pages"].shape[1]
+    capacity = cache["block_table"].shape[1] * page
+    if s > capacity:
+        k, v = k[:, -capacity:], v[:, -capacity:]
+        s = capacity
+    starts = torch.zeros((b,), dtype=torch.int32, device=k.device)
+    q_lens = torch.full((b,), s, dtype=torch.int32, device=k.device)
+    out = _paged_write(cfg, dict(cache), k, v, starts, q_lens)
+    out["len"] = q_lens
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -212,17 +361,44 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> list[di
     return [layer_init(gen, cfg) for _ in range(n_layers)]
 
 
+def _layer_cache(caches: dict, i: int) -> dict:
+    """Layer ``i``'s view of the stacked caches (the shared entries as they
+    are)."""
+    names = ("k_pages", "v_pages") if "k_pages" in caches else ("k", "v")
+    return dict(caches, **{n: caches[n][i] for n in names})
+
+
+def stack_prefill(
+    layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, max_len: int
+):
+    """Forward of every layer over the whole prompt x (B, S, d), filling
+    the KV caches of ``max_len`` positions (allocated once for the stack,
+    see :func:`init_cache`). Returns (hidden (B, S, d), caches)."""
+    b = x.shape[0]
+    caches = init_cache(cfg, b, max_len, device=x.device, n_layers=len(layers))
+    h = x
+    for i, lp in enumerate(layers):
+        xn = L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
+        a, (k, v) = attn_apply(lp["attn"], cfg, xn, positions=positions, return_kv=True)
+        h = h + a
+        h = h + ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
+        filled = fill_cache(cfg, _layer_cache(caches, i), k, v)
+    caches["len"] = filled["len"]
+    return h, caches
+
+
 def stack_decode(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, caches: dict):
-    """One ragged chunk step through every layer. ``caches`` holds the pool
-    tensors ``k_pages``/``v_pages`` (L, n_pages, page, Hkv, hd) and the
-    per-step ``block_table``, ``len``, ``q_len`` and ``order_group`` shared
-    by all layers. Pages are written in place; the returned caches carry
-    ``len`` advanced by ``q_len``."""
+    """One decode step through every layer, caches written in place.
+    Paged: ``caches`` holds the pool tensors ``k_pages``/``v_pages`` (L,
+    n_pages, page, Hkv, hd) and the per-step ``block_table``, ``len``,
+    ``q_len`` and ``order_group`` shared by all layers; ``len`` advances by
+    ``q_len``. Contiguous: ``k``/``v`` (L, B, S, Hkv, hd) and the shared
+    ``len``, which advances by one."""
     h = x
     out = caches
     for i, lp in enumerate(layers):
-        layer_cache = dict(caches, k_pages=caches["k_pages"][i], v_pages=caches["v_pages"][i])
-        a, lc = attn_decode(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps), layer_cache)
+        a, lc = attn_decode(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps),
+                            _layer_cache(caches, i))
         h = h + a
         h = h + ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
         out = dict(caches, len=lc["len"])

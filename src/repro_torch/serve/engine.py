@@ -1,7 +1,22 @@
-"""Continuous-batching serve engine over a shared paged KV pool.
+"""Batched serving engine: the static fixed-group path and continuous
+batching over a shared paged KV pool.
 
-A port of the continuous path of ``repro.serve.engine.ServeEngine``. Each
-iteration plans one ragged **mixed step** (``serve.scheduler``): every
+A port of ``repro.serve.engine.ServeEngine``'s two schedulers.
+
+``scheduler="static"`` (the default, as in the reference): requests are
+taken ``batch_size`` at a time, left-padded with ``eos_id`` into one shared
+prompt bucket (at most ``max_len``; a longer prompt keeps its tail), run
+through ``LM.prefill`` into contiguous KV caches (SWA configs: ring
+buffers), then decoded one token a step for the whole group until every
+row has hit its EOS or its token limit (``max_len - bucket + 1`` at most).
+As in the reference, every row's positions are ``0..bucket-1`` and the
+pads are attended; decode writes at one shared position. TTFT is measured
+from engine start, so queueing behind earlier groups counts. The
+``serve.prefill`` and ``serve.decode_step`` spans close once the sampled
+tokens are on the host, so they bracket the device time of the step.
+
+``scheduler="continuous"``: each iteration plans one ragged **mixed step**
+(``serve.scheduler``): every
 decoding slot contributes a q_len=1 row and the rest of the token budget
 goes to prompts as prefill chunks. The step runs eagerly through
 ``LM.decode_step`` over the pool (``serve.kv_pool``), whose pages are
@@ -11,17 +26,18 @@ cfg.snake_group, blocks_per_seq)``. A step has one of two widths: 1 when
 every row decodes, ``prefill_chunk`` otherwise. Identical prompt prefixes
 share pages (adoption + copy-on-write).
 
-Sampling is per row: greedy at temperature 0 (argmax in the logits' dtype,
-first maximum on ties, as the reference), otherwise a Gumbel-max draw from
-``softmax(logits / T)`` with noise from a generator seeded by a
-counter-based hash of (engine seed, request seed, sample index). The draws
+Sampling is per row in both paths: greedy at temperature 0 (argmax in the
+logits' dtype, first maximum on ties, as the reference), otherwise a
+Gumbel-max draw from ``softmax(logits / T)`` with noise from a generator
+seeded by a counter-based hash of (engine seed, request seed, sample
+index); the request seed defaults to the submission index. The draws
 cannot match ``jax.random``; a request's sampled stream depends only on
 those three numbers, not on its slot or its neighbours.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the static scheduler, speculative drafters, the host KV tier, fault
-injection and optimistic admission, online order adaptation and LLC
-sampling, and sharded serving.
+item): speculative drafters, the host KV tier, fault injection and
+optimistic admission, online order adaptation and LLC sampling, and
+sharded serving.
 """
 
 from __future__ import annotations
@@ -172,7 +188,7 @@ class ServeEngine:
         batch_size: int = 8,
         max_len: int = 1024,
         seed: int = 0,
-        scheduler: str = "continuous",
+        scheduler: str = "static",
         page_size: Optional[int] = None,
         token_budget: Optional[int] = None,
         prefill_chunk: Optional[int] = None,
@@ -187,9 +203,14 @@ class ServeEngine:
         device="cuda",
         **unported,
     ):
-        """Serve ``lm`` with ``params`` under the continuous scheduler on
-        ``device`` (default ``"cuda"``; raises when no GPU is present unless
-        ``device="cpu"`` is given). The model is rebuilt with the paged KV
+        """Serve ``lm`` with ``params`` on ``device`` (default ``"cuda"``;
+        raises when no GPU is present unless ``device="cpu"`` is given).
+
+        ``scheduler="static"`` serves fixed groups of ``batch_size`` through
+        ``lm.prefill`` and ``lm.decode_step`` with caches of ``max_len``
+        positions; the paged-pool options below do not apply to it.
+
+        ``scheduler="continuous"`` rebuilds the model with the paged KV
         layout (``page_size`` pages, default ``kv_block``, capped at
         ``max_len``); ``token_budget`` tokens per step (default: one per
         slot plus one prefill chunk) are split across decode rows and
@@ -206,12 +227,7 @@ class ServeEngine:
                 raise NotImplementedError(
                     f"ServeEngine({name}={value!r}) is not ported yet: ROADMAP §{item}"
                 )
-        if scheduler == "static":
-            raise NotImplementedError(
-                "scheduler='static' (fixed groups through LM.prefill) is not "
-                "ported yet: ROADMAP §A7 with kernels §B2/§B3"
-            )
-        if scheduler != "continuous":
+        if scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if admission == "optimistic":
             raise NotImplementedError(
@@ -224,21 +240,28 @@ class ServeEngine:
         if lm.device != self.device:
             raise ValueError(f"model built on {lm.device}, engine asked for {self.device}")
         cfg = lm.cfg
-        if not supports_continuous(cfg):
+        if scheduler == "continuous" and not supports_continuous(cfg):
             raise NotImplementedError(
                 "continuous scheduling needs a ported token-only full-attention "
                 f"family {CONTINUOUS_FAMILIES} (got family={cfg.family!r}, "
-                f"window={cfg.window}); other families: ROADMAP §A13"
+                f"window={cfg.window}); use scheduler='static' (other families: "
+                "ROADMAP §A13)"
             )
-        if max_len <= 0:
+        # Only full-attention caches are max_len-bounded: sliding-window
+        # configs decode into a ring buffer.
+        bounded = scheduler == "continuous" or cfg.window is None
+        if bounded and max_len <= 0:
             raise ValueError(
                 f"max_len={max_len} gives a zero-capacity KV cache (it must be "
                 "positive); use max_len > 0"
             )
-        page = min(page_size or cfg.page_size or cfg.kv_block, max_len)
-        self.lm = build_model(cfg.with_(kv_layout="paged", page_size=page), device=self.device)
-        self._page = page
-        self._chunk = max(1, min(prefill_chunk or 4 * page, max_len))
+        if scheduler == "continuous":
+            page = min(page_size or cfg.page_size or cfg.kv_block, max_len)
+            self.lm = build_model(cfg.with_(kv_layout="paged", page_size=page), device=self.device)
+            self._page = page
+            self._chunk = max(1, min(prefill_chunk or 4 * page, max_len))
+        else:
+            self.lm = lm
         self._budget = token_budget
         self.scheduler = scheduler
         self.params = params
@@ -248,7 +271,7 @@ class ServeEngine:
         self.max_queue = max_queue
         self.pool_pages = pool_pages
         self._watermark = 1.0 if admit_watermark is None else admit_watermark
-        self._cap = max_len
+        self._cap = max_len if bounded else None
         self._cancelled: set[int] = set()
         self.batch_size = batch_size
         self.max_len = max_len
@@ -292,7 +315,14 @@ class ServeEngine:
         return self.eos if r.eos_id is None else r.eos_id
 
     def generate(self, requests: Sequence[Request]) -> list[GenerationResult]:
-        return self._generate_continuous(requests)
+        if self.scheduler == "continuous":
+            return self._generate_continuous(requests)
+        results: list[GenerationResult] = []
+        t0 = time.perf_counter()  # TTFT includes queueing behind earlier groups
+        for i in range(0, len(requests), self.batch_size):
+            group = list(requests[i : i + self.batch_size])
+            results.extend(self._generate_batch(group, base_idx=i, t0=t0))
+        return results
 
     def compiled_step_count(self) -> int:
         """Distinct step widths used so far (at most two: 1 and the chunk
@@ -313,6 +343,108 @@ class ServeEngine:
             self._m_shed.inc()
         elif res.status == "failed":
             self._m_failed.inc()
+
+    # ---- static path ---------------------------------------------------------
+
+    def _pad_batch(self, prompts: Sequence[np.ndarray], max_bucket: Optional[int]) -> np.ndarray:
+        """(batch_size, bucket) prompts left-padded with EOS into one shared
+        bucket: the longest prompt, capped at ``max_bucket`` (an overlong
+        prompt keeps its most recent tokens); all-empty -> one pad."""
+        length = max(1, max(len(p) for p in prompts))
+        if max_bucket is not None:
+            length = min(length, max_bucket)
+        out = np.full((self.batch_size, length), self.eos, np.int32)
+        for i, p in enumerate(prompts):
+            p = np.asarray(p, np.int32)[-length:]
+            out[i, length - len(p) :] = p
+        return out
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray, seeds: np.ndarray,
+                count: int) -> np.ndarray:
+        """One token per row of logits (B, V), as a host array: greedy where
+        the temperature is 0, else a draw with sample index ``count``."""
+        toks = torch.argmax(logits, dim=-1)
+        for b in np.flatnonzero(temps > 0.0):
+            toks[b] = sample_token(
+                logits[b], float(temps[b]), sample_seed(self.seed, seeds[b], count)
+            )
+        return toks.to(torch.int32).cpu().numpy()
+
+    @torch.no_grad()
+    def _generate_batch(self, group: Sequence[Request], base_idx: int, t0: float):
+        # A request whose limit exceeds what the shared bucket leaves of the
+        # cache is clamped (visible via .steps), not failed.
+        cap = self._cap
+        tokens = self._pad_batch([r.tokens for r in group], max_bucket=cap)
+        bucket = tokens.shape[1]
+        new_limits = [
+            r.max_new_tokens if cap is None else max(0, min(r.max_new_tokens, cap - bucket + 1))
+            for r in group
+        ]
+        max_new = max(new_limits)
+        n = len(group)
+        # Sampling parameters for every prefill row, padding rows included.
+        temps = np.zeros((self.batch_size,), np.float32)
+        seeds = np.zeros((self.batch_size,), np.int64)
+        for j, r in enumerate(group):
+            temps[j] = r.temperature
+            seeds[j] = base_idx + j if r.seed is None else r.seed
+
+        tr = self.tracer
+        with tr.span("serve.prefill", rows=n, bucket=bucket):
+            batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
+            logits, caches = self.lm.prefill(self.params, batch, self.max_len)
+            cur = self._sample(logits[:, -1], temps, seeds, 0)
+        self._m_tok_prefill.inc(n * bucket)
+        ttft = time.perf_counter() - t0
+        generated = np.zeros((n, max_new), np.int32)
+        done = np.asarray([lim == 0 for lim in new_limits])  # 0-limit rows emit nothing
+        steps = np.zeros(n, np.int32)
+        status = ["ok"] * n
+        eos_for = [self._eos_for(r) for r in group]
+        for t in range(max_new):
+            # Boundary checks before recording: a request cancelled or past
+            # its deadline keeps only what it already has.
+            now_s = time.perf_counter() - t0
+            for j, r in enumerate(group):
+                if done[j]:
+                    continue
+                if r.rid in self._cancelled:
+                    done[j] = True
+                    status[j] = "cancelled"
+                    self._cancelled.discard(r.rid)
+                elif r.deadline_s is not None and now_s > r.deadline_s:
+                    done[j] = True
+                    status[j] = "deadline"
+            for j in range(n):
+                if not done[j]:
+                    generated[j, t] = cur[j]
+                    steps[j] = t + 1
+                    if cur[j] == eos_for[j] or t + 1 >= new_limits[j]:
+                        done[j] = True
+            if done.all():
+                break
+            with tr.span("serve.decode_step", t=t):
+                tok = torch.as_tensor(cur[:, None], device=self.device)
+                logits, caches = self.lm.decode_step(self.params, tok, caches)
+                cur = self._sample(logits[:, -1], temps, seeds, t + 1)
+            self._m_tok_decode.inc(int((~done).sum()))
+        total = time.perf_counter() - t0
+
+        results = [
+            GenerationResult(
+                rid=r.rid,
+                tokens=generated[j, : steps[j]].copy(),
+                steps=int(steps[j]),
+                ttft_s=ttft,
+                tpot_s=_tpot(total - ttft, int(steps[j])),
+                status=status[j],
+            )
+            for j, r in enumerate(group)
+        ]
+        for res in results:
+            self._record_result(res)
+        return results
 
     # ---- the mixed step ------------------------------------------------------
 

@@ -13,17 +13,28 @@ pytest.importorskip("torch")
 
 import torch
 
-from repro_torch.core.attention import paged_decode_attention
+from repro_torch.core.attention import decode_attention, flash_attention, paged_decode_attention
 from repro_torch.core.schedule import Order, resolve_order_group
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.flash_decode import paged_flash_decode_fwd
+from repro_torch.kernels.flash_attention import (
+    BLOCK_M,
+    BLOCK_N,
+    MASK_VALUE,
+    flash_attention_fwd,
+    kernel_traversal,
+)
+from repro_torch.kernels.flash_decode import flash_decode_fwd, paged_flash_decode_fwd
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the paged_decode kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _bf16(gen, shape, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
 
 @pytest.mark.gpu
@@ -75,3 +86,116 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple"):
         paged_flash_decode_fwd(torch.zeros((1, 1, 3, 128), dtype=torch.bfloat16, device=cuda),
                                kb, kb, 4, bt)
+
+
+def _visible(sq, skv, causal, window, dev):
+    """(Sq,) rows with at least one visible key."""
+    r = torch.arange(sq, device=dev)[:, None]
+    c = torch.arange(skv, device=dev)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= c <= r
+    if window is not None:
+        ok &= c > r - window
+    return ok.any(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal,window,sq,skv", [
+    (True, None, 77, 77), (True, 50, 200, 200), (False, None, 130, 70), (False, 40, 200, 90),
+])
+def test_flash_fwd_kernel_matches_plain_and_walks_the_traversal(cuda, d, g, causal, window,
+                                                               sq, skv):
+    """bf16 kernel vs the plain version in f32 on the same inputs: o within
+    2e-2 abs (bf16 output and P rounding), lse within 2e-3 abs, on rows that
+    see a key; rows that see none are exact zeros with lse = MASK_VALUE. The
+    recorded walk equals the port's Traversal at the kernel's tile sizes."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + g + d)
+    b, hkv = 2, 2
+    q = _bf16(gen, (b, sq, hkv * g, d), cuda)
+    k = _bf16(gen, (b, skv, hkv, d), cuda)
+    v = _bf16(gen, (b, skv, hkv, d), cuda)
+    vis = _visible(sq, skv, causal, window, cuda)
+    for order in Order:
+        tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
+                              snake_group=2)
+        visit = torch.empty((b * hkv, tr.grid_rows, tr.n_kv), dtype=torch.int32, device=cuda)
+        n0 = cuda_lib.launch_counts["flash_fwd"]
+        o, lse = flash_attention_fwd(q, k, v, order=order, causal=causal, window=window,
+                                     snake_group=2, return_lse=True, visit_out=visit)
+        torch.cuda.synchronize()
+        assert cuda_lib.launch_counts["flash_fwd"] == n0 + 1
+        ro, rl = flash_attention(q.float(), k.float(), v.float(), order=order, causal=causal,
+                                 window=window, q_block=BLOCK_M, kv_block=BLOCK_N,
+                                 snake_group=2, return_lse=True)
+        assert (o.float() - ro)[:, vis].abs().max().item() <= 2e-2
+        assert (lse - rl)[:, vis].abs().max().item() <= 2e-3
+        assert torch.all(o[:, ~vis] == 0)
+        assert torch.all((lse[:, ~vis] / MASK_VALUE - 1).abs() < 1e-6)
+        for i in range(tr.grid_rows):
+            want = tr.kv_order(i % tr.n_q, local_iter=i)
+            want += [-1] * (tr.n_kv - len(want))
+            for bh in range(b * hkv):
+                assert visit[bh, i].tolist() == want, (order, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("chunk", [128, 512])
+def test_contig_decode_kernel_matches_plain(cuda, g, window, chunk):
+    """bf16 kernel vs the plain version in f32: 2e-2 abs on rows of
+    positive length; a row of length 0 is exact zeros. S_max 300 is not a
+    multiple of the chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(g * 10 + (window or 0) + chunk)
+    b, hkv, d, s_max = 4, 2, 128, 300
+    q = _bf16(gen, (b, 1, hkv * g, d), cuda)
+    k = _bf16(gen, (b, s_max, hkv, d), cuda)
+    v = _bf16(gen, (b, s_max, hkv, d), cuda)
+    lens = torch.tensor([300, 0, 129, 7], dtype=torch.int32, device=cuda)
+    for order in Order:
+        n0 = cuda_lib.launch_counts["contig_decode"]
+        out = flash_decode_fwd(q, k, v, lens, order=order, window=window, chunk=chunk,
+                               snake_group=2)
+        torch.cuda.synchronize()
+        assert cuda_lib.launch_counts["contig_decode"] == n0 + 1
+        ref = decode_attention(q.float(), k.float(), v.float(), lens, window=window)
+        ok = lens > 0
+        assert (out.float() - ref)[ok].abs().max().item() <= 2e-2
+        assert torch.all(out[~ok] == 0)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
+    bf = torch.bfloat16
+    q = torch.zeros((1, 8, 2, 128), dtype=bf, device=cuda)
+    kv = torch.zeros((1, 8, 2, 128), dtype=bf, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_fwd(q.float(), kv.float(), kv.float())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_fwd(q[..., :96].contiguous(), kv[..., :96].contiguous(),
+                            kv[..., :96].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q.transpose(1, 2), kv, kv)
+    with pytest.raises(ValueError, match="is on"):
+        flash_attention_fwd(q, kv.cpu(), kv)
+    odd = torch.zeros(q.numel() + 1, dtype=bf, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_fwd(odd, kv, kv)
+    with pytest.raises(ValueError, match="visit_out"):
+        flash_attention_fwd(q, kv, kv, visit_out=torch.zeros(3, dtype=torch.int32, device=cuda))
+    q1 = q[:, :1].contiguous()
+    lens = torch.tensor([4], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_decode_fwd(q1.float(), kv.float(), kv.float(), lens)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_decode_fwd(q1[..., :96].contiguous(), kv[..., :96].contiguous(),
+                         kv[..., :96].contiguous(), lens)
+    with pytest.raises(ValueError, match="one query position"):
+        flash_decode_fwd(q, kv, kv, lens)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_decode_fwd(torch.zeros((1, 1, 3, 128), dtype=bf, device=cuda), kv, kv, lens)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_decode_fwd(odd[:, :1], kv, kv, lens)

@@ -19,7 +19,7 @@ import torch
 
 from repro.core.attention import paged_decode_attention as ref_plain
 from repro.kernels.flash_decode import paged_flash_decode_fwd as ref_kernel
-from repro_torch.core.attention import paged_decode_attention
+from repro_torch.core.attention import decode_attention, paged_decode_attention
 from repro_torch.core.schedule import Order, resolve_order_group
 from repro_torch.kernels import cuda_lib, ops
 from repro_torch.kernels.flash_decode import fold_schedule, paged_flash_decode_fwd
@@ -129,9 +129,13 @@ def test_wrapper_uses_plain_version_only_on_cpu():
         ops.attention_decode(torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
                              torch.from_numpy(lens), block_table=torch.from_numpy(bt),
                              impl="pallas")
-    with pytest.raises(NotImplementedError, match="B3"):
-        ops.attention_decode(torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
-                             torch.from_numpy(lens))
+    # Without a block table the caches are contiguous (B, S_max, Hkv, D):
+    # the plain decode_attention, no launch either.
+    kc, vc = torch.from_numpy(kp[:4]), torch.from_numpy(vp[:4])
+    got = ops.attention_decode(torch.from_numpy(q), kc, vc, torch.from_numpy(lens % PAGE + 1))
+    assert cuda_lib.launch_counts == before
+    want = decode_attention(torch.from_numpy(q), kc, vc, torch.from_numpy(lens % PAGE + 1))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_build_is_lazy_and_keyed_on_source():

@@ -129,7 +129,6 @@ def test_sample_token_follows_softmax():
     (dict(adapt_order=True), "A8"),
     (dict(llc_every=4), "A8"),
     (dict(admission="optimistic"), "A9"),
-    (dict(scheduler="static"), "A7"),
     (dict(mesh=object()), "A14"),
 ])
 def test_unported_engine_arguments_raise(models, kwargs, item):
