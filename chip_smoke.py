@@ -14,19 +14,31 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    head dims x lengths, o and lse, with its recorded KV-tile walk held to
    the port's Traversal; the contiguous decode (B3) over orders x GQA x
    windows x chunks x head dims with ragged lengths and a row of length 0;
-3. main paths on full-width deepseek-7b (random weights from a seed, built
-   once): served by the continuous ServeEngine, with ``paged_decode``
-   launches == layers x mixed steps; then by the static ServeEngine (the
-   default scheduler), with ``flash_fwd`` launches == layers x prefills,
+   the fused backward (B4 delta, B5 dQ, B6 dK/dV) over orders x causal x
+   windows x GQA x head dims x lengths (Sq != Skv too), with exact zeros
+   where nothing is seen, both recorded walks held to the Traversal and a
+   bitwise repeat;
+3. main paths on full-width deepseek-7b (random weights from a seed):
+   served by the continuous ServeEngine, with ``paged_decode`` launches ==
+   layers x mixed steps; then by the static ServeEngine (the default
+   scheduler), with ``flash_fwd`` launches == layers x prefills,
    ``contig_decode`` launches == layers x decode steps and no
-   ``paged_decode`` launch. Then small bf16 models whose logits with the
-   kernels must agree with the plain versions', on both paths. With
-   ``--profile`` half of each path's requests run once more under
-   torch.profiler, which gives the device's busy and idle share and its
-   time by kind of kernel;
+   ``paged_decode`` launch; then, with the serving weights released,
+   trained for 4 adamw_factored steps (batch 4 x 1024, remat full), with
+   ``flash_fwd`` launches == 2 x layers x steps (forward and remat
+   recompute) and 120 of each backward kernel, a falling loss, and step 0
+   held to the plain attention on the same weights. Then small bf16 models
+   whose logits (serving) and losses (training) with the kernels must agree
+   with the plain versions', and ``run_training`` crashed at a step and
+   resumed from its checkpoint against an uninterrupted run. With
+   ``--profile`` half of each serve path's requests and one training step
+   run once more under torch.profiler, which gives the device's busy and
+   idle share and its time by kind of kernel;
 4. kernel times at the main paths' shapes (B1: one narrow and one wide
-   step; B2: the second prefill group; B3: its decode steps): the kernel,
-   its bound, the plain version and one library call;
+   step; B2: the second prefill group and the training shape with lse; B3:
+   the static decode steps; B4-B6: the training shape): the kernel, its
+   bound, the plain version and one library call where there is one
+   (SDPA's backward for B4-B6 together);
 5. the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -37,8 +49,10 @@ beside it, and exits non-zero without either. It never runs on the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -52,6 +66,38 @@ ROOT = Path(__file__).resolve().parent
 KERNEL_TOL = 2e-2        # abs, bf16 outputs vs the plain version in f32
 LSE_TOL = 2e-3           # abs, the flash forward's float32 lse
 SMALL_MODEL_TOL = 5e-2   # abs on logits of the small bf16 models
+# The backward kernels against the plain backward in float32 on the same
+# bf16 inputs, as max-abs error over max |plain|: P and dS are rounded to
+# bf16 before their products (2^-9 relative each, as the TPU kernels do)
+# and the gradients are written in bf16 (2^-9 again).
+BWD_TOL = 2e-2
+DELTA_TOL = 1e-4         # delta: float32 sums of the same products in another order
+# Full-width training step 0, kernels against the plain attention (impl
+# torch, float32 scores) on the same bf16 weights and batch. The loss and
+# the global gradient norm (dominated by the embedding and head) read
+# 5.2e-4 and 7.0e-5 (PERF.md, PR 13); the limits are about ten times that.
+# Neither can see a wrong backward: the loss is the forward's.
+TRAIN_LOSS_TOL = 5e-3
+TRAIN_GNORM_RTOL = 1e-3
+# What can: the gradients of the attention weights (wq, wk, wv, wo of the
+# first and the last layer), each as ||diff|| over ||plain|| (Frobenius).
+# The kernels read at most 3.21e-2 (wq and wk: at random init attention is
+# near uniform, so dS = P (dP - delta) cancels, and the bf16 rounding of P
+# and O, which the plain version does not do, shows there). Two
+# deliberately wrong backwards built around the kernels in this run
+# (_grad_control) read at most 1.0 (dK zeroed) and 4.44e-2 (dQ, dK and dV
+# rounded to float8); the limit lies between, and each control must exceed
+# it on some leaf (PERF.md, PR 13).
+ATTN_GRAD_TOL = 3.8e-2
+# Crash + resume against an uninterrupted run, in one process: the
+# checkpoint is exact (bf16 saved as its bits) and the kernels and the
+# optimizer deterministic, so the losses agree to the bit (every reading so
+# far); the limit is two float32 ulps of a loss near 7.
+LOOP_TOL = 1e-6
+# The small bf16 model's 5 training steps, kernels against the plain
+# versions: losses read 6.5e-4 apart (PERF.md, PR 13). This checks the
+# steps' plumbing; the backward's accuracy is ATTN_GRAD_TOL's to check.
+SMALL_TRAIN_TOL = 5e-3
 
 # Data-sheet peaks by card name: (bytes/s, dense bf16 flop/s).
 _PEAKS = (
@@ -109,7 +155,7 @@ def phase_device() -> dict:
     for kname, info in built.items():
         print(f"[build] {kname}: {info['seconds']:.1f} s -> {info['path']}")
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line for w in ("registers", "spill", "entry function", "error")):
                 print(f"[build]   {line.strip()}")
     print(f"[build] all kernels in {wall:.1f} s (parallel nvcc)")
     return {"smi": smi, "name": name, "bw": bw, "peak": peak}
@@ -195,7 +241,8 @@ def _bf16(gen, shape):
     return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
 
-def _visible_rows(sq, skv, causal, window):
+def _seen(sq, skv, causal, window):
+    """Visibility (Sq, Skv): query row r sees key column c."""
     r = torch.arange(sq, device="cuda")[:, None]
     c = torch.arange(skv, device="cuda")[None, :]
     ok = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
@@ -203,7 +250,7 @@ def _visible_rows(sq, skv, causal, window):
         ok &= c <= r
     if window is not None:
         ok &= c > r - window
-    return ok.any(-1)
+    return ok
 
 
 def phase_flash_matrix() -> float:
@@ -231,7 +278,7 @@ def phase_flash_matrix() -> float:
             for sq, skv, causal, window in cases:
                 q = _bf16(gen, (b, sq, hkv * g, d))
                 k, v = _bf16(gen, (b, skv, hkv, d)), _bf16(gen, (b, skv, hkv, d))
-                vis = _visible_rows(sq, skv, causal, window)
+                vis = _seen(sq, skv, causal, window).any(-1)
                 errs = []
                 for order in Order:
                     tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
@@ -271,6 +318,111 @@ def phase_flash_matrix() -> float:
                       f"max_abs_err by order {[f'{e:.2e}' for e in errs]} ok, walk == Traversal")
     print(f"[flash] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL}); "
           f"{n_visits} recorded tile visits equal the Traversal's")
+    return worst
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| over ||want||, Frobenius norms in float32."""
+    want = want.float()
+    return ((got.float() - want).norm() / want.norm().clamp(min=1e-30)).item()
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (0 when want is all zeros)."""
+    scale = want.abs().max().item()
+    return (got.float() - want).abs().max().item() / scale if scale else 0.0
+
+
+def phase_bwd_matrix() -> dict:
+    """B4-B6 against the plain backward on the same bf16 inputs, o and lse
+    from B2: delta, and dq, dk, dv as max-abs error over max |plain|;
+    gradients of rows and KV positions that nothing sees are exact zeros;
+    the walks the dQ and dK/dV blocks recorded equal the port's Traversal
+    (``kv_order`` and ``stream_sweep``) at the kernels' tiles; a second run
+    gives equal bits."""
+    from repro_torch.core.attention import attention_delta, flash_attention_bwd as plain_bwd
+    from repro_torch.core.schedule import Order
+    from repro_torch.kernels.flash_attention import (
+        BLOCK_M,
+        BLOCK_N,
+        flash_attention_bwd,
+        flash_attention_fwd,
+        kernel_traversal,
+        kernel_walks,
+        launch_flash_bwd_delta,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    b, hkv, sg = 2, 2, 2
+    shapes = [(77, 77), (300, 300), (700, 700), (300, 131), (131, 300)]
+    worst = {"delta": 0.0, "dq": 0.0, "dk": 0.0, "dv": 0.0}
+    n = n_visits = 0
+    for d in (64, 128):
+        for g in (1, 4):
+            for sq, skv in shapes:
+                q = _bf16(gen, (b, sq, hkv * g, d))
+                k, v = _bf16(gen, (b, skv, hkv, d)), _bf16(gen, (b, skv, hkv, d))
+                do = _bf16(gen, (b, sq, hkv * g, d))
+                for causal in (True, False):
+                    for window in (None, 100):
+                        ok = _seen(sq, skv, causal, window)
+                        errs = []
+                        for order in Order:
+                            kw = dict(order=order, causal=causal, window=window, snake_group=sg)
+                            case = (f"D={d} G={g} Sq={sq} Skv={skv} causal={causal} "
+                                    f"window={window} order={order.value}")
+                            o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+                            tr = kernel_traversal(sq, skv, g, **kw)
+                            vq = torch.full((b * hkv, tr.grid_rows, tr.n_kv), -2,
+                                            dtype=torch.int32, device="cuda")
+                            vkv = torch.full((b * hkv, tr.n_kv, tr.grid_rows), -2,
+                                             dtype=torch.int32, device="cuda")
+                            got = flash_attention_bwd(q, k, v, o, lse, do, visit_dq_out=vq,
+                                                      visit_dkv_out=vkv, **kw)
+                            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+                            delta = torch.empty_like(lse)
+                            launch_flash_bwd_delta(o, do, delta)
+                            want = plain_bwd(q.float(), k.float(), v.float(), o.float(), lse,
+                                             do.float(), q_block=BLOCK_M, kv_block=BLOCK_N, **kw)
+                            torch.cuda.synchronize()
+                            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                                raise AssertionError(f"flash_bwd: two runs differ: {case}")
+                            for name, x in zip(("dq", "dk", "dv"), got):
+                                if not torch.isfinite(x.float()).all():
+                                    raise AssertionError(f"flash_bwd {name} non-finite: {case}")
+                            dq, dk, dv = got
+                            blind_rows, blind_cols = ~ok.any(1), ~ok.any(0)
+                            if (blind_rows.any() and dq[:, blind_rows].abs().max().item() != 0.0
+                                    or blind_cols.any() and max(
+                                        dk[:, blind_cols].abs().max().item(),
+                                        dv[:, blind_cols].abs().max().item()) != 0.0):
+                                raise AssertionError(f"flash_bwd gradients of what nothing sees "
+                                                     f"are not exact zeros: {case}")
+                            e = {"delta": _rel_err(delta, attention_delta(o, do))}
+                            e.update({name: _rel_err(x, y) for name, x, y in
+                                      zip(("dq", "dk", "dv"), got, want)})
+                            if e["delta"] > DELTA_TOL or max(e["dq"], e["dk"], e["dv"]) > BWD_TOL:
+                                raise AssertionError(f"flash_bwd disagrees with its plain version: "
+                                                     f"{case}: {e} (tol delta {DELTA_TOL}, "
+                                                     f"grads {BWD_TOL})")
+                            walk_q = torch.tensor(kernel_walks(tr), dtype=torch.int32,
+                                                  device="cuda")
+                            walk_kv = torch.tensor(kernel_walks(tr, transposed=True),
+                                                   dtype=torch.int32, device="cuda")
+                            if not (torch.equal(vq, walk_q[None].expand_as(vq))
+                                    and torch.equal(vkv, walk_kv[None].expand_as(vkv))):
+                                raise AssertionError(f"flash_bwd walked another order than the "
+                                                     f"Traversal's: {case}")
+                            n_visits += vq.numel() + vkv.numel()
+                            for key in worst:
+                                worst[key] = max(worst[key], e[key])
+                            errs.append(max(e["dq"], e["dk"], e["dv"]))
+                            n += 1
+                        print(f"[bwd] D={d} G={g} Sq={sq} Skv={skv} causal={causal} "
+                              f"window={window}: rel err by order {[f'{x:.2e}' for x in errs]} "
+                              "ok, walks == Traversal, bitwise repeatable")
+    print(f"[bwd] {n} cases, worst rel err {json.dumps(worst)} (tol delta {DELTA_TOL}, grads "
+          f"{BWD_TOL}); {n_visits} recorded tile visits equal the Traversal's")
     return worst
 
 
@@ -501,7 +653,8 @@ def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
 
 
 def _kernel_kind(name: str) -> str:
-    for kernel in ("paged_decode", "flash_fwd", "contig_decode"):
+    for kernel in ("paged_decode", "flash_fwd", "contig_decode", "flash_bwd_delta",
+                   "flash_bwd_dq", "flash_bwd_dkv"):
         if kernel in name:
             return kernel
     if any(k in name.lower() for k in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")):
@@ -509,20 +662,17 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def phase_profile(eng, cfg, label: str, step_spans: tuple) -> dict:
-    """Half of the main path's requests (16 new tokens each, to keep the
-    trace small) under torch.profiler: device busy time (the union of kernel
+def _profile(run, label: str, steps: int) -> dict:
+    """``run()`` under torch.profiler: device busy time (the union of kernel
     intervals) against the host's wall time, and device time by kind of
-    kernel. A step is one span named in ``step_spans``."""
+    kernel; ``steps`` is the number of steps ``run`` took."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [dataclasses.replace(r, max_new_tokens=16) for r in _main_requests(cfg.vocab)[:6]]
-    eng.tracer.clear()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(reqs)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -540,7 +690,6 @@ def phase_profile(eng, cfg, label: str, step_spans: tuple) -> dict:
             acc = table.setdefault(key, [0.0, 0])
             acc[0] += dur / 1e6
             acc[1] += 1
-    steps = sum(ev.name in step_spans for ev in eng.tracer.events())
     out = {
         "path": label,
         "wall_s": wall,
@@ -555,6 +704,19 @@ def phase_profile(eng, cfg, label: str, step_spans: tuple) -> dict:
     }
     print("[profile] " + json.dumps(out))
     return out
+
+
+def phase_profile(eng, cfg, label: str, step_spans: tuple) -> dict:
+    """Half of the main path's requests (16 new tokens each, to keep the
+    trace small) under torch.profiler; a step is one span named in
+    ``step_spans``."""
+    reqs = [dataclasses.replace(r, max_new_tokens=16) for r in _main_requests(cfg.vocab)[:6]]
+    eng.tracer.clear()
+    prof = _profile(lambda: eng.generate(reqs), label, 0)
+    steps = sum(ev.name in step_spans for ev in eng.tracer.events())
+    prof.update(steps=steps, kernels_per_step=prof["kernels"] / max(steps, 1))
+    print(f"[profile] {label}: {steps} steps, {prof['kernels_per_step']:.0f} kernels a step")
+    return prof
 
 
 def _leaves(tree):
@@ -653,6 +815,271 @@ def phase_small_static() -> float:
         assert err <= SMALL_MODEL_TOL, err
         worst = max(worst, err)
     return worst
+
+
+# ---- phase 3b: training ---------------------------------------------------------
+
+
+def _train_cfgs(steps: int, **kw):
+    """The launcher's schedule for ``steps`` steps: lr 3e-4, warmup
+    max(steps // 20, 1) (``TrainConfig``'s default 100-step warmup would
+    barely move the weights in a few steps)."""
+    from repro_torch.configs import TrainConfig
+
+    return TrainConfig(lr=3e-4, total_steps=steps, warmup_steps=max(steps // 20, 1), **kw)
+
+
+class _GradMap(torch.autograd.Function):
+    """Identity forward; the backward passes the gradient through ``fn``."""
+
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def _to_float8(g):
+    """g rounded to float8 e4m3 (3 mantissa bits) under a per-tensor scale."""
+    scale = 448.0 / g.abs().amax().float().clamp(min=1e-30)
+    return (g.float() * scale).to(torch.float8_e4m3fn).float().div(scale).to(g.dtype)
+
+
+# The deliberately wrong attention backwards of the gradient check: maps
+# applied to the gradients of (q, k, v) that the kernels return.
+_CONTROLS = {"dk_zero": (None, torch.zeros_like, None),
+             "float8_dqkv": (_to_float8, _to_float8, _to_float8)}
+
+
+@contextlib.contextmanager
+def _grad_control(name):
+    """Within the block, ``ops.attention`` (the kernels, both directions)
+    has its q, k, v gradients passed through control ``name``'s maps."""
+    from repro_torch.kernels import ops
+
+    real = ops.attention
+
+    def attention(q, k, v, **kw):
+        q, k, v = (x if f is None else _GradMap.apply(x, f)
+                   for x, f in zip((q, k, v), _CONTROLS[name]))
+        return real(q, k, v, **kw)
+
+    ops.attention = attention
+    try:
+        yield
+    finally:
+        ops.attention = real
+
+
+def _step0_grads(lm, params, batch, control=None) -> tuple[float, float, dict]:
+    """Loss, global gradient norm and the attention weights' gradients of
+    the first and the last layer for one batch, without an update;
+    ``control`` names a deliberately wrong backward (``_CONTROLS``)."""
+    from repro_torch.train.optimizer import global_norm, named_leaves
+
+    leaves = list(named_leaves(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    with _grad_control(control) if control else contextlib.nullcontext():
+        loss, _ = lm.loss(params, batch)
+        grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    last = len(params["layers"]) - 1
+    attn = {f"layer{path[1]}.{path[3]}": g for (path, _), g in zip(leaves, grads)
+            if path[0] == "layers" and path[1] in (0, last) and path[2] == "attn"}
+    return loss.item(), global_norm(list(grads)).item(), attn
+
+
+def phase_train_main(profile: bool = False) -> dict:
+    """Full-width deepseek-7b (30 layers, bf16, remat full, the CUDA kernels
+    in both directions, sawtooth) takes 4 adamw_factored steps of batch 4 x
+    1024 tokens from DataConfig(seed=0) through make_train_state +
+    make_train_step. Before them, the same weights give step 0's loss and
+    gradient norm through the plain attention (impl torch) for comparison."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticPacked
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import named_leaves
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    steps, batch, seq = 4, 4, 1024
+    cfg = get_config("deepseek-7b").with_(attn_impl="auto")
+    tcfg = _train_cfgs(steps, optimizer="adamw_factored")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = build_model(cfg, device="cuda")
+    state = make_train_state(lm, tcfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in named_leaves(state["params"]))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{n_params / 1e9:.3f} B params ({cfg.param_dtype}), remat {cfg.remat}, "
+          f"{tcfg.optimizer}: params + optimizer state {state_gb:.2f} GB, "
+          f"init {time.perf_counter() - t0:.1f} s")
+    data = SyntheticPacked(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
+    batches = [data.batch(i) for i in range(steps)]
+
+    plain_lm = build_model(cfg.with_(attn_impl="torch"), device="cuda")
+    t0 = time.perf_counter()
+    plain_loss, plain_gnorm, plain_attn = _step0_grads(plain_lm, state["params"], batches[0])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    del plain_lm
+    torch.cuda.empty_cache()
+    grad_errs = {}
+    for name in (None, *_CONTROLS):
+        _, _, attn = _step0_grads(lm, state["params"], batches[0], control=name)
+        grad_errs[name or "kernels"] = {leaf: _rel_l2(g, plain_attn[leaf])
+                                        for leaf, g in attn.items()}
+        del attn
+    del plain_attn
+    torch.cuda.empty_cache()
+    print("[train] step 0 attention weight gradients, ||diff|| / ||plain|| against the plain "
+          "attention: " + json.dumps(grad_errs))
+
+    step_fn = make_train_step(lm, tcfg, ParallelConfig())
+    records = []
+    cuda_lib.reset_launch_counts()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        loss = float(metrics["loss"])  # waits for the card, as run_training's span does
+        dt = time.perf_counter() - t0
+        rec = {"step": i, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+               "lr": float(metrics["lr"]), "step_s": dt, "tokens_per_s": batch * seq / dt}
+        print("[train] " + json.dumps(rec))
+        records.append(rec)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in records]
+    want = {"flash_fwd": 2 * cfg.n_layers * steps, "flash_bwd_delta": cfg.n_layers * steps,
+            "flash_bwd_dq": cfg.n_layers * steps, "flash_bwd_dkv": cfg.n_layers * steps,
+            "paged_decode": 0, "contig_decode": 0}
+    out = {
+        "steps": steps, "batch": batch, "seq": seq, "losses": losses,
+        "step_s": [r["step_s"] for r in records],
+        "tokens_per_s": [r["tokens_per_s"] for r in records],
+        "grad_norms": [r["grad_norm"] for r in records],
+        "peak_mem_gb": peak, "state_gb": state_gb, "launches": launches,
+        "plain_step0": {"loss": plain_loss, "grad_norm": plain_gnorm, "seconds": plain_s},
+        "attn_grad_rel_err": grad_errs,
+    }
+    print("[train] " + json.dumps(out))
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+    if not all(np.isfinite(losses)) or abs(losses[0] - math.log(cfg.vocab)) > 1.5:
+        raise AssertionError(f"step 0 loss {losses[0]} not finite or not within 1.5 of "
+                             f"ln(vocab) = {math.log(cfg.vocab):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall over {steps} steps: {losses}")
+    d_loss = abs(plain_loss - losses[0])
+    d_gnorm = abs(plain_gnorm - records[0]["grad_norm"]) / plain_gnorm
+    print(f"[train] step 0, kernels vs plain attention: loss {losses[0]:.5f} vs {plain_loss:.5f} "
+          f"(|diff| {d_loss:.2e}, tol {TRAIN_LOSS_TOL}); grad_norm {records[0]['grad_norm']:.5f} "
+          f"vs {plain_gnorm:.5f} (rel diff {d_gnorm:.2e}, tol {TRAIN_GNORM_RTOL})")
+    if d_loss > TRAIN_LOSS_TOL or d_gnorm > TRAIN_GNORM_RTOL:
+        raise AssertionError("training step 0 with the kernels disagrees with the plain version")
+    worst = max(grad_errs["kernels"].values())
+    print(f"[train] step 0 attention weight gradients: kernels worst {worst:.3e} (tol "
+          f"{ATTN_GRAD_TOL}); controls worst " + ", ".join(
+              f"{c} {max(grad_errs[c].values()):.3e}" for c in _CONTROLS))
+    if worst > ATTN_GRAD_TOL:
+        raise AssertionError(f"attention weight gradients with the kernels differ from the "
+                             f"plain attention's: {grad_errs['kernels']}")
+    for c in _CONTROLS:
+        if max(grad_errs[c].values()) <= ATTN_GRAD_TOL:
+            raise AssertionError(f"the gradient check cannot tell control {c} from a sound "
+                                 f"backward: {grad_errs[c]}")
+    if profile:
+        out["profile"] = _profile(lambda: step_fn(state, batches[0]), "train", 1)
+    del state, step_fn, lm
+    torch.cuda.empty_cache()
+    return out
+
+
+def _small_train_cfg(**kw):
+    from repro_torch.configs import get_config
+
+    return get_config("deepseek-7b").reduced().with_(
+        dtype="bfloat16", param_dtype="bfloat16", d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=64, d_ff=512, vocab=1024, remat="full", q_block=64, kv_block=64, **kw)
+
+
+def phase_train_loop() -> dict:
+    """run_training on a small bf16 config with the kernels: a crash
+    injected at step 2, then a resume from the checkpoint, against an
+    uninterrupted run; checkpoints under build/ (ignored by git), removed
+    at the end."""
+    import shutil
+
+    from repro_torch.data import DataConfig
+    from repro_torch.models import build_model
+    from repro_torch.train.fault_tolerance import FailureInjector
+    from repro_torch.train.loop import run_training
+
+    cfg = _small_train_cfg()
+    lm = build_model(cfg, device="cuda")
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=256, global_batch=4, seed=0)
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, **kw):
+        tcfg = _train_cfgs(6, checkpoint_every=1, checkpoint_dir=str(root / name))
+        return run_training(lm, tcfg, device="cuda", steps=6, data_cfg=dcfg, log_every=0, **kw)
+
+    try:
+        full = run("full")
+        crashed = run("resume", injector=FailureInjector(crash_at=(2,)))
+        resumed = run("resume")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"full": full.losses, "crashed": crashed.losses, "resumed": resumed.losses,
+           "interrupted": [full.interrupted, crashed.interrupted, resumed.interrupted],
+           "resumed_from": resumed.resumed_from}
+    print("[loop] " + json.dumps(out))
+    if out["interrupted"] != [False, True, False] or len(full.losses) != 6 \
+            or len(crashed.losses) != 2 or resumed.resumed_from != 1 or resumed.final_step != 5:
+        raise AssertionError(f"run_training crash/resume went wrong: {out}")
+    err = max(abs(a - b) for a, b in zip(crashed.losses + resumed.losses, full.losses))
+    print(f"[loop] crash at step 2 + resume vs uninterrupted: max |loss diff| {err:.2e} "
+          f"(tol {LOOP_TOL})")
+    if err > LOOP_TOL:
+        raise AssertionError(f"resumed losses differ from the uninterrupted run: {err}")
+    return out
+
+
+def phase_small_train() -> float:
+    """A small bf16 model (head dim 64, GQA 4:2, remat full): 5 steps of
+    make_train_step with the kernels against the plain versions, from the
+    same weights on the same batches."""
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.data import DataConfig, SyntheticPacked
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    data = SyntheticPacked(DataConfig(vocab=1024, seq_len=200, global_batch=4, seed=1))
+    runs = {}
+    for impl in ("cuda", "torch"):
+        cfg = _small_train_cfg(attn_impl=impl)
+        lm = build_model(cfg, device="cuda")
+        tcfg = _train_cfgs(5)
+        state = make_train_state(lm, tcfg, 7, device="cuda")
+        step = make_train_step(lm, tcfg, ParallelConfig())
+        losses = []
+        for i in range(5):
+            state, m = step(state, data.batch(i))
+            losses.append(float(m["loss"]))
+        runs[impl] = losses
+    err = max(abs(a - b) for a, b in zip(runs["cuda"], runs["torch"]))
+    print(f"[small-train] bf16 model, 5 steps, kernels {runs['cuda']} vs plain {runs['torch']}: "
+          f"max |loss diff| {err:.3e} (tol {SMALL_TRAIN_TOL})")
+    assert all(np.isfinite(runs["cuda"])) and err <= SMALL_TRAIN_TOL, runs
+    return err
 
 
 # ---- phase 4 ------------------------------------------------------------------
@@ -754,11 +1181,12 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
 
 def _time_record(fns: dict, nbytes: int, flops: float, dev_info: dict) -> dict:
     """Kernel, wrapper, plain, library, kernel: two kernel readings bracket
-    the others."""
+    the others. ``fns["library"]`` may be None (no PyTorch call computes the
+    same function)."""
     t_kern = _median_ms(fns["kernel"])
     t_wrap = _median_ms(fns["wrapper"])
     t_plain = _median_ms(fns["plain"])
-    t_lib = _median_ms(fns["library"])
+    t_lib = None if fns["library"] is None else _median_ms(fns["library"])
     t_kern2 = _median_ms(fns["kernel"])
     t_bytes = nbytes / dev_info["bw"] * 1e3
     t_ops = flops / dev_info["peak"] * 1e3
@@ -844,6 +1272,110 @@ def phase_static_kernel_times(dev_info: dict) -> dict:
     return {"flash_fwd": prefill, "contig_decode": decode}
 
 
+def phase_train_kernel_times(dev_info: dict) -> dict:
+    """B2 with lse and B4, B5, B6 at the training shape (B 4, S 1024, 32
+    heads of 128, causal, sawtooth). Bytes: each input read once, each
+    output written once; flops: 2 per visible (query, key) pair, head dim
+    and product (B2 two products, B5 three, B6 four). No single PyTorch
+    call computes one of B4-B6 alone; SDPA's backward (causal, timed alone
+    on a saved graph) computes all three together and is given beside
+    their sum. The plain version of B5 and B6 is the plain backward, which
+    computes delta, dQ, dK and dV together."""
+    from repro_torch.core.attention import attention_delta, flash_attention
+    from repro_torch.core.attention import flash_attention_bwd as plain_bwd
+    from repro_torch.kernels.flash_attention import (
+        BLOCK_M,
+        BLOCK_N,
+        flash_attention_bwd,
+        flash_attention_fwd,
+        launch_flash_bwd_delta,
+        launch_flash_bwd_dkv,
+        launch_flash_bwd_dq,
+        launch_flash_fwd,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    b, h, d, s = 4, 32, 128, 1024
+    q, k, v, do = (_bf16(gen, (b, s, h, d)) for _ in range(4))
+    kw = dict(order="sawtooth", causal=True)
+    tiles = dict(q_block=BLOCK_M, kv_block=BLOCK_N)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    out, lse2 = torch.empty_like(q), torch.empty_like(lse)
+    delta, dq = torch.empty_like(lse), torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    launch_flash_bwd_delta(o, do, delta)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    want = plain_bwd(q.float(), k.float(), v.float(), o.float(), lse, do.float(), **tiles, **kw)
+    ref_o, ref_lse = flash_attention(q.float(), k.float(), v.float(), return_lse=True, **tiles,
+                                     **kw)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_grads = torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+    torch.cuda.synchronize()
+    lse_err = (lse - ref_lse).abs().max().item()
+    assert lse_err <= LSE_TOL, lse_err
+    errs = {
+        "flash_fwd": (o.float() - ref_o).abs().max().item(),
+        "flash_bwd_delta": _rel_err(delta, attention_delta(o, do)),
+        "flash_bwd_dq": _rel_err(got[0], want[0]),
+        "flash_bwd_dkv": max(_rel_err(got[1], want[1]), _rel_err(got[2], want[2])),
+    }
+    lib_diff = max(_rel_err(x, y.transpose(1, 2).float())
+                   for x, y in zip(got, lib_grads))
+    bhsd = b * s * h * d
+    pairs = b * h * s * (s + 1) / 2          # visible (query, key) pairs over all heads
+    mm = 2.0 * pairs * d                     # flops of one score-shaped product
+    rows = b * s * h * 4                     # one float32 per row (lse, delta)
+    recs = {
+        "flash_fwd": _time_record({
+            "kernel": lambda: launch_flash_fwd(q, k, v, out, lse2, **kw),
+            "wrapper": lambda: flash_attention_fwd(q, k, v, return_lse=True, **kw),
+            "plain": lambda: flash_attention(q, k, v, return_lse=True, **tiles, **kw),
+            "library": lambda: sdpa(qt, kt, vt, is_causal=True),
+        }, nbytes=4 * bhsd * 2 + rows, flops=2 * mm, dev_info=dev_info),
+        "flash_bwd_delta": _time_record({
+            "kernel": lambda: launch_flash_bwd_delta(o, do, delta),
+            "wrapper": lambda: launch_flash_bwd_delta(o, do, delta),
+            "plain": lambda: attention_delta(o, do),
+            "library": None,
+        }, nbytes=2 * bhsd * 2 + rows, flops=2.0 * bhsd, dev_info=dev_info),
+        "flash_bwd_dq": _time_record({
+            "kernel": lambda: launch_flash_bwd_dq(q, k, v, do, lse, delta, dq, **kw),
+            "wrapper": lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+            "plain": lambda: plain_bwd(q, k, v, o, lse, do, **tiles, **kw),
+            "library": None,
+        }, nbytes=5 * bhsd * 2 + 2 * rows, flops=3 * mm, dev_info=dev_info),
+        "flash_bwd_dkv": _time_record({
+            "kernel": lambda: launch_flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, **kw),
+            "wrapper": lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+            "plain": lambda: plain_bwd(q, k, v, o, lse, do, **tiles, **kw),
+            "library": None,
+        }, nbytes=6 * bhsd * 2 + 2 * rows, flops=4 * mm, dev_info=dev_info),
+    }
+    sdpa_bwd = _median_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                      retain_graph=True))
+    bwd_sum = sum(recs[n]["kernel_ms"] for n in ("flash_bwd_delta", "flash_bwd_dq",
+                                                  "flash_bwd_dkv"))
+    shape = {"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True,
+             "order": "sawtooth"}
+    for name, rec in recs.items():
+        rec.update(shape=shape, max_abs_err=errs[name])
+        if name != "flash_fwd":
+            rec.update(sdpa_bwd_ms=sdpa_bwd, bwd_kernels_sum_ms=bwd_sum,
+                       sdpa_bwd_rel_diff=lib_diff,
+                       plain_covers="flash_bwd_delta+flash_bwd_dq+flash_bwd_dkv"
+                       if name != "flash_bwd_delta" else "flash_bwd_delta")
+        print(f"[time] {name} train: " + json.dumps(rec))
+    for name, rec in recs.items():
+        tol = DELTA_TOL if name == "flash_bwd_delta" else BWD_TOL
+        if name == "flash_fwd":
+            tol = KERNEL_TOL
+        assert rec["max_abs_err"] <= tol, (name, rec["max_abs_err"])
+    return recs
+
+
 def _alternating_orders(q, k, v, bt, lens, qls, nb) -> dict:
     """Per-launch time of launch pairs whose rows' lengths differ by one, as
     two consecutive decode steps do, with the pages walked in cyclic and in
@@ -891,44 +1423,73 @@ def _entry(name: str, launches: int, max_abs_err: float, rec: dict, **extra) -> 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also run half of each main path's requests under torch.profiler")
+                    help="also profile each main path (half of the serve requests, one "
+                         "training step) under torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test runs on the GPU only",
               file=sys.stderr)
         return 2
     _port()
+    t_start = time.perf_counter()
     dev_info = phase_device()
     worst = phase_kernel_matrix()
     flash_worst = phase_flash_matrix()
     decode_worst = phase_decode_matrix()
+    bwd_worst = phase_bwd_matrix()
     cfg, lm, params = build_main_model()
     main_path = phase_main_path(cfg, lm, params, profile=args.profile)
     static = phase_static_path(cfg, lm, params, profile=args.profile)
     del lm, params
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = phase_train_main(profile=args.profile)
     small = phase_small_model()
     small_static = phase_small_static()
+    loop = phase_train_loop()
+    small_train = phase_small_train()
     times = phase_kernel_times(dev_info, main_path)
     static_times = phase_static_kernel_times(dev_info)
+    train_times = phase_train_kernel_times(dev_info)
 
+    by_path = {name: {"continuous": main_path["launches"][name],
+                      "static": static["launches"][name], "train": train["launches"][name]}
+               for name in main_path["launches"]}
+    launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     narrow, wide = times["narrow"], times["wide"]
     fwd, dec = static_times["flash_fwd"], static_times["contig_decode"]
+    timing_keys = ("kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
-        _entry("paged_decode", main_path["launches"]["paged_decode"],
+        _entry("paged_decode", launches["paged_decode"],
                max(worst, narrow["max_abs_err"], wide["max_abs_err"]), narrow,
-               wide={k: wide[k] for k in ("kernel_ms", "wrapper_ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
-               small_model_max_abs_err=small),
-        _entry("flash_fwd", static["launches"]["flash_fwd"], max(flash_worst, fwd["max_abs_err"]),
-               fwd, launches_per_prefill=static["launches"]["flash_fwd"] / static["prefill_calls"],
+               wide={k: wide[k] for k in timing_keys}, small_model_max_abs_err=small),
+        _entry("flash_fwd", launches["flash_fwd"],
+               max(flash_worst, fwd["max_abs_err"], train_times["flash_fwd"]["max_abs_err"]), fwd,
+               launches_per_prefill=static["launches"]["flash_fwd"] / static["prefill_calls"],
+               launches_per_train_step=train["launches"]["flash_fwd"] / train["steps"],
+               train_shape={k: train_times["flash_fwd"][k] for k in timing_keys},
                small_model_max_abs_err=small_static),
-        _entry("contig_decode", static["launches"]["contig_decode"],
+        _entry("contig_decode", launches["contig_decode"],
                max(decode_worst, dec["max_abs_err"]), dec,
                launches_per_decode_step=static["launches"]["contig_decode"]
                / static["decode_calls"],
                small_model_max_abs_err=small_static),
     ]
+    for name, key in (("flash_bwd_delta", "delta"), ("flash_bwd_dq", "dq"),
+                      ("flash_bwd_dkv", "dk")):
+        rec = train_times[name]
+        err = max(bwd_worst[key], bwd_worst["dv"] if key == "dk" else 0.0, rec["max_abs_err"])
+        kernels.append(_entry(
+            name, launches[name], err, rec,
+            max_abs_err_is="max-abs error over max |plain|",
+            launches_per_train_step=train["launches"][name] / train["steps"],
+            sdpa_bwd_ms=rec["sdpa_bwd_ms"], bwd_kernels_sum_ms=rec["bwd_kernels_sum_ms"],
+            plain_covers=rec["plain_covers"], small_train_max_abs_loss_diff=small_train))
+    for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s; training "
+          f"{train['tokens_per_s'][-1]:.0f} tokens/s at step {train['steps'] - 1}, peak "
+          f"{train['peak_mem_gb']:.2f} GB; loop {loop['interrupted']}")
     print(dev_info["smi"])
     print("checked kernels: " + json.dumps([k["name"] for k in kernels]))
     print(json.dumps({"kernels": kernels}))

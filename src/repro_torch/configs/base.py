@@ -1,5 +1,6 @@
-"""Model config for the PyTorch port: the same fields and defaults as
-``repro.configs.base.ModelConfig``, with dtypes resolved to torch dtypes.
+"""Configs for the PyTorch port: ``ModelConfig`` with the same fields and
+defaults as ``repro.configs.base.ModelConfig``, dtypes resolved to torch
+dtypes; ``ParallelConfig`` and ``TrainConfig`` as the reference's.
 
 Every assigned architecture is a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; ``repro_torch.configs.registry`` maps ``--arch`` ids
@@ -9,11 +10,12 @@ to them. The data is copied from the JAX package, not imported from it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "torch_dtype"]
+__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "ParallelConfig", "TrainConfig",
+           "torch_dtype"]
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -138,3 +140,37 @@ class ModelConfig:
         if self.window is not None:
             kw["window"] = 32
         return self.with_(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """How logical dims map onto a mesh, and runtime knobs. The port runs on
+    one card without a mesh: only ``microbatches`` (gradient accumulation)
+    has an effect. The sharding fields keep the reference's names and
+    defaults; ``make_train_step`` refuses any other value of them (sharding
+    is ROADMAP A14)."""
+
+    fsdp_axes: Sequence[str] = ("pod", "data")
+    tensor_axis: str = "model"
+    data_axes: Sequence[str] = ("pod", "data")
+    seq_shard_activations: bool = False
+    microbatches: int = 1                         # gradient accumulation
+    grad_compression: str = "none"
+    zero_grads: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    z_loss: float = 1e-4
+    optimizer: str = "adamw"          # adamw | adamw_factored
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int = 3

@@ -7,6 +7,10 @@ A port of ``repro.core.attention``:
     walked in the Traversal's order (split-Q, paper Alg. 1 and 4), with
     the per-row log-sum-exp on request; the plain version of the flash
     forward kernel;
+  * ``flash_attention_bwd``: the fused blockwise backward from the saved
+    ``(o, lse)`` (delta, a dQ pass on the forward grid, a dK/dV pass on
+    the transposed grid); the plain version of the three backward kernels
+    together, and ``attention_delta`` of the first;
   * ``decode_attention``: one query position against a contiguous cache
     (the plain version of the contiguous decode kernel), or the paged
     layout when a block table is given;
@@ -40,6 +44,8 @@ __all__ = [
     "NEG_INF",
     "mha_reference",
     "flash_attention",
+    "attention_delta",
+    "flash_attention_bwd",
     "decode_attention",
     "paged_decode_attention",
     "row_meta",
@@ -174,6 +180,123 @@ def flash_attention(
         return out
     lse = lse.permute(0, 3, 4, 1, 2).reshape(b, nq * q_block, hq)[:, :sq]
     return out, lse
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in float32, (B, Sq, Hq): the softmax-gradient
+    dot product the dQ and dK/dV passes reuse."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    order: Order | str = Order.CYCLIC,
+    causal: bool = False,
+    window: Optional[int] = None,
+    q_block: int = 128,
+    kv_block: int = 128,
+    scale: Optional[float] = None,
+    score_dtype: str = "float32",
+    snake_group: Optional[int] = None,
+):
+    """Fused blockwise flash backward from the saved ``(o, lse)``: returns
+    (dq, dk, dv) in the dtypes of q, k, v.
+
+    The FlashAttention-2 two-pass structure, without re-running the
+    forward: delta = rowsum(dO * O); a dQ pass with every Q tile resident
+    and the KV tiles walked in ``Traversal.kv_step`` order (dQ += scale *
+    dS K); a dK/dV pass with every KV tile resident and the Q tiles walked
+    in the transposed order, parity keyed on the KV tile (dV += P^T dO, dK
+    += scale * dS^T Q). P = exp(S * scale - lse) comes from the saved
+    log-sum-exp and dS = P * (dP - delta). Both passes walk the full tile
+    range and mask (the kernels trim instead). ``score_dtype`` sets the
+    type of the two score-shaped products; softmax recovery and the sums
+    stay float32.
+    """
+    order = Order.parse(order)
+    sdt = torch_dtype(score_dtype)
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"GQA requires Hq % Hkv == 0, got {hq} % {hkv}")
+    g = hq // hkv
+    scale_ = d ** -0.5 if scale is None else scale
+    q_block = min(q_block, max(sq, 1))
+    kv_block = min(kv_block, max(skv, 1))
+
+    delta = attention_delta(o, do)
+    qp, dop = _pad_to(q, 1, q_block), _pad_to(do, 1, q_block)
+    lsep, deltap = _pad_to(lse.float(), 1, q_block), _pad_to(delta, 1, q_block)
+    kp, vp = _pad_to(k, 1, kv_block), _pad_to(v, 1, kv_block)
+    nq, nkv = qp.shape[1] // q_block, kp.shape[1] // kv_block
+    tr = Traversal(
+        order=order, n_q=nq, n_kv=nkv, causal=causal, window=window,
+        q_block=q_block, kv_block=kv_block, n_groups=g, snake_group=snake_group,
+    )
+    # The dK/dV pass streams Q tiles with parity on the resident KV tile:
+    # the same arithmetic with the roles of the axes swapped.
+    tr_t = Traversal(order=order, n_q=nkv, n_kv=nq, q_block=kv_block, kv_block=q_block,
+                     snake_group=snake_group)
+    dev = q.device
+
+    def fold_q(x):  # (B, Sq_p, Hq[, D]) -> (B, Hkv, G, nq, qb[, D])
+        tail = x.shape[3:]
+        x = x.reshape((b, nq, q_block, hkv, g) + tail)
+        return x.permute((0, 3, 4, 1, 2) + tuple(range(5, x.dim())))
+
+    def fold_kv(x):  # (B, Skv_p, Hkv, D) -> (B, Hkv, nkv, kb, D)
+        return x.float().reshape(b, nkv, kv_block, hkv, d).permute(0, 3, 1, 2, 4)
+
+    qb_, dob_ = fold_q(qp.float()), fold_q(dop.float())
+    lseb, deltab = fold_q(lsep), fold_q(deltap)
+    kb_, vb_ = fold_kv(kp), fold_kv(vp)
+    q_rows = torch.arange(q_block, device=dev)
+    kv_cols = torch.arange(kv_block, device=dev)
+
+    def p_ds(q_t, do_t, lse_t, delta_t, k_j, v_j, ok):
+        """Normalized probabilities P and the score gradient dS of a tile;
+        q_t/do_t (B, Hkv, G, T, qb, D), k_j/v_j (B, Hkv, T, kb, D)."""
+        s = torch.einsum("bhgtqd,bhtkd->bhgtqk", q_t.to(sdt), k_j.to(sdt)).float() * scale_
+        p = torch.where(ok, torch.exp(s - lse_t[..., None]), 0.0)
+        dp = torch.einsum("bhgtqd,bhtkd->bhgtqk", do_t.to(sdt), v_j.to(sdt)).float()
+        return p, p * (dp - delta_t[..., None])
+
+    # dQ pass: every Q tile resident, KV tiles streamed in forward order.
+    tiles = torch.arange(nq, dtype=torch.int32, device=dev)
+    rows = (tiles[:, None] * q_block + q_rows[None, :])[:, :, None]       # (nq, qb, 1)
+    dq = torch.zeros((b, hkv, g, nq, q_block, d), dtype=torch.float32, device=dev)
+    for j in range(nkv):
+        kv_j = torch.as_tensor(tr.kv_step(tiles, j), device=dev).long().expand(nq)
+        k_j, v_j = kb_[:, :, kv_j], vb_[:, :, kv_j]                     # (B, Hkv, nq, kb, D)
+        cols = (kv_j[:, None] * kv_block + kv_cols[None, :])[:, None, :]
+        ok = _valid_mask(rows, cols, causal=causal, window=window, kv_len=skv)
+        _, ds = p_ds(qb_, dob_, lseb, deltab, k_j, v_j, ok)
+        dq += scale_ * torch.einsum("bhgtqk,bhtkd->bhgtqd", ds, k_j)
+    dq = dq.permute(0, 3, 4, 1, 2, 5).reshape(b, nq * q_block, hq, d)[:, :sq]
+
+    # dK/dV pass: every KV tile resident, Q tiles streamed in transposed order.
+    kv_tiles = torch.arange(nkv, dtype=torch.int32, device=dev)
+    cols = (kv_tiles[:, None] * kv_block + kv_cols[None, :])[:, None, :]  # (nkv, 1, kb)
+    dk = torch.zeros((b, hkv, nkv, kv_block, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for jq in range(nq):
+        q_i = torch.as_tensor(tr_t.kv_step(kv_tiles, jq), device=dev).long().expand(nkv)
+        q_t, do_t = qb_[:, :, :, q_i], dob_[:, :, :, q_i]               # (B, Hkv, G, nkv, qb, D)
+        lse_t, delta_t = lseb[:, :, :, q_i], deltab[:, :, :, q_i]
+        r = (q_i[:, None] * q_block + q_rows[None, :])[:, :, None]
+        ok = _valid_mask(r, cols, causal=causal, window=window, kv_len=skv)
+        p, ds = p_ds(q_t, do_t, lse_t, delta_t, kb_, vb_, ok)
+        dv += torch.einsum("bhgtqk,bhgtqd->bhtkd", p, do_t)
+        dk += scale_ * torch.einsum("bhgtqk,bhgtqd->bhtkd", ds, q_t)
+    dk = dk.permute(0, 2, 3, 1, 4).reshape(b, nkv * kv_block, hkv, d)[:, :skv]
+    dv = dv.permute(0, 2, 3, 1, 4).reshape(b, nkv * kv_block, hkv, d)[:, :skv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention(

@@ -2,8 +2,9 @@
 visit orders of the paged serve path.
 
 The subset of ``repro.core.schedule`` (the Traversal IR) that the port's
-forward attention and ragged paged attention consume. The three order
-families are one grouped-reversal arithmetic with different group sizes:
+flash attention (forward and backward) and ragged paged attention consume.
+The three order families are one grouped-reversal arithmetic with different
+group sizes:
 
   cyclic        : group 1, every pass scans pages 0..n-1;
   sawtooth      : group n, odd passes scan n-1..0 (paper Alg. 4);
@@ -11,7 +12,9 @@ families are one grouped-reversal arithmetic with different group sizes:
 
 On the forward grid (:class:`Traversal`) the parity key is the folded
 grid row (GQA group x Q tile) and the range is the row's causal/SWA-trimmed
-KV-tile range. During serving the parity key of a row is its cache
+KV-tile range; on the transposed dK/dV grid of the backward it is the
+resident KV tile, and the range is every (GQA group, Q tile) that sees it,
+swept as one. During serving the parity key of a row is its cache
 length after the step's write, so consecutive steps of one sequence reverse
 direction and the tail pages of step t are the first pages of step t+1.
 Every order is a permutation of the range; online softmax makes the result
@@ -39,6 +42,7 @@ __all__ = [
     "kv_index",
     "kv_index_host",
     "num_kv_tiles_for",
+    "q_tile_bounds_for",
     "Traversal",
 ]
 
@@ -172,17 +176,34 @@ def num_kv_tiles_for(
     return min(n_kv, last_row // kv_block + 1)
 
 
+def q_tile_bounds_for(
+    kv_tile: int, n_q: int, *, causal: bool, window: Optional[int], q_block: int,
+    kv_block: int,
+) -> tuple[int, int]:
+    """Inclusive [lo, hi] Q-tile range that touches ``kv_tile`` (the
+    transposed trimming of the dK/dV grid): causal raises ``lo`` with the
+    tile, a window caps ``hi`` at the last row that still sees its last
+    column. ``hi < lo`` when nothing sees the tile."""
+    lo = (kv_tile * kv_block) // q_block if causal else 0
+    if window is not None:
+        hi = min(n_q - 1, ((kv_tile + 1) * kv_block + window - 2) // q_block)
+    else:
+        hi = n_q - 1
+    return lo, hi
+
+
 @dataclasses.dataclass(frozen=True)
 class Traversal:
-    """One attention problem's forward traversal: ``n_q``/``n_kv`` sequence
-    tiles of ``q_block``/``kv_block`` rows, ``n_groups`` GQA query groups
-    folded along the row axis (grid rows = ``n_groups * n_q``, row ``i``
-    covering Q tile ``i % n_q``), causal/SWA trimming. ``snake_group``
-    parameterizes ``block_snake`` and is ignored by the other orders.
+    """One attention problem's traversal: ``n_q``/``n_kv`` sequence tiles of
+    ``q_block``/``kv_block`` rows, ``n_groups`` GQA query groups folded along
+    the row axis (grid rows = ``n_groups * n_q``, row ``i`` covering Q tile
+    ``i % n_q``), causal/SWA trimming. ``snake_group`` parameterizes
+    ``block_snake`` and is ignored by the other orders.
 
-    The transposed-grid lowerings of the reference (``q_bounds``,
-    ``stream_block_index``, ``stream_sweep``, ``wavefront``) serve the
-    backward kernels and come with the training slice.
+    Two grids read it: the forward (and dQ) grid, where a folded Q row is
+    resident and walks its KV tiles (``kv_*``), and the transposed dK/dV
+    grid, where a KV tile is resident and streams every (GQA group, Q tile)
+    that sees it as one sweep (``q_bounds``, ``stream_*``).
     """
 
     order: Order
@@ -277,6 +298,63 @@ class Traversal:
         ``n_kv`` range: the blockwise path masks instead of trimming."""
         return kv_index(self.order, i, j, self.n_kv, snake_group=self.snake_group)
 
+    # ---- index arithmetic of the transposed (dK/dV) grid ----------------------
+
+    def q_bounds_host(self, kv_tile: int) -> tuple[int, int]:
+        """Inclusive [lo, hi] Q-tile range that sees KV tile ``kv_tile``."""
+        return q_tile_bounds_for(kv_tile, self.n_q, causal=self.causal, window=self.window,
+                                 q_block=self.q_block, kv_block=self.kv_block)
+
+    def q_bounds(self, jkv) -> tuple[torch.Tensor, torch.Tensor]:
+        """Vectorized [lo, hi] for KV tiles ``jkv`` (an int tensor)."""
+        jkv = torch.as_tensor(jkv, dtype=torch.int32)
+        if self.causal:
+            lo = torch.div(jkv * self.kv_block, self.q_block, rounding_mode="floor")
+        else:
+            lo = torch.zeros_like(jkv)
+        if self.window is not None:
+            last_row = (jkv + 1) * self.kv_block + (self.window - 2)
+            hi = torch.clamp(torch.div(last_row, self.q_block, rounding_mode="floor"),
+                             max=self.n_q - 1)
+        else:
+            hi = torch.full_like(jkv, self.n_q - 1)
+        return lo, hi
+
+    def stream_block_index(self, jkv, u):
+        """(GQA group, Q tile, valid) streamed at dK/dV grid step (resident
+        KV tile ``jkv``, step ``u``). All ``n_groups`` groups over the
+        trimmed Q range form one sweep of ``n_groups * steps`` positions,
+        reordered as one range with parity key ``jkv`` (sawtooth reverses it
+        as a unit, block_snake within ``snake_group`` windows). Steps past
+        the sweep clamp to its end with ``valid`` False; an empty Q range
+        gives one always-invalid step. Python ints give ints; int tensors
+        give tensors."""
+        if _is_host_int(jkv, u):
+            lo, hi = self.q_bounds_host(jkv)
+            raw = hi - lo + 1
+            steps = max(raw, 1)
+            total = self.n_groups * steps
+            uu = min(max(u, 0), total - 1)
+            if self.order is not Order.CYCLIC:
+                uu = _snake_pos_host(jkv, uu, total, self.group_for(total))
+            qi = min(max(lo + uu % steps, 0), self.n_q - 1)
+            return uu // steps, qi, u < self.n_groups * raw
+        jkv = torch.as_tensor(jkv, dtype=torch.int32)
+        u = torch.as_tensor(u, dtype=torch.int32)
+        lo, hi = self.q_bounds(jkv)
+        raw = hi - lo + 1
+        steps = torch.clamp(raw, min=1)
+        total = self.n_groups * steps
+        uu = torch.minimum(torch.clamp(u, min=0), total - 1)
+        if self.order is Order.SAWTOOTH:
+            uu = _snake_pos_tensor(jkv, uu, total, total)
+        elif self.order is Order.BLOCK_SNAKE:
+            g = torch.clamp(total, max=self.snake_group or DEFAULT_SNAKE_GROUP)
+            uu = _snake_pos_tensor(jkv, uu, total, g)
+        gg = torch.div(uu, steps, rounding_mode="floor")
+        qi = torch.clamp(lo + uu % steps, 0, self.n_q - 1)
+        return gg, qi, u < self.n_groups * raw
+
     # ---- host iterators ------------------------------------------------------
 
     def kv_order(self, q_tile: int, local_iter: Optional[int] = None) -> list[int]:
@@ -290,6 +368,36 @@ class Traversal:
             for j in range(n)
         ]
 
+    def q_order(self, kv_tile: int, local_iter: Optional[int] = None) -> list[int]:
+        """Q tile ids streamed while KV tile ``kv_tile`` is resident (one
+        group), trimmed, in traversal order; parity key default ``kv_tile``."""
+        li = kv_tile if local_iter is None else local_iter
+        lo, hi = self.q_bounds_host(kv_tile)
+        n = hi - lo + 1
+        return [
+            lo + kv_index_host(self.order, li, j, n, snake_group=self.snake_group)
+            for j in range(n)
+        ]
+
+    def stream_sweep(self, resident: int,
+                     local_iter: Optional[int] = None) -> list[tuple[int, int]]:
+        """The (GQA group, Q tile) sweep of resident KV tile ``resident`` on
+        the transposed grid, in traversal order (``stream_block_index``'s
+        valid steps); parity key default ``resident``, the worker-local
+        resident counter in the wavefront model. Empty when nothing sees
+        the tile."""
+        li = resident if local_iter is None else local_iter
+        lo, hi = self.q_bounds_host(resident)
+        steps = hi - lo + 1
+        total = self.n_groups * max(steps, 0)
+        return [
+            (uu // steps, lo + uu % steps)
+            for uu in (
+                kv_index_host(self.order, li, u, total, snake_group=self.snake_group)
+                for u in range(total)
+            )
+        ]
+
     def fwd_grid_steps(self) -> Iterator[tuple[int, int, bool]]:
         """Replay the folded forward grid: yields (row, kv tile, valid) for
         every row and every one of the ``n_kv`` steps."""
@@ -297,3 +405,62 @@ class Traversal:
             for j in range(self.n_kv):
                 jj, valid = self.kv_block_index(i, j)
                 yield i, jj, valid
+
+    def stream_grid_steps(self) -> Iterator[tuple[int, int, int, bool]]:
+        """Replay the transposed dK/dV grid: yields (kv tile, group, Q tile,
+        valid) for every KV tile and every one of the ``grid_rows`` steps."""
+        for jkv in range(self.n_kv):
+            for u in range(self.grid_rows):
+                yield (jkv, *self.stream_block_index(jkv, u))
+
+    def worker_assignments(self, n_workers: int, *,
+                           transposed: bool = False) -> list[list[int]]:
+        """Round-robin (grid-stride) assignment of residents to persistent
+        workers (paper Alg. 2): folded Q rows on the forward grid, KV tiles
+        on the transposed one."""
+        if n_workers <= 0:
+            raise ValueError("n_workers must be positive")
+        n_residents = self.n_kv if transposed else self.grid_rows
+        return [list(range(w, n_residents, n_workers)) for w in range(n_workers)]
+
+    def wavefront(self, n_workers: int, *,
+                  transposed: bool = False) -> Iterator[tuple[int, str, object]]:
+        """Lock-step persistent-worker wavefront over the folded grid (paper
+        Alg. 2 assignment, §3.4 lock step, Alg. 4 worker-local parity): at
+        each global step every active worker issues its current access, in
+        worker order. Forward: ('Q', row) on entry, ('K'|'V', kv tile) per
+        step, ('O', row) at the end. Transposed: ('K'|'V', kv tile) on entry,
+        ('Q'|'dO', (group, q tile)) per step, ('dK'|'dV', kv tile) at the
+        end. A resident with an empty stream still emits its bookends."""
+        assignments = self.worker_assignments(n_workers, transposed=transposed)
+        n_w = len(assignments)
+        pos = [0] * n_w
+        inner = [0] * n_w
+        started = [False] * n_w
+        stream: list = [None] * n_w
+        active = [len(a) > 0 for a in assignments]
+        enter, step, leave = (("K", "V"), ("Q", "dO"), ("dK", "dV")) if transposed else (
+            ("Q",), ("K", "V"), ("O",))
+        while any(active):
+            for w, assign in enumerate(assignments):
+                if not active[w]:
+                    continue
+                res = assign[pos[w]]
+                if not started[w]:
+                    for name in enter:
+                        yield (w, name, res)
+                    stream[w] = (self.stream_sweep(res, local_iter=pos[w]) if transposed
+                                 else self.kv_order(res % self.n_q, local_iter=pos[w]))
+                    started[w] = True
+                if stream[w]:
+                    for name in step:
+                        yield (w, name, stream[w][inner[w]])
+                    inner[w] += 1
+                if not stream[w] or inner[w] >= len(stream[w]):
+                    for name in leave:
+                        yield (w, name, res)
+                    inner[w] = 0
+                    started[w] = False
+                    pos[w] += 1
+                    if pos[w] >= len(assign):
+                        active[w] = False

@@ -37,14 +37,14 @@
 // cp.async/TMA pipelining, no wgmma and no persistent tile scheduler yet:
 // those are later work.
 
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kBM = 64;  // Q rows per block
-constexpr int kBN = 64;  // KV positions per tile
+constexpr int kBM = kTile;  // Q rows per block
+constexpr int kBN = kTile;  // KV positions per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
@@ -59,18 +59,6 @@ struct Args {
   int causal, window, order, snake;
   float scale;
 };
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args p) {
@@ -98,8 +86,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args p) {
   const int tig = lane & 3;           // thread in group
 
   // Trimmed KV-tile range of this row (Traversal.kv_bounds_host).
-  const int hi = p.causal ? min(p.n_kv - 1, (row0 + kBM - 1) / kBN) : p.n_kv - 1;
-  const int lo = p.window >= 0 ? max(row0 - (p.window - 1), 0) / kBN : 0;
+  int lo, hi;
+  kv_tile_range(q_tile, p.n_kv, p.causal, p.window, lo, hi);
   const int raw = hi - lo + 1;
   const int group = order_group(p.order, p.snake, raw);
 
@@ -180,9 +168,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args p) {
       for (int e = 0; e < 4; ++e) {
         const int h = e >> 1;
         const int col = col0 + nt * 8 + tig * 2 + (e & 1);
-        bool ok = col < p.Skv;
-        if (p.causal) ok = ok && col <= grow[h];
-        if (p.window >= 0) ok = ok && col > grow[h] - p.window;
+        const bool ok = visible<false>(grow[h], col, p.Sq, p.Skv, p.causal, p.window);
         s[nt][e] = ok ? s[nt][e] * p.scale : -INFINITY;
         mx[h] = fmaxf(mx[h], s[nt][e]);
       }

@@ -81,6 +81,32 @@ KERNELS = {
         argtypes=(_P,) * 5 + (_I,) * 9 + (_F, _P),
         replaces="src/repro/kernels/flash_decode.py:94",
     ),
+    "flash_bwd_delta": Kernel(
+        name="flash_bwd_delta",
+        source="flash_bwd_delta.cu",
+        entry="flash_bwd_delta_bf16",
+        # o, dO, delta, n_rows, D, stream
+        argtypes=(_P,) * 3 + (_I,) * 2 + (_P,),
+        replaces="src/repro/kernels/flash_attention.py:332",
+    ),
+    "flash_bwd_dq": Kernel(
+        name="flash_bwd_dq",
+        source="flash_bwd_dq.cu",
+        entry="flash_bwd_dq_bf16",
+        # q, k, v, dO, lse, delta, dq, visit, B, Sq, Skv, Hq, Hkv, D, causal,
+        # window, order, snake, scale, stream
+        argtypes=(_P,) * 8 + (_I,) * 10 + (_F, _P),
+        replaces="src/repro/kernels/flash_attention.py:345",
+    ),
+    "flash_bwd_dkv": Kernel(
+        name="flash_bwd_dkv",
+        source="flash_bwd_dkv.cu",
+        entry="flash_bwd_dkv_bf16",
+        # q, k, v, dO, lse, delta, dk, dv, visit, B, Sq, Skv, Hq, Hkv, D,
+        # causal, window, order, snake, scale, stream
+        argtypes=(_P,) * 9 + (_I,) * 10 + (_F, _P),
+        replaces="src/repro/kernels/flash_attention.py:405",
+    ),
 }
 
 # Order family as the kernels take it (the ``order`` int argument).

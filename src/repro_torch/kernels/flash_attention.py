@@ -1,5 +1,5 @@
-"""Split-Q flash attention forward: the CUDA kernel's wrapper and its plain
-version.
+"""Flash attention forward and fused backward: the CUDA kernels' wrappers and
+their plain versions.
 
 ``flash_attention_fwd`` is the port of the JAX package's wrapper of the same
 name. For CUDA tensors it launches ``csrc/flash_fwd.cu``: one block per
@@ -9,6 +9,16 @@ order over the row's trimmed range at the kernel's own tile sizes
 (``BLOCK_M`` x ``BLOCK_N``). For tensors on the CPU it returns the plain
 version, ``repro_torch.core.attention.flash_attention``, at the same tile
 sizes and order. It never falls back from CUDA to the plain version.
+
+``flash_attention_bwd`` is the port of the JAX package's fused backward of
+the same name. For CUDA tensors it launches three kernels on the current
+stream: ``csrc/flash_bwd_delta.cu`` (delta = rowsum(dO * O)), then
+``csrc/flash_bwd_dq.cu`` (dQ, on the forward's grid and walk) and
+``csrc/flash_bwd_dkv.cu`` (dK and dV, one block per resident KV tile
+streaming its (GQA group, Q tile) sweep in the transposed order,
+``Traversal.stream_sweep``). For tensors on the CPU it returns the plain
+version, ``repro_torch.core.attention.flash_attention_bwd``, at the kernels'
+tile sizes.
 
 The tile sizes are the kernel's, not the config's ``q_block``/``kv_block``
 (512 there, sized for a TPU's vector memory): a 512 x 128 bf16 K tile alone
@@ -23,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.attention import flash_attention
+from repro_torch.core.attention import flash_attention_bwd as _plain_bwd
 from repro_torch.core.schedule import DEFAULT_SNAKE_GROUP, Order, Traversal
 from repro_torch.kernels import cuda_lib
 
@@ -32,7 +43,12 @@ __all__ = [
     "BLOCK_N",
     "flash_attention_fwd",
     "launch_flash_fwd",
+    "flash_attention_bwd",
+    "launch_flash_bwd_delta",
+    "launch_flash_bwd_dq",
+    "launch_flash_bwd_dkv",
     "kernel_traversal",
+    "kernel_walks",
 ]
 
 # Finite mask value of the reference kernels; a row that sees nothing ends
@@ -56,21 +72,41 @@ def kernel_traversal(
     )
 
 
-def _check_cuda_operands(q, k, v) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def kernel_walks(tr: Traversal, *, transposed: bool = False) -> list[list[int]]:
+    """What the kernels record in ``visit_out`` for Traversal ``tr`` (one
+    (batch, kv head) slice): forward and dQ, one row per folded Q row with
+    its KV tiles in walk order; transposed (dK/dV), one row per KV tile with
+    its sweep folded as ``group * n_q + q_tile``; each padded with -1."""
+    if transposed:
+        width = tr.grid_rows
+        rows = [[grp * tr.n_q + qi for grp, qi in tr.stream_sweep(j)] for j in range(tr.n_kv)]
+    else:
+        width = tr.n_kv
+        rows = [tr.kv_order(i % tr.n_q, local_iter=i) for i in range(tr.grid_rows)]
+    return [r + [-1] * (width - len(r)) for r in rows]
+
+
+def _check_cuda_operands(q, k, v, *more, kernel: str = "flash_fwd") -> None:
+    """bf16, contiguous, 16-byte aligned q, k, v (and ``more`` tensors of
+    q's shape, such as o and dO) on one device, a head dim the kernels
+    take, whole GQA groups."""
+    for name, t in (("q", q), ("k", k), ("v", v), *more):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_fwd kernel takes bfloat16 {name}, got {t.dtype}")
+            raise TypeError(f"{kernel} kernel takes bfloat16 {name}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"flash_fwd kernel needs a contiguous {name}")
+            raise ValueError(f"{kernel} kernel needs a contiguous {name}")
         if t.data_ptr() % 16:
-            raise ValueError(f"flash_fwd kernel needs a 16-byte aligned {name}")
+            raise ValueError(f"{kernel} kernel needs a 16-byte aligned {name}")
+    for name, t in more:
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match q {tuple(q.shape)}")
     b, _, hq, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head dim in {_HEAD_DIMS}, got {d}")
+        raise ValueError(f"{kernel} kernel takes head dim in {_HEAD_DIMS}, got {d}")
     if hq % k.shape[2]:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {k.shape[2]}")
 
@@ -118,11 +154,7 @@ def flash_attention_fwd(
     n_q, n_kv = -(-sq // BLOCK_M), -(-skv // BLOCK_N)
     if g * n_q > 65535:
         raise ValueError(f"flash_fwd grid rows G*n_q = {g * n_q} exceed 65535")
-    if visit_out is not None:
-        shape = (b * hkv, g * n_q, n_kv)
-        if (visit_out.dtype != torch.int32 or tuple(visit_out.shape) != shape
-                or not visit_out.is_contiguous() or visit_out.device != q.device):
-            raise ValueError(f"visit_out must be a contiguous int32 {shape} tensor on {q.device}")
+    _check_visit(visit_out, (b * hkv, g * n_q, n_kv), q.device, "visit_out")
     launch_flash_fwd(q, k, v, out, lse, visit_out, order=order, causal=causal, window=window,
                      scale=scale, snake_group=snake_group)
     return (out, lse) if return_lse else out
@@ -133,24 +165,128 @@ def launch_flash_fwd(q, k, v, out, lse=None, visit_out=None, *, order=Order.SAWT
     """Launch the kernel on the current stream into preallocated ``out``
     (like q) and, when given, ``lse`` (B, Sq, Hq) float32 and ``visit_out``;
     the operands are those :func:`flash_attention_fwd` has checked."""
-    order = Order.parse(order)
-    b, sq, hq, d = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    snake = DEFAULT_SNAKE_GROUP if snake_group is None else int(snake_group)
-    if snake < 1:
-        raise ValueError(f"snake_group must be >= 1, got {snake_group}")
-    scale_ = float(d ** -0.5 if scale is None else scale)
-    spec = cuda_lib.KERNELS["flash_fwd"]
-    fn = getattr(cuda_lib.load("flash_fwd"), spec.entry)
+    fn = getattr(cuda_lib.load("flash_fwd"), cuda_lib.KERNELS["flash_fwd"].entry)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(),
             None if visit_out is None else visit_out.data_ptr(),
-            b, sq, skv, hq, hkv, d, int(causal), -1 if window is None else int(window),
-            cuda_lib.ORDER_CODES[order.value], snake, scale_,
-            torch.cuda.current_stream(q.device).cuda_stream,
+            *_launch_args(q, k, order=order, causal=causal, window=window, scale=scale,
+                          snake_group=snake_group),
         )
+    _raise_on(err, "flash_fwd")
+
+
+def _check_visit(visit, shape, device, name) -> None:
+    if visit is not None and (visit.dtype != torch.int32 or tuple(visit.shape) != shape
+                              or not visit.is_contiguous() or visit.device != device):
+        raise ValueError(f"{name} must be a contiguous int32 {shape} tensor on {device}")
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    order: Order | str = Order.SAWTOOTH,
+    causal: bool = False,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+    snake_group: Optional[int] = None,
+    visit_dq_out: Optional[torch.Tensor] = None,
+    visit_dkv_out: Optional[torch.Tensor] = None,
+):
+    """Fused flash backward from the forward's ``o`` (B, Sq, Hq, D) and
+    ``lse`` (B, Sq, Hq) float32: returns (dq, dk, dv) for the output
+    gradient ``do``. CUDA only: ``visit_dq_out`` (B*Hkv, G*n_q, n_kv) and
+    ``visit_dkv_out`` (B*Hkv, n_kv, G*n_q), int32, receive the tiles each
+    dQ and dK/dV block walked (see :func:`kernel_walks`)."""
+    order = Order.parse(order)
+    if q.device.type == "cpu":
+        if visit_dq_out is not None or visit_dkv_out is not None:
+            raise ValueError("visit outputs record the CUDA kernels' walks; q is on the CPU")
+        return _plain_bwd(q, k, v, o, lse, do, order=order, causal=causal, window=window,
+                          q_block=BLOCK_M, kv_block=BLOCK_N, scale=scale, snake_group=snake_group)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    _check_cuda_operands(q, k, v, ("o", o), ("do", do), kernel="flash_bwd")
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, sq, hq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous float32 {(b, sq, hq)} tensor on {q.device}")
+    g = hq // hkv
+    n_q, n_kv = -(-sq // BLOCK_M), -(-skv // BLOCK_N)
+    if g * n_q > 65535 or n_kv > 65535:
+        raise ValueError(f"flash_bwd grid rows G*n_q = {g * n_q} or n_kv = {n_kv} exceed 65535")
+    _check_visit(visit_dq_out, (b * hkv, g * n_q, n_kv), q.device, "visit_dq_out")
+    _check_visit(visit_dkv_out, (b * hkv, n_kv, g * n_q), q.device, "visit_dkv_out")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if b == 0 or sq == 0 or skv == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, sq, hq), dtype=torch.float32, device=q.device)
+    kw = dict(order=order, causal=causal, window=window, scale=scale, snake_group=snake_group)
+    launch_flash_bwd_delta(o, do, delta)
+    launch_flash_bwd_dq(q, k, v, do, lse, delta, dq, visit_dq_out, **kw)
+    launch_flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, visit_dkv_out, **kw)
+    return dq, dk, dv
+
+
+def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
-    cuda_lib.launch_counts["flash_fwd"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    cuda_lib.launch_counts[name] += 1
+
+
+def launch_flash_bwd_delta(o, do, delta) -> None:
+    """B4 on the current stream: ``delta`` (B, Sq, Hq) float32 = rowsum(do
+    * o); the operands are those :func:`flash_attention_bwd` has checked."""
+    fn = getattr(cuda_lib.load("flash_bwd_delta"), cuda_lib.KERNELS["flash_bwd_delta"].entry)
+    with torch.cuda.device(o.device):
+        err = fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), delta.numel(), o.shape[-1],
+                 torch.cuda.current_stream(o.device).cuda_stream)
+    _raise_on(err, "flash_bwd_delta")
+
+
+def _launch_args(q, k, *, order, causal, window, scale, snake_group) -> tuple:
+    """The shape, mask, order and stream arguments the attention kernels
+    share: B, Sq, Skv, Hq, Hkv, D, causal, window, order, snake, scale,
+    stream."""
+    b, sq, hq, d = q.shape
+    snake = DEFAULT_SNAKE_GROUP if snake_group is None else int(snake_group)
+    if snake < 1:
+        raise ValueError(f"snake_group must be >= 1, got {snake_group}")
+    return (b, sq, k.shape[1], hq, k.shape[2], d, int(causal),
+            -1 if window is None else int(window), cuda_lib.ORDER_CODES[Order.parse(order).value],
+            snake, float(d ** -0.5 if scale is None else scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def launch_flash_bwd_dq(q, k, v, do, lse, delta, dq, visit_out=None, *, order=Order.SAWTOOTH,
+                        causal=False, window=None, scale=None, snake_group=None) -> None:
+    """B5 on the current stream into preallocated ``dq`` (like q)."""
+    fn = getattr(cuda_lib.load("flash_bwd_dq"), cuda_lib.KERNELS["flash_bwd_dq"].entry)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(),
+                 None if visit_out is None else visit_out.data_ptr(),
+                 *_launch_args(q, k, order=order, causal=causal, window=window, scale=scale,
+                               snake_group=snake_group))
+    _raise_on(err, "flash_bwd_dq")
+
+
+def launch_flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, visit_out=None, *,
+                         order=Order.SAWTOOTH, causal=False, window=None, scale=None,
+                         snake_group=None) -> None:
+    """B6 on the current stream into preallocated ``dk``, ``dv`` (like k)."""
+    fn = getattr(cuda_lib.load("flash_bwd_dkv"), cuda_lib.KERNELS["flash_bwd_dkv"].entry)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 None if visit_out is None else visit_out.data_ptr(),
+                 *_launch_args(q, k, order=order, causal=causal, window=window, scale=scale,
+                               snake_group=snake_group))
+    _raise_on(err, "flash_bwd_dkv")

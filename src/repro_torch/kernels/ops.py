@@ -14,10 +14,14 @@ and ragged paged chunks). ``impl``:
 The JAX package's backend names (``pallas``, ``pallas_interpret``, ``xla``,
 ``jnp``) are not impls of the port and raise.
 
-``attention`` is a ``torch.autograd.Function`` whose backward raises: the
-fused flash backward (kernels B4–B6) comes with the training slice, and
-this op never recomputes through the forward instead. Serving runs under
-``torch.no_grad``.
+``attention`` is a ``torch.autograd.Function`` (the reference's
+``custom_vjp``). When a gradient is needed, its forward also returns the
+per-row log-sum-exp and saves ``(q, k, v, o, lse)``, and the backward is the
+fused flash backward from those residuals, without re-running the forward:
+the three CUDA kernels (delta, dQ, dK/dV) for ``cuda``, the plain blockwise
+backward at ``bwd_q_block``/``bwd_kv_block`` for ``torch``. ``reference``
+recomputes through the full-materialization oracle under autograd. Serving
+runs under ``torch.no_grad`` and saves nothing.
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.attention import decode_attention, flash_attention
+from repro_torch.core.attention import decode_attention, flash_attention, flash_attention_bwd
 from repro_torch.core.schedule import Order
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels.flash_decode import flash_decode_fwd
 from repro_torch.kernels.ref import flash_attention_ref
 
@@ -56,23 +60,45 @@ def _resolve(impl: str, q: torch.Tensor, what: str) -> str:
 class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cfg):
-        impl = cfg["impl"]
+        impl, grad = cfg["impl"], cfg["grad"]
         kw = dict(order=cfg["order"], causal=cfg["causal"], window=cfg["window"],
                   scale=cfg["scale"], snake_group=cfg["snake_group"])
+        ctx.cfg, ctx.kw = cfg, kw
+        if impl == "reference":
+            if grad:
+                ctx.save_for_backward(q, k, v)
+            return flash_attention_ref(q, k, v, causal=kw["causal"], window=kw["window"],
+                                       scale=kw["scale"])
         if impl == "cuda":
-            return flash_attention_fwd(q, k, v, **kw)
-        if impl == "torch":
-            return flash_attention(q, k, v, q_block=cfg["q_block"], kv_block=cfg["kv_block"],
-                                   score_dtype=cfg["score_dtype"], **kw)
-        return flash_attention_ref(q, k, v, causal=kw["causal"], window=kw["window"],
-                                   scale=kw["scale"])
+            out = kflash.flash_attention_fwd(q, k, v, return_lse=grad, **kw)
+        else:
+            out = flash_attention(q, k, v, q_block=cfg["q_block"], kv_block=cfg["kv_block"],
+                                  score_dtype=cfg["score_dtype"], return_lse=grad, **kw)
+        if not grad:
+            return out
+        o, lse = out
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the backward of ops.attention (the fused flash backward, kernels "
-            "B4–B6) is not ported yet: ROADMAP §B4–B6 / §A12"
-        )
+        cfg, kw = ctx.cfg, ctx.kw
+        if cfg["impl"] == "reference":
+            q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+            with torch.enable_grad():
+                out = flash_attention_ref(q, k, v, causal=kw["causal"], window=kw["window"],
+                                          scale=kw["scale"])
+                dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+            return dq, dk, dv, None
+        q, k, v, o, lse = ctx.saved_tensors
+        if cfg["impl"] == "cuda":
+            dq, dk, dv = kflash.flash_attention_bwd(q, k, v, o, lse, grad.contiguous(), **kw)
+        else:
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, o, lse, grad, q_block=cfg["bwd_q_block"], kv_block=cfg["bwd_kv_block"],
+                score_dtype=cfg["score_dtype"], **kw,
+            )
+        return dq, dk, dv, None
 
 
 def attention(
@@ -88,15 +114,21 @@ def attention(
     kv_block: int = 256,
     impl: str = "auto",
     score_dtype: str = "float32",
+    bwd_q_block: Optional[int] = None,
+    bwd_kv_block: Optional[int] = None,
     snake_group: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention, layout (B, S, H, D); GQA via Hq > Hkv. ``q_block``
-    and ``kv_block`` tile the plain version; the CUDA kernel uses its own
-    tiles. ``snake_group`` sizes the ``block_snake`` reversal window."""
+    and ``kv_block`` tile the plain version; the CUDA kernels use their own
+    tiles. ``bwd_q_block``/``bwd_kv_block`` tile the plain backward
+    (default: the forward's). ``snake_group`` sizes the ``block_snake``
+    reversal window."""
     cfg = dict(
         impl=_resolve(impl, q, "attention"), order=Order.parse(order), causal=causal,
         window=window, scale=scale, q_block=q_block, kv_block=kv_block,
+        bwd_q_block=bwd_q_block or q_block, bwd_kv_block=bwd_kv_block or kv_block,
         score_dtype=score_dtype, snake_group=snake_group,
+        grad=torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)),
     )
     return _Attention.apply(q, k, v, cfg)
 

@@ -21,6 +21,7 @@ __all__ = [
     "rmsnorm",
     "embed_init",
     "rope",
+    "cross_entropy",
 ]
 
 
@@ -84,3 +85,32 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) ->
     if 2 * half != d:  # odd head_dim tail passes through
         parts.append(x[..., 2 * half :].float())
     return torch.cat(parts, dim=-1).to(x.dtype)
+
+
+def cross_entropy(
+    logits: torch.Tensor,
+    labels: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    z_loss: float = 0.0,
+) -> tuple[torch.Tensor, dict]:
+    """Token-mean softmax cross-entropy with optional z-regularization.
+    logits (..., V) in any float dtype (reduced in float32), labels int
+    (...,). Returns (loss, {"loss", "tokens", "ppl_proxy"}), 0-d float32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+    mask = mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    metrics = {
+        "loss": loss,
+        "tokens": denom,
+        "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0)),
+    }
+    return loss, metrics

@@ -2,14 +2,17 @@
 
   lm = build_model(cfg, device="cuda")
   params           = lm.init(seed)
+  loss, metrics    = lm.loss(params, {"tokens": tokens})
   logits, caches   = lm.prefill(params, {"tokens": tokens}, max_len)
   logits, caches   = lm.decode_step(params, tokens, caches)
 
-The port serves the dense decoder-only family: ``prefill`` (the static
-serve path) builds contiguous caches, or paged ones when ``cfg.kv_layout``
-is ``"paged"``; ``decode_step`` is the single-token step over contiguous
-caches or the ragged chunk step over a paged pool. Other families and
-``LM.loss`` are later slices of the port.
+The port trains and serves the dense decoder-only family: ``loss`` is the
+next-token cross-entropy of the training step (differentiable, with the
+layers under the config's rematerialization); ``prefill`` (the static serve
+path) builds contiguous caches, or paged ones when ``cfg.kv_layout`` is
+``"paged"``; ``decode_step`` is the single-token step over contiguous caches
+or the ragged chunk step over a paged pool. Other families are later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ class LM:
     cfg: ModelConfig
     device: torch.device
     init: Callable
+    loss: Callable
     prefill: Callable
     decode_step: Callable
 
@@ -52,6 +56,21 @@ def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
         c = cfg.logit_softcap
         out = torch.tanh(out / c) * c
     return out
+
+
+def _lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor, h: torch.Tensor, *, mask=None,
+             aux=0.0, z_loss: float = 1e-4):
+    """Next-token cross-entropy of h (B, S, d) against tokens (B, S). As in
+    the reference, ``LM.loss`` calls it with this default ``z_loss``, not
+    ``TrainConfig.z_loss``."""
+    logits = _logits(params, cfg, h[:, :-1])
+    labels = tokens[:, 1:]
+    m = None if mask is None else mask[:, 1:]
+    loss, metrics = L.cross_entropy(logits, labels, m, z_loss=z_loss)
+    loss = loss + aux
+    metrics["aux_loss"] = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    metrics["total_loss"] = loss
+    return loss, metrics
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -72,6 +91,18 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
         p["layers"] = T.stack_init(gen, cfg, cfg.n_layers)
         p["ln_f"] = L.rmsnorm_init(cfg.d_model, pd, device)
         return p
+
+    def loss(params, batch: dict):
+        """batch ``{"tokens": (B, S)}`` (a tensor or a numpy array) -> (loss,
+        metrics): the mean next-token cross-entropy with the reference's
+        z-loss, differentiable with respect to ``params``."""
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        x = _embed_tokens(params, cfg, tokens)
+        b, s = tokens.shape
+        mask = torch.ones(tokens.shape, dtype=torch.float32, device=device)
+        h, aux = T.stack_apply(params["layers"], cfg, x, _positions(b, s, device))
+        h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
+        return _lm_loss(params, cfg, tokens, h, mask=mask, aux=aux)
 
     @torch.no_grad()
     def prefill(params, batch: dict, max_len: int):
@@ -95,7 +126,7 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return _logits(params, cfg, h), caches
 
-    return LM(cfg, device, init, prefill, decode_step)
+    return LM(cfg, device, init, loss, prefill, decode_step)
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> LM:

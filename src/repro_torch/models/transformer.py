@@ -1,11 +1,12 @@
 """Dense decoder stack: GQA attention with RoPE and SWA, SwiGLU FFN, the
+training forward (``stack_apply``, with per-layer rematerialization), the
 full-sequence prefill that builds KV caches, and the decode steps over
 contiguous caches (the static serve path) and paged pools (the ragged chunk
 step of the continuous serve engine).
 
 A port of ``repro.models.transformer``. The JAX package scans stacked layer
-params; here the layers are a list and ``stack_prefill``/``stack_decode``
-are Python loops. Caches are allocated once for all layers and written in
+params; here the layers are a list and ``stack_apply``/``stack_prefill``/
+``stack_decode`` are Python loops. Caches are allocated once for all layers and written in
 place (the reference is functional and builds one cache per layer inside
 its scan):
 
@@ -28,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -41,6 +43,8 @@ __all__ = [
     "ffn_apply",
     "layer_init",
     "stack_init",
+    "remat_wrap",
+    "stack_apply",
     "stack_prefill",
     "stack_decode",
     "page_geometry",
@@ -97,9 +101,9 @@ def attn_apply(
     positions: torch.Tensor,
     return_kv: bool = False,
 ):
-    """Full-sequence causal self-attention (prefill), windowed for SWA
-    configs. With ``return_kv`` also returns the (roped) k, v (B, S, Hkv,
-    hd)."""
+    """Full-sequence causal self-attention (training and prefill), windowed
+    for SWA configs. With ``return_kv`` also returns the (roped) k, v (B, S,
+    Hkv, hd)."""
     q, k, v = _qkv(p, cfg, x, positions)
     o = ops.attention(
         q,
@@ -113,6 +117,8 @@ def attn_apply(
         kv_block=cfg.kv_block,
         impl=cfg.attn_impl,
         score_dtype=cfg.score_dtype,
+        bwd_q_block=cfg.bwd_q_block,
+        bwd_kv_block=cfg.bwd_kv_block,
     )
     b, s = o.shape[:2]
     out = L.dense(p["wo"], o.reshape(b, s, -1), dtype=cfg.activation_dtype())
@@ -359,6 +365,47 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> list[dict]:
     return [layer_init(gen, cfg) for _ in range(n_layers)]
+
+
+def remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under the config's rematerialization policy: ``"none"`` keeps
+    every activation for the backward; ``"full"`` keeps only the inputs and
+    runs ``fn`` again in the backward (non-reentrant activation
+    checkpointing, the reference's ``jax.checkpoint``). ``"dots"`` (keep the
+    matmul outputs) is not ported (ROADMAP A12)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) is not ported "
+            "yet: ROADMAP A12; use 'full' or 'none'"
+        )
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}; valid: 'none', 'full', 'dots'")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
+
+
+def _layer_fwd(lp: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    h = x + attn_apply(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
+                       positions=positions)
+    return h + ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
+
+
+def stack_apply(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The training forward through every layer, each under ``remat_wrap``.
+    Returns (hidden (B, S, d), aux) with aux 0 (the dense family has no
+    auxiliary loss)."""
+    h = x
+    for lp in layers:
+        body = remat_wrap(lambda h_, lp=lp: _layer_fwd(lp, cfg, h_, positions), cfg)
+        h = body(h)
+    return h, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _layer_cache(caches: dict, i: int) -> dict:

@@ -13,15 +13,24 @@ pytest.importorskip("torch")
 
 import torch
 
-from repro_torch.core.attention import decode_attention, flash_attention, paged_decode_attention
+from repro_torch.core.attention import (
+    attention_delta,
+    decode_attention,
+    flash_attention,
+    flash_attention_bwd as plain_bwd,
+    paged_decode_attention,
+)
 from repro_torch.core.schedule import Order, resolve_order_group
-from repro_torch.kernels import cuda_lib
+from repro_torch.kernels import cuda_lib, ops
 from repro_torch.kernels.flash_attention import (
     BLOCK_M,
     BLOCK_N,
     MASK_VALUE,
+    flash_attention_bwd,
     flash_attention_fwd,
     kernel_traversal,
+    kernel_walks,
+    launch_flash_bwd_delta,
 )
 from repro_torch.kernels.flash_decode import flash_decode_fwd, paged_flash_decode_fwd
 
@@ -199,3 +208,106 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
         flash_decode_fwd(torch.zeros((1, 1, 3, 128), dtype=bf, device=cuda), kv, kv, lens)
     with pytest.raises(ValueError, match="aligned"):
         flash_decode_fwd(odd[:, :1], kv, kv, lens)
+
+
+def _rel(got, want) -> float:
+    return (got.float() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal,window,sq,skv", [
+    (True, None, 200, 200), (True, 50, 130, 130), (False, None, 130, 70), (True, None, 70, 200),
+    (False, 40, 200, 90),
+])
+def test_flash_bwd_kernels_match_plain_and_walk_the_traversal(cuda, d, g, causal, window,
+                                                              sq, skv):
+    """B4-B6 vs the plain backward in f32 on the same bf16 inputs (o, lse
+    from B2): delta within 1e-4 and dq, dk, dv within 2e-2 of max |plain|
+    (P and dS rounded to bf16 before their products, bf16 outputs);
+    gradients of what nothing sees exact zeros; the recorded dQ and dK/dV
+    walks equal the Traversal's; a second run gives equal bits; one launch
+    each."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 5 + skv + g + d)
+    b, hkv = 2, 2
+    q, do = _bf16(gen, (b, sq, hkv * g, d), cuda), _bf16(gen, (b, sq, hkv * g, d), cuda)
+    k, v = _bf16(gen, (b, skv, hkv, d), cuda), _bf16(gen, (b, skv, hkv, d), cuda)
+    r = torch.arange(sq, device=cuda)[:, None]
+    c = torch.arange(skv, device=cuda)[None, :]
+    seen = torch.ones((sq, skv), dtype=torch.bool, device=cuda)
+    if causal:
+        seen &= c <= r
+    if window is not None:
+        seen &= c > r - window
+    for order in Order:
+        kw = dict(order=order, causal=causal, window=window, snake_group=2)
+        o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        tr = kernel_traversal(sq, skv, g, **kw)
+        vq = torch.empty((b * hkv, tr.grid_rows, tr.n_kv), dtype=torch.int32, device=cuda)
+        vkv = torch.empty((b * hkv, tr.n_kv, tr.grid_rows), dtype=torch.int32, device=cuda)
+        n0 = {n: cuda_lib.launch_counts[n] for n in ("flash_bwd_delta", "flash_bwd_dq",
+                                                      "flash_bwd_dkv")}
+        got = flash_attention_bwd(q, k, v, o, lse, do, visit_dq_out=vq, visit_dkv_out=vkv, **kw)
+        torch.cuda.synchronize()
+        assert all(cuda_lib.launch_counts[n] == n0[n] + 1 for n in n0)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        want = plain_bwd(q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                         q_block=BLOCK_M, kv_block=BLOCK_N, **kw)
+        for x, y in zip(got, want):
+            assert _rel(x, y) <= 2e-2
+        delta = torch.empty_like(lse)
+        launch_flash_bwd_delta(o, do, delta)
+        assert _rel(delta, attention_delta(o, do)) <= 1e-4
+        dq, dk, dv = got
+        assert torch.all(dq[:, ~seen.any(1)] == 0)
+        assert torch.all(dk[:, ~seen.any(0)] == 0) and torch.all(dv[:, ~seen.any(0)] == 0)
+        assert torch.equal(vq.cpu(), torch.tensor(kernel_walks(tr), dtype=torch.int32)
+                           .expand_as(vq))
+        assert torch.equal(vkv.cpu(), torch.tensor(kernel_walks(tr, transposed=True),
+                                                   dtype=torch.int32).expand_as(vkv))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_wrapper_rejects_what_its_kernels_do_not_take(cuda):
+    bf = torch.bfloat16
+    q = torch.zeros((1, 8, 2, 128), dtype=bf, device=cuda)
+    kv = torch.zeros((1, 8, 2, 128), dtype=bf, device=cuda)
+    lse = torch.zeros((1, 8, 2), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention_bwd(q, kv, kv, q.float(), lse, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q, kv, kv, q, lse, q.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="does not match"):
+        flash_attention_bwd(q, kv, kv, q, lse, q[:, :4].contiguous())
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, kv, kv, q, lse.to(bf), q)
+    with pytest.raises(ValueError, match="head dim"):
+        sub = q[..., :96].contiguous()
+        flash_attention_bwd(sub, kv[..., :96].contiguous(), kv[..., :96].contiguous(), sub, lse,
+                            sub)
+    with pytest.raises(ValueError, match="visit_dkv_out"):
+        flash_attention_bwd(q, kv, kv, q, lse, q,
+                            visit_dkv_out=torch.zeros(3, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 60])
+def test_ops_attention_cuda_grads_match_torch(cuda, window):
+    """Gradients through ops.attention with the kernels (B2 forward with
+    lse, B4-B6 backward) against the plain impl on the same bf16 inputs,
+    within 2e-2 of max |plain|."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, s, hq, hkv, d = 2, 190, 8, 2, 128
+    base = [_bf16(gen, shape, cuda) for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+    w = _bf16(gen, (b, s, hq, d), cuda)
+    grads = {}
+    for impl in ("cuda", "torch"):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        out = ops.attention(*leaves, order="sawtooth", causal=True, window=window, q_block=64,
+                            kv_block=64, impl=impl)
+        (out.float() * w.float()).sum().backward()
+        grads[impl] = [t.grad for t in leaves]
+    for x, y in zip(grads["cuda"], grads["torch"]):
+        assert _rel(x, y.float()) <= 2e-2

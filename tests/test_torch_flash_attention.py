@@ -10,7 +10,8 @@
   kernel's tile sizes. Inputs come from numpy. Tolerance: f32, atol = rtol
   = 2e-5 (the two sum in other orders). lse is compared on rows that see at
   least one key (the reference gives other rows no defined value).
-* ``ops.attention`` dispatches the port's impls and has no backward yet.
+* ``ops.attention`` dispatches the port's impls, forward and backward (the
+  backward's parity with the reference is in ``test_torch_flash_bwd.py``).
 
 The CUDA kernel is held to the plain version on the card by
 ``test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -223,10 +224,20 @@ def test_ops_attention_dispatch_and_no_backward():
             ops.attention(q, k, v, impl=name, **kw)
     with pytest.raises(ValueError, match="unknown attention impl"):
         ops.attention(q, k, v, impl="triton", **kw)
-    qg = q.clone().requires_grad_(True)
-    out = ops.attention(qg, k, v, **kw)
-    with pytest.raises(NotImplementedError, match="B4"):
-        out.sum().backward()
+    # The backward exists now (the name is kept from before it did): each
+    # impl's gradients match the oracle's autograd.
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(q.shape).astype(np.float32))
+    want = None
+    for impl in ("reference", "auto", "torch"):
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        (ops.attention(qg, kg, vg, impl=impl, **kw) * w).sum().backward()
+        got = [t.grad.numpy() for t in (qg, kg, vg)]
+        if want is None:
+            want = got
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():  # serving saves no residuals
+        assert not ops.attention(q.clone().requires_grad_(True), k, v, **kw).requires_grad
 
 
 def test_kernel_registry_names_the_replaced_tpu_kernels():
@@ -236,10 +247,12 @@ def test_kernel_registry_names_the_replaced_tpu_kernels():
 
     root = Path(__file__).resolve().parents[1]
     for name, fn in (("paged_decode", "_paged_decode_kernel"), ("flash_fwd", "_fwd_kernel"),
-                     ("contig_decode", "_decode_kernel")):
+                     ("contig_decode", "_decode_kernel"), ("flash_bwd_delta", "_delta_kernel"),
+                     ("flash_bwd_dq", "_dq_kernel"), ("flash_bwd_dkv", "_dkv_kernel")):
         spec = cuda_lib.KERNELS[name]
         path, line = spec.replaces.split(":")
         assert (root / path).read_text().splitlines()[int(line) - 1].startswith(f"def {fn}(")
         assert (cuda_lib.CSRC / spec.source).is_file()
         assert cuda_lib.library_path(name).name.startswith(f"{name}-")
+    assert set(cuda_lib.KERNELS) == set(cuda_lib.launch_counts) and len(cuda_lib.KERNELS) == 6
     assert set(cuda_lib.ORDER_CODES) == {o.value for o in port_sched.Order}
