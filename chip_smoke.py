@@ -11,13 +11,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the card: the paged kernel (B1) over orders x GQA x chunk widths x page
    sizes x windows, with ragged q_lens, a free row and a shuffled block
    table; the flash forward (B2) over orders x causal x windows x GQA x
-   head dims x lengths, o and lse, with its recorded KV-tile walk held to
-   the port's Traversal; the contiguous decode (B3) over orders x GQA x
-   windows x chunks x head dims with ragged lengths and a row of length 0;
-   the fused backward (B4 delta, B5 dQ, B6 dK/dV) over orders x causal x
-   windows x GQA x head dims x lengths (Sq != Skv too), with exact zeros
-   where nothing is seen, both recorded walks held to the Traversal and a
-   bitwise repeat;
+   head dims (64, 80, 128) x lengths, o and lse, with its recorded KV-tile
+   walk held to the port's Traversal; the contiguous decode (B3) over
+   orders x GQA x windows x chunks x head dims (64, 80, 128) with ragged
+   lengths and a row of length 0; the fused backward (B4 delta, B5 dQ, B6
+   dK/dV) over orders x causal x windows x GQA x head dims x lengths (Sq !=
+   Skv too), with exact zeros where nothing is seen, both recorded walks
+   held to the Traversal and a bitwise repeat; the SSD scan (B7) over state
+   dims x heads x batch x lengths x initial states, with two chained calls
+   against one, a bitwise repeat, and deliberately wrong variants that must
+   fail its limits;
 3. main paths on full-width deepseek-7b (random weights from a seed):
    served by the continuous ServeEngine, with ``paged_decode`` launches ==
    layers x mixed steps; then by the static ServeEngine (the default
@@ -33,12 +36,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    resumed from its checkpoint against an uninterrupted run. With
    ``--profile`` half of each serve path's requests and one training step
    run once more under torch.profiler, which gives the device's busy and
-   idle share and its time by kind of kernel;
+   idle share and its time by kind of kernel. Then full-width mamba2-130m
+   (the SSM family) and zamba2-2.7b (the hybrid: Mamba-2 layers and a
+   shared attention block of head dim 80 every 6 layers), random weights
+   from seed 0, each serving the same 12 requests through the static
+   ServeEngine, with ``ssd`` launches == layers x prefills (zamba2 also
+   ``flash_fwd`` == 9 x prefills and ``contig_decode`` == 9 x decode
+   steps) and the first prefill's logits held to the plain versions';
 4. kernel times at the main paths' shapes (B1: one narrow and one wide
-   step; B2: the second prefill group and the training shape with lse; B3:
-   the static decode steps; B4-B6: the training shape): the kernel, its
-   bound, the plain version and one library call where there is one
-   (SDPA's backward for B4-B6 together);
+   step; B2: the second prefill group, at head dim 128 and at zamba2's 80,
+   and the training shape with lse; B3: the static decode steps at head dim
+   128 and 80; B4-B6: the training shape; B7: the second prefill group of
+   mamba2 and of zamba2): the kernel, its bound, the plain version and one
+   library call where there is one (SDPA's backward for B4-B6 together;
+   none for B7);
 5. the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -99,11 +110,38 @@ LOOP_TOL = 1e-6
 # steps' plumbing; the backward's accuracy is ATTN_GRAD_TOL's to check.
 SMALL_TRAIN_TOL = 5e-3
 
-# Data-sheet peaks by card name: (bytes/s, dense bf16 flop/s).
+# B7 (the SSD scan) against its plain version (ssd_chunked in float32 on
+# the same bf16 inputs), each as max-abs error over max |plain|. y is
+# written in bf16, whose rounding alone reads up to 3.5e-3 over the 96-case
+# matrix; the limit is about three times that. The final state is float32
+# sums of the same products in another order: 1.3e-5 at most; the limit is
+# about eight times that, below the 2.7e-4 of the state rounded to bf16
+# between chunks. Of the deliberately wrong variants (_SSD_CONTROLS), the
+# dropped decays read 5.6 (y) and 11.3 (state), the state not carried 0.98
+# and 0.14 (PERF.md, §6).
+SSD_Y_TOL = 1e-2
+SSD_STATE_TOL = 1e-4
+# Full-width mamba2-130m and zamba2-2.7b, the first prefill's logits with
+# the kernels against the plain versions (ssd_impl and attn_impl "torch") on
+# the same weights and tokens, as max-abs difference over max |plain|. The
+# bf16 activations of 24 and 54 layers round where the two differ: 2.7e-2
+# and 4.7e-2 on the H100 (PERF.md, §6); the limit is twice the larger. The
+# script also prints each one's distance from a float32 forward of the same
+# weights, the rounding that bf16 activations cost at this depth. The same
+# prefill runs with each wrong B7 of _SSD_CONTROLS in the kernel's place:
+# decays dropped read 1.40 and 1.30, so the limit lies between, and that
+# variant must exceed it. The state not carried between chunks (3.8e-2 and
+# 4.8e-2) and rounded to bf16 (3.3e-2, 4.0e-2) read like the kernels here;
+# only the B7 matrix's limits tell them apart (PERF.md, §6).
+SSM_LOGITS_TOL = 1e-1
+_SSM_CONTROLS_CAUGHT = ("decay_dropped",)
+
+# Data-sheet peaks by card name: (bytes/s, dense bf16 flop/s, float32 flop/s
+# outside the tensor cores).
 _PEAKS = (
-    ("H100 PCIe", 2.0e12, 756e12),
-    ("H100 NVL", 3.9e12, 835e12),
-    ("H100", 3.35e12, 989e12),   # SXM
+    ("H100 PCIe", 2.0e12, 756e12, 51e12),
+    ("H100 NVL", 3.9e12, 835e12, 60e12),
+    ("H100", 3.35e12, 989e12, 67e12),   # SXM
 )
 
 
@@ -141,12 +179,12 @@ def phase_device() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    match = next(((b, p) for key, b, p in _PEAKS if key in name), None)
+    match = next((m[1:] for m in _PEAKS if m[0] in name), None)
     if match is None:
         raise SystemExit(f"chip_smoke: no data-sheet peaks for {name!r}; add them to _PEAKS")
-    bw, peak = match
-    print(f"[device] {name}; bound uses {bw / 1e12:.2f} TB/s and {peak / 1e12:.0f} "
-          "TFLOP/s bf16 dense (data sheet)")
+    bw, peak, peak_f32 = match
+    print(f"[device] {name}; bound uses {bw / 1e12:.2f} TB/s, {peak / 1e12:.0f} TFLOP/s bf16 "
+          f"dense and {peak_f32 / 1e12:.0f} TFLOP/s float32 (data sheet)")
     from repro_torch.kernels import cuda_lib
 
     t0 = time.perf_counter()
@@ -158,7 +196,7 @@ def phase_device() -> dict:
             if any(w in line for w in ("registers", "spill", "entry function", "error")):
                 print(f"[build]   {line.strip()}")
     print(f"[build] all kernels in {wall:.1f} s (parallel nvcc)")
-    return {"smi": smi, "name": name, "bw": bw, "peak": peak}
+    return {"smi": smi, "name": name, "bw": bw, "peak": peak, "peak_f32": peak_f32}
 
 
 # ---- phase 2 ------------------------------------------------------------------
@@ -273,7 +311,7 @@ def phase_flash_matrix() -> float:
              for window in (None, 100)]
     cases.append((300, 131, False, None))
     worst, n, n_visits = 0.0, 0, 0
-    for d in (64, 128):
+    for d in (64, 80, 128):
         for g in (1, 4):
             for sq, skv, causal, window in cases:
                 q = _bf16(gen, (b, sq, hkv * g, d))
@@ -438,7 +476,7 @@ def phase_decode_matrix() -> float:
     lens = torch.tensor([300, 0, 129, 7, 255], dtype=torch.int32, device="cuda")
     ok = lens > 0
     worst, n = 0.0, 0
-    for d in (64, 128):
+    for d in (64, 80, 128):
         for g in (1, 4, 8):
             q = _bf16(gen, (b, 1, hkv * g, d))
             k, v = _bf16(gen, (b, s_max, hkv, d)), _bf16(gen, (b, s_max, hkv, d))
@@ -466,6 +504,141 @@ def phase_decode_matrix() -> float:
                       f"{max(errs):.3e} ok")
     print(f"[decode] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL})")
     return worst
+
+
+def _ssd_case(gen, bsz, s, h, n, state: bool):
+    """B7's inputs at the model's scales: x, b, c bf16 of unit size; dt =
+    softplus(noise - 3) (dt_bias lies in [-4, -2]); a = -linspace(1, 16, H),
+    the init's decay rates, so cum reaches about -100 inside a chunk; and a
+    random float32 initial state or None."""
+    x = _bf16(gen, (bsz, s, h, 64))
+    dt = torch.nn.functional.softplus(torch.randn((bsz, s, h), generator=gen, device="cuda") - 3)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    b, c = _bf16(gen, (bsz, s, n)), _bf16(gen, (bsz, s, n))
+    init = torch.randn((bsz, h, 64, n), generator=gen, device="cuda") if state else None
+    return x, dt, a, b, c, init
+
+
+def _ssd_chunks(x, dt, a, b, c, init, carry):
+    """B7 run one 128-position chunk at a time, the state between chunks
+    passed through ``carry(prev_final, init)``: the deliberately wrong
+    variants of the B7 check."""
+    from repro_torch.kernels.ssd import ssd_fwd
+
+    ys, st = [], init
+    for s0 in range(0, x.shape[1], 128):
+        sl = slice(s0, s0 + 128)
+        y, fin = ssd_fwd(*(t[:, sl].contiguous() for t in (x, dt)), a,
+                         *(t[:, sl].contiguous() for t in (b, c)), init_state=st)
+        ys.append(y)
+        st = carry(fin, init)
+    return torch.cat(ys, 1), fin
+
+
+# Deliberately wrong variants of B7, built around the kernel: the decays
+# dropped (the kernel fed a = 0), the state not carried between chunks
+# (each chunk restarts from the initial state), and the state rounded to
+# bf16 between chunks (the precision that a bf16 tensor-core product of S
+# would keep).
+_SSD_CONTROLS = {
+    "decay_dropped": lambda x, dt, a, b, c, init: _ssd_fwd_direct(
+        x, dt, torch.zeros_like(a), b, c, init),
+    "state_not_carried": lambda x, dt, a, b, c, init: _ssd_chunks(
+        x, dt, a, b, c, init, lambda fin, init: init),
+    "state_bf16": lambda x, dt, a, b, c, init: _ssd_chunks(
+        x, dt, a, b, c, init, lambda fin, init: fin.to(torch.bfloat16).float()),
+}
+
+
+def _ssd_fwd_direct(x, dt, a, b, c, init):
+    from repro_torch.kernels.ssd import ssd_fwd
+
+    return ssd_fwd(x, dt, a, b, c, init_state=init)
+
+
+@contextlib.contextmanager
+def _ssd_control(name):
+    """Route ops.ssd's B7 calls through the wrong variant ``name`` of
+    _SSD_CONTROLS (which launches the real kernel around the fault)."""
+    from repro_torch.kernels import ops
+
+    real, fn = ops.ssd_fwd, _SSD_CONTROLS[name]
+    ops.ssd_fwd = lambda x, dt, a, b, c, *, init_state=None, chunk=128: fn(
+        x, dt, a, b, c, init_state)
+    try:
+        yield
+    finally:
+        ops.ssd_fwd = real
+
+
+def phase_ssd_matrix() -> dict:
+    """B7 against its plain version (ssd_chunked in float32 on the same bf16
+    inputs) over N 64, 128 x H 24, 80 x B 1, 8 x S in {1, 77, 128, 300, 700,
+    1024} x zero or random initial state: y and the final state as max-abs
+    error over max |plain| against SSD_Y_TOL and SSD_STATE_TOL; finite; a
+    second run bitwise equal; the sequence split in two calls chained
+    through the state equal to one call. The deliberately wrong variants
+    (_SSD_CONTROLS) run on the same cases and must exceed the limits."""
+    from repro_torch.kernels.ssd import ssd_fwd
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    worst = {"y": 0.0, "state": 0.0, "chained_y": 0.0, "chained_state": 0.0}
+    ctl = {name: {"y": 0.0, "state": 0.0} for name in _SSD_CONTROLS}
+    n = 0
+    for nd in (64, 128):
+        for h in (24, 80):
+            for bsz in (1, 8):
+                errs = []
+                for s in (1, 77, 128, 300, 700, 1024):
+                    for state in (False, True):
+                        case = f"N={nd} H={h} B={bsz} S={s} init={state}"
+                        x, dt, a, b, c, init = _ssd_case(gen, bsz, s, h, nd, state)
+                        y, fin = ssd_fwd(x, dt, a, b, c, init_state=init)
+                        y2, fin2 = ssd_fwd(x, dt, a, b, c, init_state=init)
+                        ry, rfin = ssd_chunked(x.float(), dt, a, b.float(), c.float(), chunk=128,
+                                               init_state=init)
+                        torch.cuda.synchronize()
+                        if not (torch.isfinite(y.float()).all() and torch.isfinite(fin).all()):
+                            raise AssertionError(f"ssd non-finite output: {case}")
+                        if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+                            raise AssertionError(f"ssd: two runs differ: {case}")
+                        e = {"y": _rel_err(y, ry), "state": _rel_err(fin, rfin)}
+                        if s > 1:
+                            cut = s // 2
+                            y1, s1 = ssd_fwd(*(t[:, :cut].contiguous() for t in (x, dt)), a,
+                                             *(t[:, :cut].contiguous() for t in (b, c)),
+                                             init_state=init)
+                            yb, sb = ssd_fwd(*(t[:, cut:].contiguous() for t in (x, dt)), a,
+                                             *(t[:, cut:].contiguous() for t in (b, c)),
+                                             init_state=s1)
+                            e["chained_y"] = _rel_err(torch.cat([y1, yb], 1), ry)
+                            e["chained_state"] = _rel_err(sb, rfin)
+                        if max(e["y"], e.get("chained_y", 0.0)) > SSD_Y_TOL or \
+                                max(e["state"], e.get("chained_state", 0.0)) > SSD_STATE_TOL:
+                            raise AssertionError(f"ssd disagrees with its plain version: {case}: "
+                                                 f"{e} (tol y {SSD_Y_TOL}, state {SSD_STATE_TOL})")
+                        for name, fn in _SSD_CONTROLS.items():
+                            cy, cfin = fn(x, dt, a, b, c, init)
+                            ctl[name]["y"] = max(ctl[name]["y"], _rel_err(cy, ry))
+                            ctl[name]["state"] = max(ctl[name]["state"], _rel_err(cfin, rfin))
+                        for key in e:
+                            worst[key] = max(worst[key], e[key])
+                        errs.append(max(e["y"], e["state"]))
+                        n += 1
+                print(f"[ssd] N={nd} H={h} B={bsz}: worst rel err over S x init "
+                      f"{max(errs):.2e} ok, bitwise repeatable, chained == one call")
+    print(f"[ssd] {n} cases, worst rel err {json.dumps(worst)} (tol y {SSD_Y_TOL}, state "
+          f"{SSD_STATE_TOL}); wrong variants {json.dumps(ctl)}")
+    for key, tol in (("y", SSD_Y_TOL), ("state", SSD_STATE_TOL)):
+        if not any(ctl[name][key] > tol for name in ctl):
+            raise AssertionError(f"no deliberately wrong variant of B7 exceeds the {key} limit "
+                                 f"{tol}: {ctl}")
+    for name, e in ctl.items():
+        if e["y"] <= SSD_Y_TOL and e["state"] <= SSD_STATE_TOL:
+            raise AssertionError(f"the B7 check cannot tell the wrong variant {name} from the "
+                                 f"kernel: {e}")
+    return {"worst": worst, "controls": ctl, "cases": n}
 
 
 # ---- phase 3 ------------------------------------------------------------------
@@ -652,9 +825,152 @@ def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
     return out
 
 
+def phase_ssm_path(arch: str, profile: bool = False) -> dict:
+    """Full-width ``arch`` (mamba2-130m: the SSM family; zamba2-2_7b: the
+    hybrid) with random weights from seed 0, served by the static engine:
+    the 12 requests of _main_requests over its vocab, batch 8, max_len 1024,
+    32 new tokens. Launches: ``ssd`` == layers x prefills; the hybrid's 9
+    shared-attention sites add ``flash_fwd`` == sites x prefills and
+    ``contig_decode`` == sites x decode steps; nothing else. Then the first
+    prefill's logits with the kernels against the plain versions on the
+    same weights and tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    lm = build_model(cfg, device="cuda")
+    params = lm.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    hybrid = cfg.family == "hybrid"
+    sites = cfg.n_layers // cfg.ssm.shared_attn_every if hybrid else 0
+    label = "zamba2" if hybrid else "mamba2"
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} SSD heads of P {cfg.ssm.head_dim}, "
+          f"N {cfg.ssm.state_dim}, vocab {cfg.vocab}"
+          + (f", {sites} shared-attention sites of {cfg.n_heads} heads of {cfg.hd}" if hybrid
+             else "")
+          + f", {n_params / 1e9:.3f} B params ({cfg.param_dtype}), init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    eng = ServeEngine(lm, params, scheduler="static", batch_size=8, max_len=1024, device="cuda")
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    calls = {"prefill": 0, "decode": 0}
+
+    def checked(fn, key):
+        def run(*args):
+            logits, caches = fn(*args)
+            bad.add_((~torch.isfinite(logits)).sum())
+            calls[key] += 1
+            return logits, caches
+        return run
+
+    eng.lm = dataclasses.replace(lm, prefill=checked(lm.prefill, "prefill"),
+                                 decode_step=checked(lm.decode_step, "decode"))
+    rng = np.random.default_rng(97)
+    eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                          max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+
+    reqs = _main_requests(cfg.vocab)
+    eng.tracer.clear()
+    calls.update(prefill=0, decode=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+
+    statuses = [r.status for r in results]
+    assert all(s == "ok" for s in statuses), statuses
+    assert all(r.steps == 32 and len(r.tokens) == 32 for r in results), [r.steps for r in results]
+    assert int(bad.item()) == 0, f"{int(bad.item())} non-finite logits"
+    assert calls == {"prefill": 2, "decode": 62}, calls
+    want = {name: 0 for name in launches}
+    want["ssd"] = cfg.n_layers * calls["prefill"]
+    if hybrid:
+        want["flash_fwd"] = sites * calls["prefill"]
+        want["contig_decode"] = sites * calls["decode"]
+    if launches != want:
+        raise AssertionError(f"{arch}: launches {launches}, want {want}")
+
+    # The first group's prefill again, with the kernels and with the plain
+    # versions, on the same weights and the same padded tokens.
+    first = torch.as_tensor(eng._pad_batch([r.tokens for r in reqs[:8]], eng._cap),
+                            device="cuda")
+    got, _ = lm.prefill(params, {"tokens": first}, 1024)
+    plain_lm = build_model(cfg.with_(ssd_impl="torch", attn_impl="torch"), device="cuda")
+    ref, _ = plain_lm.prefill(params, {"tokens": first}, 1024)
+    exact_lm = build_model(cfg.with_(ssd_impl="torch", attn_impl="torch", dtype="float32"),
+                           device="cuda")
+    exact, _ = exact_lm.prefill(params, {"tokens": first}, 1024)
+    torch.cuda.synchronize()
+    logit_err = _rel_err(got, ref.float())
+    argmax_agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    # The same prefill with each deliberately wrong B7 of the matrix in the
+    # kernel's place: the logits check must tell the gross ones apart.
+    controls = {}
+    for name in _SSD_CONTROLS:
+        with _ssd_control(name):
+            bad_logits, _ = lm.prefill(params, {"tokens": first}, 1024)
+        controls[name] = _rel_err(bad_logits, ref.float())
+    del bad_logits
+    f32_err = {"kernels": _rel_err(got, exact), "plain": _rel_err(ref, exact)}
+    del exact_lm, exact
+
+    spans: dict[str, list] = {"serve.prefill": [], "serve.decode_step": []}
+    for ev in eng.tracer.events():
+        if ev.name in spans:
+            spans[ev.name].append(ev.dur_ns / 1e6)
+    tokens = sum(r.steps for r in results)
+    out = {
+        "arch": cfg.name,
+        "requests": len(results),
+        "tokens": tokens,
+        "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_p50_s": float(np.median([r.ttft_s for r in results])),
+        "tpot_p50_s": float(np.nanmedian([r.tpot_s for r in results])),
+        "prefill_calls": calls["prefill"],
+        "decode_calls": calls["decode"],
+        "buckets": [int(first.shape[1])],
+        "prefill_ms_mean": float(np.mean(spans["serve.prefill"])),
+        "decode_step_ms_mean": float(np.mean(spans["serve.decode_step"])),
+        "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "params_b": n_params / 1e9,
+        "first_prefill_logits_rel_err": logit_err,
+        "first_prefill_argmax_agree": argmax_agree,
+        "first_prefill_rel_err_vs_float32": f32_err,
+        "first_prefill_wrong_b7_rel_err": controls,
+    }
+    print(f"[{label}] " + json.dumps(out))
+    print(f"[{label}] first prefill, kernels vs plain versions: logits max |diff| / max |plain| "
+          f"{logit_err:.3e} (tol {SSM_LOGITS_TOL}), argmax agrees on {argmax_agree:.3f} of rows; "
+          f"against a float32 forward: kernels {f32_err['kernels']:.3e}, plain "
+          f"{f32_err['plain']:.3e}; with a wrong B7: {json.dumps(controls)}")
+    if logit_err > SSM_LOGITS_TOL:
+        raise AssertionError(f"{arch}: prefill logits with the kernels differ from the plain "
+                             f"versions': {logit_err}")
+    for name in _SSM_CONTROLS_CAUGHT:
+        if controls[name] <= SSM_LOGITS_TOL:
+            raise AssertionError(f"{arch}: the logits check cannot tell the wrong B7 {name} "
+                                 f"from the kernel: {controls}")
+    if profile:
+        out["profile"] = phase_profile(eng, cfg, label, tuple(spans))
+    del eng, lm, plain_lm, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def _kernel_kind(name: str) -> str:
     for kernel in ("paged_decode", "flash_fwd", "contig_decode", "flash_bwd_delta",
-                   "flash_bwd_dq", "flash_bwd_dkv"):
+                   "flash_bwd_dq", "flash_bwd_dkv", "ssd_kernel"):
         if kernel in name:
             return kernel
     if any(k in name.lower() for k in ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")):
@@ -959,7 +1275,7 @@ def phase_train_main(profile: bool = False) -> dict:
     losses = [r["loss"] for r in records]
     want = {"flash_fwd": 2 * cfg.n_layers * steps, "flash_bwd_delta": cfg.n_layers * steps,
             "flash_bwd_dq": cfg.n_layers * steps, "flash_bwd_dkv": cfg.n_layers * steps,
-            "paged_decode": 0, "contig_decode": 0}
+            "paged_decode": 0, "contig_decode": 0, "ssd": 0}
     out = {
         "steps": steps, "batch": batch, "seq": seq, "losses": losses,
         "step_s": [r["step_s"] for r in records],
@@ -1182,7 +1498,7 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
 def _time_record(fns: dict, nbytes: int, flops: float, dev_info: dict) -> dict:
     """Kernel, wrapper, plain, library, kernel: two kernel readings bracket
     the others. ``fns["library"]`` may be None (no PyTorch call computes the
-    same function)."""
+    same function). The bound takes ``flops`` at the dense bf16 peak."""
     t_kern = _median_ms(fns["kernel"])
     t_wrap = _median_ms(fns["wrapper"])
     t_plain = _median_ms(fns["plain"])
@@ -1203,10 +1519,11 @@ def _time_record(fns: dict, nbytes: int, flops: float, dev_info: dict) -> dict:
     }
 
 
-def phase_static_kernel_times(dev_info: dict) -> dict:
+def phase_static_kernel_times(dev_info: dict, d: int = 128) -> dict:
     """B2 at the static path's second prefill (B 8, Sq = Skv = 700, 32 heads
-    of 128, causal, sawtooth) and B3 at its decode steps (B 8, lengths
-    700-731 by row, S_max 1024). Bytes: each input read once, each output
+    of ``d``, causal, sawtooth) and B3 at its decode steps (B 8, lengths
+    700-731 by row, S_max 1024): deepseek-7b's shapes at d 128, zamba2's
+    shared attention at d 80. Bytes: each input read once, each output
     written once (B3: K and V below each row's length only); flops: 4 per
     visible (query, key) pair and head dim."""
     from repro_torch.core.attention import decode_attention, flash_attention
@@ -1220,7 +1537,7 @@ def phase_static_kernel_times(dev_info: dict) -> dict:
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(6)
-    b, h, d, s = 8, 32, 128, 700
+    b, h, s = 8, 32, 700
     q, k, v = _bf16(gen, (b, s, h, d)), _bf16(gen, (b, s, h, d)), _bf16(gen, (b, s, h, d))
     out = torch.empty_like(q)
     kw = dict(order="sawtooth", causal=True)
@@ -1241,7 +1558,7 @@ def phase_static_kernel_times(dev_info: dict) -> dict:
     prefill.update(shape={"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True},
                    max_abs_err=(got.float() - ref).abs().max().item(),
                    library_max_abs_diff=(got.float() - lib.float()).abs().max().item())
-    print("[time] flash_fwd prefill: " + json.dumps(prefill))
+    print(f"[time] flash_fwd prefill D{d}: " + json.dumps(prefill))
 
     s_max = 1024
     rng = np.random.default_rng(7)
@@ -1266,7 +1583,7 @@ def phase_static_kernel_times(dev_info: dict) -> dict:
     )
     decode.update(shape={"B": b, "S_max": s_max, "lens": lens0, "Hq": h, "Hkv": h, "D": d},
                   max_abs_err=(got.float() - ref).abs().max().item())
-    print("[time] contig_decode step: " + json.dumps(decode))
+    print(f"[time] contig_decode step D{d}: " + json.dumps(decode))
     for rec in (prefill, decode):
         assert rec["max_abs_err"] <= KERNEL_TOL, rec["max_abs_err"]
     return {"flash_fwd": prefill, "contig_decode": decode}
@@ -1376,6 +1693,65 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
     return recs
 
 
+def _ssd_work(bsz: int, s: int, h: int, n: int, p: int = 64) -> tuple[int, float, float]:
+    """(bytes, flops, float32 flops) of B7 on these shapes, started from
+    zeros as ops.ssd starts it on the main path (no initial state read).
+    Bytes: x, dt, a, b and c read once, y and the final state written once.
+    Flops: C B^T once per (batch row, chunk), being the same for every head,
+    on the positions j <= i; then per head W X (j <= i), C S^T and the state
+    update, over each chunk's positions below S. The third value is the
+    part of those that B7 runs as float32 FMAs (all but C B^T)."""
+    nbytes = 2 * bsz * s * h * p * 2 + bsz * s * h * 4 + h * 4 + 2 * bsz * s * n * 2
+    nbytes += bsz * h * p * n * 4
+    fl16 = fl32 = 0.0
+    for s0 in range(0, s, 128):
+        rows = min(128, s - s0)
+        tri = rows * (rows + 1) / 2
+        fl16 += bsz * 2 * tri * n
+        fl32 += bsz * h * (2 * tri * p + 2 * rows * n * p + 2 * rows * p * n)
+    return nbytes, fl16 + fl32, fl32
+
+
+def phase_ssd_kernel_times(dev_info: dict) -> dict:
+    """B7 at the second prefill group of each SSM path (B 8, S 700, the
+    bucket of requests 8-11): mamba2-130m's 24 heads at N 128 and
+    zamba2-2.7b's 80 heads at N 64, P 64, from a zero state as ops.ssd
+    passes it (None). No single PyTorch call computes the scan: library_ms
+    is None. bound_ms takes every product at the dense bf16 peak, the rate
+    that tensor-core products at float32 accuracy (split bf16, 3xTF32)
+    approach; ``bound_f32_fma_ms`` is this design's own bound, with the
+    float32 products at the data sheet's float32 rate outside the tensor
+    cores."""
+    from repro_torch.kernels.ssd import launch_ssd, ssd_fwd
+    from repro_torch.models.ssm import ssd_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = {}
+    for arch, h, nd in (("mamba2-130m", 24, 128), ("zamba2-2_7b", 80, 64)):
+        bsz, s = 8, 700
+        x, dt, a, b, c, _ = _ssd_case(gen, bsz, s, h, nd, False)
+        y, fin = torch.empty_like(x), torch.empty((bsz, h, 64, nd), device="cuda")
+        got_y, got_fin = ssd_fwd(x, dt, a, b, c)
+        ry, rfin = ssd_chunked(x.float(), dt, a, b.float(), c.float(), chunk=128)
+        torch.cuda.synchronize()
+        nbytes, flops, fl32 = _ssd_work(bsz, s, h, nd)
+        rec = _time_record({
+            "kernel": lambda: launch_ssd(x, dt, a, b, c, None, y, fin),
+            "wrapper": lambda: ssd_fwd(x, dt, a, b, c),
+            "plain": lambda: ssd_chunked(x, dt, a, b, c, chunk=128),
+            "library": None,
+        }, nbytes=nbytes, flops=flops, dev_info=dev_info)
+        t_fma = ((flops - fl32) / dev_info["peak"] + fl32 / dev_info["peak_f32"]) * 1e3
+        rec.update(shape={"B": bsz, "S": s, "H": h, "P": 64, "N": nd, "chunk": 128},
+                   bound_f32_fma_ms=max(nbytes / dev_info["bw"] * 1e3, t_fma), flops_f32=fl32,
+                   max_abs_err=_rel_err(got_y, ry), state_rel_err=_rel_err(got_fin, rfin),
+                   max_abs_err_is="max-abs error over max |plain|")
+        print(f"[time] ssd {arch}: " + json.dumps(rec))
+        assert rec["max_abs_err"] <= SSD_Y_TOL and rec["state_rel_err"] <= SSD_STATE_TOL, rec
+        out[arch] = rec
+    return out
+
+
 def _alternating_orders(q, k, v, bt, lens, qls, nb) -> dict:
     """Per-launch time of launch pairs whose rows' lengths differ by one, as
     two consecutive decode steps do, with the pages walked in cyclic and in
@@ -1423,8 +1799,8 @@ def _entry(name: str, launches: int, max_abs_err: float, rec: dict, **extra) -> 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile each main path (half of the serve requests, one "
-                         "training step) under torch.profiler")
+                    help="also profile each main path (half of the serve requests of each "
+                         "serve path, one training step) under torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test runs on the GPU only",
@@ -1437,6 +1813,7 @@ def main(argv=None) -> int:
     flash_worst = phase_flash_matrix()
     decode_worst = phase_decode_matrix()
     bwd_worst = phase_bwd_matrix()
+    ssd_check = phase_ssd_matrix()
     cfg, lm, params = build_main_model()
     main_path = phase_main_path(cfg, lm, params, profile=args.profile)
     static = phase_static_path(cfg, lm, params, profile=args.profile)
@@ -1448,12 +1825,17 @@ def main(argv=None) -> int:
     small_static = phase_small_static()
     loop = phase_train_loop()
     small_train = phase_small_train()
+    mamba = phase_ssm_path("mamba2-130m", profile=args.profile)
+    zamba = phase_ssm_path("zamba2-2_7b", profile=args.profile)
     times = phase_kernel_times(dev_info, main_path)
     static_times = phase_static_kernel_times(dev_info)
+    d80_times = phase_static_kernel_times(dev_info, d=80)
     train_times = phase_train_kernel_times(dev_info)
+    ssd_times = phase_ssd_kernel_times(dev_info)
 
-    by_path = {name: {"continuous": main_path["launches"][name],
-                      "static": static["launches"][name], "train": train["launches"][name]}
+    paths = {"continuous": main_path, "static": static, "train": train, "mamba2": mamba,
+             "zamba2": zamba}
+    by_path = {name: {path: rec["launches"][name] for path, rec in paths.items()}
                for name in main_path["launches"]}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     narrow, wide = times["narrow"], times["wide"]
@@ -1468,11 +1850,14 @@ def main(argv=None) -> int:
                launches_per_prefill=static["launches"]["flash_fwd"] / static["prefill_calls"],
                launches_per_train_step=train["launches"]["flash_fwd"] / train["steps"],
                train_shape={k: train_times["flash_fwd"][k] for k in timing_keys},
+               d80_zamba2_shape={k: d80_times["flash_fwd"][k] for k in timing_keys},
                small_model_max_abs_err=small_static),
         _entry("contig_decode", launches["contig_decode"],
-               max(decode_worst, dec["max_abs_err"]), dec,
+               max(decode_worst, dec["max_abs_err"], d80_times["contig_decode"]["max_abs_err"]),
+               dec,
                launches_per_decode_step=static["launches"]["contig_decode"]
                / static["decode_calls"],
+               d80_zamba2_shape={k: d80_times["contig_decode"][k] for k in timing_keys},
                small_model_max_abs_err=small_static),
     ]
     for name, key in (("flash_bwd_delta", "delta"), ("flash_bwd_dq", "dq"),
@@ -1485,11 +1870,26 @@ def main(argv=None) -> int:
             launches_per_train_step=train["launches"][name] / train["steps"],
             sdpa_bwd_ms=rec["sdpa_bwd_ms"], bwd_kernels_sum_ms=rec["bwd_kernels_sum_ms"],
             plain_covers=rec["plain_covers"], small_train_max_abs_loss_diff=small_train))
+    ssd_worst = ssd_check["worst"]
+    kernels.append(_entry(
+        "ssd", launches["ssd"],
+        max(ssd_worst["y"], ssd_worst["chained_y"], *(r["max_abs_err"] for r in ssd_times.values())),
+        ssd_times["mamba2-130m"],
+        max_abs_err_is="max-abs error over max |plain| (y)",
+        state_rel_err=max(ssd_worst["state"], ssd_worst["chained_state"],
+                          *(r["state_rel_err"] for r in ssd_times.values())),
+        bound_f32_fma_ms=ssd_times["mamba2-130m"]["bound_f32_fma_ms"],
+        zamba2_shape={k: ssd_times["zamba2-2_7b"][k]
+                      for k in (*timing_keys, "bound_f32_fma_ms")},
+        launches_per_prefill={"mamba2": mamba["launches"]["ssd"] / mamba["prefill_calls"],
+                              "zamba2": zamba["launches"]["ssd"] / zamba["prefill_calls"]},
+        wrong_variants=ssd_check["controls"]))
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s; training "
           f"{train['tokens_per_s'][-1]:.0f} tokens/s at step {train['steps'] - 1}, peak "
-          f"{train['peak_mem_gb']:.2f} GB; loop {loop['interrupted']}")
+          f"{train['peak_mem_gb']:.2f} GB; loop {loop['interrupted']}; mamba2 "
+          f"{mamba['tokens_per_s']:.1f} and zamba2 {zamba['tokens_per_s']:.1f} tokens/s")
     print(dev_info["smi"])
     print("checked kernels: " + json.dumps([k["name"] for k in kernels]))
     print(json.dumps({"kernels": kernels}))

@@ -25,7 +25,10 @@
 // thread for the scores. Each warp keeps its own online softmax (m, l,
 // accumulator in f32) over its 32 positions of every tile; the four are
 // merged once at the end. So no warp idles when a kv head has one query
-// head (deepseek), unlike a warp-per-row layout.
+// head (deepseek), unlike a warp-per-row layout. For P . V, lane l owns the
+// bf16 pairs l, l + 32, ... of the head dim (32-bit shared loads, exact for
+// D 64, 80 and 128; at D 80, zamba2's shared attention, lanes 8-31 hold one
+// pair and lanes 0-7 two).
 //
 // What bounds it on this card: bytes. Each valid K/V element is read once
 // and used for 2*G flops, far below the card's ~295 flops per byte. No
@@ -69,7 +72,9 @@ __global__ void __launch_bounds__(kThreads) contig_decode_kernel(Args p) {
   using S = Smem<D, R>;
   constexpr int KS = S::KS;
   constexpr int CH = D / 8;
-  constexpr int DPL = D / 32;  // accumulator dims per lane
+  constexpr int NP = D / 2;             // bf16 pairs of a row
+  constexpr int PPL = (NP + 31) / 32;   // pairs a lane owns: lane, lane + 32, ...
+  constexpr int DPL = 2 * PPL;          // accumulator dims per lane
 
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* Ks = reinterpret_cast<uint16_t*>(smem);
@@ -169,18 +174,18 @@ __global__ void __launch_bounds__(kThreads) contig_decode_kernel(Args p) {
       }
       __syncwarp();
 
-      // acc += P . V; lane owns output dims [lane * DPL, lane * DPL + DPL).
+      // acc += P . V; lane owns the dims 2 pi, 2 pi + 1 of its pairs pi
+      // (a pair past the row adds zeros and is never stored).
       const int n_use = min(32, c1 - wpos0);
       for (int jj = 0; jj < n_use; ++jj) {
         float vf[DPL];
-        const uint16_t* vrow = Vs + (warp * 32 + jj) * D + lane * DPL;
-        if constexpr (DPL == 4) {
-          const uint2 w = *reinterpret_cast<const uint2*>(vrow);
-          vf[0] = bf16_lo(w.x); vf[1] = bf16_hi(w.x);
-          vf[2] = bf16_lo(w.y); vf[3] = bf16_hi(w.y);
-        } else {
-          const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow);
-          vf[0] = bf16_lo(w); vf[1] = bf16_hi(w);
+        const uint16_t* vrow = Vs + (warp * 32 + jj) * D;
+#pragma unroll
+        for (int k = 0; k < PPL; ++k) {
+          const int pi = lane + 32 * k;
+          const uint32_t w = pi < NP ? *reinterpret_cast<const uint32_t*>(vrow + 2 * pi) : 0u;
+          vf[2 * k] = bf16_lo(w);
+          vf[2 * k + 1] = bf16_hi(w);
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
@@ -205,7 +210,13 @@ __global__ void __launch_bounds__(kThreads) contig_decode_kernel(Args p) {
       Ml[warp * R + r] = l[r];
     }
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) Ma[(warp * R + r) * D + lane * DPL + d] = acc[r][d];
+    for (int k = 0; k < PPL; ++k) {
+      const int pi = lane + 32 * k;
+      if (pi < NP) {
+        Ma[(warp * R + r) * D + 2 * pi] = acc[r][2 * k];
+        Ma[(warp * R + r) * D + 2 * pi + 1] = acc[r][2 * k + 1];
+      }
+    }
   }
   __syncthreads();
   for (int e = tid; e < nrows * D; e += kThreads) {
@@ -274,6 +285,7 @@ extern "C" int contig_decode_bf16(const void* q, const void* k, const void* v, c
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) return static_cast<int>(launch_rows<128>(a, B, st));
+  if (D == 80) return static_cast<int>(launch_rows<80>(a, B, st));
   if (D == 64) return static_cast<int>(launch_rows<64>(a, B, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,7 +24,8 @@
 //
 // Design: 4 warps, a 64-row Q tile (16 rows a warp) held as bf16 mma.sync
 // A fragments in registers; 64-position K and V tiles through shared
-// memory; S = Q K^T and O += P V on the tensor cores
+// memory (row stride D + 8 bf16: conflict-free fragment loads at D 64, 80
+// and 128; D 80, zamba2's shared attention, is 5 k-steps and 10 n-tiles); S = Q K^T and O += P V on the tensor cores
 // (mma.sync.m16n8k16.bf16, f32 accumulate). Online softmax in f32 with
 // p = 0 on masked entries: a reversed causal pass can visit the diagonal
 // tile first, where early rows have no visible column yet. P is rounded to
@@ -282,6 +283,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   const int G = Hq / Hkv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128) return static_cast<int>(launch<128>(a, B, G, st));
+  if (D == 80) return static_cast<int>(launch<80>(a, B, G, st));
   if (D == 64) return static_cast<int>(launch<64>(a, B, G, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,196 @@
+"""Time one CUDA kernel built from several source trees in one process, so
+that two versions of it are compared on one card within one call: B2, the
+flash forward (``csrc/flash_fwd.cu``), or B3, the contiguous decode
+(``csrc/contig_decode.cu``).
+
+    PYTHONPATH=src python -m repro_torch.kernels.compare_kernels \
+        [--kernel flash_fwd|contig_decode] --csrc parent=DIR --csrc this=src/repro_torch/csrc
+
+Each DIR holds the kernel's source and the headers it includes (the ``csrc``
+directory of another commit, unpacked with ``git archive`` into a directory
+that git ignores, such as ``build/``). Every variant is compiled with the
+port's flags into ``build/compare_kernels/`` (one ``nvcc`` each, all started
+together) and loaded with ``ctypes``; all take the same C entry point. At
+each of the kernel's shapes (``SHAPES``) every variant's output is held to
+the first variant's, then the variants are timed in rounds whose order
+alternates (A B C, C B A, ...), each reading the median of 30 launches after
+5 warm-ups, timed with CUDA events. Prints the card's name and power limit,
+then one JSON line per shape. These launches are not counted in
+``cuda_lib.launch_counts``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.flash_attention import _launch_args
+from repro_torch.kernels.flash_decode import decode_chunk
+
+__all__ = ["SHAPES", "build", "main"]
+
+# kernel -> shape name -> dims. flash_fwd: (B, Sq = Skv, Hq = Hkv, D, with
+# lse), the static path's second prefill and the training forward, causal,
+# sawtooth. contig_decode: (B, S_max, Hq, Hkv, D), a static decode step with
+# per-row lengths 700-731, sawtooth.
+SHAPES = {
+    "flash_fwd": {"prefill": (8, 700, 32, 128, False), "train": (4, 1024, 32, 128, True)},
+    "contig_decode": {"decode_d128": (8, 1024, 32, 32, 128),
+                      "decode_d64_gqa4": (8, 1024, 32, 8, 64)},
+}
+
+
+def build(kernel: str, variants: dict[str, Path]) -> dict:
+    """Compile ``kernel``'s source of every ``{name: csrc dir}`` in parallel
+    and load each; returns ``{name: C entry point}``; raises with the
+    compiler's output if one fails."""
+    spec = cuda_lib.KERNELS[kernel]
+    out_dir = cuda_lib.BUILD_DIR.parent / "compare_kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, csrc in variants.items():
+        files = [csrc / spec.source, *sorted(csrc.glob("*.cuh"))]
+        src = b"".join(p.read_bytes() for p in files)
+        lib = out_dir / f"{kernel}-{name}-{hashlib.sha256(src).hexdigest()[:16]}.so"
+        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib),
+               str(csrc / spec.source)]
+        jobs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+    libs, failed = {}, []
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        fn = getattr(ctypes.CDLL(str(lib)), spec.entry)
+        fn.argtypes = list(spec.argtypes)
+        fn.restype = ctypes.c_int
+        libs[name] = fn
+    if failed:
+        raise RuntimeError(f"{kernel} build failed:\n" + "\n".join(failed))
+    return libs
+
+
+def _median_ms(call, warmup: int = 5, reps: int = 30) -> float:
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        call()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _bf16(gen, shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+
+def _flash_fwd_case(fns: dict, dims: tuple, gen) -> tuple:
+    """(launch(name), {name: outputs}) of B2 at ``dims``."""
+    b, s, h, d, with_lse = dims
+    q, k, v = (_bf16(gen, (b, s, h, d)) for _ in range(3))
+    args = _launch_args(q, k, order="sawtooth", causal=True, window=None, scale=None,
+                        snake_group=None)
+    outs = {name: (torch.empty_like(q), torch.empty((b, s, h), dtype=torch.float32,
+                                                    device="cuda") if with_lse else None)
+            for name in fns}
+
+    def launch(name):
+        o, lse = outs[name]
+        return fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                         None if lse is None else lse.data_ptr(), None, *args)
+
+    return launch, outs
+
+
+def _contig_decode_case(fns: dict, dims: tuple, gen) -> tuple:
+    """(launch(name), {name: outputs}) of B3 at ``dims``."""
+    b, s_max, hq, hkv, d = dims
+    q = _bf16(gen, (b, 1, hq, d))
+    k, v = _bf16(gen, (b, s_max, hkv, d)), _bf16(gen, (b, s_max, hkv, d))
+    lens = torch.randint(700, 732, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    args = (b, s_max, hq, hkv, d, -1, decode_chunk(512, s_max),
+            cuda_lib.ORDER_CODES["sawtooth"], 1, float(d ** -0.5),
+            torch.cuda.current_stream().cuda_stream)
+    outs = {name: (torch.empty_like(q),) for name in fns}
+
+    def launch(name):
+        return fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                         outs[name][0].data_ptr(), *args)
+
+    return launch, outs
+
+
+_CASES = {"flash_fwd": _flash_fwd_case, "contig_decode": _contig_decode_case}
+
+
+def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> dict:
+    dims = SHAPES[kernel][shape]
+    launch, outs = _CASES[kernel](fns, dims, torch.Generator(device="cuda").manual_seed(seed))
+
+    def call(name):
+        err = launch(name)
+        if err:
+            raise RuntimeError(f"{kernel} ({name}) returned cudaError_t {err}")
+
+    names = list(fns)
+    for name in names:
+        call(name)
+    torch.cuda.synchronize()
+    first = outs[names[0]]
+    diff = {name: max(((x.float() - y.float()).abs().max().item()
+                       for x, y in zip(outs[name], first) if x is not None), default=0.0)
+            for name in names}
+    runs = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            runs[name].append(_median_ms(lambda: call(name)))
+    return {"kernel": kernel, "shape": shape, "dims": dims,
+            "max_abs_diff_vs_" + names[0]: diff,
+            "ms_median_of_rounds": {n: statistics.median(t) for n, t in runs.items()},
+            "ms_rounds": runs}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(SHAPES), default="flash_fwd")
+    ap.add_argument("--csrc", action="append", required=True, metavar="NAME=DIR",
+                    help="a variant: its name and a directory holding the kernel's source")
+    ap.add_argument("--rounds", type=int, default=6)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("compare_kernels: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    variants = {}
+    for spec in args.csrc:
+        name, _, path = spec.partition("=")
+        variants[name] = Path(path)
+    t0 = time.perf_counter()
+    fns = build(args.kernel, variants)
+    print(f"[compare_kernels] built {len(fns)} variants of {args.kernel} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    for shape in SHAPES[args.kernel]:
+        print(json.dumps(compare(args.kernel, fns, shape, args.rounds)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -107,6 +107,14 @@ KERNELS = {
         argtypes=(_P,) * 9 + (_I,) * 10 + (_F, _P),
         replaces="src/repro/kernels/flash_attention.py:405",
     ),
+    "ssd": Kernel(
+        name="ssd",
+        source="ssd.cu",
+        entry="ssd_fwd_bf16",
+        # x, dt, a, b, c, init_state, y, final, B, S, H, P, N, stream
+        argtypes=(_P,) * 8 + (_I,) * 5 + (_P,),
+        replaces="src/repro/kernels/ssd.py:40",
+    ),
 }
 
 # Order family as the kernels take it (the ``order`` int argument).

@@ -56,7 +56,8 @@ __all__ = [
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 BLOCK_M = 64   # Q rows per block
 BLOCK_N = 64   # KV positions per tile
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 80, 128)    # the forward (B2)
+_BWD_HEAD_DIMS = (64, 128)    # the backward (B4-B6)
 
 
 def kernel_traversal(
@@ -105,8 +106,9 @@ def _check_cuda_operands(q, k, v, *more, kernel: str = "flash_fwd") -> None:
     b, _, hq, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{kernel} kernel takes head dim in {_HEAD_DIMS}, got {d}")
+    dims = _HEAD_DIMS if kernel == "flash_fwd" else _BWD_HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"{kernel} kernel takes head dim in {dims}, got {d}")
     if hq % k.shape[2]:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {k.shape[2]}")
 

@@ -49,7 +49,8 @@ __all__ = [
     "paged_decode_attention",
 ]
 
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128)            # the paged kernel (B1)
+_CONTIG_HEAD_DIMS = (64, 80, 128)  # the contiguous decode (B3)
 
 
 def _check_cuda_operands(q, k_pool, v_pool, phys, logical, lens, q_lens) -> None:
@@ -161,8 +162,8 @@ def launch_contig_decode(q, k_cache, v_cache, lens, *, order=Order.CYCLIC, windo
     if k_cache.shape != v_cache.shape or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)} do not fit "
                          f"q {tuple(q.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"contig_decode kernel takes head dim in {_HEAD_DIMS}, got {d}")
+    if d not in _CONTIG_HEAD_DIMS:
+        raise ValueError(f"contig_decode kernel takes head dim in {_CONTIG_HEAD_DIMS}, got {d}")
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
     if hq % hkv:
         raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")

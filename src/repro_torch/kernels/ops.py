@@ -1,8 +1,8 @@
-"""Device-dispatched attention ops that the model layers call.
+"""Device-dispatched ops that the model layers call.
 
 A port of ``repro.kernels.ops``: ``attention`` (the full-sequence forward
-of ``LM.prefill``) and ``attention_decode`` (contiguous single-token decode
-and ragged paged chunks). ``impl``:
+of ``LM.prefill``), ``attention_decode`` (contiguous single-token decode
+and ragged paged chunks) and ``ssd`` (the Mamba-2 chunked scan). ``impl``:
 
   * ``"auto"``      — by the tensors' device: the CUDA kernel for CUDA
     tensors, the plain PyTorch version for CPU tensors;
@@ -22,6 +22,14 @@ the three CUDA kernels (delta, dQ, dK/dV) for ``cuda``, the plain blockwise
 backward at ``bwd_q_block``/``bwd_kv_block`` for ``torch``. ``reference``
 recomputes through the full-materialization oracle under autograd. Serving
 runs under ``torch.no_grad`` and saves nothing.
+
+``ssd`` is a ``torch.autograd.Function`` too (the reference's
+``custom_vjp``): ``cuda`` runs kernel B7 (``kernels.ssd``), ``torch`` the
+plain chunked scan (``models.ssm.ssd_chunked``) and ``reference`` the
+sequential oracle (``kernels.ref.ssd_ref``). The JAX package has no backward
+kernel for the SSD, so neither has the port: whatever the forward impl, the
+backward re-runs ``ssd_chunked`` under autograd on the saved inputs, as the
+reference's does (``repro/kernels/ops.py:316-321``).
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ from repro_torch.core.attention import decode_attention, flash_attention, flash_
 from repro_torch.core.schedule import Order
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels.flash_decode import flash_decode_fwd
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
+from repro_torch.kernels.ssd import ssd_fwd
 
-__all__ = ["attention", "attention_decode"]
+__all__ = ["attention", "attention_decode", "ssd"]
 
 _IMPLS = ("auto", "cuda", "torch", "reference")
 _JAX_IMPLS = ("pallas", "pallas_interpret", "xla", "jnp")
@@ -163,3 +172,58 @@ def attention_decode(
     if impl == "cuda":
         return flash_decode_fwd(q, k_cache, v_cache, cache_len, **kw)
     return decode_attention(q, k_cache, v_cache, cache_len, **kw)
+
+
+def _ssd_chunked(x, dt, a, b, c, init_state, chunk):
+    from repro_torch.models.ssm import ssd_chunked  # lazy: models import this module
+
+    return ssd_chunked(x, dt, a, b, c, chunk=chunk, init_state=init_state)
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, init_state, impl, chunk, grad):
+        ctx.chunk = chunk
+        if grad:
+            ctx.save_for_backward(x, dt, a, b, c, init_state)
+        if impl == "cuda":
+            # The kernel takes contiguous operands; x, b and c are slices of
+            # the in-projection's output.
+            return ssd_fwd(x.contiguous(), dt.contiguous(), a.contiguous(), b.contiguous(),
+                           c.contiguous(), chunk=chunk,
+                           init_state=None if init_state is None else init_state.contiguous())
+        if impl == "reference":
+            return ssd_ref(x, dt, a, b, c, init_state=init_state)
+        return _ssd_chunked(x, dt, a, b, c, init_state, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gs):
+        # A None initial state (zeros) is saved as None and gets no gradient.
+        saved = [None if t is None else t.detach().requires_grad_(True)
+                 for t in ctx.saved_tensors]
+        inputs = [t for t in saved if t is not None]
+        with torch.enable_grad():
+            y, s = _ssd_chunked(*saved, ctx.chunk)
+            grads = iter(torch.autograd.grad((y, s), inputs, (gy, gs), allow_unused=True))
+        return (*(None if t is None else next(grads) for t in saved), None, None, None)
+
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    *,
+    init_state: Optional[torch.Tensor] = None,
+    chunk: int = 128,
+    impl: str = "auto",
+):
+    """Mamba-2 SSD scan: (y (B, S, H, P) in x's dtype, final state (B, H,
+    P, N) float32). Layouts as ``kernels.ref.ssd_ref``; ``init_state`` None
+    means zeros, and goes to the impl as None: B7 then starts from zeros
+    without reading a state."""
+    impl = _resolve(impl, x, "ssd")
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, dt, a, b, c, init_state))
+    return _SSD.apply(x, dt, a, b, c, init_state, impl, chunk, grad)

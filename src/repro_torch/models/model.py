@@ -11,8 +11,15 @@ next-token cross-entropy of the training step (differentiable, with the
 layers under the config's rematerialization); ``prefill`` (the static serve
 path) builds contiguous caches, or paged ones when ``cfg.kv_layout`` is
 ``"paged"``; ``decode_step`` is the single-token step over contiguous caches
-or the ragged chunk step over a paged pool. Other families are later slices
-of the port.
+or the ragged chunk step over a paged pool.
+
+It serves the SSM (Mamba-2) and hybrid (Zamba2) families on the static
+path: ``prefill`` returns ``{"mamba": {"conv", "ssd"}, "len"}`` with the
+states of all layers stacked on a leading axis (hybrid: ``(groups, every)``,
+plus the shared block's contiguous KV caches ``attn``, one per application
+site), and ``decode_step`` is the exact recurrent step, writing the states
+in place. Their ``loss`` is the reference's; training them on the card is a
+later slice. MoE, enc-dec and VLM are later slices too.
 """
 
 from __future__ import annotations
@@ -24,13 +31,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 __all__ = ["LM", "build_model"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-_PORTED_FAMILIES = ("dense",)
+_PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,17 +86,27 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(b, s)
 
 
+def _generator(seed, device) -> torch.Generator:
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _head_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    pd = cfg.parameter_dtype()
+    p = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, pd)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dtype=pd)
+    return p
+
+
 def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
     def init(seed=0) -> dict:
         """Random params on ``device`` at the reference's scales, drawn from
         ``seed`` (an int or a ``torch.Generator`` on ``device``)."""
-        gen = seed
-        if not isinstance(seed, torch.Generator):
-            gen = torch.Generator(device=device).manual_seed(int(seed))
+        gen = _generator(seed, device)
         pd = cfg.parameter_dtype()
-        p = {"embed": L.embed_init(gen, cfg.vocab, cfg.d_model, pd)}
-        if not cfg.tie_embeddings:
-            p["lm_head"] = L.dense_init(gen, cfg.d_model, cfg.vocab, dtype=pd)
+        p = _head_init(gen, cfg)
         p["layers"] = T.stack_init(gen, cfg, cfg.n_layers)
         p["ln_f"] = L.rmsnorm_init(cfg.d_model, pd, device)
         return p
@@ -129,6 +148,88 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
     return LM(cfg, device, init, loss, prefill, decode_step)
 
 
+def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
+    hybrid = cfg.family == "hybrid"
+
+    def init(seed=0) -> dict:
+        """Random params on ``device`` at the reference's scales, drawn from
+        ``seed`` (an int or a ``torch.Generator`` on ``device``)."""
+        gen = _generator(seed, device)
+        pd = cfg.parameter_dtype()
+        p = _head_init(gen, cfg)
+        if hybrid:
+            p["layers"] = HY.hybrid_init(gen, cfg)
+        else:
+            p["layers"] = [
+                {"ln": L.rmsnorm_init(cfg.d_model, pd, device), "mamba": SSM.mamba_init(gen, cfg)}
+                for _ in range(cfg.n_layers)
+            ]
+        p["ln_f"] = L.rmsnorm_init(cfg.d_model, pd, device)
+        return p
+
+    def _backbone(params, x, positions):
+        if hybrid:
+            return HY.hybrid_apply(params["layers"], cfg, x, positions)
+        h = x
+        for lp in params["layers"]:
+            body = T.remat_wrap(lambda h_, lp=lp: h_ + SSM.mamba_apply(
+                lp["mamba"], cfg, L.rmsnorm(lp["ln"], h_, cfg.norm_eps)), cfg)
+            h = body(h)
+        return h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss(params, batch: dict):
+        """batch ``{"tokens": (B, S)}`` -> (loss, metrics), as the dense
+        family's (no mask: every position counts)."""
+        tokens = torch.as_tensor(batch["tokens"], device=device)
+        x = _embed_tokens(params, cfg, tokens)
+        b, s = tokens.shape
+        h, aux = _backbone(params, x, _positions(b, s, device))
+        h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
+        return _lm_loss(params, cfg, tokens, h, aux=aux)
+
+    @torch.no_grad()
+    def prefill(params, batch: dict, max_len: int):
+        """batch ``{"tokens": (B, S)}`` -> (logits (B, 1, vocab) of the last
+        position, caches). SSM caches do not depend on ``max_len``."""
+        tokens = batch["tokens"]
+        x = _embed_tokens(params, cfg, tokens)
+        b, s = tokens.shape
+        if hybrid:
+            h, caches = HY.hybrid_prefill(params["layers"], cfg, x, _positions(b, s, x.device),
+                                          max_len)
+        else:
+            states = SSM.mamba_init_state(cfg, b, device=x.device, lead=(cfg.n_layers,))
+            h = x
+            for i, lp in enumerate(params["layers"]):
+                out, st = SSM.mamba_prefill(lp["mamba"], cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
+                h = h + out
+                for name, t in states.items():
+                    t[i].copy_(st[name])
+            caches = {"mamba": states, "len": s}
+        h = L.rmsnorm(params["ln_f"], h[:, -1:], cfg.norm_eps)
+        return _logits(params, cfg, h), caches
+
+    @torch.no_grad()
+    def decode_step(params, tokens: torch.Tensor, caches: dict):
+        """tokens (B, 1) -> logits (B, 1, vocab), the states (and the hybrid's
+        KV caches) written in place."""
+        x = _embed_tokens(params, cfg, tokens)
+        if hybrid:
+            h, caches = HY.hybrid_decode(params["layers"], cfg, x, caches)
+        else:
+            h = x
+            states = caches["mamba"]
+            for i, lp in enumerate(params["layers"]):
+                out, _ = SSM.mamba_decode(lp["mamba"], cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps),
+                                          {name: t[i] for name, t in states.items()})
+                h = h + out
+            caches = dict(caches, len=caches["len"] + 1)
+        h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
+        return _logits(params, cfg, h), caches
+
+    return LM(cfg, device, init, loss, prefill, decode_step)
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> LM:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; expected one of {FAMILIES}")
@@ -137,4 +238,6 @@ def build_model(cfg: ModelConfig, device="cuda") -> LM:
             f"family {cfg.family!r} is not ported yet (ROADMAP §A13); the port "
             f"serves {_PORTED_FAMILIES}"
         )
+    if cfg.family in ("ssm", "hybrid"):
+        return _build_ssm(cfg, resolve_device(device))
     return _build_decoder_only(cfg, resolve_device(device))

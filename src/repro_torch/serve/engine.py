@@ -9,6 +9,8 @@ prompt bucket (at most ``max_len``; a longer prompt keeps its tail), run
 through ``LM.prefill`` into contiguous KV caches (SWA configs: ring
 buffers), then decoded one token a step for the whole group until every
 row has hit its EOS or its token limit (``max_len - bucket + 1`` at most).
+As in the reference, SWA configs and the SSM family (whose decode state
+does not grow) are not bounded by ``max_len``: any prompt, any limit.
 As in the reference, every row's positions are ``0..bucket-1`` and the
 pads are attended; decode writes at one shared position. TTFT is measured
 from engine start, so queueing behind earlier groups counts. The
@@ -247,9 +249,10 @@ class ServeEngine:
                 f"window={cfg.window}); use scheduler='static' (other families: "
                 "ROADMAP §A13)"
             )
-        # Only full-attention caches are max_len-bounded: sliding-window
-        # configs decode into a ring buffer.
-        bounded = scheduler == "continuous" or cfg.window is None
+        # Only full-attention caches are max_len-bounded, as in the
+        # reference: sliding-window configs decode into a ring buffer and an
+        # SSM's decode state is O(1). (The hybrid has full-attention caches.)
+        bounded = scheduler == "continuous" or (cfg.window is None and cfg.family != "ssm")
         if bounded and max_len <= 0:
             raise ValueError(
                 f"max_len={max_len} gives a zero-capacity KV cache (it must be "

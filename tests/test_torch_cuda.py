@@ -33,6 +33,8 @@ from repro_torch.kernels.flash_attention import (
     launch_flash_bwd_delta,
 )
 from repro_torch.kernels.flash_decode import flash_decode_fwd, paged_flash_decode_fwd
+from repro_torch.kernels.ssd import ssd_fwd
+from repro_torch.models.ssm import ssd_chunked
 
 
 @pytest.fixture
@@ -311,3 +313,138 @@ def test_ops_attention_cuda_grads_match_torch(cuda, window):
         grads[impl] = [t.grad for t in leaves]
     for x, y in zip(grads["cuda"], grads["torch"]):
         assert _rel(x, y.float()) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window,sq,skv", [
+    (True, None, 77, 77), (True, 50, 200, 200), (False, None, 130, 70),
+])
+def test_flash_fwd_kernel_head_dim_80(cuda, causal, window, sq, skv):
+    """B2 at zamba2's head dim 80 (32 heads, no GQA, and GQA 4:2) against
+    the plain version, with the tolerances of the D 64 and 128 test."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + 80)
+    for hq, hkv in ((4, 4), (4, 2)):
+        q = _bf16(gen, (2, sq, hq, 80), cuda)
+        k, v = _bf16(gen, (2, skv, hkv, 80), cuda), _bf16(gen, (2, skv, hkv, 80), cuda)
+        vis = _visible(sq, skv, causal, window, cuda)
+        for order in Order:
+            o, lse = flash_attention_fwd(q, k, v, order=order, causal=causal, window=window,
+                                         snake_group=2, return_lse=True)
+            ro, rl = flash_attention(q.float(), k.float(), v.float(), order=order, causal=causal,
+                                     window=window, q_block=BLOCK_M, kv_block=BLOCK_N,
+                                     snake_group=2, return_lse=True)
+            torch.cuda.synchronize()
+            assert (o.float() - ro)[:, vis].abs().max().item() <= 2e-2
+            assert (lse - rl)[:, vis].abs().max().item() <= 2e-3
+            assert torch.all(o[:, ~vis] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("window", [None, 100])
+def test_contig_decode_kernel_head_dim_80(cuda, g, window):
+    """B3 at head dim 80 (lanes 0-7 own two bf16 pairs, the rest one)
+    against the plain version: 2e-2 abs on rows of positive length, exact
+    zeros on a row of length 0."""
+    gen = torch.Generator(device=cuda).manual_seed(g * 10 + (window or 0) + 80)
+    b, hkv, d, s_max = 4, 2, 80, 300
+    q = _bf16(gen, (b, 1, hkv * g, d), cuda)
+    k, v = _bf16(gen, (b, s_max, hkv, d), cuda), _bf16(gen, (b, s_max, hkv, d), cuda)
+    lens = torch.tensor([300, 0, 129, 7], dtype=torch.int32, device=cuda)
+    ref = decode_attention(q.float(), k.float(), v.float(), lens, window=window)
+    for order in Order:
+        out = flash_decode_fwd(q, k, v, lens, order=order, window=window, snake_group=2)
+        torch.cuda.synchronize()
+        ok = lens > 0
+        assert (out.float() - ref)[ok].abs().max().item() <= 2e-2
+        assert torch.all(out[~ok] == 0)
+
+
+def _ssd_inputs(gen, bsz, s, h, n, dev, state):
+    x = _bf16(gen, (bsz, s, h, 64), dev)
+    dt = torch.nn.functional.softplus(torch.randn((bsz, s, h), generator=gen, device=dev) - 1.0)
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    b, c = _bf16(gen, (bsz, s, n), dev), _bf16(gen, (bsz, s, n), dev)
+    init = torch.randn((bsz, h, 64, n), generator=gen, device=dev) if state else None
+    return x, dt, a, b, c, init
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("s", [1, 77, 128, 700])
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "init"])
+def test_ssd_kernel_matches_plain(cuda, n, s, state):
+    """B7 against ssd_chunked in float32 on the same bf16 inputs: y within
+    1e-2 of max |plain| (y is written in bf16), the float32 final state
+    within 1e-3 of max |plain|; one launch; a second run gives equal bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n + s + state)
+    x, dt, a, b, c, init = _ssd_inputs(gen, 2, s, 6, n, cuda, state)
+    n0 = cuda_lib.launch_counts["ssd"]
+    y, fin = ssd_fwd(x, dt, a, b, c, init_state=init)
+    y2, fin2 = ssd_fwd(x, dt, a, b, c, init_state=init)
+    ry, rfin = ssd_chunked(x.float(), dt, a, b.float(), c.float(), chunk=128, init_state=init)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["ssd"] == n0 + 2
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(fin).all()
+    assert _rel(y, ry) <= 1e-2
+    assert _rel(fin, rfin) <= 1e-3
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_chains_through_the_state(cuda):
+    """Two calls chained through the final state equal one call."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, dt, a, b, c, _ = _ssd_inputs(gen, 2, 300, 4, 128, cuda, False)
+    y, fin = ssd_fwd(x, dt, a, b, c)
+    y1, s1 = ssd_fwd(*(t[:, :200].contiguous() for t in (x, dt)), a,
+                     *(t[:, :200].contiguous() for t in (b, c)))
+    y2, s2 = ssd_fwd(*(t[:, 200:].contiguous() for t in (x, dt)), a,
+                     *(t[:, 200:].contiguous() for t in (b, c)), init_state=s1)
+    torch.cuda.synchronize()
+    assert _rel(torch.cat([y1, y2], 1), y.float()) <= 1e-2
+    assert _rel(s2, fin) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_ssd_wrapper_rejects_what_its_kernel_does_not_take(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x, dt, a, b, c, _ = _ssd_inputs(gen, 1, 16, 2, 64, cuda, False)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ssd_fwd(x.float(), dt, a, b, c)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_fwd(x, dt.to(torch.bfloat16), a, b, c)
+    with pytest.raises(ValueError, match="state dim"):
+        ssd_fwd(x, dt, a, b[..., :32].contiguous(), c[..., :32].contiguous())
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_fwd(x[..., :32].contiguous(), dt, a, b, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_fwd(x, dt, a, b, torch.cat([c, c], -1)[..., ::2])
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_fwd(x, dt, a, b, c, chunk=64)
+    with pytest.raises(ValueError, match="does not fit"):
+        ssd_fwd(x, dt, a, b, c, init_state=torch.zeros((1, 2, 64, 32), device=cuda))
+
+
+@pytest.mark.gpu
+def test_ops_ssd_cuda_matches_torch(cuda):
+    """ops.ssd with the kernel on the strided slices a Mamba block gives it
+    (x, b, c cut from one projection), and its recompute backward, against
+    the plain impl."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    bsz, s, h, n = 2, 150, 4, 64
+    xbc = _bf16(gen, (bsz, s, h * 64 + 2 * n), cuda)
+    x = xbc[..., : h * 64].reshape(bsz, s, h, 64)
+    b, c = xbc[..., h * 64 : h * 64 + n], xbc[..., h * 64 + n :]
+    dt = torch.nn.functional.softplus(torch.randn((bsz, s, h), generator=gen, device=cuda))
+    a = -torch.linspace(1.0, 16.0, h, device=cuda)
+    out = {}
+    for impl in ("cuda", "torch"):
+        leaf = x.detach().clone().requires_grad_(True)
+        y, fin = ops.ssd(leaf, dt, a, b, c, impl=impl)
+        (y.float().square().sum() + fin.square().sum()).backward()
+        out[impl] = (y, fin, leaf.grad)
+    assert _rel(out["cuda"][0], out["torch"][0].float()) <= 1e-2
+    assert _rel(out["cuda"][1], out["torch"][1]) <= 1e-3
+    assert _rel(out["cuda"][2], out["torch"][2].float()) <= 2e-2

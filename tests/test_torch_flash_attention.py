@@ -248,11 +248,12 @@ def test_kernel_registry_names_the_replaced_tpu_kernels():
     root = Path(__file__).resolve().parents[1]
     for name, fn in (("paged_decode", "_paged_decode_kernel"), ("flash_fwd", "_fwd_kernel"),
                      ("contig_decode", "_decode_kernel"), ("flash_bwd_delta", "_delta_kernel"),
-                     ("flash_bwd_dq", "_dq_kernel"), ("flash_bwd_dkv", "_dkv_kernel")):
+                     ("flash_bwd_dq", "_dq_kernel"), ("flash_bwd_dkv", "_dkv_kernel"),
+                     ("ssd", "_ssd_kernel")):
         spec = cuda_lib.KERNELS[name]
         path, line = spec.replaces.split(":")
         assert (root / path).read_text().splitlines()[int(line) - 1].startswith(f"def {fn}(")
         assert (cuda_lib.CSRC / spec.source).is_file()
         assert cuda_lib.library_path(name).name.startswith(f"{name}-")
-    assert set(cuda_lib.KERNELS) == set(cuda_lib.launch_counts) and len(cuda_lib.KERNELS) == 6
+    assert set(cuda_lib.KERNELS) == set(cuda_lib.launch_counts) and len(cuda_lib.KERNELS) == 7
     assert set(cuda_lib.ORDER_CODES) == {o.value for o in port_sched.Order}
