@@ -6,13 +6,15 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), the kernels'
-   build from ``src/repro_torch/csrc`` (one nvcc per source, in parallel);
+   build from ``src/repro_torch/csrc`` (one nvcc per source, in parallel),
+   and the flash forward's registers and shared memory by head dim;
 2. kernel matrices, each CUDA kernel against its plain PyTorch version on
    the card: the paged kernel (B1) over orders x GQA x chunk widths x page
    sizes x windows, with ragged q_lens, a free row and a shuffled block
    table; the flash forward (B2) over orders x causal x windows x GQA x
-   head dims (64, 80, 128) x lengths, o and lse, with its recorded KV-tile
-   walk held to the port's Traversal; the contiguous decode (B3) over
+   head dims (64, 80, 128) x lengths, o and lse, a bitwise repeat, and the
+   KV-tile walk each work item recorded held to the host model of the
+   persistent schedule (``fwd_walks``); the contiguous decode (B3) over
    orders x GQA x windows x chunks x head dims (64, 80, 128) with ragged
    lengths and a row of length 0; the fused backward (B4 delta, B5 dQ, B6
    dK/dV) over orders x causal x windows x GQA x head dims x lengths (Sq !=
@@ -45,7 +47,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    steps) and the first prefill's logits held to the plain versions';
 4. kernel times at the main paths' shapes (B1: one narrow and one wide
    step; B2: the second prefill group, at head dim 128 and at zamba2's 80,
-   and the training shape with lse; B3: the static decode steps at head dim
+   and the training shape with lse, each in the sawtooth and the cyclic
+   order, and an informational long shape, B 1 x 16384 positions, whose K
+   and V exceed the L2 cache; B3: the static decode steps at head dim
    128 and 80; B4-B6: the training shape; B7: the second prefill group of
    mamba2 and of zamba2): the kernel, its bound, the plain version and one
    library call where there is one (SDPA's backward for B4-B6 together;
@@ -152,19 +156,34 @@ def _port():
     sys.path.insert(0, str(src))
 
 
-def _median_ms(fn, warmup: int = 5, reps: int = 30) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+def _median_ms(fn, warmup: int = 5, reps: int = 30, batched: bool = True) -> float:
+    """Device time of one ``fn()`` (``compare_kernels.median_ms``): batched,
+    the median of ``reps`` batches of back-to-back calls timed with CUDA
+    events, so the host's enqueue time is not read; otherwise the median of
+    ``reps`` single calls, each between two events, which reads the host's
+    time as well whenever the queue is empty."""
+    from repro_torch.kernels.compare_kernels import median_ms
+
+    return median_ms(fn, warmup=warmup, reps=reps, batched=batched)
+
+
+def _host_us(fn) -> float:
+    """Host time to issue one ``fn()``, in microseconds
+    (``compare_kernels.host_us``)."""
+    from repro_torch.kernels.compare_kernels import host_us
+
+    return host_us(fn)
+
+
+def _readings(fns: dict, rounds: int, batched: bool = True) -> dict:
+    """``rounds`` readings of each of ``fns`` taken in turns, the order
+    reversed every round (A B, B A, A B, ...): ``{name: [ms, ...]}``."""
+    names = list(fns)
+    runs: dict[str, list] = {name: [] for name in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            runs[name].append(_median_ms(fns[name], batched=batched))
+    return runs
 
 
 # ---- phase 1 ------------------------------------------------------------------
@@ -196,7 +215,21 @@ def phase_device() -> dict:
             if any(w in line for w in ("registers", "spill", "entry function", "error")):
                 print(f"[build]   {line.strip()}")
     print(f"[build] all kernels in {wall:.1f} s (parallel nvcc)")
-    return {"smi": smi, "name": name, "bw": bw, "peak": peak, "peak_f32": peak_f32}
+    import ctypes
+
+    attr_fn = cuda_lib.load("flash_fwd").flash_fwd_attr
+    attr_fn.argtypes, attr_fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    fwd_attr = {}
+    for d in (64, 80, 128):
+        vals = (ctypes.c_int * 4)()
+        err = attr_fn(d, vals)
+        if err:
+            raise RuntimeError(f"flash_fwd_attr({d}) returned cudaError_t {err}")
+        fwd_attr[d] = {"registers_at_launch": vals[0], "dynamic_smem_bytes": vals[1],
+                       "threads": vals[2], "local_bytes": vals[3]}
+        print(f"[build] flash_fwd D{d}: {json.dumps(fwd_attr[d])}")
+    return {"smi": smi, "name": name, "bw": bw, "peak": peak, "peak_f32": peak_f32,
+            "flash_fwd_attr": fwd_attr, "build_seconds": {k: v["seconds"] for k, v in built.items()}}
 
 
 # ---- phase 2 ------------------------------------------------------------------
@@ -293,19 +326,24 @@ def _seen(sq, skv, causal, window):
 
 def phase_flash_matrix() -> float:
     """B2 against its plain version (o on every row that sees a key, lse
-    too; rows that see none are exact zeros), and the KV tiles each block
-    walked against the port's Traversal at the kernel's tile sizes, equal
-    as integers."""
+    too; rows that see none are exact zeros), a second launch bitwise equal
+    to the first, and the KV tiles each work item walked against the host
+    model of the persistent schedule (``fwd_walks``: the k-th item of a CTA
+    walks ``Traversal.kv_order(q_tile, local_iter=k)``) at the kernel's tile
+    sizes, equal as integers."""
     from repro_torch.core.attention import flash_attention
     from repro_torch.core.schedule import Order
     from repro_torch.kernels.flash_attention import (
-        BLOCK_M,
-        BLOCK_N,
+        FWD_BLOCK_M,
+        FWD_BLOCK_N,
         flash_attention_fwd,
+        fwd_walks,
+        fwd_workers,
         kernel_traversal,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
+    workers = fwd_workers(torch.device("cuda"))
     b, hkv, sg = 2, 2, 2
     cases = [(s, s, causal, window) for s in (1, 77, 300, 700) for causal in (True, False)
              for window in (None, 100)]
@@ -320,20 +358,25 @@ def phase_flash_matrix() -> float:
                 errs = []
                 for order in Order:
                     tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
+                                          q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N,
                                           snake_group=sg)
                     visit = torch.full((b * hkv, tr.grid_rows, tr.n_kv), -2, dtype=torch.int32,
                                        device="cuda")
-                    o, lse = flash_attention_fwd(q, k, v, order=order, causal=causal,
-                                                 window=window, snake_group=sg, return_lse=True,
-                                                 visit_out=visit)
+                    kw = dict(order=order, causal=causal, window=window, snake_group=sg,
+                              return_lse=True)
+                    o, lse = flash_attention_fwd(q, k, v, visit_out=visit, **kw)
+                    o2, lse2 = flash_attention_fwd(q, k, v, **kw)
                     ro, rl = flash_attention(q.float(), k.float(), v.float(), order=order,
-                                             causal=causal, window=window, q_block=BLOCK_M,
-                                             kv_block=BLOCK_N, snake_group=sg, return_lse=True)
+                                             causal=causal, window=window, q_block=FWD_BLOCK_M,
+                                             kv_block=FWD_BLOCK_N, snake_group=sg,
+                                             return_lse=True)
                     torch.cuda.synchronize()
                     case = (f"D={d} G={g} Sq={sq} Skv={skv} causal={causal} window={window} "
                             f"order={order.value}")
                     if not torch.isfinite(o.float()).all():
                         raise AssertionError(f"flash_fwd non-finite output: {case}")
+                    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                        raise AssertionError(f"flash_fwd: two launches differ: {case}")
                     if (~vis).any() and o[:, ~vis].abs().max().item() != 0.0:
                         raise AssertionError(f"flash_fwd rows that see nothing are not zero: {case}")
                     err = (o.float() - ro)[:, vis].abs().max().item()
@@ -342,20 +385,20 @@ def phase_flash_matrix() -> float:
                         raise AssertionError(f"flash_fwd disagrees with its plain version: {case}: "
                                              f"o {err:.3e} (tol {KERNEL_TOL}), lse {err_lse:.3e} "
                                              f"(tol {LSE_TOL})")
-                    want = [tr.kv_order(i % tr.n_q, local_iter=i) for i in range(tr.grid_rows)]
-                    want = torch.tensor([w + [-1] * (tr.n_kv - len(w)) for w in want],
-                                        dtype=torch.int32, device="cuda")
-                    if not torch.equal(visit, want[None].expand_as(visit)):
-                        raise AssertionError(f"flash_fwd walked another order than the "
-                                             f"Traversal's: {case}")
+                    want = torch.tensor(fwd_walks(tr, b * hkv, workers), dtype=torch.int32,
+                                        device="cuda")
+                    if not torch.equal(visit, want):
+                        raise AssertionError(f"flash_fwd walked another order than the host "
+                                             f"model's: {case}")
                     n_visits += visit.numel()
                     errs.append(err)
                     worst = max(worst, err)
                     n += 1
                 print(f"[flash] D={d} G={g} Sq={sq} Skv={skv} causal={causal} window={window}: "
-                      f"max_abs_err by order {[f'{e:.2e}' for e in errs]} ok, walk == Traversal")
+                      f"max_abs_err by order {[f'{e:.2e}' for e in errs]} ok, walk == host "
+                      "model, bitwise repeatable")
     print(f"[flash] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL}); "
-          f"{n_visits} recorded tile visits equal the Traversal's")
+          f"{n_visits} recorded tile visits equal the host model's ({workers} CTAs)")
     return worst
 
 
@@ -410,7 +453,8 @@ def phase_bwd_matrix() -> dict:
                             case = (f"D={d} G={g} Sq={sq} Skv={skv} causal={causal} "
                                     f"window={window} order={order.value}")
                             o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
-                            tr = kernel_traversal(sq, skv, g, **kw)
+                            tr = kernel_traversal(sq, skv, g, q_block=BLOCK_M,
+                                                  kv_block=BLOCK_N, **kw)
                             vq = torch.full((b * hkv, tr.grid_rows, tr.n_kv), -2,
                                             dtype=torch.int32, device="cuda")
                             vkv = torch.full((b * hkv, tr.n_kv, tr.grid_rows), -2,
@@ -1462,32 +1506,12 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
         mask = (col <= qpos) & (col < lens[:, None, None]) & (tq < qls[:, None, None])
         mask = mask[:, None]
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask)
-        # Kernel, plain, library, kernel: two kernel readings bracket the
-        # others. The wrapper adds the schedule fold (a few small ops).
-        t_kern = _median_ms(kern)
-        t_wrap = _median_ms(wrapper)
-        t_plain = _median_ms(plain)
-        t_lib = _median_ms(sdpa)
-        t_kern2 = _median_ms(kern)
+        # The wrapper adds the schedule fold (a few small ops).
         nbytes, flops = _work(lens0, q_lens, c, hq, hkv, d)
-        t_bytes = nbytes / dev_info["bw"] * 1e3
-        t_ops = flops / dev_info["peak"] * 1e3
-        rec = {
-            "C": c,
-            "q_lens": q_lens,
-            "lens": lens0,
-            "kernel_ms": min(t_kern, t_kern2),
-            "kernel_ms_runs": [t_kern, t_kern2],
-            "wrapper_ms": t_wrap,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes,
-            "flops": flops,
-            "plain_ms": t_plain,
-            "library_ms": t_lib,
-            "max_abs_err": err,
-            "launches_per_step": main["launches_per_step"],
-        }
+        rec = _time_record({"kernel": kern, "wrapper": wrapper, "plain": plain,
+                            "library": sdpa}, nbytes, flops, dev_info)
+        rec.update(C=c, q_lens=q_lens, lens=lens0, max_abs_err=err,
+                   launches_per_step=main["launches_per_step"])
         if key == "narrow":
             rec["alternating_ms"] = _alternating_orders(q, k, v, bt, lens, qls, nb)
         print(f"[time] {key}: " + json.dumps(rec))
@@ -1496,27 +1520,94 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
 
 
 def _time_record(fns: dict, nbytes: int, flops: float, dev_info: dict) -> dict:
-    """Kernel, wrapper, plain, library, kernel: two kernel readings bracket
-    the others. ``fns["library"]`` may be None (no PyTorch call computes the
-    same function). The bound takes ``flops`` at the dense bf16 peak."""
-    t_kern = _median_ms(fns["kernel"])
-    t_wrap = _median_ms(fns["wrapper"])
-    t_plain = _median_ms(fns["plain"])
-    t_lib = None if fns["library"] is None else _median_ms(fns["library"])
-    t_kern2 = _median_ms(fns["kernel"])
+    """The kernel and the library call (``fns["library"]``, None where no
+    PyTorch call computes the same function) are read alike and in turns:
+    four batched readings each and two single-launch ones
+    (``_median_ms``), each figure the median of its readings. The wrapper
+    gets one reading of each kind and its host time a call; the plain
+    version one batched reading. The bound takes ``flops`` at the dense
+    bf16 peak."""
+    pair = {"kernel": fns["kernel"]}
+    if fns["library"] is not None:
+        pair["library"] = fns["library"]
+    batched = _readings(pair, rounds=4)
+    single = _readings(pair, rounds=2, batched=False)
     t_bytes = nbytes / dev_info["bw"] * 1e3
     t_ops = flops / dev_info["peak"] * 1e3
-    return {
-        "kernel_ms": min(t_kern, t_kern2),
-        "kernel_ms_runs": [t_kern, t_kern2],
-        "wrapper_ms": t_wrap,
+    rec = {
+        "kernel_ms": statistics.median(batched["kernel"]),
+        "kernel_ms_runs": batched["kernel"],
+        "kernel_single_ms": statistics.median(single["kernel"]),
+        "kernel_single_ms_runs": single["kernel"],
+        "kernel_host_us": _host_us(fns["kernel"]),
+        "wrapper_ms": _median_ms(fns["wrapper"]),
+        "wrapper_single_ms": _median_ms(fns["wrapper"], batched=False),
+        "wrapper_host_us": _host_us(fns["wrapper"]),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes,
         "flops": flops,
-        "plain_ms": t_plain,
-        "library_ms": t_lib,
+        "plain_ms": _median_ms(fns["plain"]),
+        "library_ms": None,
+        "library_single_ms": None,
     }
+    if "library" in pair:
+        rec.update(library_ms=statistics.median(batched["library"]),
+                   library_ms_runs=batched["library"],
+                   library_single_ms=statistics.median(single["library"]),
+                   library_single_ms_runs=single["library"])
+    return rec
+
+
+def _order_times(launch) -> dict:
+    """B2 at one shape in the sawtooth and in the cyclic order, four batched
+    readings each taken in turns (``_readings``); ``launch(order)``
+    launches it once. Each order's figure is the median of its readings."""
+    runs = _readings({order: (lambda order=order: launch(order))
+                      for order in ("sawtooth", "cyclic")}, rounds=4)
+    return {"sawtooth": statistics.median(runs["sawtooth"]),
+            "cyclic": statistics.median(runs["cyclic"]), "runs": runs}
+
+
+def phase_long_flash_times(dev_info: dict) -> dict:
+    """B2 at an informational shape whose K and V (268 MB) exceed the 50 MB
+    L2 many times over: B 1, Sq = Skv = 16384, 32 heads of 128, causal, in
+    the sawtooth and the cyclic order, beside SDPA; no limit. The output is
+    held to SDPA's (the plain version at this size takes seconds a call,
+    so it is not timed). The paper's claim is that sawtooth order keeps
+    more of the K/V a CTA walks in cache than cyclic order."""
+    from repro_torch.kernels.flash_attention import launch_flash_fwd
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, s, d = 1, 32, 16384, 128
+    q, k, v = (_bf16(gen, (b, s, h, d)) for _ in range(3))
+    out = torch.empty_like(q)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    launch_flash_fwd(q, k, v, out, order="sawtooth", causal=True)
+    lib = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
+    torch.cuda.synchronize()
+    orders = _order_times(lambda order: launch_flash_fwd(q, k, v, out, order=order, causal=True))
+    t_lib = statistics.median(_readings({"library": lambda: sdpa(qt, kt, vt, is_causal=True)},
+                                        rounds=4)["library"])
+    nbytes, flops = 4 * b * s * h * d * 2, 4.0 * b * h * d * s * (s + 1) / 2
+    t_bytes, t_ops = nbytes / dev_info["bw"] * 1e3, flops / dev_info["peak"] * 1e3
+    rec = {
+        "shape": {"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True},
+        "kernel_ms": orders["sawtooth"],
+        "orders_ms": orders,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": t_lib,
+        "plain_ms": None,
+        "library_max_abs_diff": (out.float() - lib.float()).abs().max().item(),
+        "tflops_sawtooth": flops / orders["sawtooth"] / 1e9,
+        "tflops_cyclic": flops / orders["cyclic"] / 1e9,
+    }
+    print("[time] flash_fwd long (informational): " + json.dumps(rec))
+    del q, k, v, out, qt, kt, vt, lib
+    torch.cuda.empty_cache()
+    return rec
 
 
 def phase_static_kernel_times(dev_info: dict, d: int = 128) -> dict:
@@ -1528,8 +1619,8 @@ def phase_static_kernel_times(dev_info: dict, d: int = 128) -> dict:
     visible (query, key) pair and head dim."""
     from repro_torch.core.attention import decode_attention, flash_attention
     from repro_torch.kernels.flash_attention import (
-        BLOCK_M,
-        BLOCK_N,
+        FWD_BLOCK_M,
+        FWD_BLOCK_N,
         flash_attention_fwd,
         launch_flash_fwd,
     )
@@ -1542,7 +1633,8 @@ def phase_static_kernel_times(dev_info: dict, d: int = 128) -> dict:
     out = torch.empty_like(q)
     kw = dict(order="sawtooth", causal=True)
     got = flash_attention_fwd(q, k, v, **kw)
-    ref = flash_attention(q.float(), k.float(), v.float(), q_block=BLOCK_M, kv_block=BLOCK_N, **kw)
+    tiles = dict(q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N)
+    ref = flash_attention(q.float(), k.float(), v.float(), **tiles, **kw)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lib = sdpa(qt, kt, vt, is_causal=True).transpose(1, 2)
     torch.cuda.synchronize()
@@ -1550,14 +1642,17 @@ def phase_static_kernel_times(dev_info: dict, d: int = 128) -> dict:
         {
             "kernel": lambda: launch_flash_fwd(q, k, v, out, **kw),
             "wrapper": lambda: flash_attention_fwd(q, k, v, **kw),
-            "plain": lambda: flash_attention(q, k, v, q_block=BLOCK_M, kv_block=BLOCK_N, **kw),
+            "plain": lambda: flash_attention(q, k, v, **tiles, **kw),
             "library": lambda: sdpa(qt, kt, vt, is_causal=True),
         },
         nbytes=4 * b * s * h * d * 2, flops=4.0 * b * h * d * s * (s + 1) / 2, dev_info=dev_info,
     )
     prefill.update(shape={"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True},
                    max_abs_err=(got.float() - ref).abs().max().item(),
-                   library_max_abs_diff=(got.float() - lib.float()).abs().max().item())
+                   library_max_abs_diff=(got.float() - lib.float()).abs().max().item(),
+                   orders_ms=_order_times(
+                       lambda order: launch_flash_fwd(q, k, v, out, order=order, causal=True)),
+                   kernel_attr=dev_info["flash_fwd_attr"][d])
     print(f"[time] flash_fwd prefill D{d}: " + json.dumps(prefill))
 
     s_max = 1024
@@ -1603,6 +1698,8 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
     from repro_torch.kernels.flash_attention import (
         BLOCK_M,
         BLOCK_N,
+        FWD_BLOCK_M,
+        FWD_BLOCK_N,
         flash_attention_bwd,
         flash_attention_fwd,
         launch_flash_bwd_delta,
@@ -1617,6 +1714,7 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
     q, k, v, do = (_bf16(gen, (b, s, h, d)) for _ in range(4))
     kw = dict(order="sawtooth", causal=True)
     tiles = dict(q_block=BLOCK_M, kv_block=BLOCK_N)
+    fwd_tiles = dict(q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N)
     o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
     out, lse2 = torch.empty_like(q), torch.empty_like(lse)
     delta, dq = torch.empty_like(lse), torch.empty_like(q)
@@ -1624,8 +1722,8 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
     launch_flash_bwd_delta(o, do, delta)
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     want = plain_bwd(q.float(), k.float(), v.float(), o.float(), lse, do.float(), **tiles, **kw)
-    ref_o, ref_lse = flash_attention(q.float(), k.float(), v.float(), return_lse=True, **tiles,
-                                     **kw)
+    ref_o, ref_lse = flash_attention(q.float(), k.float(), v.float(), return_lse=True,
+                                     **fwd_tiles, **kw)
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
     lib_out = sdpa(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2).contiguous()
@@ -1649,7 +1747,7 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
         "flash_fwd": _time_record({
             "kernel": lambda: launch_flash_fwd(q, k, v, out, lse2, **kw),
             "wrapper": lambda: flash_attention_fwd(q, k, v, return_lse=True, **kw),
-            "plain": lambda: flash_attention(q, k, v, return_lse=True, **tiles, **kw),
+            "plain": lambda: flash_attention(q, k, v, return_lse=True, **fwd_tiles, **kw),
             "library": lambda: sdpa(qt, kt, vt, is_causal=True),
         }, nbytes=4 * bhsd * 2 + rows, flops=2 * mm, dev_info=dev_info),
         "flash_bwd_delta": _time_record({
@@ -1677,6 +1775,10 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
                                                   "flash_bwd_dkv"))
     shape = {"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True,
              "order": "sawtooth"}
+    recs["flash_fwd"].update(
+        orders_ms=_order_times(lambda order: launch_flash_fwd(q, k, v, out, lse2, order=order,
+                                                              causal=True)),
+        kernel_attr=dev_info["flash_fwd_attr"][d])
     for name, rec in recs.items():
         rec.update(shape=shape, max_abs_err=errs[name])
         if name != "flash_fwd":
@@ -1756,8 +1858,8 @@ def _alternating_orders(q, k, v, bt, lens, qls, nb) -> dict:
     """Per-launch time of launch pairs whose rows' lengths differ by one, as
     two consecutive decode steps do, with the pages walked in cyclic and in
     sawtooth order: sawtooth starts each launch on the pages the previous
-    one read last (the paper's L2 reuse). Read in turns: cyclic, sawtooth,
-    sawtooth, cyclic."""
+    one read last (the paper's L2 reuse). Two batched readings of each,
+    taken in turns; each order's figure is the median of its readings."""
     from repro_torch.kernels.flash_decode import fold_schedule, launch_paged_decode
 
     lens2 = lens + 1
@@ -1769,10 +1871,8 @@ def _alternating_orders(q, k, v, bt, lens, qls, nb) -> dict:
             launch_paged_decode(q, k, v, pa, la, lens, qls),
             launch_paged_decode(q, k, v, pb, lb, lens2, qls),
         )
-    runs: dict[str, list] = {"cyclic": [], "sawtooth": []}
-    for name in ("cyclic", "sawtooth", "sawtooth", "cyclic"):
-        runs[name].append(_median_ms(fns[name]) / 2)
-    return {"cyclic": min(runs["cyclic"]), "sawtooth": min(runs["sawtooth"]), "runs": runs}
+    runs = {name: [t / 2 for t in ts] for name, ts in _readings(fns, rounds=2).items()}
+    return {name: statistics.median(ts) for name, ts in runs.items()} | {"runs": runs}
 
 
 def _entry(name: str, launches: int, max_abs_err: float, rec: dict, **extra) -> dict:
@@ -1791,7 +1891,11 @@ def _entry(name: str, launches: int, max_abs_err: float, rec: dict, **extra) -> 
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
+        "ms_single": rec["kernel_single_ms"],
+        "library_single_ms": rec["library_single_ms"],
         "wrapper_ms": rec["wrapper_ms"],
+        "wrapper_single_ms": rec["wrapper_single_ms"],
+        "wrapper_host_us": rec["wrapper_host_us"],
         **extra,
     }
 
@@ -1831,6 +1935,7 @@ def main(argv=None) -> int:
     static_times = phase_static_kernel_times(dev_info)
     d80_times = phase_static_kernel_times(dev_info, d=80)
     train_times = phase_train_kernel_times(dev_info)
+    long_times = phase_long_flash_times(dev_info)
     ssd_times = phase_ssd_kernel_times(dev_info)
 
     paths = {"continuous": main_path, "static": static, "train": train, "mamba2": mamba,
@@ -1840,7 +1945,9 @@ def main(argv=None) -> int:
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     narrow, wide = times["narrow"], times["wide"]
     fwd, dec = static_times["flash_fwd"], static_times["contig_decode"]
-    timing_keys = ("kernel_ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    timing_keys = ("kernel_ms", "kernel_single_ms", "wrapper_ms", "wrapper_single_ms",
+                   "wrapper_host_us", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "library_single_ms")
     kernels = [
         _entry("paged_decode", launches["paged_decode"],
                max(worst, narrow["max_abs_err"], wide["max_abs_err"]), narrow,
@@ -1849,8 +1956,14 @@ def main(argv=None) -> int:
                max(flash_worst, fwd["max_abs_err"], train_times["flash_fwd"]["max_abs_err"]), fwd,
                launches_per_prefill=static["launches"]["flash_fwd"] / static["prefill_calls"],
                launches_per_train_step=train["launches"]["flash_fwd"] / train["steps"],
-               train_shape={k: train_times["flash_fwd"][k] for k in timing_keys},
-               d80_zamba2_shape={k: d80_times["flash_fwd"][k] for k in timing_keys},
+               orders_ms=fwd["orders_ms"],
+               train_shape={k: train_times["flash_fwd"][k] for k in (*timing_keys, "orders_ms")},
+               d80_zamba2_shape={k: d80_times["flash_fwd"][k]
+                                 for k in (*timing_keys, "orders_ms")},
+               long_shape_informational={k: long_times[k] for k in (
+                   "shape", "kernel_ms", "orders_ms", "bound_ms", "bound_by", "library_ms",
+                   "library_max_abs_diff")},
+               kernel_attr=dev_info["flash_fwd_attr"],
                small_model_max_abs_err=small_static),
         _entry("contig_decode", launches["contig_decode"],
                max(decode_worst, dec["max_abs_err"], d80_times["contig_decode"]["max_abs_err"]),

@@ -11,12 +11,19 @@ directory of another commit, unpacked with ``git archive`` into a directory
 that git ignores, such as ``build/``). Every variant is compiled with the
 port's flags into ``build/compare_kernels/`` (one ``nvcc`` each, all started
 together) and loaded with ``ctypes``; all take the same C entry point. At
-each of the kernel's shapes (``SHAPES``) every variant's output is held to
-the first variant's, then the variants are timed in rounds whose order
-alternates (A B C, C B A, ...), each reading the median of 30 launches after
-5 warm-ups, timed with CUDA events. Prints the card's name and power limit,
-then one JSON line per shape. These launches are not counted in
-``cuda_lib.launch_counts``.
+each of the kernel's shapes (``SHAPES``) every variant's outputs are held to
+the first variant's within ``OUTPUT_TOL`` (variants whose tiles or
+summation order differ agree only up to bf16 rounding), then the variants
+are timed in rounds whose order alternates (A B C, C B A, ...). Each round
+takes three readings of each variant after 5 warm-ups (:func:`median_ms`,
+:func:`host_us`): the median of 30 batches of back-to-back launches timed
+with CUDA events (device time alone); the median of 30 single launches,
+each between two events (device time plus whatever host time the launch
+leaves the card idle); and the median host time to issue one launch, the C
+entry's own work included (for B2, encoding its tensor maps). Prints the
+card's name and power limit, then one JSON line per shape; exits 1 if a
+variant's outputs lie outside the tolerance. These launches are not counted
+in ``cuda_lib.launch_counts``.
 """
 
 from __future__ import annotations
@@ -37,14 +44,20 @@ from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.flash_attention import _launch_args
 from repro_torch.kernels.flash_decode import decode_chunk
 
-__all__ = ["SHAPES", "build", "main"]
+__all__ = ["SHAPES", "OUTPUT_TOL", "build", "median_ms", "host_us", "main"]
+
+# Max abs difference between two variants' outputs (bf16 o; float32 lse):
+# the plain-version limit of the kernels' checks (chip_smoke.KERNEL_TOL).
+OUTPUT_TOL = 2e-2
 
 # kernel -> shape name -> dims. flash_fwd: (B, Sq = Skv, Hq = Hkv, D, with
-# lse), the static path's second prefill and the training forward, causal,
-# sawtooth. contig_decode: (B, S_max, Hq, Hkv, D), a static decode step with
-# per-row lengths 700-731, sawtooth.
+# lse), the static path's second prefill (deepseek-7b's D 128 and zamba2's
+# D 80) and the training forward, causal, sawtooth. contig_decode: (B,
+# S_max, Hq, Hkv, D), a static decode step with per-row lengths 700-731,
+# sawtooth.
 SHAPES = {
-    "flash_fwd": {"prefill": (8, 700, 32, 128, False), "train": (4, 1024, 32, 128, True)},
+    "flash_fwd": {"prefill": (8, 700, 32, 128, False), "prefill_d80": (8, 700, 32, 80, False),
+                  "train": (4, 1024, 32, 128, True)},
     "contig_decode": {"decode_d128": (8, 1024, 32, 32, 128),
                       "decode_d64_gqa4": (8, 1024, 32, 8, 64)},
 }
@@ -81,18 +94,52 @@ def build(kernel: str, variants: dict[str, Path]) -> dict:
     return libs
 
 
-def _median_ms(call, warmup: int = 5, reps: int = 30) -> float:
+def median_ms(call, warmup: int = 5, reps: int = 30, batch_ms: float = 1.0,
+              batched: bool = True) -> float:
+    """Median device time of one ``call()``, in ms, over ``reps`` readings
+    timed with CUDA events. Batched, each reading times a batch of
+    back-to-back calls and divides by the batch; the batch is sized from one
+    timed call to run about ``batch_ms`` (at least one call, at most 20), so
+    the host's time to enqueue a call hides behind the card's work wherever
+    it is shorter. Otherwise each reading is one call between two events:
+    with the queue empty, the host's time between the two records is read
+    as well."""
+    for _ in range(warmup):
+        call()
+    torch.cuda.synchronize()
+    batch = 1
+    if batched:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        once_ms = (time.perf_counter() - t0) * 1e3
+        batch = max(1, min(20, int(batch_ms / max(once_ms, 1e-3))))
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(batch):
+            call()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / batch)
+    return statistics.median(times)
+
+
+def host_us(call, warmup: int = 5, reps: int = 30) -> float:
+    """Median host time of one ``call()``, in microseconds, on the host's
+    clock: what the calling thread spends to issue it. The card runs the
+    launches asynchronously and ``reps`` of them never fill its queue, so
+    no reading waits for the card."""
     for _ in range(warmup):
         call()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
+        t0 = time.perf_counter()
         call()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -156,14 +203,23 @@ def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> d
     diff = {name: max(((x.float() - y.float()).abs().max().item()
                        for x, y in zip(outs[name], first) if x is not None), default=0.0)
             for name in names}
-    runs = {name: [] for name in names}
+    readings = {
+        "ms": lambda fn: median_ms(fn),
+        "ms_single": lambda fn: median_ms(fn, batched=False),
+        "host_us": host_us,
+    }
+    runs = {key: {name: [] for name in names} for key in readings}
     for r in range(rounds):
         for name in names if r % 2 == 0 else names[::-1]:
-            runs[name].append(_median_ms(lambda: call(name)))
-    return {"kernel": kernel, "shape": shape, "dims": dims,
-            "max_abs_diff_vs_" + names[0]: diff,
-            "ms_median_of_rounds": {n: statistics.median(t) for n, t in runs.items()},
-            "ms_rounds": runs}
+            for key, read in readings.items():
+                runs[key][name].append(read(lambda: call(name)))
+    rec = {"kernel": kernel, "shape": shape, "dims": dims,
+           "max_abs_diff_vs_" + names[0]: diff,
+           "within_tol": all(x <= OUTPUT_TOL for x in diff.values())}
+    for key, by_name in runs.items():
+        rec[key + "_median_of_rounds"] = {n: statistics.median(t) for n, t in by_name.items()}
+        rec[key + "_rounds"] = by_name
+    return rec
 
 
 def main(argv=None) -> int:
@@ -187,9 +243,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed")
+    ok = True
     for shape in SHAPES[args.kernel]:
-        print(json.dumps(compare(args.kernel, fns, shape, args.rounds)))
-    return 0
+        rec = compare(args.kernel, fns, shape, args.rounds)
+        ok = ok and rec["within_tol"]
+        print(json.dumps(rec))
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

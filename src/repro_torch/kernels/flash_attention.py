@@ -2,28 +2,33 @@
 their plain versions.
 
 ``flash_attention_fwd`` is the port of the JAX package's wrapper of the same
-name. For CUDA tensors it launches ``csrc/flash_fwd.cu``: one block per
-(batch x kv head, folded row), the folded row ``i`` being GQA group
-``i // n_q`` and Q tile ``i % n_q``, KV tiles walked in the Traversal's
-order over the row's trimmed range at the kernel's own tile sizes
-(``BLOCK_M`` x ``BLOCK_N``). For tensors on the CPU it returns the plain
-version, ``repro_torch.core.attention.flash_attention``, at the same tile
-sizes and order. It never falls back from CUDA to the plain version.
+name. For CUDA tensors it launches ``csrc/flash_fwd.cu``: one persistent CTA
+per SM walking work items (batch x kv head, folded row), the folded row
+``i`` being GQA group ``i // n_q`` and Q tile ``i % n_q``, at the forward's
+own tile sizes (``FWD_BLOCK_M`` x ``FWD_BLOCK_N``). :func:`fwd_schedule` is
+the host model of which CTA takes which item in which order; the k-th item
+of a CTA walks its trimmed KV range in ``Traversal.kv_order(q_tile,
+local_iter=k)`` (paper Alg. 4: the parity key is the worker-local pass
+counter), and :func:`fwd_walks` is what the kernel records. For tensors on
+the CPU it returns the plain version,
+``repro_torch.core.attention.flash_attention``, at the same tile sizes and
+order. It never falls back from CUDA to the plain version.
 
 ``flash_attention_bwd`` is the port of the JAX package's fused backward of
 the same name. For CUDA tensors it launches three kernels on the current
 stream: ``csrc/flash_bwd_delta.cu`` (delta = rowsum(dO * O)), then
-``csrc/flash_bwd_dq.cu`` (dQ, on the forward's grid and walk) and
-``csrc/flash_bwd_dkv.cu`` (dK and dV, one block per resident KV tile
-streaming its (GQA group, Q tile) sweep in the transposed order,
-``Traversal.stream_sweep``). For tensors on the CPU it returns the plain
-version, ``repro_torch.core.attention.flash_attention_bwd``, at the kernels'
-tile sizes.
+``csrc/flash_bwd_dq.cu`` (dQ, one block per folded row, walking
+``kv_order(i % n_q, local_iter=i)``) and ``csrc/flash_bwd_dkv.cu`` (dK and
+dV, one block per resident KV tile streaming its (GQA group, Q tile) sweep
+in the transposed order, ``Traversal.stream_sweep``), all at ``BLOCK_M`` x
+``BLOCK_N``. For tensors on the CPU it returns the plain version,
+``repro_torch.core.attention.flash_attention_bwd``, at the kernels' tile
+sizes.
 
-The tile sizes are the kernel's, not the config's ``q_block``/``kv_block``
+The tile sizes are the kernels', not the config's ``q_block``/``kv_block``
 (512 there, sized for a TPU's vector memory): a 512 x 128 bf16 K tile alone
 would be 128 KB of shared memory. Outputs agree across tile sizes up to
-rounding; the visit order is held to ``kernel_traversal`` at the kernel's.
+rounding; the visit orders are held to the host models at the kernels'.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ __all__ = [
     "MASK_VALUE",
     "BLOCK_M",
     "BLOCK_N",
+    "FWD_BLOCK_M",
+    "FWD_BLOCK_N",
     "flash_attention_fwd",
     "launch_flash_fwd",
     "flash_attention_bwd",
@@ -49,35 +56,42 @@ __all__ = [
     "launch_flash_bwd_dkv",
     "kernel_traversal",
     "kernel_walks",
+    "fwd_schedule",
+    "fwd_walks",
+    "fwd_workers",
 ]
 
 # Finite mask value of the reference kernels; a row that sees nothing ends
 # with lse == MASK_VALUE (``l == 0 -> 1``) and an output of exact zeros.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-BLOCK_M = 64   # Q rows per block
-BLOCK_N = 64   # KV positions per tile
+BLOCK_M = 64   # Q rows per block of the backward (B5, B6)
+BLOCK_N = 64   # KV positions per tile of the backward
+FWD_BLOCK_M = 128   # Q rows per work item of the forward (B2)
+FWD_BLOCK_N = 128   # KV positions per tile of the forward
 _HEAD_DIMS = (64, 80, 128)    # the forward (B2)
 _BWD_HEAD_DIMS = (64, 128)    # the backward (B4-B6)
 
 
 def kernel_traversal(
     sq: int, skv: int, n_groups: int, *, order: Order | str, causal: bool,
-    window: Optional[int], snake_group: Optional[int] = None,
+    window: Optional[int], q_block: int, kv_block: int, snake_group: Optional[int] = None,
 ) -> Traversal:
-    """The Traversal the CUDA kernel walks for these shapes: its folded row
-    ``i`` visits ``kv_order(i % n_q, local_iter=i)``."""
+    """The Traversal a CUDA kernel walks for these shapes at its tile sizes
+    (``FWD_BLOCK_M`` x ``FWD_BLOCK_N`` for the forward, ``BLOCK_M`` x
+    ``BLOCK_N`` for the backward)."""
     return Traversal(
-        order=order, n_q=-(-sq // BLOCK_M), n_kv=-(-skv // BLOCK_N), causal=causal,
-        window=window, q_block=BLOCK_M, kv_block=BLOCK_N, n_groups=n_groups,
+        order=order, n_q=-(-sq // q_block), n_kv=-(-skv // kv_block), causal=causal,
+        window=window, q_block=q_block, kv_block=kv_block, n_groups=n_groups,
         snake_group=snake_group,
     )
 
 
 def kernel_walks(tr: Traversal, *, transposed: bool = False) -> list[list[int]]:
-    """What the kernels record in ``visit_out`` for Traversal ``tr`` (one
-    (batch, kv head) slice): forward and dQ, one row per folded Q row with
-    its KV tiles in walk order; transposed (dK/dV), one row per KV tile with
-    its sweep folded as ``group * n_q + q_tile``; each padded with -1."""
+    """What the backward kernels record for Traversal ``tr`` (one (batch, kv
+    head) slice): dQ, one row per folded Q row ``i`` with its KV tiles in
+    ``kv_order(i % n_q, local_iter=i)``; transposed (dK/dV), one row per KV
+    tile with its sweep folded as ``group * n_q + q_tile``; each padded with
+    -1."""
     if transposed:
         width = tr.grid_rows
         rows = [[grp * tr.n_q + qi for grp, qi in tr.stream_sweep(j)] for j in range(tr.n_kv)]
@@ -85,6 +99,47 @@ def kernel_walks(tr: Traversal, *, transposed: bool = False) -> list[list[int]]:
         width = tr.n_kv
         rows = [tr.kv_order(i % tr.n_q, local_iter=i) for i in range(tr.grid_rows)]
     return [r + [-1] * (width - len(r)) for r in rows]
+
+
+def fwd_schedule(tr: Traversal, n_slices: int,
+                 n_workers: int) -> list[list[tuple[int, int]]]:
+    """Host model of the persistent forward's work: for each of ``n_workers``
+    CTAs, its (slice, folded row) items in the order it walks them; a slice
+    is one (batch, kv head). The items are grouped into units of equal
+    causal cost, unit p of GQA group grp being Q tile n_q - 1 - p then Q
+    tile p (one item when they coincide); units are numbered slice-major and
+    dealt round-robin, unit u to worker u % n_workers."""
+    if n_workers <= 0:
+        raise ValueError("n_workers must be positive")
+    half = -(-tr.n_q // 2)
+    units = []
+    for s in range(n_slices):
+        for grp in range(tr.n_groups):
+            for p in range(half):
+                heavy, light = tr.n_q - 1 - p, p
+                unit = [(s, grp * tr.n_q + heavy)]
+                if light != heavy:
+                    unit.append((s, grp * tr.n_q + light))
+                units.append(unit)
+    return [[item for unit in units[w::n_workers] for item in unit] for w in range(n_workers)]
+
+
+def fwd_walks(tr: Traversal, n_slices: int, n_workers: int) -> list[list[list[int]]]:
+    """What the forward kernel records in ``visit_out`` (n_slices,
+    grid_rows, n_kv): the k-th item a worker walks visits
+    ``tr.kv_order(q_tile, local_iter=k)``, padded with -1."""
+    walks: list[list] = [[None] * tr.grid_rows for _ in range(n_slices)]
+    for items in fwd_schedule(tr, n_slices, n_workers):
+        for k, (s, i) in enumerate(items):
+            row = tr.kv_order(i % tr.n_q, local_iter=k)
+            walks[s][i] = row + [-1] * (tr.n_kv - len(row))
+    return walks
+
+
+def fwd_workers(device) -> int:
+    """CTAs the forward kernel runs on ``device``: one per SM (the kernel
+    reads the same count with ``cudaDevAttrMultiProcessorCount``)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_cuda_operands(q, k, v, *more, kernel: str = "flash_fwd") -> None:
@@ -130,15 +185,15 @@ def flash_attention_fwd(
     Returns o (B, Sq, Hq, D), and lse (B, Sq, Hq) float32 with
     ``return_lse``. ``visit_out`` (CUDA only): an int32 tensor of shape
     (B*Hkv, G*n_q, n_kv) into which the kernel writes the KV tile ids each
-    block walked, in order, -1 past its range (n_q, n_kv at ``BLOCK_M``,
-    ``BLOCK_N``)."""
+    work item walked, in order, -1 past its range (n_q, n_kv at
+    ``FWD_BLOCK_M``, ``FWD_BLOCK_N``; see :func:`fwd_walks`)."""
     order = Order.parse(order)
     if q.device.type == "cpu":
         if visit_out is not None:
             raise ValueError("visit_out records the CUDA kernel's walk; q is on the CPU")
         return flash_attention(
-            q, k, v, order=order, causal=causal, window=window, q_block=BLOCK_M,
-            kv_block=BLOCK_N, scale=scale, snake_group=snake_group, return_lse=return_lse,
+            q, k, v, order=order, causal=causal, window=window, q_block=FWD_BLOCK_M,
+            kv_block=FWD_BLOCK_N, scale=scale, snake_group=snake_group, return_lse=return_lse,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
@@ -153,9 +208,7 @@ def flash_attention_fwd(
             lse.fill_(MASK_VALUE)
         return (out, lse) if return_lse else out
     g = hq // hkv
-    n_q, n_kv = -(-sq // BLOCK_M), -(-skv // BLOCK_N)
-    if g * n_q > 65535:
-        raise ValueError(f"flash_fwd grid rows G*n_q = {g * n_q} exceed 65535")
+    n_q, n_kv = -(-sq // FWD_BLOCK_M), -(-skv // FWD_BLOCK_N)
     _check_visit(visit_out, (b * hkv, g * n_q, n_kv), q.device, "visit_out")
     launch_flash_fwd(q, k, v, out, lse, visit_out, order=order, causal=causal, window=window,
                      scale=scale, snake_group=snake_group)

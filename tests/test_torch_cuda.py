@@ -25,9 +25,13 @@ from repro_torch.kernels import cuda_lib, ops
 from repro_torch.kernels.flash_attention import (
     BLOCK_M,
     BLOCK_N,
+    FWD_BLOCK_M,
+    FWD_BLOCK_N,
     MASK_VALUE,
     flash_attention_bwd,
     flash_attention_fwd,
+    fwd_walks,
+    fwd_workers,
     kernel_traversal,
     kernel_walks,
     launch_flash_bwd_delta,
@@ -111,6 +115,41 @@ def _visible(sq, skv, causal, window, dev):
     return ok.any(-1)
 
 
+def _check_flash_fwd(dev, d, g, causal, window, sq, skv, seed):
+    """B2 against the plain version in f32 on the same bf16 inputs, in every
+    order: o within 2e-2 abs (bf16 output and P rounding), lse within 2e-3
+    abs, on rows that see a key; rows that see none are exact zeros with
+    lse = MASK_VALUE; one launch a call; the recorded walk equals the host
+    model of the persistent schedule; a second launch gives equal bits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, hkv = 2, 2
+    q = _bf16(gen, (b, sq, hkv * g, d), dev)
+    k = _bf16(gen, (b, skv, hkv, d), dev)
+    v = _bf16(gen, (b, skv, hkv, d), dev)
+    vis = _visible(sq, skv, causal, window, dev)
+    for order in Order:
+        tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
+                              q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N, snake_group=2)
+        visit = torch.empty((b * hkv, tr.grid_rows, tr.n_kv), dtype=torch.int32, device=dev)
+        kw = dict(order=order, causal=causal, window=window, snake_group=2, return_lse=True)
+        n0 = cuda_lib.launch_counts["flash_fwd"]
+        o, lse = flash_attention_fwd(q, k, v, visit_out=visit, **kw)
+        torch.cuda.synchronize()
+        assert cuda_lib.launch_counts["flash_fwd"] == n0 + 1
+        o2, lse2 = flash_attention_fwd(q, k, v, **kw)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        ro, rl = flash_attention(q.float(), k.float(), v.float(), order=order, causal=causal,
+                                 window=window, q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N,
+                                 snake_group=2, return_lse=True)
+        if vis.any():
+            assert (o.float() - ro)[:, vis].abs().max().item() <= 2e-2
+            assert (lse - rl)[:, vis].abs().max().item() <= 2e-3
+        assert torch.all(o[:, ~vis] == 0)
+        assert torch.all((lse[:, ~vis] / MASK_VALUE - 1).abs() < 1e-6)
+        want = torch.tensor(fwd_walks(tr, b * hkv, fwd_workers(dev)), dtype=torch.int32)
+        assert torch.equal(visit.cpu(), want), order
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("g", [1, 4])
@@ -119,37 +158,24 @@ def _visible(sq, skv, causal, window, dev):
 ])
 def test_flash_fwd_kernel_matches_plain_and_walks_the_traversal(cuda, d, g, causal, window,
                                                                sq, skv):
-    """bf16 kernel vs the plain version in f32 on the same inputs: o within
-    2e-2 abs (bf16 output and P rounding), lse within 2e-3 abs, on rows that
-    see a key; rows that see none are exact zeros with lse = MASK_VALUE. The
-    recorded walk equals the port's Traversal at the kernel's tile sizes."""
-    gen = torch.Generator(device=cuda).manual_seed(sq * 7 + g + d)
-    b, hkv = 2, 2
-    q = _bf16(gen, (b, sq, hkv * g, d), cuda)
-    k = _bf16(gen, (b, skv, hkv, d), cuda)
-    v = _bf16(gen, (b, skv, hkv, d), cuda)
-    vis = _visible(sq, skv, causal, window, cuda)
-    for order in Order:
-        tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
-                              snake_group=2)
-        visit = torch.empty((b * hkv, tr.grid_rows, tr.n_kv), dtype=torch.int32, device=cuda)
-        n0 = cuda_lib.launch_counts["flash_fwd"]
-        o, lse = flash_attention_fwd(q, k, v, order=order, causal=causal, window=window,
-                                     snake_group=2, return_lse=True, visit_out=visit)
-        torch.cuda.synchronize()
-        assert cuda_lib.launch_counts["flash_fwd"] == n0 + 1
-        ro, rl = flash_attention(q.float(), k.float(), v.float(), order=order, causal=causal,
-                                 window=window, q_block=BLOCK_M, kv_block=BLOCK_N,
-                                 snake_group=2, return_lse=True)
-        assert (o.float() - ro)[:, vis].abs().max().item() <= 2e-2
-        assert (lse - rl)[:, vis].abs().max().item() <= 2e-3
-        assert torch.all(o[:, ~vis] == 0)
-        assert torch.all((lse[:, ~vis] / MASK_VALUE - 1).abs() < 1e-6)
-        for i in range(tr.grid_rows):
-            want = tr.kv_order(i % tr.n_q, local_iter=i)
-            want += [-1] * (tr.n_kv - len(want))
-            for bh in range(b * hkv):
-                assert visit[bh, i].tolist() == want, (order, i)
+    """B2 against its plain version and the host model of its walk
+    (:func:`_check_flash_fwd`)."""
+    _check_flash_fwd(cuda, d, g, causal, window, sq, skv, seed=sq * 7 + g + d)
+
+
+# The forward matrix of chip_smoke.py: 17 shapes x D 64/80/128 x G 1/4, each
+# in three orders (306 cases).
+_FWD_MATRIX = [(s, s, causal, window) for s in (1, 77, 300, 700) for causal in (True, False)
+               for window in (None, 100)] + [(300, 131, False, None)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("sq,skv,causal,window", _FWD_MATRIX)
+def test_flash_fwd_kernel_matrix(cuda, d, g, sq, skv, causal, window):
+    """B2 over the forward matrix (:func:`_check_flash_fwd`)."""
+    _check_flash_fwd(cuda, d, g, causal, window, sq, skv, seed=sq * 11 + skv + g + d)
 
 
 @pytest.mark.gpu
@@ -245,7 +271,7 @@ def test_flash_bwd_kernels_match_plain_and_walk_the_traversal(cuda, d, g, causal
     for order in Order:
         kw = dict(order=order, causal=causal, window=window, snake_group=2)
         o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
-        tr = kernel_traversal(sq, skv, g, **kw)
+        tr = kernel_traversal(sq, skv, g, q_block=BLOCK_M, kv_block=BLOCK_N, **kw)
         vq = torch.empty((b * hkv, tr.grid_rows, tr.n_kv), dtype=torch.int32, device=cuda)
         vkv = torch.empty((b * hkv, tr.n_kv, tr.grid_rows), dtype=torch.int32, device=cuda)
         n0 = {n: cuda_lib.launch_counts[n] for n in ("flash_bwd_delta", "flash_bwd_dq",
@@ -331,8 +357,8 @@ def test_flash_fwd_kernel_head_dim_80(cuda, causal, window, sq, skv):
             o, lse = flash_attention_fwd(q, k, v, order=order, causal=causal, window=window,
                                          snake_group=2, return_lse=True)
             ro, rl = flash_attention(q.float(), k.float(), v.float(), order=order, causal=causal,
-                                     window=window, q_block=BLOCK_M, kv_block=BLOCK_N,
-                                     snake_group=2, return_lse=True)
+                                     window=window, q_block=FWD_BLOCK_M,
+                                     kv_block=FWD_BLOCK_N, snake_group=2, return_lse=True)
             torch.cuda.synchronize()
             assert (o.float() - ro)[:, vis].abs().max().item() <= 2e-2
             assert (lse - rl)[:, vis].abs().max().item() <= 2e-3

@@ -32,7 +32,13 @@ from repro.kernels.ref import flash_attention_ref as ref_oracle
 from repro_torch.core import attention as port_attn
 from repro_torch.core import schedule as port_sched
 from repro_torch.kernels import cuda_lib, ops
-from repro_torch.kernels.flash_attention import BLOCK_M, BLOCK_N, flash_attention_fwd
+from repro_torch.kernels.flash_attention import (
+    BLOCK_M,
+    BLOCK_N,
+    FWD_BLOCK_M,
+    FWD_BLOCK_N,
+    flash_attention_fwd,
+)
 from repro_torch.kernels.ref import flash_attention_ref
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -40,7 +46,7 @@ ORDERS = ["cyclic", "sawtooth", "block_snake"]
 SNAKE_GROUPS = [None, 1, 2, 3, 5]
 # (n_q, n_kv): square, tall (degenerate SWA trims when not causal), wide, one tile.
 GRIDS = [(1, 1), (4, 4), (7, 3), (3, 6)]
-BLOCKS = [(64, 64), (128, 64), (32, 96)]
+BLOCKS = [(64, 64), (128, 64), (32, 96), (128, 128)]
 
 
 @pytest.fixture(autouse=True)
@@ -174,9 +180,10 @@ INTERPRET = [
 @pytest.mark.parametrize("case", INTERPRET)
 @pytest.mark.parametrize("order", ORDERS)
 def test_wrapper_on_cpu_equals_reference_kernel(case, order):
-    """The wrapper's CPU path (the plain version at the CUDA kernel's 64 x 64
-    tiles) against the Pallas kernel in interpret mode (its own tiles): o
-    and lse agree up to rounding; no kernel launch on the CPU."""
+    """The wrapper's CPU path (the plain version at the CUDA forward's 128 x
+    128 tiles) against the Pallas kernel in interpret mode (its own tiles):
+    o and lse agree up to rounding; no kernel launch on the CPU. The
+    backward keeps its 64 x 64 tiles."""
     _, _, _, _, _, _, causal, window, qb, kb = case
     q, k, v = _qkv(case, seed=1)
     want_o, want_lse = ref_kernel(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), order=order,
@@ -196,6 +203,7 @@ def test_wrapper_on_cpu_equals_reference_kernel(case, order):
         atol=3e-5, rtol=3e-5,
     )
     assert (BLOCK_M, BLOCK_N) == (64, 64)
+    assert (FWD_BLOCK_M, FWD_BLOCK_N) == (128, 128)
 
 
 def test_mha_reference_equals_reference():

@@ -102,7 +102,8 @@ def test_degenerate_transposed_trims_are_covered():
     lo, hi = port.q_bounds_host(4)
     assert hi < lo and port.stream_sweep(4) == [] == ref.stream_sweep(4)
     assert port.stream_block_index(4, 0) == (0, 1, False)
-    tr = kernel_traversal(100, 300, 2, order="sawtooth", causal=True, window=None)
+    tr = kernel_traversal(100, 300, 2, order="sawtooth", causal=True, window=None, q_block=64,
+                          kv_block=64)
     walks = kernel_walks(tr, transposed=True)
     assert walks[4] == [-1] * tr.grid_rows
     assert walks[1] == [3, 1, -1, -1]  # group 1, then group 0, of Q tile 1: parity 1 reverses
