@@ -7,7 +7,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi), the kernels'
    build from ``src/repro_torch/csrc`` (one nvcc per source, in parallel),
-   and the flash forward's registers and shared memory by head dim;
+   with ptxas' register, spill and wgmma-serialisation (C7515) lines, and
+   the flash forward's and the backward dQ and dK/dV kernels' registers,
+   shared memory and spills by head dim (the backward's tiles held to the
+   host models');
 2. kernel matrices, each CUDA kernel against its plain PyTorch version on
    the card: the paged kernel (B1) over orders x GQA x chunk widths x page
    sizes x windows, with ragged q_lens, a free row and a shuffled block
@@ -19,7 +22,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    lengths and a row of length 0; the fused backward (B4 delta, B5 dQ, B6
    dK/dV) over orders x causal x windows x GQA x head dims x lengths (Sq !=
    Skv too), with exact zeros where nothing is seen, both recorded walks
-   held to the Traversal and a bitwise repeat; the SSD scan (B7) over state
+   held to the host models of the persistent schedules (``fwd_walks``,
+   ``dkv_walks``)
+   and a bitwise repeat; the SSD scan (B7) over state
    dims x heads x batch x lengths x initial states, with two chained calls
    against one, a bitwise repeat, and deliberately wrong variants that must
    fail its limits;
@@ -50,10 +55,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and the training shape with lse, each in the sawtooth and the cyclic
    order, and an informational long shape, B 1 x 16384 positions, whose K
    and V exceed the L2 cache; B3: the static decode steps at head dim
-   128 and 80; B4-B6: the training shape; B7: the second prefill group of
-   mamba2 and of zamba2): the kernel, its bound, the plain version and one
-   library call where there is one (SDPA's backward for B4-B6 together;
-   none for B7);
+   128 and 80; B4-B6: the training shape, B5 and B6 also in the sawtooth
+   and the cyclic order, and the three back to back against SDPA's
+   backward, read alike and in turns, at the training shape and at the
+   informational long shape; B7: the second prefill group of mamba2 and of
+   zamba2): the kernel, its bound, the plain version and one library call
+   where there is one (SDPA's backward for B4-B6 together; none for B7);
 5. the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -212,24 +219,38 @@ def phase_device() -> dict:
     for kname, info in built.items():
         print(f"[build] {kname}: {info['seconds']:.1f} s -> {info['path']}")
         for line in info["log"].splitlines():
-            if any(w in line for w in ("registers", "spill", "entry function", "error")):
+            if any(w in line.lower() for w in ("registers", "spill", "entry function", "error",
+                                               "warning", "c7515", "setmaxnreg")):
                 print(f"[build]   {line.strip()}")
     print(f"[build] all kernels in {wall:.1f} s (parallel nvcc)")
     import ctypes
 
-    attr_fn = cuda_lib.load("flash_fwd").flash_fwd_attr
-    attr_fn.argtypes, attr_fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
-    fwd_attr = {}
-    for d in (64, 80, 128):
-        vals = (ctypes.c_int * 4)()
-        err = attr_fn(d, vals)
-        if err:
-            raise RuntimeError(f"flash_fwd_attr({d}) returned cudaError_t {err}")
-        fwd_attr[d] = {"registers_at_launch": vals[0], "dynamic_smem_bytes": vals[1],
-                       "threads": vals[2], "local_bytes": vals[3]}
-        print(f"[build] flash_fwd D{d}: {json.dumps(fwd_attr[d])}")
+    from repro_torch.kernels.flash_attention import KERNEL_TILES
+
+    attrs = {}
+    for kname, dims in (("flash_fwd", (64, 80, 128)), ("flash_bwd_dq", (64, 128)),
+                        ("flash_bwd_dkv", (64, 128))):
+        attr_fn = getattr(cuda_lib.load(kname), f"{kname}_attr")
+        attr_fn.argtypes, attr_fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+        advisories = sum("C7515" in line for line in built[kname]["log"].splitlines())
+        attrs[kname] = {}
+        for d in dims:
+            vals = (ctypes.c_int * 6)(*([-1] * 6))
+            err = attr_fn(d, vals)
+            if err:
+                raise RuntimeError(f"{kname}_attr({d}) returned cudaError_t {err}")
+            rec = {"registers_at_launch": vals[0], "dynamic_smem_bytes": vals[1],
+                   "threads": vals[2], "local_bytes": vals[3], "c7515_advisories": advisories}
+            if kname != "flash_fwd":  # the backward kernels also report their tiles
+                rec["tile"] = [vals[4], vals[5]]
+                if tuple(rec["tile"]) != KERNEL_TILES[kname]:
+                    raise AssertionError(f"{kname} runs {rec['tile']} tiles; the host models "
+                                         f"assume {KERNEL_TILES[kname]}")
+            attrs[kname][d] = rec
+            print(f"[build] {kname} D{d}: {json.dumps(rec)}")
     return {"smi": smi, "name": name, "bw": bw, "peak": peak, "peak_f32": peak_f32,
-            "flash_fwd_attr": fwd_attr, "build_seconds": {k: v["seconds"] for k, v in built.items()}}
+            "flash_fwd_attr": attrs["flash_fwd"], "kernel_attr": attrs,
+            "build_seconds": {k: v["seconds"] for k, v in built.items()}}
 
 
 # ---- phase 2 ------------------------------------------------------------------
@@ -357,9 +378,8 @@ def phase_flash_matrix() -> float:
                 vis = _seen(sq, skv, causal, window).any(-1)
                 errs = []
                 for order in Order:
-                    tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
-                                          q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N,
-                                          snake_group=sg)
+                    tr = kernel_traversal(sq, skv, g, kernel="flash_fwd", order=order,
+                                          causal=causal, window=window, snake_group=sg)
                     visit = torch.full((b * hkv, tr.grid_rows, tr.n_kv), -2, dtype=torch.int32,
                                        device="cuda")
                     kw = dict(order=order, causal=causal, window=window, snake_group=sg,
@@ -418,21 +438,26 @@ def phase_bwd_matrix() -> dict:
     """B4-B6 against the plain backward on the same bf16 inputs, o and lse
     from B2: delta, and dq, dk, dv as max-abs error over max |plain|;
     gradients of rows and KV positions that nothing sees are exact zeros;
-    the walks the dQ and dK/dV blocks recorded equal the port's Traversal
-    (``kv_order`` and ``stream_sweep``) at the kernels' tiles; a second run
-    gives equal bits."""
+    the walks the dQ and dK/dV work items recorded equal the host models
+    of the persistent schedules (``fwd_walks`` and ``dkv_walks``: the k-th
+    item of a CTA walks ``kv_order(q_tile, local_iter=k)``, resp. streams
+    ``stream_sweep(kv_tile, local_iter=k)``) at each kernel's tiles; a
+    second run gives equal bits."""
     from repro_torch.core.attention import attention_delta, flash_attention_bwd as plain_bwd
     from repro_torch.core.schedule import Order
     from repro_torch.kernels.flash_attention import (
         BLOCK_M,
         BLOCK_N,
+        dkv_walks,
         flash_attention_bwd,
         flash_attention_fwd,
+        fwd_walks,
+        fwd_workers,
         kernel_traversal,
-        kernel_walks,
         launch_flash_bwd_delta,
     )
 
+    workers = fwd_workers(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(8642)
     b, hkv, sg = 2, 2, 2
     shapes = [(77, 77), (300, 300), (700, 700), (300, 131), (131, 300)]
@@ -453,11 +478,11 @@ def phase_bwd_matrix() -> dict:
                             case = (f"D={d} G={g} Sq={sq} Skv={skv} causal={causal} "
                                     f"window={window} order={order.value}")
                             o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
-                            tr = kernel_traversal(sq, skv, g, q_block=BLOCK_M,
-                                                  kv_block=BLOCK_N, **kw)
-                            vq = torch.full((b * hkv, tr.grid_rows, tr.n_kv), -2,
+                            tq = kernel_traversal(sq, skv, g, kernel="flash_bwd_dq", **kw)
+                            tkv = kernel_traversal(sq, skv, g, kernel="flash_bwd_dkv", **kw)
+                            vq = torch.full((b * hkv, tq.grid_rows, tq.n_kv), -2,
                                             dtype=torch.int32, device="cuda")
-                            vkv = torch.full((b * hkv, tr.n_kv, tr.grid_rows), -2,
+                            vkv = torch.full((b * hkv, tkv.n_kv, tkv.grid_rows), -2,
                                              dtype=torch.int32, device="cuda")
                             got = flash_attention_bwd(q, k, v, o, lse, do, visit_dq_out=vq,
                                                       visit_dkv_out=vkv, **kw)
@@ -487,14 +512,13 @@ def phase_bwd_matrix() -> dict:
                                 raise AssertionError(f"flash_bwd disagrees with its plain version: "
                                                      f"{case}: {e} (tol delta {DELTA_TOL}, "
                                                      f"grads {BWD_TOL})")
-                            walk_q = torch.tensor(kernel_walks(tr), dtype=torch.int32,
-                                                  device="cuda")
-                            walk_kv = torch.tensor(kernel_walks(tr, transposed=True),
+                            walk_q = torch.tensor(fwd_walks(tq, b * hkv, workers),
+                                                  dtype=torch.int32, device="cuda")
+                            walk_kv = torch.tensor(dkv_walks(tkv, b * hkv, workers),
                                                    dtype=torch.int32, device="cuda")
-                            if not (torch.equal(vq, walk_q[None].expand_as(vq))
-                                    and torch.equal(vkv, walk_kv[None].expand_as(vkv))):
+                            if not (torch.equal(vq, walk_q) and torch.equal(vkv, walk_kv)):
                                 raise AssertionError(f"flash_bwd walked another order than the "
-                                                     f"Traversal's: {case}")
+                                                     f"host models': {case}")
                             n_visits += vq.numel() + vkv.numel()
                             for key in worst:
                                 worst[key] = max(worst[key], e[key])
@@ -502,9 +526,9 @@ def phase_bwd_matrix() -> dict:
                             n += 1
                         print(f"[bwd] D={d} G={g} Sq={sq} Skv={skv} causal={causal} "
                               f"window={window}: rel err by order {[f'{x:.2e}' for x in errs]} "
-                              "ok, walks == Traversal, bitwise repeatable")
+                              "ok, walks == host models, bitwise repeatable")
     print(f"[bwd] {n} cases, worst rel err {json.dumps(worst)} (tol delta {DELTA_TOL}, grads "
-          f"{BWD_TOL}); {n_visits} recorded tile visits equal the Traversal's")
+          f"{BWD_TOL}); {n_visits} recorded tile visits equal the host models' ({workers} CTAs)")
     return worst
 
 
@@ -1769,8 +1793,11 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
             "library": None,
         }, nbytes=6 * bhsd * 2 + 2 * rows, flops=4 * mm, dev_info=dev_info),
     }
-    sdpa_bwd = _median_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                                      retain_graph=True))
+    trio = _bwd_against_sdpa(
+        lambda: (launch_flash_bwd_delta(o, do, delta),
+                 launch_flash_bwd_dq(q, k, v, do, lse, delta, dq, **kw),
+                 launch_flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, **kw)),
+        lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
     bwd_sum = sum(recs[n]["kernel_ms"] for n in ("flash_bwd_delta", "flash_bwd_dq",
                                                   "flash_bwd_dkv"))
     shape = {"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True,
@@ -1779,11 +1806,19 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
         orders_ms=_order_times(lambda order: launch_flash_fwd(q, k, v, out, lse2, order=order,
                                                               causal=True)),
         kernel_attr=dev_info["flash_fwd_attr"][d])
+    recs["flash_bwd_dq"].update(
+        orders_ms=_order_times(lambda order: launch_flash_bwd_dq(q, k, v, do, lse, delta, dq,
+                                                                 order=order, causal=True)),
+        kernel_attr=dev_info["kernel_attr"]["flash_bwd_dq"][d])
+    recs["flash_bwd_dkv"].update(
+        orders_ms=_order_times(lambda order: launch_flash_bwd_dkv(q, k, v, do, lse, delta, dk,
+                                                                  dv, order=order, causal=True)),
+        kernel_attr=dev_info["kernel_attr"]["flash_bwd_dkv"][d])
     for name, rec in recs.items():
         rec.update(shape=shape, max_abs_err=errs[name])
         if name != "flash_fwd":
-            rec.update(sdpa_bwd_ms=sdpa_bwd, bwd_kernels_sum_ms=bwd_sum,
-                       sdpa_bwd_rel_diff=lib_diff,
+            rec.update(sdpa_bwd_ms=trio["sdpa_bwd_ms"], bwd_kernels_sum_ms=bwd_sum,
+                       bwd_trio=trio, sdpa_bwd_rel_diff=lib_diff,
                        plain_covers="flash_bwd_delta+flash_bwd_dq+flash_bwd_dkv"
                        if name != "flash_bwd_delta" else "flash_bwd_delta")
         print(f"[time] {name} train: " + json.dumps(rec))
@@ -1793,6 +1828,80 @@ def phase_train_kernel_times(dev_info: dict) -> dict:
             tol = KERNEL_TOL
         assert rec["max_abs_err"] <= tol, (name, rec["max_abs_err"])
     return recs
+
+
+def _bwd_against_sdpa(kernels, sdpa) -> dict:
+    """B4, B5 and B6 launched back to back (``kernels()``) and SDPA's
+    backward (``sdpa()``) read alike and in turns: four batched readings
+    each and two single-launch ones (``_readings``), each figure the median
+    of its readings."""
+    fns = {"kernels": kernels, "sdpa": sdpa}
+    batched = _readings(fns, rounds=4)
+    single = _readings(fns, rounds=2, batched=False)
+    return {"trio_ms": statistics.median(batched["kernels"]),
+            "sdpa_bwd_ms": statistics.median(batched["sdpa"]),
+            "trio_single_ms": statistics.median(single["kernels"]),
+            "sdpa_bwd_single_ms": statistics.median(single["sdpa"]),
+            "runs": batched, "single_runs": single}
+
+
+def phase_long_bwd_times(dev_info: dict) -> dict:
+    """B4-B6 at the informational long shape (B 1, Sq = Skv = 16384, 32
+    heads of 128, causal) beside SDPA's backward; no limit. B5 and B6 in the
+    sawtooth and the cyclic order (``_order_times``), the three kernels back
+    to back against SDPA's backward (``_bwd_against_sdpa``). The gradients
+    are held to SDPA's (max-abs difference over max |SDPA|, printed; the
+    plain backward at this size takes seconds a call, so it is not run)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        launch_flash_bwd_delta,
+        launch_flash_bwd_dkv,
+        launch_flash_bwd_dq,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, h, s, d = 1, 32, 16384, 128
+    q, k, v, do = (_bf16(gen, (b, s, h, d)) for _ in range(4))
+    kw = dict(order="sawtooth", causal=True)
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib = torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(x.float()).all() for x in got):
+        raise AssertionError("flash_bwd long shape: non-finite gradients")
+    diff = {name: _rel_err(x, y.transpose(1, 2).float())
+            for name, x, y in zip(("dq", "dk", "dv"), got, lib)}
+    delta, dq = torch.empty_like(lse), torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    launch_flash_bwd_delta(o, do, delta)
+    orders = {
+        "flash_bwd_dq": _order_times(lambda order: launch_flash_bwd_dq(
+            q, k, v, do, lse, delta, dq, order=order, causal=True)),
+        "flash_bwd_dkv": _order_times(lambda order: launch_flash_bwd_dkv(
+            q, k, v, do, lse, delta, dk, dv, order=order, causal=True)),
+    }
+    trio = _bwd_against_sdpa(
+        lambda: (launch_flash_bwd_delta(o, do, delta),
+                 launch_flash_bwd_dq(q, k, v, do, lse, delta, dq, **kw),
+                 launch_flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, **kw)),
+        lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
+    mm = 2.0 * b * h * d * s * (s + 1) / 2  # flops of one score-shaped product
+    rec = {"shape": {"B": b, "Sq": s, "Skv": s, "Hq": h, "Hkv": h, "D": d, "causal": True},
+           "orders_ms": orders, "trio": trio, "sdpa_bwd_rel_diff": diff,
+           "bound_ms": {"flash_bwd_dq": 3 * mm / dev_info["peak"] * 1e3,
+                        "flash_bwd_dkv": 4 * mm / dev_info["peak"] * 1e3},
+           "tflops_sawtooth": {"flash_bwd_dq": 3 * mm / orders["flash_bwd_dq"]["sawtooth"] / 1e9,
+                               "flash_bwd_dkv": 4 * mm / orders["flash_bwd_dkv"]["sawtooth"]
+                               / 1e9}}
+    print("[time] flash_bwd long (informational): " + json.dumps(rec))
+    del q, k, v, do, o, lse, got, qt, kt, vt, lib_out, dot, lib, delta, dq, dk, dv
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _ssd_work(bsz: int, s: int, h: int, n: int, p: int = 64) -> tuple[int, float, float]:
@@ -1936,6 +2045,7 @@ def main(argv=None) -> int:
     d80_times = phase_static_kernel_times(dev_info, d=80)
     train_times = phase_train_kernel_times(dev_info)
     long_times = phase_long_flash_times(dev_info)
+    long_bwd = phase_long_bwd_times(dev_info)
     ssd_times = phase_ssd_kernel_times(dev_info)
 
     paths = {"continuous": main_path, "static": static, "train": train, "mamba2": mamba,
@@ -1977,12 +2087,23 @@ def main(argv=None) -> int:
                       ("flash_bwd_dkv", "dk")):
         rec = train_times[name]
         err = max(bwd_worst[key], bwd_worst["dv"] if key == "dk" else 0.0, rec["max_abs_err"])
+        extra = {}
+        if name != "flash_bwd_delta":
+            extra = dict(orders_ms=rec["orders_ms"], kernel_attr=dev_info["kernel_attr"][name],
+                         long_shape_informational={
+                             "shape": long_bwd["shape"], "orders_ms": long_bwd["orders_ms"][name],
+                             "bound_ms": long_bwd["bound_ms"][name], "bound_by": "operations",
+                             "trio_ms": long_bwd["trio"]["trio_ms"],
+                             "sdpa_bwd_ms": long_bwd["trio"]["sdpa_bwd_ms"],
+                             "sdpa_bwd_rel_diff": long_bwd["sdpa_bwd_rel_diff"]})
         kernels.append(_entry(
             name, launches[name], err, rec,
             max_abs_err_is="max-abs error over max |plain|",
             launches_per_train_step=train["launches"][name] / train["steps"],
             sdpa_bwd_ms=rec["sdpa_bwd_ms"], bwd_kernels_sum_ms=rec["bwd_kernels_sum_ms"],
-            plain_covers=rec["plain_covers"], small_train_max_abs_loss_diff=small_train))
+            bwd_trio_ms=rec["bwd_trio"]["trio_ms"],
+            plain_covers=rec["plain_covers"], small_train_max_abs_loss_diff=small_train,
+            **extra))
     ssd_worst = ssd_check["worst"]
     kernels.append(_entry(
         "ssd", launches["ssd"],

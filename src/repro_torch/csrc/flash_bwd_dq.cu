@@ -1,5 +1,6 @@
-// Flash attention backward, step 2 of 3 (dQ), for NVIDIA Hopper (sm_90a),
-// CUDA C++.
+// Flash attention backward, step 2 of 3 (dQ): persistent and
+// warp-specialised for NVIDIA Hopper (sm_90a), CUDA C++ with raw PTX: TMA
+// loads and stores, wgmma products, mbarriers.
 //
 // Replaces repro/kernels/flash_attention.py::_dq_kernel, the Pallas kernel
 // that computes dQ of the fused flash backward on the forward grid.
@@ -14,186 +15,490 @@
 // Masked entries are selected to 0, never computed as exp(S - lse): a row
 // that sees nothing carries lse = the mask value, where that exp overflows.
 //
-// Grid (B*Hkv, G*n_q), the forward kernel's (B2): block (bh, i) owns Q tile
-// i % n_q of GQA group i / n_q and walks the KV tiles of its trimmed range
-// [lo, hi] in the paper's order, step j visiting lo + snake_pos(i, j, n,
-// group), the arithmetic of Traversal.kv_block_index at 64 x 64 tiles. Tiles
-// outside the range are skipped, not masked. Each block owns its dQ rows, so
-// there are no atomics and two runs give equal bits. With `visit_out`
-// (B*Hkv, G*n_q, n_kv) int32 the block records the tiles it walked, -1 past
-// its range.
+// Work items and their order: the forward kernel's (B2, csrc/flash_fwd.cu)
+// at the same 128 x 128 tiles. An item is one (slice bh = b * Hkv + kv head,
+// folded row i), the folded row being GQA group i / n_q and Q tile i % n_q.
+// Units of equal causal cost pair the heavy Q tile n_q - 1 - p with the light
+// tile p of a group; they are numbered slice-major and dealt round-robin to
+// one CTA per SM (at most one per unit), each unit's heavy item first. The
+// k-th item a CTA processes walks the KV tiles of its trimmed range [lo, hi]
+// as Traversal.kv_order(q_tile, local_iter=k): the parity key is the
+// worker-local pass counter. kernels/flash_attention.py::fwd_schedule is the
+// host model of this order. Tiles outside the range are skipped. Each item
+// owns its dQ rows, so there are no atomics and two runs give equal bits.
+// With `visit_out` (B*Hkv, G*n_q, n_kv) int32 each item records the tiles it
+// walked, -1 past its range.
 //
-// What bounds it on this card: at the training shape (Sq = Skv = 1024, D
-// 128, causal) the three products (S, dO v^T, dS k) take about 1.04x the
-// time of the bytes, so operations, by a little. Design: 4 warps, each 16
-// rows of the 64-row tile; Q and dO stay in shared memory and are read as
-// mma.sync A fragments for each KV tile; K and V tiles through shared memory;
-// the f32 dQ accumulator (64 registers a thread at D 128) in registers. No
-// cp.async/TMA pipelining and no wgmma yet: those are later work.
+// Roles: three warpgroups a CTA. The last is the producer (one thread
+// issues everything; setmaxnreg gives its registers away): per item it
+// loads the Q and dO tiles (128 x D each) by TMA once, as soon as the last
+// products of the item before have read them, then the K and V tiles
+// (kBN x D each) into a ring of kStages stages with full/empty mbarriers.
+// The first two are consumers, 64 Q rows each, with their rows' lse (in the
+// log2 domain) and delta in registers, read once an item with plain loads.
+// Per KV tile a consumer computes S = Q K^T and dP = dO V^T as wgmma from
+// shared memory (both operands K-major, 128-byte swizzle as TMA writes it),
+// dS in f32 in registers, rounds it to bf16 as the A operand of dQ += dS K,
+// with K read through a transposed (MN-major) descriptor. Named barriers
+// alternate the two consumers' issues (ping-pong), so one's elementwise work
+// overlaps the other's products. Only tiles that cross the causal diagonal,
+// the window's edge, Sq or Skv are masked, in their own copy of the
+// elementwise code: interior tiles run one with no test at all. The
+// epilogue writes dQ in bf16
+// into shared memory and stores it by TMA (rows past Sq left out), which runs
+// on while the next item starts.
+//
+// What bounds it on this card: at the training shape (B 4, S 1024, 32 heads
+// of 128, causal) the three products over the visible (query, key) pairs
+// take 51.6 GFLOP, 0.052 ms at the bf16 peak, and the bytes (q, k, v, dO, dq
+// in bf16, lse and delta in f32; 169 MB) 0.050 ms, so operations by a
+// little. Q and dO are read once per item; K and V once per Q tile that sees
+// them, from L2, where the slice-major order keeps them.
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace repro;
+namespace hw = repro::sm90;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBM = 128;  // Q rows per item (two consumer warpgroups of 64)
+constexpr int kBN = 128;  // KV positions per tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr uint32_t kQPanel = kBM * 128;   // bytes of one 64-column panel of a Q or dO tile
+constexpr uint32_t kKVPanel = kBN * 128;  // ... of a K or V tile
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kNS = kBN / 2;  // S, dP accumulator registers (64 x kBN over 128 threads)
 
-struct Args {
-  const uint16_t* q;
-  const uint16_t* k;
-  const uint16_t* v;
-  const uint16_t* dO;
-  const float* lse;
-  const float* delta;
-  uint16_t* dq;
-  int* visit;  // may be null
-  int Sq, Skv, Hq, Hkv, n_q, n_kv;
-  int causal, window, order, snake;
-  float scale;
+// Shared memory of the instantiation for head dim DP, from a 1024-byte
+// aligned base (the 128-byte swizzle's repeat).
+template <int DP>
+struct Layout {
+  static constexpr int kPanels = DP / 64;
+  static constexpr uint32_t kQBytes = kBM * DP * 2;
+  static constexpr uint32_t kKVBytes = kBN * DP * 2;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDO = kQ + kQBytes;
+  static constexpr uint32_t kK = kDO + kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kKVBytes;
+  static constexpr uint32_t kO = kV + kStages * kKVBytes;  // each consumer's 64 rows of dQ
+  static constexpr uint32_t kOBytes = 64 * DP * 2;
+  static constexpr uint32_t kBar = kO + kConsumers * kOBytes;
+  // mbarriers: q_full, q_empty (Q and dO), then kv_full and kv_empty of each
+  // stage.
+  static constexpr uint32_t kBytes = kBar + 8 * (2 + 2 * kStages);
+  static constexpr uint32_t kAlloc = kBytes + 1024;  // slack for aligning the base
 };
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Args p) {
-  constexpr int S = D + 8;  // shared row stride (bf16): conflict-free fragment loads
-  constexpr int ND = D / 8;
+__device__ __forceinline__ uint32_t q_full(uint32_t bar) { return bar; }
+__device__ __forceinline__ uint32_t q_empty(uint32_t bar) { return bar + 8; }
+__device__ __forceinline__ uint32_t kv_full(uint32_t bar, int st) { return bar + 16 + 8 * st; }
+__device__ __forceinline__ uint32_t kv_empty(uint32_t bar, int st) {
+  return bar + 16 + 8 * (kStages + st);
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* dOs = Qs + kTile * S;
-  uint16_t* Ks = dOs + kTile * S;
-  uint16_t* Vs = Ks + kTile * S;
+struct Args {
+  const float* lse;
+  const float* delta;
+  int* visit;  // may be null
+  int Sq, Skv, Hq, Hkv, G, n_q, n_kv;
+  int half;             // ceil(n_q / 2): units per GQA group
+  int units_per_slice;  // G * half
+  int n_units;          // B * Hkv * units_per_slice
+  int causal, window, order, snake;
+  float scale, scale_log2;  // scale_log2 = scale * log2(e)
+};
 
-  const int bh = blockIdx.x;
-  const int b = bh / p.Hkv;
-  const int kvh = bh % p.Hkv;
-  const int i = blockIdx.y;  // folded row: group * n_q + q tile
-  const int q_tile = i % p.n_q;
-  const int head = kvh * (p.Hq / p.Hkv) + i / p.n_q;
-  const int row0 = q_tile * kTile;
-  const int tid = threadIdx.x;
-  const int wr = (tid >> 5) * 16;  // this warp's first row in the tile
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
+// Unit u's items: the folded row of its heavy Q tile (m = 0), then of its
+// light one (m = 1), which is the same tile when the two coincide;
+// unit_items(u) says how many.
+__device__ __forceinline__ int unit_items(const Args& p, int u) {
+  return 2 * (u % p.units_per_slice % p.half) + 1 == p.n_q ? 1 : 2;
+}
+__device__ __forceinline__ int unit_row(const Args& p, int u, int m) {
+  const int r = u % p.units_per_slice;
+  const int pair = r % p.half;
+  return r / p.half * p.n_q + (m == 0 ? p.n_q - 1 - pair : pair);
+}
 
-  int lo, hi;
-  kv_tile_range(q_tile, p.n_kv, p.causal, p.window, lo, hi);
-  const int raw = hi - lo + 1;
-  const int group = order_group(p.order, p.snake, raw);
+// Inclusive [lo, hi] KV tiles seen by Q tile `q_tile` (Traversal.kv_bounds_host
+// at kBM x kBN tiles); hi < lo when a window leaves nothing.
+__device__ __forceinline__ void kv_range(const Args& p, int q_tile, int& lo, int& hi) {
+  const int row0 = q_tile * kBM;
+  hi = p.causal ? min(p.n_kv - 1, (row0 + kBM - 1) / kBN) : p.n_kv - 1;
+  lo = p.window >= 0 ? max(row0 - (p.window - 1), 0) / kBN : 0;
+}
 
-  if (p.visit != nullptr) {
-    int* vrow = p.visit + ((size_t)bh * gridDim.y + i) * p.n_kv;
-    for (int j = tid; j < p.n_kv; j += kThreads)
-      vrow[j] = j < raw ? lo + snake_pos(i, j, raw, group) : -1;
-  }
-
-  const size_t q_ld = (size_t)p.Hq * D;
-  const size_t q_off = ((size_t)(b * p.Sq + row0) * p.Hq + head) * D;
-  load_tile<D, S, kThreads>(Qs, p.q + q_off, q_ld, p.Sq - row0, tid);
-  load_tile<D, S, kThreads>(dOs, p.dO + q_off, q_ld, p.Sq - row0, tid);
-
-  // This thread's two rows (fragment rows g and g + 8), their lse and delta.
-  const int row_a = row0 + wr + g, row_b = row_a + 8;
-  const size_t at_a = (size_t)(b * p.Sq + row_a) * p.Hq + head;
-  const size_t at_b = at_a + (size_t)8 * p.Hq;
-  const float lse_a = row_a < p.Sq ? p.lse[at_a] : 0.f;
-  const float lse_b = row_b < p.Sq ? p.lse[at_b] : 0.f;
-  const float delta_a = row_a < p.Sq ? p.delta[at_a] : 0.f;
-  const float delta_b = row_b < p.Sq ? p.delta[at_b] : 0.f;
-
-  float acc[ND][4];
+template <int DP>
+__device__ __forceinline__ void producer(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                         const CUtensorMap* tk, const CUtensorMap* tv,
+                                         const Args& p, uint32_t base) {
+  using L = Layout<DP>;
+  const uint32_t bar = base + L::kBar;
+  hw::tma_prefetch_desc(tq);
+  hw::tma_prefetch_desc(tdo);
+  hw::tma_prefetch_desc(tk);
+  hw::tma_prefetch_desc(tv);
+  int k = 0, c = 0;  // items and KV tiles this CTA has issued
+  for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+    const int bh = u / p.units_per_slice;
+    const int b = bh / p.Hkv, kvh = bh % p.Hkv;
+    const int nm = unit_items(p, u);
+    for (int m = 0; m < nm; ++m, ++k) {
+      const int i = unit_row(p, u, m);
+      const int q_tile = i % p.n_q;
+      const int head = kvh * p.G + i / p.n_q;
+      hw::mbar_wait(q_empty(bar), (k & 1) ^ 1);
+      hw::mbar_expect_tx(q_full(bar), 2 * L::kQBytes);
 #pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const size_t kv_ld = (size_t)p.Hkv * D;
-  for (int j = 0; j < raw; ++j) {
-    const int col0 = (lo + snake_pos(i, j, raw, group)) * kTile;
-    const size_t kv_off = ((size_t)(b * p.Skv + col0) * p.Hkv + kvh) * D;
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D, S, kThreads>(Ks, p.k + kv_off, kv_ld, p.Skv - col0, tid);
-    load_tile<D, S, kThreads>(Vs, p.v + kv_off, kv_ld, p.Skv - col0, tid);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_abt<D, S>(s, Qs, wr, Ks, g, tig);   // S = Q K^T
-    mma_abt<D, S>(dp, dOs, wr, Vs, g, tig); // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool second = e >= 2;  // C fragment entries 2, 3 are row g + 8
-        const int col = col0 + nt * 8 + tig * 2 + (e & 1);
-        const float pr = visible<true>(second ? row_b : row_a, col, p.Sq, p.Skv, p.causal, p.window)
-                             ? __expf(s[nt][e] * p.scale - (second ? lse_b : lse_a))
-                             : 0.f;
-        s[nt][e] = pr * (dp[nt][e] - (second ? delta_b : delta_a)) * p.scale;  // dS
+      for (int pn = 0; pn < L::kPanels; ++pn) {
+        hw::tma_load_4d(base + L::kQ + pn * kQPanel, tq, q_full(bar), pn * 64, head,
+                        q_tile * kBM, b);
+        hw::tma_load_4d(base + L::kDO + pn * kQPanel, tdo, q_full(bar), pn * 64, head,
+                        q_tile * kBM, b);
       }
+      int lo, hi;
+      kv_range(p, q_tile, lo, hi);
+      const int raw = hi - lo + 1;
+      const int group = order_group(p.order, p.snake, raw);
+      int* vrow = p.visit == nullptr
+                      ? nullptr
+                      : p.visit + ((size_t)bh * p.G * p.n_q + i) * p.n_kv;
+      for (int j = 0; j < raw; ++j) {
+        const int tile = lo + snake_pos(k, j, raw, group);
+        const int st = (c + j) % kStages;
+        hw::mbar_wait(kv_empty(bar, st), (((c + j) / kStages) & 1) ^ 1);
+        hw::mbar_expect_tx(kv_full(bar, st), 2 * L::kKVBytes);
+#pragma unroll
+        for (int pn = 0; pn < L::kPanels; ++pn) {
+          hw::tma_load_4d(base + L::kK + st * L::kKVBytes + pn * kKVPanel, tk, kv_full(bar, st),
+                          pn * 64, kvh, tile * kBN, b);
+          hw::tma_load_4d(base + L::kV + st * L::kKVBytes + pn * kKVPanel, tv, kv_full(bar, st),
+                          pn * 64, kvh, tile * kBN, b);
+        }
+        if (vrow != nullptr) vrow[j] = tile;
+      }
+      c += max(raw, 0);
+      if (vrow != nullptr)
+        for (int j = max(raw, 0); j < p.n_kv; ++j) vrow[j] = -1;
     }
-    mma_pb<D, S>(acc, s, Ks, g, tig);  // dQ += dS K
-  }
-
-  if (row_a < p.Sq) {
-    uint16_t* drow = p.dq + at_a * D + tig * 2;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8) = pack_bf16(acc[n][0], acc[n][1]);
-  }
-  if (row_b < p.Sq) {
-    uint16_t* drow = p.dq + at_b * D + tig * 2;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8) = pack_bf16(acc[n][2], acc[n][3]);
   }
 }
 
-template <int D>
-cudaError_t launch(const Args& a, int B, int G, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(uint16_t) * 4 * kTile * (D + 8);
-  auto kernel = flash_bwd_dq_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Named barriers: 1 and 2 order the two consumer warpgroups' product
+// issues (ping-pong); 3 and 4 are each consumer's own, around its epilogue.
+constexpr int kBarTurn = 1, kBarEpilogue = 3;
+
+// S = Q K^T and dP = dO V^T for this warpgroup's 64 rows against the K and V
+// tiles of stage st. The first k-step writes the accumulators without
+// reading them, so they hold no live values between products.
+template <int DP>
+__device__ __forceinline__ void issue_sdp(float (&s)[kNS], float (&dp)[kNS], uint32_t base, int st,
+                                          int wg) {
+  using L = Layout<DP>;
+  auto q_desc = [&](uint32_t tile, int kk) {
+    return hw::desc_sw128(base + tile + (kk / 4) * kQPanel + wg * 64 * 128 + (kk % 4) * 32, 16,
+                          1024);
+  };
+  auto kv_desc = [&](uint32_t tile, int kk) {
+    return hw::desc_sw128(base + tile + st * L::kKVBytes + (kk / 4) * kKVPanel + (kk % 4) * 32,
+                          16, 1024);
+  };
+  auto product = [&](float (&acc)[kNS], uint32_t a, uint32_t b) {
+    if constexpr (kBN == 128) {
+      hw::wgmma_ss_m64n128_set(acc, q_desc(a, 0), kv_desc(b, 0));
+#pragma unroll
+      for (int kk = 1; kk < DP / 16; ++kk)
+        hw::wgmma_ss_m64n128(acc, q_desc(a, kk), kv_desc(b, kk), 1);
+    } else {
+      hw::wgmma_ss_m64n64_set(acc, q_desc(a, 0), kv_desc(b, 0));
+#pragma unroll
+      for (int kk = 1; kk < DP / 16; ++kk)
+        hw::wgmma_ss_m64n64(acc, q_desc(a, kk), kv_desc(b, kk), 1);
+    }
+  };
+  product(s, L::kQ, L::kK);
+  product(dp, L::kDO, L::kV);
+}
+
+// dQ += dS K against the K tile of stage st, K through a transposed
+// descriptor (its 64-column panels LBO apart).
+template <int DP>
+__device__ __forceinline__ void issue_dq(float (&dq)[DP / 2], const uint32_t (&da)[kBN / 16][4],
+                                         uint32_t base, int st) {
+  using L = Layout<DP>;
+#pragma unroll
+  for (int kc = 0; kc < kBN / 16; ++kc) {
+    const uint64_t kd =
+        hw::desc_sw128(base + L::kK + st * L::kKVBytes + kc * 16 * 128, kKVPanel, 1024);
+    if constexpr (DP == 128)
+      hw::wgmma_rs_m64n128_tb(dq, da[kc], kd);
+    else
+      hw::wgmma_rs_m64n64_tb(dq, da[kc], kd);
+  }
+}
+
+// dS = P (dP - delta) scale with P = 2^(s * scale_log2 - lse_log2), for this
+// thread's entries (rows `row` and row + 8 of the item, columns 8 n + 2 t +
+// {0, 1} of the tile at col0), rounded to bf16 A fragments. On edge tiles
+// (kEdge) masked entries are selected to 0; interior tiles get a copy with
+// no test at all.
+template <bool kEdge>
+__device__ __forceinline__ void ds_tile(const float (&s)[kNS], const float (&dp)[kNS],
+                                        uint32_t (&da)[kBN / 16][4], const float (&lse2)[2],
+                                        const float (&dl)[2], const Args& p, int row, int col0,
+                                        int t) {
+#pragma unroll
+  for (int kc = 0; kc < kBN / 16; ++kc) {
+    float ds[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int x = 8 * kc + e;
+      const int h = (x >> 1) & 1;
+      float v = hw::exp2_approx(fmaf(s[x], p.scale_log2, -lse2[h]));
+      if (kEdge && !visible<true>(row + 8 * h, col0 + 8 * (x >> 2) + 2 * t + (x & 1), p.Sq,
+                                  p.Skv, p.causal, p.window))
+        v = 0.f;
+      ds[e] = v * (dp[x] - dl[h]) * p.scale;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) da[kc][r] = hw::cvt_bf16x2(ds[2 * r], ds[2 * r + 1]);
+  }
+}
+
+// A consumer warpgroup: 64 rows of every item this CTA takes.
+template <int DP>
+__device__ __forceinline__ void consumer(const CUtensorMap* tdq, const Args& p, uint32_t base,
+                                         int wg) {
+  using L = Layout<DP>;
+  constexpr int NO = DP / 2;  // dQ accumulator registers
+  const uint32_t bar = base + L::kBar;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wrow = wg * 64 + (tid >> 5) * 16 + g;  // tile row of this thread's first rows
+  auto turn = [&]() { hw::named_sync(kBarTurn + wg, 256); };
+  auto pass = [&]() { hw::named_arrive(kBarTurn + 1 - wg, 256); };
+
+  float s[kNS], dp[kNS];
+  float dq[NO];
+  uint32_t da[kBN / 16][4];
+  if (wg == 1) hw::named_arrive(kBarTurn, 256);  // the first warpgroup issues first
+
+  int k = 0, c = 0;
+  for (int u = blockIdx.x; u < p.n_units; u += gridDim.x) {
+    const int bh = u / p.units_per_slice;
+    const int b = bh / p.Hkv, kvh = bh % p.Hkv;
+    const int nm = unit_items(p, u);
+    for (int m = 0; m < nm; ++m, ++k) {
+      const int i = unit_row(p, u, m);
+      const int q_tile = i % p.n_q;
+      const int head = kvh * p.G + i / p.n_q;
+      const int row0 = q_tile * kBM;
+      const int row = row0 + wrow;  // this thread's first row; the second is row + 8
+      int lo, hi;
+      kv_range(p, q_tile, lo, hi);
+      const int raw = hi - lo + 1;
+      const int group = order_group(p.order, p.snake, raw);
+      // Rows past Sq get lse = +inf (P = 0) and delta 0; they are masked too.
+      float lse2[2] = {INFINITY, INFINITY}, dl[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (row + 8 * h < p.Sq) {
+          const size_t at = (size_t)(b * p.Sq + row + 8 * h) * p.Hq + head;
+          lse2[h] = p.lse[at] * 1.4426950408889634f;
+          dl[h] = p.delta[at];
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < NO; ++x) dq[x] = 0.f;
+
+      hw::mbar_wait(q_full(bar), k & 1);
+      if (raw <= 0 && lane == 0) hw::mbar_arrive(q_empty(bar));
+      for (int j = 0; j < raw; ++j, ++c) {
+        const int col0 = (lo + snake_pos(k, j, raw, group)) * kBN;
+        const int st = c % kStages;
+        hw::mbar_wait(kv_full(bar, st), (c / kStages) & 1);
+        turn();
+        hw::wgmma_fence();
+        issue_sdp<DP>(s, dp, base, st, wg);
+        hw::wgmma_commit();
+        pass();
+        hw::wgmma_wait<0>();
+#pragma unroll
+        for (int x = 0; x < kNS; ++x) {
+          hw::fence_reg(s[x]);
+          hw::fence_reg(dp[x]);
+        }
+        if (j == raw - 1 && lane == 0) hw::mbar_arrive(q_empty(bar));  // Q, dO read
+        const bool edge = col0 + kBN > p.Skv || row0 + wg * 64 + 64 > p.Sq ||
+                          (p.causal && col0 + kBN - 1 > row0 + wg * 64) ||
+                          (p.window >= 0 && col0 <= row0 + wg * 64 + 63 - p.window);
+        if (edge)
+          ds_tile<true>(s, dp, da, lse2, dl, p, row, col0, t);
+        else
+          ds_tile<false>(s, dp, da, lse2, dl, p, row, col0, t);
+        turn();
+#pragma unroll
+        for (int x = 0; x < NO; ++x) hw::fence_reg(dq[x]);
+#pragma unroll
+        for (int kc = 0; kc < kBN / 16; ++kc)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) hw::fence_reg(da[kc][r]);
+        hw::wgmma_fence();
+        issue_dq<DP>(dq, da, base, st);
+        hw::wgmma_commit();
+        pass();
+        hw::wgmma_wait<0>();
+#pragma unroll
+        for (int x = 0; x < NO; ++x) hw::fence_reg(dq[x]);
+        if (lane == 0) hw::mbar_arrive(kv_empty(bar, st));
+      }
+
+      // Epilogue: dQ in bf16 into this warpgroup's shared buffer (the
+      // 128-byte swizzle of the output's tensor map), stored by TMA, which
+      // leaves out rows past Sq. The store runs on while the next item
+      // starts; the buffer is rewritten only after it has been read.
+      const uint32_t so = base + L::kO + wg * L::kOBytes;
+      if (tid == 0) hw::bulk_wait_read<0>();
+      hw::named_sync(kBarEpilogue + wg, 128);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wrow - wg * 64 + 8 * h;  // row of this warpgroup's 64
+#pragma unroll
+        for (int jn = 0; jn < DP / 8; ++jn)
+          hw::st_shared_u32(
+              so + (jn / 8) * 64 * 128 + r * 128 + (((jn % 8) ^ (r % 8)) * 16) + 4 * t,
+              hw::cvt_bf16x2(dq[4 * jn + 2 * h], dq[4 * jn + 2 * h + 1]));
+      }
+      hw::fence_proxy_async();
+      hw::named_sync(kBarEpilogue + wg, 128);
+      if (tid == 0 && row0 + wg * 64 < p.Sq) {
+#pragma unroll
+        for (int pn = 0; pn < L::kPanels; ++pn)
+          hw::tma_store_4d(tdq, so + pn * 64 * 128, pn * 64, head, row0 + wg * 64, b);
+        hw::bulk_commit();
+      }
+    }
+  }
+  if (wg == 0) hw::named_sync(kBarTurn, 256);  // the second warpgroup's last pass
+  if (tid == 0) hw::bulk_wait<0>();
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdq, const Args p) {
+  using L = Layout<DP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hw::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar = base + L::kBar;
+  if (threadIdx.x == 0) {
+    hw::mbar_init(q_full(bar), 1);                // the producer's expect_tx
+    hw::mbar_init(q_empty(bar), kConsumerWarps);  // one arrival a consumer warp
+    for (int st = 0; st < kStages; ++st) {
+      hw::mbar_init(kv_full(bar, st), 1);
+      hw::mbar_init(kv_empty(bar, st), kConsumerWarps);
+    }
+    hw::mbar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    hw::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 == 0) producer<DP>(&tq, &tdo, &tk, &tv, p, base);
+  } else {
+    hw::setmaxnreg_inc<kConsumerRegs>();
+    consumer<DP>(&tdq, p, base, wg);
+  }
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, void* dq,
+                   const Args& a, int B, cudaStream_t stream) {
+  using L = Layout<DP>;
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  if (!hw::tensor_map_bshd(&tq, q, B, a.Sq, a.Hq, DP, kBM) ||
+      !hw::tensor_map_bshd(&tdo, dO, B, a.Sq, a.Hq, DP, kBM) ||
+      !hw::tensor_map_bshd(&tk, k, B, a.Skv, a.Hkv, DP, kBN) ||
+      !hw::tensor_map_bshd(&tv, v, B, a.Skv, a.Hkv, DP, kBN) ||
+      !hw::tensor_map_bshd(&tdq, dq, B, a.Sq, a.Hq, DP, 64))
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = hw::persistent_setup<flash_bwd_dq_kernel<DP>>((int)L::kAlloc, &sms);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * a.Hkv, G * a.n_q);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  flash_bwd_dq_kernel<DP><<<min(sms, a.n_units), kThreads, L::kAlloc, stream>>>
+      (tq, tdo, tk, tv, tdq, a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns a cudaError_t code, 0 on
-// a successful launch; cudaErrorInvalidValue for an unsupported head dim.
-// `order`: 0 cyclic, 1 sawtooth, 2 block_snake (reversal groups of `snake`
-// tiles); `window` < 0 means none; `visit` may be null. No synchronisation:
-// the kernel runs on `stream`.
+// a successful launch; cudaErrorInvalidValue for an unsupported head dim or
+// a tensor map the driver refuses. `order`: 0 cyclic, 1 sawtooth, 2
+// block_snake (reversal groups of `snake` tiles); `window` < 0 means none;
+// `visit` may be null. No synchronisation: the kernel runs on `stream`.
 extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dO,
                                  const void* lse, const void* delta, void* dq, void* visit, int B,
                                  int Sq, int Skv, int Hq, int Hkv, int D, int causal, int window,
                                  int order, int snake, float scale, void* stream) {
   Args a;
-  a.q = static_cast<const uint16_t*>(q);
-  a.k = static_cast<const uint16_t*>(k);
-  a.v = static_cast<const uint16_t*>(v);
-  a.dO = static_cast<const uint16_t*>(dO);
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
-  a.dq = static_cast<uint16_t*>(dq);
   a.visit = static_cast<int*>(visit);
   a.Sq = Sq;
   a.Skv = Skv;
   a.Hq = Hq;
   a.Hkv = Hkv;
-  a.n_q = (Sq + kTile - 1) / kTile;
-  a.n_kv = (Skv + kTile - 1) / kTile;
+  a.G = Hq / Hkv;
+  a.n_q = (Sq + kBM - 1) / kBM;
+  a.n_kv = (Skv + kBN - 1) / kBN;
+  a.half = (a.n_q + 1) / 2;
+  a.units_per_slice = a.G * a.half;
+  a.n_units = B * Hkv * a.units_per_slice;
   a.causal = causal;
   a.window = window;
   a.order = order;
   a.snake = snake;
   a.scale = scale;
-  const int G = Hq / Hkv;
+  a.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return static_cast<int>(launch<128>(a, B, G, st));
-  if (D == 64) return static_cast<int>(launch<64>(a, B, G, st));
+  if (a.n_units <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 128) return static_cast<int>(launch<128>(q, k, v, dO, dq, a, B, st));
+  if (D == 64) return static_cast<int>(launch<64>(q, k, v, dO, dq, a, B, st));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The instantiation that serves head dim D: out[0] registers a thread (at
+// launch, before setmaxnreg moves them), out[1] dynamic shared memory bytes,
+// out[2] threads a CTA, out[3] local (spill) bytes a thread, out[4] Q rows
+// of an item, out[5] KV positions of a tile. Returns a cudaError_t code.
+extern "C" int flash_bwd_dq_attr(int D, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err;
+  if (D == 128) {
+    err = cudaFuncGetAttributes(&fa, flash_bwd_dq_kernel<128>);
+    out[1] = (int)Layout<128>::kAlloc;
+  } else if (D == 64) {
+    err = cudaFuncGetAttributes(&fa, flash_bwd_dq_kernel<64>);
+    out[1] = (int)Layout<64>::kAlloc;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[2] = kThreads;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = kBM;
+  out[5] = kBN;
+  return 0;
 }

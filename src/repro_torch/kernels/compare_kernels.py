@@ -1,10 +1,12 @@
 """Time one CUDA kernel built from several source trees in one process, so
 that two versions of it are compared on one card within one call: B2, the
-flash forward (``csrc/flash_fwd.cu``), or B3, the contiguous decode
-(``csrc/contig_decode.cu``).
+flash forward (``csrc/flash_fwd.cu``), B3, the contiguous decode
+(``csrc/contig_decode.cu``), or B5 and B6, the flash backward's dQ and
+dK/dV kernels (``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``).
 
     PYTHONPATH=src python -m repro_torch.kernels.compare_kernels \
-        [--kernel flash_fwd|contig_decode] --csrc parent=DIR --csrc this=src/repro_torch/csrc
+        [--kernel flash_fwd|contig_decode|flash_bwd_dq|flash_bwd_dkv] \
+        --csrc parent=DIR --csrc this=src/repro_torch/csrc
 
 Each DIR holds the kernel's source and the headers it includes (the ``csrc``
 directory of another commit, unpacked with ``git archive`` into a directory
@@ -13,7 +15,10 @@ port's flags into ``build/compare_kernels/`` (one ``nvcc`` each, all started
 together) and loaded with ``ctypes``; all take the same C entry point. At
 each of the kernel's shapes (``SHAPES``) every variant's outputs are held to
 the first variant's within ``OUTPUT_TOL`` (variants whose tiles or
-summation order differ agree only up to bf16 rounding), then the variants
+summation order differ agree only up to bf16 rounding; for B5 and B6, whose
+gradients reach magnitudes where one bf16 step exceeds it, the difference
+is taken over max |first variant's output|, as ``chip_smoke.py`` holds
+them to the plain backward), then the variants
 are timed in rounds whose order alternates (A B C, C B A, ...). Each round
 takes three readings of each variant after 5 warm-ups (:func:`median_ms`,
 :func:`host_us`): the median of 30 batches of back-to-back launches timed
@@ -41,7 +46,11 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.flash_attention import _launch_args
+from repro_torch.kernels.flash_attention import (
+    _launch_args,
+    flash_attention_fwd,
+    launch_flash_bwd_delta,
+)
 from repro_torch.kernels.flash_decode import decode_chunk
 
 __all__ = ["SHAPES", "OUTPUT_TOL", "build", "median_ms", "host_us", "main"]
@@ -54,13 +63,18 @@ OUTPUT_TOL = 2e-2
 # lse), the static path's second prefill (deepseek-7b's D 128 and zamba2's
 # D 80) and the training forward, causal, sawtooth. contig_decode: (B,
 # S_max, Hq, Hkv, D), a static decode step with per-row lengths 700-731,
-# sawtooth.
+# sawtooth. flash_bwd_dq, flash_bwd_dkv: (B, Sq = Skv, Hq = Hkv, D), the
+# training backward, causal, sawtooth, from B2's lse and B4's delta.
 SHAPES = {
     "flash_fwd": {"prefill": (8, 700, 32, 128, False), "prefill_d80": (8, 700, 32, 80, False),
                   "train": (4, 1024, 32, 128, True)},
     "contig_decode": {"decode_d128": (8, 1024, 32, 32, 128),
                       "decode_d64_gqa4": (8, 1024, 32, 8, 64)},
+    "flash_bwd_dq": {"train": (4, 1024, 32, 128)},
+    "flash_bwd_dkv": {"train": (4, 1024, 32, 128)},
 }
+# Kernels whose output difference is read relative to max |output|.
+_RELATIVE = ("flash_bwd_dq", "flash_bwd_dkv")
 
 
 def build(kernel: str, variants: dict[str, Path]) -> dict:
@@ -183,7 +197,49 @@ def _contig_decode_case(fns: dict, dims: tuple, gen) -> tuple:
     return launch, outs
 
 
-_CASES = {"flash_fwd": _flash_fwd_case, "contig_decode": _contig_decode_case}
+def _flash_bwd_case(kernel: str):
+    def case(fns: dict, dims: tuple, gen) -> tuple:
+        """(launch(name), {name: outputs}) of B5 (dq) or B6 (dk, dv) at
+        ``dims``, lse from B2 and delta from B4."""
+        b, s, h, d = dims
+        q, k, v, do = (_bf16(gen, (b, s, h, d)) for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, order="sawtooth", causal=True, return_lse=True)
+        delta = torch.empty_like(lse)
+        launch_flash_bwd_delta(o, do, delta)
+        args = _launch_args(q, k, order="sawtooth", causal=True, window=None, scale=None,
+                            snake_group=None)
+        operands = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                    delta.data_ptr())
+        if kernel == "flash_bwd_dq":
+            outs = {name: (torch.empty_like(q),) for name in fns}
+        else:
+            outs = {name: (torch.empty_like(k), torch.empty_like(v)) for name in fns}
+
+        def launch(name):
+            return fns[name](*operands, *(t.data_ptr() for t in outs[name]), None, *args)
+
+        return launch, outs
+
+    return case
+
+
+_CASES = {"flash_fwd": _flash_fwd_case, "contig_decode": _contig_decode_case,
+          "flash_bwd_dq": _flash_bwd_case("flash_bwd_dq"),
+          "flash_bwd_dkv": _flash_bwd_case("flash_bwd_dkv")}
+
+
+def _diff(kernel: str, got: tuple, first: tuple) -> float:
+    """Max-abs difference of ``got`` from ``first`` over their outputs;
+    relative to max |first| for the kernels of ``_RELATIVE``."""
+    worst = 0.0
+    for x, y in zip(got, first):
+        if x is None:
+            continue
+        d = (x.float() - y.float()).abs().max().item()
+        if kernel in _RELATIVE:
+            d /= max(y.float().abs().max().item(), 1e-30)
+        worst = max(worst, d)
+    return worst
 
 
 def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> dict:
@@ -199,10 +255,7 @@ def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> d
     for name in names:
         call(name)
     torch.cuda.synchronize()
-    first = outs[names[0]]
-    diff = {name: max(((x.float() - y.float()).abs().max().item()
-                       for x, y in zip(outs[name], first) if x is not None), default=0.0)
-            for name in names}
+    diff = {name: _diff(kernel, outs[name], outs[names[0]]) for name in names}
     readings = {
         "ms": lambda fn: median_ms(fn),
         "ms_single": lambda fn: median_ms(fn, batched=False),
@@ -214,7 +267,7 @@ def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> d
             for key, read in readings.items():
                 runs[key][name].append(read(lambda: call(name)))
     rec = {"kernel": kernel, "shape": shape, "dims": dims,
-           "max_abs_diff_vs_" + names[0]: diff,
+           ("max_rel_diff_vs_" if kernel in _RELATIVE else "max_abs_diff_vs_") + names[0]: diff,
            "within_tol": all(x <= OUTPUT_TOL for x in diff.values())}
     for key, by_name in runs.items():
         rec[key + "_median_of_rounds"] = {n: statistics.median(t) for n, t in by_name.items()}

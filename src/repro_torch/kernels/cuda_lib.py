@@ -1,10 +1,12 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
-entry point (the newer ones include ``csrc/common.cuh``). It is compiled by
+entry point (all but ``paged_decode.cu`` include ``csrc/common.cuh``; the
+flash forward and the backward's dQ and dK/dV kernels also ``csrc/sm90.cuh``,
+Hopper's TMA, mbarrier, wgmma and setmaxnreg in raw PTX). It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/repro_torch/``
-(listed in ``.gitignore``), named by a hash of the source, the headers and
-the flags, at first use, and loaded with ``ctypes``. Nothing is
+(listed in ``.gitignore``), named by a hash of the source, every header of
+``csrc/`` and the flags, at first use, and loaded with ``ctypes``. Nothing is
 compiled or loaded when this module is imported: the CPU tests import every
 module on machines without ``nvcc``.
 

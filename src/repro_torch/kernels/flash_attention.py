@@ -17,13 +17,17 @@ order. It never falls back from CUDA to the plain version.
 ``flash_attention_bwd`` is the port of the JAX package's fused backward of
 the same name. For CUDA tensors it launches three kernels on the current
 stream: ``csrc/flash_bwd_delta.cu`` (delta = rowsum(dO * O)), then
-``csrc/flash_bwd_dq.cu`` (dQ, one block per folded row, walking
-``kv_order(i % n_q, local_iter=i)``) and ``csrc/flash_bwd_dkv.cu`` (dK and
-dV, one block per resident KV tile streaming its (GQA group, Q tile) sweep
-in the transposed order, ``Traversal.stream_sweep``), all at ``BLOCK_M`` x
-``BLOCK_N``. For tensors on the CPU it returns the plain version,
-``repro_torch.core.attention.flash_attention_bwd``, at the kernels' tile
-sizes.
+``csrc/flash_bwd_dq.cu`` (dQ) and ``csrc/flash_bwd_dkv.cu`` (dK and dV),
+both persistent like the forward, one CTA per SM. The dQ kernel takes the
+forward's work items and order at ``DQ_BLOCK_M`` x ``DQ_BLOCK_N`` tiles
+(its host model is :func:`fwd_schedule`); the dK/dV kernel takes items
+(batch x kv head, KV tile) of ``DKV_BLOCK_N`` positions, the k-th item of
+a CTA streaming every (GQA group, Q tile of ``DKV_BLOCK_M`` rows) that sees
+it in ``Traversal.stream_sweep(kv_tile, local_iter=k)`` (host model
+:func:`dkv_schedule`, record :func:`dkv_walks`). For tensors on the CPU
+it returns the plain version,
+``repro_torch.core.attention.flash_attention_bwd``, at one tiling,
+``BLOCK_M`` x ``BLOCK_N``.
 
 The tile sizes are the kernels', not the config's ``q_block``/``kv_block``
 (512 there, sized for a TPU's vector memory): a 512 x 128 bf16 K tile alone
@@ -48,6 +52,11 @@ __all__ = [
     "BLOCK_N",
     "FWD_BLOCK_M",
     "FWD_BLOCK_N",
+    "DQ_BLOCK_M",
+    "DQ_BLOCK_N",
+    "DKV_BLOCK_M",
+    "DKV_BLOCK_N",
+    "KERNEL_TILES",
     "flash_attention_fwd",
     "launch_flash_fwd",
     "flash_attention_bwd",
@@ -55,50 +64,48 @@ __all__ = [
     "launch_flash_bwd_dq",
     "launch_flash_bwd_dkv",
     "kernel_traversal",
-    "kernel_walks",
     "fwd_schedule",
     "fwd_walks",
     "fwd_workers",
+    "dkv_schedule",
+    "dkv_walks",
 ]
 
 # Finite mask value of the reference kernels; a row that sees nothing ends
 # with lse == MASK_VALUE (``l == 0 -> 1``) and an output of exact zeros.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-BLOCK_M = 64   # Q rows per block of the backward (B5, B6)
-BLOCK_N = 64   # KV positions per tile of the backward
+BLOCK_M = 64   # Q rows per block of the plain backward (the CPU path)
+BLOCK_N = 64   # KV positions per block of the plain backward
 FWD_BLOCK_M = 128   # Q rows per work item of the forward (B2)
 FWD_BLOCK_N = 128   # KV positions per tile of the forward
+DQ_BLOCK_M = 128    # Q rows per work item of the dQ kernel (B5)
+DQ_BLOCK_N = 128    # KV positions per tile of the dQ kernel
+DKV_BLOCK_M = 64    # Q rows per streamed tile of the dK/dV kernel (B6)
+DKV_BLOCK_N = 128   # KV positions per work item of the dK/dV kernel
+# Kernel -> (Q rows, KV positions) of its tiles; the kernels report theirs
+# through their ``*_attr`` entries, which ``chip_smoke.py`` holds to these.
+KERNEL_TILES = {
+    "flash_fwd": (FWD_BLOCK_M, FWD_BLOCK_N),
+    "flash_bwd_dq": (DQ_BLOCK_M, DQ_BLOCK_N),
+    "flash_bwd_dkv": (DKV_BLOCK_M, DKV_BLOCK_N),
+}
 _HEAD_DIMS = (64, 80, 128)    # the forward (B2)
 _BWD_HEAD_DIMS = (64, 128)    # the backward (B4-B6)
 
 
 def kernel_traversal(
-    sq: int, skv: int, n_groups: int, *, order: Order | str, causal: bool,
-    window: Optional[int], q_block: int, kv_block: int, snake_group: Optional[int] = None,
+    sq: int, skv: int, n_groups: int, *, kernel: str, order: Order | str, causal: bool,
+    window: Optional[int], snake_group: Optional[int] = None,
 ) -> Traversal:
-    """The Traversal a CUDA kernel walks for these shapes at its tile sizes
-    (``FWD_BLOCK_M`` x ``FWD_BLOCK_N`` for the forward, ``BLOCK_M`` x
-    ``BLOCK_N`` for the backward)."""
+    """The Traversal CUDA kernel ``kernel`` (a key of ``KERNEL_TILES``) walks
+    for these shapes, at its own tiles. The dQ kernel's walks are
+    :func:`fwd_walks` of it, the dK/dV kernel's :func:`dkv_walks`."""
+    q_block, kv_block = KERNEL_TILES[kernel]
     return Traversal(
         order=order, n_q=-(-sq // q_block), n_kv=-(-skv // kv_block), causal=causal,
         window=window, q_block=q_block, kv_block=kv_block, n_groups=n_groups,
         snake_group=snake_group,
     )
-
-
-def kernel_walks(tr: Traversal, *, transposed: bool = False) -> list[list[int]]:
-    """What the backward kernels record for Traversal ``tr`` (one (batch, kv
-    head) slice): dQ, one row per folded Q row ``i`` with its KV tiles in
-    ``kv_order(i % n_q, local_iter=i)``; transposed (dK/dV), one row per KV
-    tile with its sweep folded as ``group * n_q + q_tile``; each padded with
-    -1."""
-    if transposed:
-        width = tr.grid_rows
-        rows = [[grp * tr.n_q + qi for grp, qi in tr.stream_sweep(j)] for j in range(tr.n_kv)]
-    else:
-        width = tr.n_kv
-        rows = [tr.kv_order(i % tr.n_q, local_iter=i) for i in range(tr.grid_rows)]
-    return [r + [-1] * (width - len(r)) for r in rows]
 
 
 def fwd_schedule(tr: Traversal, n_slices: int,
@@ -136,9 +143,41 @@ def fwd_walks(tr: Traversal, n_slices: int, n_workers: int) -> list[list[list[in
     return walks
 
 
+def dkv_schedule(tr: Traversal, n_slices: int,
+                 n_workers: int) -> list[list[tuple[int, int]]]:
+    """Host model of the persistent dK/dV kernel's work: for each of
+    ``n_workers`` CTAs, its (slice, KV tile) items in the order it takes
+    them. Under causal trimming KV tile j is seen by the Q tiles from about
+    j upward, so unit p of a slice pairs the heavy tile p with the light
+    tile n_kv - 1 - p (one item when they coincide); units are numbered
+    slice-major and dealt round-robin, unit u to worker u % n_workers."""
+    if n_workers <= 0:
+        raise ValueError("n_workers must be positive")
+    units = []
+    for s in range(n_slices):
+        for p in range(-(-tr.n_kv // 2)):
+            light = tr.n_kv - 1 - p
+            units.append([(s, p)] + ([(s, light)] if light != p else []))
+    return [[item for unit in units[w::n_workers] for item in unit] for w in range(n_workers)]
+
+
+def dkv_walks(tr: Traversal, n_slices: int, n_workers: int) -> list[list[list[int]]]:
+    """What the dK/dV kernel records in ``visit_out`` (n_slices, n_kv,
+    grid_rows): the k-th item a worker takes streams
+    ``tr.stream_sweep(kv_tile, local_iter=k)``, folded as ``group * n_q +
+    q_tile`` and padded with -1."""
+    walks: list[list] = [[None] * tr.n_kv for _ in range(n_slices)]
+    for items in dkv_schedule(tr, n_slices, n_workers):
+        for k, (s, j) in enumerate(items):
+            row = [grp * tr.n_q + qi for grp, qi in tr.stream_sweep(j, local_iter=k)]
+            walks[s][j] = row + [-1] * (tr.grid_rows - len(row))
+    return walks
+
+
 def fwd_workers(device) -> int:
-    """CTAs the forward kernel runs on ``device``: one per SM (the kernel
-    reads the same count with ``cudaDevAttrMultiProcessorCount``)."""
+    """CTAs each persistent kernel (the forward, dQ and dK/dV) runs on
+    ``device``: one per SM (the kernels read the same count with
+    ``cudaDevAttrMultiProcessorCount``)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -256,9 +295,10 @@ def flash_attention_bwd(
 ):
     """Fused flash backward from the forward's ``o`` (B, Sq, Hq, D) and
     ``lse`` (B, Sq, Hq) float32: returns (dq, dk, dv) for the output
-    gradient ``do``. CUDA only: ``visit_dq_out`` (B*Hkv, G*n_q, n_kv) and
-    ``visit_dkv_out`` (B*Hkv, n_kv, G*n_q), int32, receive the tiles each
-    dQ and dK/dV block walked (see :func:`kernel_walks`)."""
+    gradient ``do``. CUDA only: ``visit_dq_out`` (B*Hkv, G*n_q, n_kv) at the
+    dQ kernel's tiles and ``visit_dkv_out`` (B*Hkv, n_kv, G*n_q) at the
+    dK/dV kernel's, int32, receive the tiles each work item walked (see
+    :func:`fwd_walks`, :func:`dkv_walks`)."""
     order = Order.parse(order)
     if q.device.type == "cpu":
         if visit_dq_out is not None or visit_dkv_out is not None:
@@ -274,10 +314,9 @@ def flash_attention_bwd(
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"lse must be a contiguous float32 {(b, sq, hq)} tensor on {q.device}")
     g = hq // hkv
-    n_q, n_kv = -(-sq // BLOCK_M), -(-skv // BLOCK_N)
-    if g * n_q > 65535 or n_kv > 65535:
-        raise ValueError(f"flash_bwd grid rows G*n_q = {g * n_q} or n_kv = {n_kv} exceed 65535")
+    n_q, n_kv = -(-sq // DQ_BLOCK_M), -(-skv // DQ_BLOCK_N)
     _check_visit(visit_dq_out, (b * hkv, g * n_q, n_kv), q.device, "visit_dq_out")
+    n_q, n_kv = -(-sq // DKV_BLOCK_M), -(-skv // DKV_BLOCK_N)
     _check_visit(visit_dkv_out, (b * hkv, n_kv, g * n_q), q.device, "visit_dkv_out")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b == 0 or sq == 0 or skv == 0:

@@ -32,8 +32,8 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_fwd,
     fwd_walks,
     fwd_workers,
+    dkv_walks,
     kernel_traversal,
-    kernel_walks,
     launch_flash_bwd_delta,
 )
 from repro_torch.kernels.flash_decode import flash_decode_fwd, paged_flash_decode_fwd
@@ -128,8 +128,8 @@ def _check_flash_fwd(dev, d, g, causal, window, sq, skv, seed):
     v = _bf16(gen, (b, skv, hkv, d), dev)
     vis = _visible(sq, skv, causal, window, dev)
     for order in Order:
-        tr = kernel_traversal(sq, skv, g, order=order, causal=causal, window=window,
-                              q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N, snake_group=2)
+        tr = kernel_traversal(sq, skv, g, kernel="flash_fwd", order=order, causal=causal,
+                              window=window, snake_group=2)
         visit = torch.empty((b * hkv, tr.grid_rows, tr.n_kv), dtype=torch.int32, device=dev)
         kw = dict(order=order, causal=causal, window=window, snake_group=2, return_lse=True)
         n0 = cuda_lib.launch_counts["flash_fwd"]
@@ -255,8 +255,9 @@ def test_flash_bwd_kernels_match_plain_and_walk_the_traversal(cuda, d, g, causal
     from B2): delta within 1e-4 and dq, dk, dv within 2e-2 of max |plain|
     (P and dS rounded to bf16 before their products, bf16 outputs);
     gradients of what nothing sees exact zeros; the recorded dQ and dK/dV
-    walks equal the Traversal's; a second run gives equal bits; one launch
-    each."""
+    walks equal the host models of the persistent schedules at each
+    kernel's tiles (``fwd_walks``, ``dkv_walks``); a second run gives equal bits; one
+    launch each."""
     gen = torch.Generator(device=cuda).manual_seed(sq * 5 + skv + g + d)
     b, hkv = 2, 2
     q, do = _bf16(gen, (b, sq, hkv * g, d), cuda), _bf16(gen, (b, sq, hkv * g, d), cuda)
@@ -268,12 +269,14 @@ def test_flash_bwd_kernels_match_plain_and_walk_the_traversal(cuda, d, g, causal
         seen &= c <= r
     if window is not None:
         seen &= c > r - window
+    workers = fwd_workers(cuda)
     for order in Order:
         kw = dict(order=order, causal=causal, window=window, snake_group=2)
         o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
-        tr = kernel_traversal(sq, skv, g, q_block=BLOCK_M, kv_block=BLOCK_N, **kw)
-        vq = torch.empty((b * hkv, tr.grid_rows, tr.n_kv), dtype=torch.int32, device=cuda)
-        vkv = torch.empty((b * hkv, tr.n_kv, tr.grid_rows), dtype=torch.int32, device=cuda)
+        tq = kernel_traversal(sq, skv, g, kernel="flash_bwd_dq", **kw)
+        tkv = kernel_traversal(sq, skv, g, kernel="flash_bwd_dkv", **kw)
+        vq = torch.empty((b * hkv, tq.grid_rows, tq.n_kv), dtype=torch.int32, device=cuda)
+        vkv = torch.empty((b * hkv, tkv.n_kv, tkv.grid_rows), dtype=torch.int32, device=cuda)
         n0 = {n: cuda_lib.launch_counts[n] for n in ("flash_bwd_delta", "flash_bwd_dq",
                                                       "flash_bwd_dkv")}
         got = flash_attention_bwd(q, k, v, o, lse, do, visit_dq_out=vq, visit_dkv_out=vkv, **kw)
@@ -291,10 +294,10 @@ def test_flash_bwd_kernels_match_plain_and_walk_the_traversal(cuda, d, g, causal
         dq, dk, dv = got
         assert torch.all(dq[:, ~seen.any(1)] == 0)
         assert torch.all(dk[:, ~seen.any(0)] == 0) and torch.all(dv[:, ~seen.any(0)] == 0)
-        assert torch.equal(vq.cpu(), torch.tensor(kernel_walks(tr), dtype=torch.int32)
-                           .expand_as(vq))
-        assert torch.equal(vkv.cpu(), torch.tensor(kernel_walks(tr, transposed=True),
-                                                   dtype=torch.int32).expand_as(vkv))
+        assert torch.equal(vq.cpu(), torch.tensor(fwd_walks(tq, b * hkv, workers),
+                                                  dtype=torch.int32))
+        assert torch.equal(vkv.cpu(), torch.tensor(dkv_walks(tkv, b * hkv, workers),
+                                                   dtype=torch.int32))
 
 
 @pytest.mark.gpu
@@ -318,6 +321,9 @@ def test_flash_bwd_wrapper_rejects_what_its_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="visit_dkv_out"):
         flash_attention_bwd(q, kv, kv, q, lse, q,
                             visit_dkv_out=torch.zeros(3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="visit_dkv_out"):  # (1*2, n_kv 1, G*n_q 1) at 64 x 128
+        flash_attention_bwd(q, kv, kv, q, lse, q,
+                            visit_dkv_out=torch.zeros((2, 2, 1), dtype=torch.int32, device=cuda))
 
 
 @pytest.mark.gpu

@@ -182,7 +182,7 @@ INTERPRET = [
 def test_wrapper_on_cpu_equals_reference_kernel(case, order):
     """The wrapper's CPU path (the plain version at the CUDA forward's 128 x
     128 tiles) against the Pallas kernel in interpret mode (its own tiles):
-    o and lse agree up to rounding; no kernel launch on the CPU. The
+    o and lse agree up to rounding; no kernel launch on the CPU. The plain
     backward keeps its 64 x 64 tiles."""
     _, _, _, _, _, _, causal, window, qb, kb = case
     q, k, v = _qkv(case, seed=1)

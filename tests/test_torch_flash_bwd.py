@@ -10,7 +10,7 @@ package.
   reference's blockwise backward on a sweep of shapes per order (GQA, MQA,
   SWA, lengths that are not a multiple of the tile, Sq != Skv), from the
   same ``(o, lse)``; the wrapper ``kernels.flash_attention_bwd`` on CPU
-  tensors (the plain version at the CUDA kernels' 64 x 64 tiles) equals the
+  tensors (the plain version at its one tiling, 64 x 64) equals the
   reference's Pallas backward kernels in interpret mode on a few cases.
 * ``ops.attention``'s gradients for the port's impls equal ``jax.grad``
   through the reference's ``ops.attention``.
@@ -35,7 +35,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core import attention as port_attn
 from repro_torch.core import schedule as port_sched
 from repro_torch.kernels import cuda_lib, ops
-from repro_torch.kernels.flash_attention import flash_attention_bwd, kernel_traversal, kernel_walks
+from repro_torch.kernels.flash_attention import dkv_walks, flash_attention_bwd, kernel_traversal
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ORDERS = ["cyclic", "sawtooth", "block_snake"]
@@ -102,11 +102,12 @@ def test_degenerate_transposed_trims_are_covered():
     lo, hi = port.q_bounds_host(4)
     assert hi < lo and port.stream_sweep(4) == [] == ref.stream_sweep(4)
     assert port.stream_block_index(4, 0) == (0, 1, False)
-    tr = kernel_traversal(100, 300, 2, order="sawtooth", causal=True, window=None, q_block=64,
-                          kv_block=64)
-    walks = kernel_walks(tr, transposed=True)
-    assert walks[4] == [-1] * tr.grid_rows
-    assert walks[1] == [3, 1, -1, -1]  # group 1, then group 0, of Q tile 1: parity 1 reverses
+    tr = kernel_traversal(100, 300, 2, order="sawtooth", causal=True, window=None,
+                          kernel="flash_bwd_dkv")
+    walks = dkv_walks(tr, 2, 1)  # two slices on one CTA
+    assert all(w[j] == [-1] * tr.grid_rows for w in walks for j in (1, 2))
+    assert walks[0][0] == [0, 1, 2, 3]  # the CTA's item 0: groups 0, 1 of Q tiles 0, 1
+    assert walks[1][0] == [3, 2, 1, 0]  # its item 3: parity 1 reverses the sweep as a unit
     with pytest.raises(ValueError):
         port.worker_assignments(0)
 
@@ -161,9 +162,9 @@ INTERPRET = [
 
 @pytest.mark.parametrize("case,order", list(zip(INTERPRET, ORDERS)))
 def test_wrapper_on_cpu_equals_reference_kernels(case, order):
-    """The backward wrapper's CPU path (the plain version at the CUDA
-    kernels' 64 x 64 tiles) against the Pallas backward kernels in interpret
-    mode; no kernel launch on the CPU."""
+    """The backward wrapper's CPU path (the plain version at its one
+    tiling, BLOCK_M x BLOCK_N = 64 x 64) against the Pallas backward kernels
+    in interpret mode; no kernel launch on the CPU."""
     _, _, _, _, _, _, causal, window, qb, kb = case
     q, k, v, do = _inputs(case, seed=1)
     kw = dict(order=order, causal=causal, window=window, **_okw(order))

@@ -42,7 +42,8 @@ LENGTHS = [(1024, 1024), (700, 700), (600, 200), (100, 100)]
 def _traversals(order, causal, window, g, sq, skv, sg=2):
     kw = dict(order=order, causal=causal, window=window, q_block=FWD_BLOCK_M,
               kv_block=FWD_BLOCK_N, snake_group=sg)
-    tr = kernel_traversal(sq, skv, g, **kw)
+    tr = kernel_traversal(sq, skv, g, kernel="flash_fwd", order=order, causal=causal,
+                          window=window, snake_group=sg)
     ref = ref_sched.Traversal(n_q=tr.n_q, n_kv=tr.n_kv, n_groups=g, **kw)
     return tr, ref
 
@@ -58,8 +59,8 @@ def _grid_stride(tr, n_slices, n_workers):
 @pytest.mark.parametrize("n_slices,n_workers", [(1, 1), (1, 3), (5, 4), (8, 132), (3, 7)])
 @pytest.mark.parametrize("g", [1, 4])
 def test_every_item_goes_to_one_worker(balanced, n_slices, n_workers, g):
-    tr = kernel_traversal(700, 700, g, order="sawtooth", causal=True, window=None,
-                          q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N)
+    tr = kernel_traversal(700, 700, g, kernel="flash_fwd", order="sawtooth", causal=True,
+                          window=None)
     sched = (fwd_schedule if balanced else _grid_stride)(tr, n_slices, n_workers)
     assert len(sched) == n_workers
     items = [item for worker in sched for item in worker]
@@ -113,8 +114,8 @@ def test_balanced_order_evens_out_the_causal_cost(sq, n_slices):
     tiles, causal), so every worker's cost is within one unit of every
     other's; with more items than workers the plain grid-stride order is
     not (the training shape: Q tiles {0, 4} against {3, 7} a worker)."""
-    tr = kernel_traversal(sq, sq, 1, order="sawtooth", causal=True, window=None,
-                          q_block=FWD_BLOCK_M, kv_block=FWD_BLOCK_N)
+    tr = kernel_traversal(sq, sq, 1, kernel="flash_fwd", order="sawtooth", causal=True,
+                          window=None)
     unit = tr.n_q + 1 if tr.n_q % 2 == 0 else tr.n_q
     costs = [_cost(tr, items) for items in fwd_schedule(tr, n_slices, 132)]
     assert max(costs) - min(costs) <= unit
