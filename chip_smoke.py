@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. kernel matrices, each CUDA kernel against its plain PyTorch version on
    the card: the paged kernel (B1) over orders x GQA x chunk widths x page
    sizes x windows, with ragged q_lens, a free row and a shuffled block
-   table; the flash forward (B2) over orders x causal x windows x GQA x
+   table, each case launched again recording its walk, which must equal
+   the host model (``paged_decode_walks``) with the first launch's bits; the flash forward (B2) over orders x causal x windows x GQA x
    head dims (64, 80, 128) x lengths, o and lse, a bitwise repeat, and the
    KV-tile walk each work item recorded held to the host model of the
    persistent schedule (``fwd_walks``); the contiguous decode (B3) over
@@ -61,6 +62,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    informational long shape; B7: the second prefill group of mamba2 and of
    zamba2): the kernel, its bound, the plain version and one library call
    where there is one (SDPA's backward for B4-B6 together; none for B7);
+   B1's and B3's launch attributes (registers, shared memory, cluster
+   size) and their two-step sawtooth/cyclic readings; and, informational,
+   B1 and B3 at one sequence of 8187 positions at every cluster size;
 5. the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -291,7 +295,41 @@ def _check_kernel(q, k, v, bt, lens, qls, window, group) -> float:
     if zero_rows.numel() and zero_rows.abs().max().item() != 0.0:
         raise AssertionError("rows with nothing to attend to are not exact zeros")
     err = (o - ref).abs()[valid].max().item() if valid.any() else 0.0
+    _check_paged_walk(q, k, v, bt, lens, qls, window, group, out)
     return err
+
+
+def _check_paged_walk(q, k, v, bt, lens, qls, window, group, out) -> int:
+    """B1 launched again recording its walk: the walk equals the host model
+    (``paged_decode_walks`` at the kernel's own split count) and the output
+    ``out``'s bits. Returns the pages recorded."""
+    from repro_torch.kernels.flash_decode import (
+        fold_schedule,
+        launch_paged_decode,
+        paged_decode_splits,
+        paged_decode_walks,
+    )
+
+    b, c, hq, _ = q.shape
+    page, hkv = k.shape[1], k.shape[2]
+    nb = bt.shape[1]
+    splits = paged_decode_splits(b, hkv, nb, _sms(), c * (hq // hkv))
+    phys, logical = fold_schedule(lens, bt, order_group=group)
+    want = paged_decode_walks(logical, lens, qls, c=c, g=hq // hkv, hkv=hkv, page=page,
+                              window=window, splits=splits)
+    visit = torch.full(tuple(want.shape), -7, dtype=torch.int32, device="cuda")
+    again = launch_paged_decode(q, k, v, phys, logical, lens, qls, window=window,
+                                visit_out=visit)
+    torch.cuda.synchronize()
+    if not torch.equal(visit.cpu(), want):
+        raise AssertionError("paged_decode's recorded walk differs from paged_decode_walks")
+    if not torch.equal(again, out):
+        raise AssertionError("paged_decode: two launches differ in their bits")
+    return int((want >= 0).sum())
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def phase_kernel_matrix() -> float:
@@ -317,7 +355,7 @@ def phase_kernel_matrix() -> float:
                         n += 1
                         ok = err <= KERNEL_TOL
                         print(f"[kernel] page={page} G={g} C={c} order={order.value} "
-                              f"window={window}: max_abs_err={err:.3e} "
+                              f"window={window}: max_abs_err={err:.3e}, walk and repeat "
                               f"{'ok' if ok else 'FAIL'}")
                         if not ok:
                             raise AssertionError(
@@ -325,7 +363,8 @@ def phase_kernel_matrix() -> float:
                                 f"{err:.3e} > {KERNEL_TOL}"
                             )
                         worst = max(worst, err)
-    print(f"[kernel] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL})")
+    print(f"[kernel] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL}); every "
+          f"recorded walk equals paged_decode_walks, every repeat the first launch's bits")
     return worst
 
 
@@ -534,10 +573,18 @@ def phase_bwd_matrix() -> dict:
 
 def phase_decode_matrix() -> float:
     """B3 against its plain version on rows of positive length; a row of
-    length 0 gives exact zeros. S_max 300 is not a multiple of the chunk."""
+    length 0 gives exact zeros. S_max 300 is not a multiple of the chunk.
+    Each case launches again recording its walk, which must equal the host
+    model (``contig_decode_walks`` at the kernel's own split count), with
+    the first launch's bits."""
     from repro_torch.core.attention import decode_attention
     from repro_torch.core.schedule import Order
-    from repro_torch.kernels.flash_decode import flash_decode_fwd
+    from repro_torch.kernels.flash_decode import (
+        contig_decode_splits,
+        contig_decode_walks,
+        flash_decode_fwd,
+        launch_contig_decode,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     b, hkv, s_max = 5, 2, 300
@@ -565,11 +612,24 @@ def phase_decode_matrix() -> float:
                         if err > KERNEL_TOL:
                             raise AssertionError(f"contig_decode disagrees with its plain "
                                                  f"version: {case}: {err:.3e}")
+                        want = contig_decode_walks(
+                            lens, s_max=s_max, hkv=hkv, g=g, chunk=chunk, order=order,
+                            snake_group=2, window=window,
+                            splits=contig_decode_splits(b, hkv, g, s_max, _sms()))
+                        visit = torch.full(tuple(want.shape), -7, dtype=torch.int32,
+                                           device="cuda")
+                        again = launch_contig_decode(q, k, v, lens, order=order, window=window,
+                                                     chunk=chunk, snake_group=2,
+                                                     visit_out=visit)
+                        torch.cuda.synchronize()
+                        if not torch.equal(visit.cpu(), want) or not torch.equal(again, out):
+                            raise AssertionError(f"contig_decode: recorded walk differs from "
+                                                 f"contig_decode_walks or repeat's bits: {case}")
                         errs.append(err)
                         worst = max(worst, err)
                         n += 1
                 print(f"[decode] D={d} G={g} window={window}: max_abs_err over chunks x orders "
-                      f"{max(errs):.3e} ok")
+                      f"{max(errs):.3e}, walks and repeats ok")
     print(f"[decode] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL})")
     return worst
 
@@ -1492,6 +1552,7 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
     from repro_torch.core.attention import paged_decode_attention
     from repro_torch.core.schedule import resolve_order_group
     from repro_torch.kernels.flash_decode import (
+        decode_kernel_attr,
         fold_schedule,
         launch_paged_decode,
         paged_flash_decode_fwd,
@@ -1535,7 +1596,8 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
         rec = _time_record({"kernel": kern, "wrapper": wrapper, "plain": plain,
                             "library": sdpa}, nbytes, flops, dev_info)
         rec.update(C=c, q_lens=q_lens, lens=lens0, max_abs_err=err,
-                   launches_per_step=main["launches_per_step"])
+                   launches_per_step=main["launches_per_step"],
+                   kernel_attr=decode_kernel_attr("paged_decode", (b, c, hq, hkv, d, nb, page)))
         if key == "narrow":
             rec["alternating_ms"] = _alternating_orders(q, k, v, bt, lens, qls, nb)
         print(f"[time] {key}: " + json.dumps(rec))
@@ -1648,7 +1710,12 @@ def phase_static_kernel_times(dev_info: dict, d: int = 128) -> dict:
         flash_attention_fwd,
         launch_flash_fwd,
     )
-    from repro_torch.kernels.flash_decode import flash_decode_fwd, launch_contig_decode
+    from repro_torch.kernels.flash_decode import (
+        decode_chunk,
+        decode_kernel_attr,
+        flash_decode_fwd,
+        launch_contig_decode,
+    )
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1701,7 +1768,10 @@ def phase_static_kernel_times(dev_info: dict, d: int = 128) -> dict:
         flops=4.0 * sum(lens0) * h * d, dev_info=dev_info,
     )
     decode.update(shape={"B": b, "S_max": s_max, "lens": lens0, "Hq": h, "Hkv": h, "D": d},
-                  max_abs_err=(got.float() - ref).abs().max().item())
+                  max_abs_err=(got.float() - ref).abs().max().item(),
+                  kernel_attr=decode_kernel_attr(
+                      "contig_decode", (b, s_max, h, h, d, decode_chunk(512, s_max))),
+                  alternating_ms=_alternating_contig(qd, kc, vc, lens))
     print(f"[time] contig_decode step D{d}: " + json.dumps(decode))
     for rec in (prefill, decode):
         assert rec["max_abs_err"] <= KERNEL_TOL, rec["max_abs_err"]
@@ -1984,6 +2054,57 @@ def _alternating_orders(q, k, v, bt, lens, qls, nb) -> dict:
     return {name: statistics.median(ts) for name, ts in runs.items()} | {"runs": runs}
 
 
+def _alternating_contig(q, k, v, lens) -> dict:
+    """B3's reading of two consecutive decode steps (lengths differing by
+    one) in the cyclic and the sawtooth chunk order, as _alternating_orders
+    reads B1; B3's parity key is the (row, kv head) index, so sawtooth
+    reverses every other item's chunks in both steps."""
+    from repro_torch.kernels.flash_decode import launch_contig_decode
+
+    lens2 = lens + 1
+    fns = {name: (lambda name=name: (launch_contig_decode(q, k, v, lens, order=name),
+                                     launch_contig_decode(q, k, v, lens2, order=name)))
+           for name in ("cyclic", "sawtooth")}
+    runs = {name: [t / 2 for t in ts] for name, ts in _readings(fns, rounds=2).items()}
+    return {name: statistics.median(ts) for name, ts in runs.items()} | {"runs": runs}
+
+
+def phase_split_times() -> dict:
+    """Informational: B1 and B3 at one decode step of a single sequence of
+    8187 cached positions (32 heads of 128, page 64), where B x Hkv = 32
+    items would leave most SMs idle without a split, at every cluster size
+    S and at the kernels' own choice; batched device time, one reading
+    each."""
+    from repro_torch.kernels.flash_decode import (
+        fold_schedule,
+        launch_contig_decode,
+        launch_paged_decode,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    h, d, page, ln = 32, 128, 64, 8192
+    nb = ln // page
+    q = _bf16(gen, (1, 1, h, d))
+    k, v = _bf16(gen, (nb + 1, page, h, d)), _bf16(gen, (nb + 1, page, h, d))
+    bt = (torch.randperm(nb, generator=gen, device="cuda") + 1).reshape(1, nb).to(torch.int32)
+    lens = torch.tensor([ln - 5], dtype=torch.int32, device="cuda")
+    qls = torch.ones((1,), dtype=torch.int32, device="cuda")
+    phys, logical = fold_schedule(lens, bt, order_group=nb)
+    kc, vc = _bf16(gen, (1, ln, h, d)), _bf16(gen, (1, ln, h, d))
+    out = {}
+    for name, launch in (
+        ("paged_decode", lambda s: launch_paged_decode(q, k, v, phys, logical, lens, qls,
+                                                       splits=s)),
+        ("contig_decode", lambda s: launch_contig_decode(q, kc, vc, lens, order="sawtooth",
+                                                         splits=s)),
+    ):
+        out[name] = {str(s): _median_ms(lambda s=s: launch(s)) for s in (1, 2, 4, 8)}
+        out[name]["auto"] = _median_ms(lambda: launch(None))
+        print(f"[time] {name} one sequence of {ln - 5} positions by cluster size "
+              f"(informational): " + json.dumps(out[name]))
+    return out
+
+
 def _entry(name: str, launches: int, max_abs_err: float, rec: dict, **extra) -> dict:
     from repro_torch.kernels import cuda_lib
 
@@ -2047,6 +2168,7 @@ def main(argv=None) -> int:
     long_times = phase_long_flash_times(dev_info)
     long_bwd = phase_long_bwd_times(dev_info)
     ssd_times = phase_ssd_kernel_times(dev_info)
+    split_times = phase_split_times()
 
     paths = {"continuous": main_path, "static": static, "train": train, "mamba2": mamba,
              "zamba2": zamba}
@@ -2061,7 +2183,10 @@ def main(argv=None) -> int:
     kernels = [
         _entry("paged_decode", launches["paged_decode"],
                max(worst, narrow["max_abs_err"], wide["max_abs_err"]), narrow,
-               wide={k: wide[k] for k in timing_keys}, small_model_max_abs_err=small),
+               wide={k: wide[k] for k in (*timing_keys, "kernel_attr")},
+               kernel_attr=narrow["kernel_attr"], alternating_ms=narrow["alternating_ms"],
+               one_sequence_splits_ms=split_times["paged_decode"],
+               small_model_max_abs_err=small),
         _entry("flash_fwd", launches["flash_fwd"],
                max(flash_worst, fwd["max_abs_err"], train_times["flash_fwd"]["max_abs_err"]), fwd,
                launches_per_prefill=static["launches"]["flash_fwd"] / static["prefill_calls"],
@@ -2080,7 +2205,10 @@ def main(argv=None) -> int:
                dec,
                launches_per_decode_step=static["launches"]["contig_decode"]
                / static["decode_calls"],
-               d80_zamba2_shape={k: d80_times["contig_decode"][k] for k in timing_keys},
+               d80_zamba2_shape={k: d80_times["contig_decode"][k]
+                                 for k in (*timing_keys, "kernel_attr", "alternating_ms")},
+               kernel_attr=dec["kernel_attr"], alternating_ms=dec["alternating_ms"],
+               one_sequence_splits_ms=split_times["contig_decode"],
                small_model_max_abs_err=small_static),
     ]
     for name, key in (("flash_bwd_delta", "delta"), ("flash_bwd_dq", "dq"),

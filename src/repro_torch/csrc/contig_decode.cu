@@ -1,9 +1,9 @@
 // One-token decode attention over a contiguous KV cache, for NVIDIA Hopper
-// (sm_90a), CUDA C++.
+// (sm_90a), CUDA C++ with raw PTX.
 //
-// Replaces repro/kernels/flash_decode.py::_decode_kernel, the Pallas kernel
-// of every decode step of the static serve path (LM.decode_step over the
-// contiguous per-layer caches, SWA ring buffers included).
+// Replaces repro/kernels/flash_decode.py::_decode_kernel (:94), the Pallas
+// kernel of every decode step of the static serve path (LM.decode_step over
+// the contiguous per-layer caches, SWA ring buffers included).
 //
 // What it computes: for each batch row b and query head, softmax over the
 // cached positions pos of q . k[pos] * scale, times v: position pos is
@@ -12,38 +12,36 @@
 // per-row lengths; no mask operand exists). A row of length 0 gives exact
 // zeros.
 //
-// Grid (B*Hkv, row tiles): block (bh, y) holds up to R query heads of kv
-// head bh % Hkv (GQA group members y*R ..), so K and V of a (row, kv head)
-// are read once for all its query heads. The cache is cut into n_chunks =
-// ceil(S_max / chunk) chunks (chunk as the reference derives it), walked in
-// kv_index(order, b*Hkv + h, j, n_chunks) order: the parity key is the
-// grid row, as in the TPU kernel. Chunks wholly past the length or left of
-// the window are skipped, which is exact.
-//
-// Design: 4 warps; inside a chunk, positions stream through shared memory
-// in tiles of 128 (16-byte loads by the whole block), one position per
-// thread for the scores. Each warp keeps its own online softmax (m, l,
-// accumulator in f32) over its 32 positions of every tile; the four are
-// merged once at the end. So no warp idles when a kv head has one query
-// head (deepseek), unlike a warp-per-row layout. For P . V, lane l owns the
-// bf16 pairs l, l + 32, ... of the head dim (32-bit shared loads, exact for
-// D 64, 80 and 128; at D 80, zamba2's shared attention, lanes 8-31 hold one
-// pair and lanes 0-7 two).
+// The walk: the cache is cut into n_chunks = ceil(S_max / chunk) chunks
+// (chunk as the reference derives it), visited in kv_index(order, b * Hkv
+// + h, j, n_chunks) order (the parity key is the (row, kv head) index, as
+// in the TPU kernel), each chunk cut into tiles of 64 positions in
+// ascending order. Tiles wholly past the length or left of the window are
+// skipped, which is exact.
 //
 // What bounds it on this card: bytes. Each valid K/V element is read once
-// and used for 2*G flops, far below the card's ~295 flops per byte. No
-// split of one row's positions across blocks and no load/compute overlap
-// yet: later work.
+// and used for 2 G flops, far below the card's ~295 flops per byte. The
+// design (the decode core, csrc/decode_core.cuh): a work item is one (b,
+// kv head, tile of R of its G query heads), so K and V of a (row, kv head)
+// are read once for all its query heads; each item is a cluster of S CTAs
+// (S from pick_splits over the items and the cache's tiles), split s
+// walking the s-th contiguous segment of the item's seen tiles in walk
+// order, and the S partial states merge over distributed shared memory in
+// split order. K and V stream through a two-stage ring filled by 16-byte
+// cp.async (zeros at and past the length), the next tile in flight while
+// the current one is computed on the CUDA cores, every warp on 16 of the
+// tile's positions for all R rows. Head dims 64, 80 (zamba2's shared
+// attention) and 128. With `visit`, each CTA records the first position of
+// every tile it walked (-1 past its segment):
+// kernels/flash_decode.py::contig_decode_walks is the host model.
 
-#include "common.cuh"
+#include "decode_core.cuh"
 
 namespace {
 
 using namespace repro;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kT = 128;  // positions per shared tile: one per thread
+using namespace repro::decode;
+namespace hw = repro::sm90;
 
 struct Args {
   const uint16_t* q;  // (B, 1, Hq, D)
@@ -51,211 +49,189 @@ struct Args {
   const uint16_t* v;
   const int* lens;    // (B,)
   uint16_t* out;      // (B, 1, Hq, D)
-  int S_max, Hq, Hkv, window, chunk, order, snake;
-  float scale;
+  int* visit;         // (B * Hkv, n_rt, S, W) int32, or null
+  int S_max, Hq, Hkv, G, window, chunk, order, snake, splits, n_rt, W;
+  float scale_log2;
 };
 
 template <int D, int R>
-struct Smem {
-  static constexpr int KS = D + 8;  // padded K row: conflict-free 16-byte reads
-  static constexpr size_t k_bytes = sizeof(uint16_t) * kT * KS;
-  static constexpr size_t v_bytes = sizeof(uint16_t) * kT * D;
-  static constexpr size_t q_bytes = sizeof(float) * R * D;
-  static constexpr size_t p_bytes = sizeof(float) * kWarps * R * 32;
-  static constexpr size_t total = k_bytes + v_bytes + q_bytes + p_bytes;
-  // The end-of-kernel merge (m, l, accumulator of every warp) reuses K/V.
-  static_assert(sizeof(float) * kWarps * R * (D + 2) <= k_bytes + v_bytes, "merge area");
+struct Layout {
+  using RT = RowsTile<D>;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kRing = (RT::q_bytes(R) + 15u) & ~15u;
+  static constexpr uint32_t kBytes = kRing + kStages * RT::kBytes;
+  static constexpr uint32_t kWarpArea = kRing + RT::export_bytes(R);
+  static_assert(RT::export_bytes(R) + RT::warps_bytes(R) <= kStages * RT::kBytes,
+                "end-of-walk areas must fit the ring");
+};
+
+// A tile of the walk: chunk jc of the visit order, offset `off` in it, and
+// the tiles left in this CTA's segment (none: past the last).
+struct Tile {
+  int jc, off, left;
+  __device__ __forceinline__ bool valid() const { return left > 0; }
 };
 
 template <int D, int R>
-__global__ void __launch_bounds__(kThreads) contig_decode_kernel(Args p) {
-  using S = Smem<D, R>;
-  constexpr int KS = S::KS;
-  constexpr int CH = D / 8;
-  constexpr int NP = D / 2;             // bf16 pairs of a row
-  constexpr int PPL = (NP + 31) / 32;   // pairs a lane owns: lane, lane + 32, ...
-  constexpr int DPL = 2 * PPL;          // accumulator dims per lane
-
+__global__ void __launch_bounds__(kThreads) contig_decode_kernel(const Args p) {
+  using L = Layout<D, R>;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* Ks = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* Vs = reinterpret_cast<uint16_t*>(smem + S::k_bytes);
-  float* Qs = reinterpret_cast<float*>(smem + S::k_bytes + S::v_bytes);
-  float* Ps = reinterpret_cast<float*>(smem + S::k_bytes + S::v_bytes + S::q_bytes);
+  const uint32_t base = hw::smem_u32(smem);
 
-  const int bh = blockIdx.x;
-  const int b = bh / p.Hkv;
-  const int kvh = bh % p.Hkv;
-  const int G = p.Hq / p.Hkv;
-  const int head0 = kvh * G + blockIdx.y * R;
-  const int nrows = min(R, G - (int)blockIdx.y * R);
+  const int bh = blockIdx.y, b = bh / p.Hkv, kvh = bh % p.Hkv;
+  const int S = p.splits;
+  const int rt = blockIdx.x / S;
+  const int split = (int)hw::cluster_rank();
+  const int head0 = kvh * p.G + rt * R;
+  const int n_out = min(R, p.G - rt * R);
   const int len = min(max(p.lens[b], 0), p.S_max);
+  const int n_valid = len > 0 ? n_out : 0;
   const int first = p.window >= 0 ? max(0, len - p.window) : 0;  // first visible position
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  auto out_row = [&](int r) { return p.out + ((size_t)b * p.Hq + head0 + r) * D; };
+  int* vrec = p.visit == nullptr ? nullptr
+                                 : p.visit + (((size_t)bh * p.n_rt + rt) * S + split) * p.W;
 
-  // Query rows, pre-scaled, in float32; rows past nrows are zero.
-  for (int e = tid; e < R * CH; e += kThreads) {
-    const int r = e / CH, c = e % CH;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < nrows)
-      unpack8(*reinterpret_cast<const uint4*>(p.q + ((size_t)b * p.Hq + head0 + r) * D + c * 8), f);
-    float4* dst = reinterpret_cast<float4*>(Qs + r * D + c * 8);
-    dst[0] = make_float4(f[0] * p.scale, f[1] * p.scale, f[2] * p.scale, f[3] * p.scale);
-    dst[1] = make_float4(f[4] * p.scale, f[5] * p.scale, f[6] * p.scale, f[7] * p.scale);
-  }
-
-  float m[R], l[R], acc[R][DPL];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    m[r] = kMaskValue;
-    l[r] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
+  if (n_valid == 0) {
+    store_zeros<D>(S, 0, n_out, out_row);
+    if (vrec != nullptr)
+      for (int j = tid; j < p.W; j += kThreads) vrec[j] = -1;
+    return;
   }
 
   const int n_chunks = (p.S_max + p.chunk - 1) / p.chunk;
   const int group = order_group(p.order, p.snake, n_chunks);
-  for (int jc = 0; jc < n_chunks; ++jc) {
-    const int c0 = snake_pos(bh, jc, n_chunks, group) * p.chunk;
-    const int c1 = min(c0 + p.chunk, len);  // nothing at or past len is visible
-    if (c0 >= c1 || c1 <= first) continue;
-    for (int t0 = c0; t0 < c1; t0 += kT) {
-      if (t0 + kT <= first) continue;
-      __syncthreads();  // the previous tile is consumed (and the q rows written)
-      for (int e = tid; e < kT * CH; e += kThreads) {
-        const int pr = e / CH, c = e % CH;
-        uint4 kw = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vw = kw;
-        if (t0 + pr < c1) {
-          const size_t off = ((size_t)((size_t)b * p.S_max + t0 + pr) * p.Hkv + kvh) * D + c * 8;
-          kw = *reinterpret_cast<const uint4*>(p.k + off);
-          vw = *reinterpret_cast<const uint4*>(p.v + off);
-        }
-        *reinterpret_cast<uint4*>(Ks + pr * KS + c * 8) = kw;
-        *reinterpret_cast<uint4*>(Vs + pr * D + c * 8) = vw;
+  auto chunk0 = [&](int jc) { return snake_pos(bh, jc, n_chunks, group) * p.chunk; };
+  // The first seen tile at or after `t` (t.left is carried).
+  auto settle = [&](Tile t) {
+    while (t.jc < n_chunks) {
+      const int c0 = chunk0(t.jc);
+      const int c1 = min(c0 + p.chunk, len);  // nothing at or past len is visible
+      if (c0 + t.off < c1) {
+        if (min(c0 + t.off + kT, c1) > first) return t;
+        t.off += kT;
+        continue;
       }
-      __syncthreads();
-
-      const int wpos0 = t0 + warp * 32;
-      const int pos = wpos0 + lane;
-      const bool ok = pos < c1 && pos >= first;
-      if (!__any_sync(0xffffffffu, ok)) continue;  // warp-uniform
-
-      float s[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) s[r] = 0.f;
-      const uint16_t* krow = Ks + (warp * 32 + lane) * KS;
-#pragma unroll 4
-      for (int c = 0; c < CH; ++c) {
-        float kf[8];
-        unpack8(*reinterpret_cast<const uint4*>(krow + c * 8), kf);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float4* qp = reinterpret_cast<const float4*>(Qs + r * D + c * 8);
-          const float4 qa = qp[0], qb = qp[1];
-          s[r] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                  qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
-        }
-      }
-
-      float* pw = Ps + warp * R * 32;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float sv = ok ? s[r] : -INFINITY;
-        const float m_new = fmaxf(m[r], warp_max(sv));  // finite: m starts at the mask value
-        const float pr = ok ? __expf(sv - m_new) : 0.f;
-        const float alpha = __expf(m[r] - m_new);
-        l[r] = l[r] * alpha + warp_sum(pr);
-        m[r] = m_new;
-#pragma unroll
-        for (int d = 0; d < DPL; ++d) acc[r][d] *= alpha;
-        pw[r * 32 + lane] = pr;
-      }
-      __syncwarp();
-
-      // acc += P . V; lane owns the dims 2 pi, 2 pi + 1 of its pairs pi
-      // (a pair past the row adds zeros and is never stored).
-      const int n_use = min(32, c1 - wpos0);
-      for (int jj = 0; jj < n_use; ++jj) {
-        float vf[DPL];
-        const uint16_t* vrow = Vs + (warp * 32 + jj) * D;
-#pragma unroll
-        for (int k = 0; k < PPL; ++k) {
-          const int pi = lane + 32 * k;
-          const uint32_t w = pi < NP ? *reinterpret_cast<const uint32_t*>(vrow + 2 * pi) : 0u;
-          vf[2 * k] = bf16_lo(w);
-          vf[2 * k + 1] = bf16_hi(w);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float pj = pw[r * 32 + jj];
-#pragma unroll
-          for (int d = 0; d < DPL; ++d) acc[r][d] += pj * vf[d];
-        }
-      }
-      __syncwarp();
+      ++t.jc;
+      t.off = 0;
     }
-  }
+    t.left = 0;
+    return t;
+  };
+  auto step = [&](Tile t) {
+    t.off += kT;
+    return settle(t);
+  };
+  // This split's segment of the seen tiles.
+  int n_seen = 0;
+  for (Tile t = settle(Tile{0, 0, 1}); t.jc < n_chunks; t = step(t)) ++n_seen;
+  const int lo = n_seen * split / S, hi = n_seen * (split + 1) / S;
+  Tile first_tile = settle(Tile{0, 0, hi - lo});
+  for (int i = 0; i < lo; ++i) first_tile = step(first_tile);
+  first_tile.left = hi - lo;
+  auto next = [&](Tile t) {
+    const int left = t.left - 1;
+    t = step(t);
+    t.left = left > 0 ? left : 0;
+    return t;
+  };
 
-  // Merge the four warps' partial softmax states.
-  __syncthreads();
-  float* Mm = reinterpret_cast<float*>(smem);
-  float* Ml = Mm + kWarps * R;
-  float* Ma = Ml + kWarps * R;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (lane == 0) {
-      Mm[warp * R + r] = m[r];
-      Ml[warp * R + r] = l[r];
-    }
-#pragma unroll
-    for (int k = 0; k < PPL; ++k) {
-      const int pi = lane + 32 * k;
-      if (pi < NP) {
-        Ma[(warp * R + r) * D + 2 * pi] = acc[r][2 * k];
-        Ma[(warp * R + r) * D + 2 * pi + 1] = acc[r][2 * k + 1];
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < nrows * D; e += kThreads) {
-    const int r = e / D, d = e % D;
-    float mx = kMaskValue;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, Mm[w * R + r]);
-    float lt = 0.f, at = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = __expf(Mm[w * R + r] - mx);
-      lt += Ml[w * R + r] * f;
-      at += Ma[(w * R + r) * D + d] * f;
-    }
-    p.out[((size_t)b * p.Hq + head0 + r) * D + d] =
-        static_cast<uint16_t>(f32_to_bf16(at / (lt == 0.f ? 1.f : lt)));
-  }
+  float* Qs = reinterpret_cast<float*>(smem + L::kQ);
+  Rows<D, R> st;
+  st.init();
+  int n_rec = 0;
+  run_ring<false>(
+      first_tile, next,
+      [&](const Tile& t, int stage) {
+        const int t0 = chunk0(t.jc) + t.off;
+        const int n = min(kT, min(chunk0(t.jc) + p.chunk, len) - t0);
+        load_rows_tile<D>(base + L::kRing + stage * RowsTile<D>::kBytes, p.k, p.v,
+                          [&](int pp) -> long long {
+                            return pp < n ? (long long)((((size_t)b * p.S_max + t0 + pp) * p.Hkv +
+                                                         kvh) * D)
+                                          : -1;
+                          });
+      },
+      [&]() {
+        load_rows_q<D, R>(Qs, n_valid, p.scale_log2,
+                          [&](int r) { return p.q + ((size_t)b * p.Hq + head0 + r) * D; });
+      },
+      [&](const Tile& t, int stage) {
+        const int t0 = chunk0(t.jc) + t.off;
+        const int n = min(kT, min(chunk0(t.jc) + p.chunk, len) - t0);
+        if (vrec != nullptr && tid == 0) vrec[n_rec] = t0;
+        ++n_rec;
+        st.step(smem + L::kRing + stage * RowsTile<D>::kBytes, Qs, n,
+                [&](int, int pp) { return t0 + pp >= first; });
+      });
+  float* ex = reinterpret_cast<float*>(smem + L::kRing);
+  st.export_state(reinterpret_cast<float*>(smem + L::kWarpArea), ex, R);
+  if (vrec != nullptr && tid == 0)
+    for (int j = n_rec; j < p.W; ++j) vrec[j] = -1;
+  merge_store<D>(base + L::kRing, R, S, n_valid, n_out, out_row);
 }
 
 template <int D, int R>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  using S = Smem<D, R>;
-  auto kernel = contig_decode_kernel<D, R>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::total);
-  if (err != cudaSuccess) return err;
-  const int G = a.Hq / a.Hkv;
-  const dim3 grid(B * a.Hkv, (G + R - 1) / R);
-  kernel<<<grid, kThreads, S::total, stream>>>(a);
-  return cudaGetLastError();
+cudaError_t launch(const Args& a, int B, int dev, cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const dim3 grid(a.splits * a.n_rt, B * a.Hkv);
+  return launch_clusters(contig_decode_kernel<D, R>, opted, dev, grid, a.splits,
+                         (int)Layout<D, R>::kBytes, a, stream);
 }
 
+// Query heads a CTA holds: the GQA group, rounded up to 1, 2, 4 or 8.
+int rows_of(int G) { return G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : 8; }
+
 template <int D>
-cudaError_t launch_rows(const Args& a, int B, cudaStream_t stream) {
-  const int G = a.Hq / a.Hkv;
-  if (G <= 1) return launch<D, 1>(a, B, stream);
-  if (G <= 2) return launch<D, 2>(a, B, stream);
-  if (G <= 4) return launch<D, 4>(a, B, stream);
-  return launch<D, 8>(a, B, stream);
+cudaError_t launch_rows(const Args& a, int B, int dev, cudaStream_t stream) {
+  switch (rows_of(a.G)) {
+    case 1: return launch<D, 1>(a, B, dev, stream);
+    case 2: return launch<D, 2>(a, B, dev, stream);
+    case 4: return launch<D, 4>(a, B, dev, stream);
+    default: return launch<D, 8>(a, B, dev, stream);
+  }
+}
+
+// Fills `a` for a call; splits <= 0 picks them (pick_splits over the
+// items and the cache's 64-position tiles).
+cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, const void* lens,
+                      void* out, int* visit, int B, int S_max, int Hq, int Hkv, int D,
+                      int window, int chunk, int order, int snake, float scale, int splits,
+                      int* dev) {
+  if ((D != 64 && D != 80 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || S_max <= 0 ||
+      chunk <= 0)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = device_sms(&sms, dev);
+  if (err != cudaSuccess) return err;
+  a->G = Hq / Hkv;
+  a->n_rt = (a->G + rows_of(a->G) - 1) / rows_of(a->G);
+  if (splits <= 0)
+    splits = pick_splits(B * Hkv * a->n_rt, (S_max + kT - 1) / kT, sms, kRowCtasPerSm);
+  if (splits != 1 && splits != 2 && splits != 4 && splits != 8) return cudaErrorInvalidValue;
+  a->q = static_cast<const uint16_t*>(q);
+  a->k = static_cast<const uint16_t*>(k);
+  a->v = static_cast<const uint16_t*>(v);
+  a->lens = static_cast<const int*>(lens);
+  a->out = static_cast<uint16_t*>(out);
+  a->visit = visit;
+  a->S_max = S_max;
+  a->Hq = Hq;
+  a->Hkv = Hkv;
+  a->window = window;
+  a->chunk = chunk;
+  a->order = order;
+  a->snake = snake;
+  a->splits = splits;
+  a->W = ((S_max + chunk - 1) / chunk) * ((chunk + kT - 1) / kT);
+  a->scale_log2 = scale * kLog2e;
+  return cudaSuccess;
+}
+
+cudaError_t run(const Args& a, int B, int D, int dev, cudaStream_t st) {
+  if (D == 128) return launch_rows<128>(a, B, dev, st);
+  if (D == 80) return launch_rows<80>(a, B, dev, st);
+  return launch_rows<64>(a, B, dev, st);
 }
 
 }  // namespace
@@ -270,22 +246,67 @@ extern "C" int contig_decode_bf16(const void* q, const void* k, const void* v, c
                                   int window, int chunk, int order, int snake, float scale,
                                   void* stream) {
   Args a;
-  a.q = static_cast<const uint16_t*>(q);
-  a.k = static_cast<const uint16_t*>(k);
-  a.v = static_cast<const uint16_t*>(v);
-  a.lens = static_cast<const int*>(lens);
-  a.out = static_cast<uint16_t*>(out);
-  a.S_max = S_max;
-  a.Hq = Hq;
-  a.Hkv = Hkv;
-  a.window = window;
-  a.chunk = chunk;
-  a.order = order;
-  a.snake = snake;
-  a.scale = scale;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return static_cast<int>(launch_rows<128>(a, B, st));
-  if (D == 80) return static_cast<int>(launch_rows<80>(a, B, st));
-  if (D == 64) return static_cast<int>(launch_rows<64>(a, B, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = make_args(&a, q, k, v, lens, out, nullptr, B, S_max, Hq, Hkv, D, window,
+                              chunk, order, snake, scale, 0, &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(run(a, B, D, dev, static_cast<cudaStream_t>(stream)));
+}
+
+// contig_decode_bf16 that also records each CTA's walk into `visit` (B *
+// Hkv, n_rt, splits, W) int32, W = n_chunks * ceil(chunk / 64): the first
+// position of every tile it walked, in order, -1 after. `splits` in {1, 2,
+// 4, 8} overrides the split count; 0 keeps the kernel's own choice.
+extern "C" int contig_decode_bf16_visit(const void* q, const void* k, const void* v,
+                                        const void* lens, void* out, int B, int S_max, int Hq,
+                                        int Hkv, int D, int window, int chunk, int order,
+                                        int snake, float scale, void* stream, void* visit,
+                                        int splits) {
+  Args a;
+  int dev = 0;
+  cudaError_t err = make_args(&a, q, k, v, lens, out, static_cast<int*>(visit), B, S_max, Hq,
+                              Hkv, D, window, chunk, order, snake, scale, splits, &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(run(a, B, D, dev, static_cast<cudaStream_t>(stream)));
+}
+
+// The launch contig_decode_bf16 makes at this shape: out[0] registers a
+// thread, out[1] dynamic shared memory bytes a CTA, out[2] threads a CTA,
+// out[3] local (spill) bytes a thread, out[4] the split (cluster) size,
+// out[5] CTAs in the grid. Returns a cudaError_t code.
+extern "C" int contig_decode_attr(int B, int S_max, int Hq, int Hkv, int D, int chunk, int* out) {
+  Args a;
+  int dev = 0;
+  cudaError_t err = make_args(&a, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B, S_max,
+                              Hq, Hkv, D, -1, chunk, 0, 1, 1.f, 0, &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  int smem = 0;
+#define REPRO_ATTR(DD)                                                                  \
+  switch (rows_of(a.G)) {                                                               \
+    case 1: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 1>);              \
+            smem = (int)Layout<DD, 1>::kBytes; break;                                   \
+    case 2: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 2>);              \
+            smem = (int)Layout<DD, 2>::kBytes; break;                                   \
+    case 4: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 4>);              \
+            smem = (int)Layout<DD, 4>::kBytes; break;                                   \
+    default: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 8>);             \
+             smem = (int)Layout<DD, 8>::kBytes; break;                                  \
+  }
+  if (D == 128) {
+    REPRO_ATTR(128)
+  } else if (D == 80) {
+    REPRO_ATTR(80)
+  } else {
+    REPRO_ATTR(64)
+  }
+#undef REPRO_ATTR
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = smem;
+  out[2] = kThreads;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = a.splits;
+  out[5] = a.splits * a.n_rt * B * Hkv;
+  return 0;
 }

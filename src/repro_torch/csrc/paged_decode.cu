@@ -1,7 +1,7 @@
-// Ragged paged attention for NVIDIA Hopper (sm_90a), plain CUDA C++.
+// Ragged paged attention for NVIDIA Hopper (sm_90a), CUDA C++ with raw PTX.
 //
-// Replaces repro/kernels/flash_decode.py::_paged_decode_kernel, the Pallas
-// kernel that runs every attention call of every mixed step of the
+// Replaces repro/kernels/flash_decode.py::_paged_decode_kernel (:122), the
+// Pallas kernel that runs every attention call of every mixed step of the
 // continuous serve engine (decode rows and chunked-prefill rows alike).
 //
 // What it computes: for each (batch row b, kv head h) and each folded query
@@ -14,344 +14,556 @@
 // col > q_pos - window. Rows with nothing to see finalise to exact zeros
 // (l == 0 -> 1). m, l and the accumulator stay in float32.
 //
-// What bounds it: bytes. Each (row, kv head, query-row tile) reads the K and
-// V pages of its row once; a decode row does 4 flops per K/V element pair,
-// far below the card's ~295 flops per byte. The design therefore:
-//   * tiles the folded query rows across blocks (grid = B*Hkv x row tiles of
-//     R = 4 warps * RPW rows). RPW grows with C*G, so a wide prefill chunk
-//     re-reads K/V once per 32 rows, while a decode row (C*G small) gets a
-//     block of its own and no idle rows beyond one warp's worth;
-//   * streams K and V through shared memory in tiles of 64 positions with
-//     16-byte loads, so a 512-row page never has to fit at once;
-//   * skips pages and tiles that no row of the block can see (first column
-//     >= len or > the block's largest q_pos, or wholly left of the window):
-//     such a tile would add p = 0 and alpha = 1, so skipping is exact, and
-//     the order of the tiles that are walked is kept;
-//   * zero-fills K/V positions at or past len, so stale pool contents never
-//     reach the accumulator.
-// wgmma, TMA and a persistent tile scheduler are later work.
+// What bounds it: bytes. A decode row does 4 flops per K/V element pair,
+// far below the card's ~295 flops per byte; a 256-token chunk row does 64
+// times that, still below it, but only on the tensor cores. The design
+// (the decode core, csrc/decode_core.cuh):
+//   * Work items are (b, h, row tile of 64 folded rows), numbered so a
+//     row's tiles are neighbours (its K/V is re-read from L2). Each item is
+//     a cluster of S CTAs (S from pick_splits, no host copy of lens): the
+//     pages the item's rows can see, in visit order (the first column at
+//     most min(len - 1, the tile's last q_pos), not wholly left of the
+//     window), are cut into S contiguous segments, split s walking segment
+//     s in order; skipping unseen pages and 64-position sub-tiles is exact,
+//     as an unseen tile would add p = 0 and alpha = 1. The S partial
+//     states merge over distributed shared memory in split order.
+//   * K and V stream through a two-stage ring of 64-position tiles filled
+//     with 16-byte cp.async, the next tile's copies in flight while the
+//     current one is computed. cp.async rather than TMA: a copy per row
+//     writes zeros for every position at or past len (stale pool rows,
+//     where 0 x NaN would poison P V, K too on the tensor-core path), and
+//     pages of any size (8 to 512 positions) cut into tiles the same way.
+//   * A tile with at most 8 valid rows (the decode rows) runs on the CUDA
+//     cores, every warp on 16 of the tile's positions for all the rows
+//     (R in {1, 2, 4, 8} rows a CTA, by instantiation). A tile with more
+//     (chunked prefill) runs S = Q K^T and O += P V as wgmma (64 x 64 x D
+//     and 64 x D x 64), operands in the 128-byte swizzle, P rounded to
+//     bf16, the mask applied only on boundary tiles (a template
+//     parameter). The CTA reads q_lens[b] and takes one path or the other.
+// With `visit`, each CTA records the logical pages it walked (-1 past its
+// segment): kernels/flash_decode.py::paged_decode_walks is the host model.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "decode_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;  // KV positions per shared-memory tile
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
+using namespace repro;
+using namespace repro::decode;
+namespace hw = repro::sm90;
 
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ __forceinline__ uint32_t f32_to_bf16(float f) {
-  uint32_t u = __float_as_uint(f);
-  if ((u & 0x7fffffffu) > 0x7f800000u) return 0x7fc0u;  // NaN stays NaN
-  u += 0x7fffu + ((u >> 16) & 1u);                       // round to nearest even
-  return u >> 16;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& w, float* f) {
-  f[0] = bf16_lo(w.x); f[1] = bf16_hi(w.x);
-  f[2] = bf16_lo(w.y); f[3] = bf16_hi(w.y);
-  f[4] = bf16_lo(w.z); f[5] = bf16_hi(w.z);
-  f[6] = bf16_lo(w.w); f[7] = bf16_hi(w.w);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int D, int RPW>
-struct Smem {
-  static constexpr int R = kWarps * RPW;  // query rows per block
-  static constexpr int KS = D + 8;        // padded K row (bf16): conflict-free 16-byte reads
-  static constexpr size_t k_bytes = sizeof(uint16_t) * kTile * KS;
-  static constexpr size_t v_bytes = sizeof(uint16_t) * kTile * D;
-  static constexpr size_t q_bytes = sizeof(float) * R * D;
-  static constexpr size_t p_bytes = sizeof(float) * kWarps * RPW * kTile;
-  static constexpr size_t total = k_bytes + v_bytes + q_bytes + p_bytes;
+struct Args {
+  const uint16_t* q;      // (B, C, Hq, D) bf16
+  const uint16_t* k;      // (n_pages, page, Hkv, D) bf16
+  const uint16_t* v;
+  const int* phys;        // (B, n_blocks) pool page ids, visit order
+  const int* logical;     // (B, n_blocks) logical page ids, visit order
+  const int* lens;        // (B,) valid KV length incl. this chunk
+  const int* q_lens;      // (B,) valid chunk rows
+  uint16_t* out;          // (B, C, Hq, D) bf16
+  int* visit;             // (B * Hkv, n_rt, S, n_blocks) int32, or null
+  int C, Hq, Hkv, G, n_blocks, page, window, splits, n_rt;
+  float scale_log2;
 };
 
-template <int D, int RPW>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const uint16_t* __restrict__ q,       // (B, C, Hq, D) bf16
-                    const uint16_t* __restrict__ k_pool,  // (n_pages, page, Hkv, D) bf16
-                    const uint16_t* __restrict__ v_pool,
-                    const int* __restrict__ phys,         // (B, n_blocks) pool page ids, visit order
-                    const int* __restrict__ logical,      // (B, n_blocks) logical page ids, visit order
-                    const int* __restrict__ lens,         // (B,) valid KV length incl. this chunk
-                    const int* __restrict__ q_lens,       // (B,) valid chunk rows
-                    uint16_t* __restrict__ out,           // (B, C, Hq, D) bf16
-                    int C, int Hq, int Hkv, int n_blocks, int page, int window, float scale) {
-  using S = Smem<D, RPW>;
-  constexpr int R = S::R;
-  constexpr int KS = S::KS;
-  constexpr int CH = D / 8;    // 16-byte chunks per K/V/q row
-  constexpr int DPL = D / 32;  // accumulator dims per lane
+// Shared memory from a 1024-byte aligned base: the query rows (bf16 Q tile
+// in the swizzle for wgmma, or R f32 rows), the ring, the seen-page list.
+// The export and the warps' states reuse the ring once it is drained.
+constexpr uint32_t align1k(uint32_t x) { return (x + 1023u) & ~1023u; }
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* Ks = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* Vs = reinterpret_cast<uint16_t*>(smem + S::k_bytes);
-  float* Qs = reinterpret_cast<float*>(smem + S::k_bytes + S::v_bytes);
-  float* Ps = reinterpret_cast<float*>(smem + S::k_bytes + S::v_bytes + S::q_bytes);
+template <int D, int R, bool kChunk>
+struct Layout {
+  using RT = RowsTile<D>;
+  static constexpr uint32_t kSwzTile = kT * D * 2;  // K or V tile in the swizzle
+  static constexpr uint32_t kQBytes =
+      kChunk ? (kMaxRows * D * 2 > RT::q_bytes(8) ? kMaxRows * D * 2 : RT::q_bytes(8))
+             : RT::q_bytes(R);
+  static constexpr uint32_t kStage =
+      kChunk ? align1k(RT::kBytes > 2 * kSwzTile ? RT::kBytes : 2 * kSwzTile) : RT::kBytes;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kRing = align1k(kQBytes);
+  static constexpr uint32_t kList = kRing + kStages * kStage;
+  static constexpr int kExportRows = kChunk ? kMaxRows : R;
+  static constexpr uint32_t kWarpArea = kRing + RT::export_bytes(kExportRows);
+  static_assert(RT::export_bytes(kExportRows) + RT::warps_bytes(kChunk ? 8 : R) <=
+                    kStages * kStage,
+                "end-of-walk areas must fit the ring");
+  // The seen-page list: (first column, pool page) pairs.
+  static constexpr uint32_t bytes(int n_blocks) { return kList + 8 * n_blocks + 1024; }
+};
 
-  const int b = blockIdx.x / Hkv;
-  const int kvh = blockIdx.x % Hkv;
-  const int G = Hq / Hkv;
-  const int rows = C * G;
-  const int row0 = blockIdx.y * R;
-  const int row_end = min(row0 + R, rows);
-  const int len = lens[b];
-  const int q_len = q_lens[b];
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// Where a CTA is in its walk: the seen-list index k of its page and the
+// sub-tile start `sub` in that page; k == end past the last.
+struct Tile {
+  int k, sub, end;
+  __device__ __forceinline__ bool valid() const { return k < end; }
+};
 
-  // Valid rows are a prefix of the folded axis: row < min(C, q_len) * G.
-  int n_valid = min(C, max(q_len, 0)) * G - row0;
-  n_valid = len > 0 ? max(0, min(n_valid, R)) : 0;
+// ---- the tensor-core path (chunk rows) ----------------------------------------
+
+// Online softmax of one 64 x 64 S tile in place (log2 domain), rows g and
+// g + 8 of this warp's 16; only boundary tiles are masked (-inf, so p = 0).
+template <bool kEdge>
+__device__ __forceinline__ void chunk_softmax(float (&s)[32], float (&mrow)[2], float (&l)[2],
+                                              float (&alpha)[2], float scale_log2,
+                                              const int (&qp)[2], int col0, int n_cols, int len,
+                                              int window, int tq) {
+  if (kEdge) {
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int h = (x >> 1) & 1;
+      const int cl = 8 * (x >> 2) + 2 * tq + (x & 1);
+      const int col = col0 + cl;
+      bool ok = cl < n_cols && col <= qp[h] && col < len;
+      if (window >= 0) ok = ok && col > qp[h] - window;
+      if (!ok) s[x] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int x = 0; x < 32; ++x) mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(mrow[h], mx[h] * scale_log2);  // finite
+    alpha[h] = hw::exp2_approx(mrow[h] - m_new);
+    mrow[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int x = 0; x < 32; ++x) {
+    const int h = (x >> 1) & 1;
+    s[x] = hw::exp2_approx(fmaf(s[x], scale_log2, -mrow[h]));
+    l[h] += s[x];
+  }
+}
+
+// Swizzled shared address of 16-byte chunk cc of row r in a tile of `rows`
+// rows, D wide (64-column panels of rows x 128 bytes).
+__device__ __forceinline__ uint32_t swz(uint32_t base, int rows, int r, int cc) {
+  return base + (cc >> 3) * rows * 128 + r * 128 + ((((cc & 7) ^ (r & 7))) << 4);
+}
+
+// ---- the kernel -----------------------------------------------------------------
+
+template <int D, int R, bool kChunk>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Args p) {
+  using L = Layout<D, R, kChunk>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int n_seen_s;
+  const uint32_t raw = hw::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sb = smem_raw + (base - raw);
+
+  const int bh = blockIdx.y, b = bh / p.Hkv, kvh = bh % p.Hkv;
+  const int S = p.splits;
+  const int rt = blockIdx.x / S;
+  const int split = (int)hw::cluster_rank();
+  const int rows = p.C * p.G;
+  const int row0 = rt * kMaxRows;
+  const int n_out = min(kChunk ? kMaxRows : R, rows - row0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int* lg = p.logical + (size_t)b * p.n_blocks;
+  const int* ph = p.phys + (size_t)b * p.n_blocks;
+  // Warp 0 reads the first 32 pages of the visit order with the lengths,
+  // before it knows which it needs.
+  int lg0 = 0, ph0 = 0;
+  if (warp == 0 && lane < p.n_blocks) {
+    lg0 = lg[lane];
+    ph0 = ph[lane];
+  }
+  const int len = p.lens[b];
+  const int q_len = p.q_lens[b];
+  int n_valid = min(p.C, max(q_len, 0)) * p.G - row0;  // valid rows: a prefix of the folded axis
+  n_valid = len > 0 ? max(0, min(n_valid, n_out)) : 0;
+  auto q_row = [&](int r) {
+    const int row = row0 + r, t = row / p.G, g = row % p.G;
+    return p.q + ((size_t)(b * p.C + t) * p.Hq + kvh * p.G + g) * D;
+  };
+  auto out_row = [&](int r) {
+    const int row = row0 + r, t = row / p.G, g = row % p.G;
+    return p.out + ((size_t)(b * p.C + t) * p.Hq + kvh * p.G + g) * D;
+  };
+  int* vrec = p.visit == nullptr
+                  ? nullptr
+                  : p.visit + (((size_t)bh * p.n_rt + rt) * S + split) * p.n_blocks;
 
   if (n_valid == 0) {
-    for (int row = row0 + warp; row < row_end; row += kWarps) {
-      const int t = row / G, g = row % G;
-      uint16_t* o = out + ((size_t)(b * C + t) * Hq + kvh * G + g) * D;
-      for (int d = lane; d < D; d += 32) o[d] = 0;
-    }
+    store_zeros<D>(S, 0, n_out, out_row);
+    if (vrec != nullptr)
+      for (int j = tid; j < p.n_blocks; j += kThreads) vrec[j] = -1;
     return;
   }
 
-  // Query tile, pre-scaled, in float32; rows past n_valid are zero.
-  for (int i = tid; i < R * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < n_valid) {
-      const int row = row0 + r;
-      const int t = row / G, g = row % G;
-      const uint4 w = *reinterpret_cast<const uint4*>(
-          q + ((size_t)(b * C + t) * Hq + kvh * G + g) * D + c * 8);
-      unpack8(w, f);
-    }
-    float4* dst = reinterpret_cast<float4*>(Qs + r * D + c * 8);
-    dst[0] = make_float4(f[0] * scale, f[1] * scale, f[2] * scale, f[3] * scale);
-    dst[1] = make_float4(f[4] * scale, f[5] * scale, f[6] * scale, f[7] * scale);
-  }
+  const int qbase = len - q_len;
+  const int qpos_min = qbase + row0 / p.G;
+  const int qpos_max = qbase + (row0 + n_valid - 1) / p.G;
+  const int col_limit = min(len - 1, qpos_max);  // the last column any row sees
 
-  const int qpos_base = len - q_len;
-  const int qpos_min = qpos_base + row0 / G;
-  const int qpos_max = qpos_base + (row0 + n_valid - 1) / G;
-  const int col_limit = min(len - 1, qpos_max);  // last column any row can see
-
-  const int wrow0 = warp * RPW;  // this warp's first row in the tile
-  const bool warp_active = wrow0 < n_valid;
-
-  float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = kMaskValue;
-    l[r] = 0.f;
-#pragma unroll
-    for (int d = 0; d < DPL; ++d) acc[r][d] = 0.f;
-  }
-
-  for (int j = 0; j < n_blocks; ++j) {
-    const int page_start = logical[b * n_blocks + j] * page;
-    const int pid = phys[b * n_blocks + j];
-    if (page_start > col_limit) continue;
-    if (window >= 0 && page_start + page - 1 <= qpos_min - window) continue;
-    for (int sub = 0; sub < page; sub += kTile) {
-      const int col0 = page_start + sub;
-      if (col0 > col_limit) break;
-      const int n_cols = min(kTile, page - sub);
-      if (window >= 0 && col0 + n_cols - 1 <= qpos_min - window) continue;
-
-      __syncthreads();  // the previous tile is consumed (and the q tile written)
-      for (int i = tid; i < kTile * CH; i += kThreads) {
-        const int p = i / CH, c = i % CH;
-        uint4 kw = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vw = kw;
-        if (p < n_cols && col0 + p < len) {
-          const size_t off = ((size_t)((size_t)pid * page + sub + p) * Hkv + kvh) * D + c * 8;
-          kw = *reinterpret_cast<const uint4*>(k_pool + off);
-          vw = *reinterpret_cast<const uint4*>(v_pool + off);
-        }
-        *reinterpret_cast<uint4*>(Ks + p * KS + c * 8) = kw;
-        *reinterpret_cast<uint4*>(Vs + p * D + c * 8) = vw;
+  // The pages some row of the tile sees, in visit order, as (first column,
+  // pool page) pairs (warp 0, by ballot).
+  int2* seen = reinterpret_cast<int2*>(sb + L::kList);
+  if (warp == 0) {
+    int n = 0;
+    for (int j0 = 0; j0 < p.n_blocks; j0 += 32) {
+      const int j = j0 + lane;
+      int ps = lg0 * p.page, pid = ph0;
+      if (j0 > 0 && j < p.n_blocks) {
+        ps = lg[j] * p.page;
+        pid = ph[j];
       }
-      __syncthreads();
-
-      if (warp_active) {
-        // Scores: lane owns tile positions `lane` and `lane + 32`.
-        float s[RPW][2];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) s[r][0] = s[r][1] = 0.f;
-        const uint16_t* k0 = Ks + lane * KS;
-        const uint16_t* k1 = Ks + (lane + 32) * KS;
-#pragma unroll 2
-        for (int c = 0; c < CH; ++c) {
-          float ka[8], kb[8];
-          unpack8(*reinterpret_cast<const uint4*>(k0 + c * 8), ka);
-          unpack8(*reinterpret_cast<const uint4*>(k1 + c * 8), kb);
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            const float4* qp = reinterpret_cast<const float4*>(Qs + (wrow0 + r) * D + c * 8);
-            const float4 qa = qp[0], qb = qp[1];
-            s[r][0] += qa.x * ka[0] + qa.y * ka[1] + qa.z * ka[2] + qa.w * ka[3] +
-                       qb.x * ka[4] + qb.y * ka[5] + qb.z * ka[6] + qb.w * ka[7];
-            s[r][1] += qa.x * kb[0] + qa.y * kb[1] + qa.z * kb[2] + qa.w * kb[3] +
-                       qb.x * kb[4] + qb.y * kb[5] + qb.z * kb[6] + qb.w * kb[7];
-          }
-        }
-
-        // Online softmax update, one row at a time (warp-uniform loop).
-        const int c0 = col0 + lane, c1 = col0 + lane + 32;
-        const bool in0 = lane < n_cols && c0 < len;
-        const bool in1 = lane + 32 < n_cols && c1 < len;
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-          const bool row_ok = wrow0 + r < n_valid;
-          const int qp = qpos_base + (row0 + wrow0 + r) / G;
-          bool ok0 = row_ok && in0 && c0 <= qp;
-          bool ok1 = row_ok && in1 && c1 <= qp;
-          if (window >= 0) {
-            ok0 = ok0 && c0 > qp - window;
-            ok1 = ok1 && c1 > qp - window;
-          }
-          const float s0 = ok0 ? s[r][0] : kMaskValue;
-          const float s1 = ok1 ? s[r][1] : kMaskValue;
-          const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-          const float p0 = ok0 ? __expf(s0 - m_new) : 0.f;
-          const float p1 = ok1 ? __expf(s1 - m_new) : 0.f;
-          const float alpha = __expf(m[r] - m_new);
-          l[r] = l[r] * alpha + warp_sum(p0 + p1);
-          m[r] = m_new;
-#pragma unroll
-          for (int d = 0; d < DPL; ++d) acc[r][d] *= alpha;
-          Ps[(warp * RPW + r) * kTile + lane] = p0;
-          Ps[(warp * RPW + r) * kTile + lane + 32] = p1;
-        }
-        __syncwarp();
-
-        // acc += P . V; lane owns output dims [lane * DPL, lane * DPL + DPL).
-        const int n_use = min(n_cols, col_limit - col0 + 1);
-        for (int jj = 0; jj < n_use; ++jj) {
-          float v[DPL];
-          const uint16_t* vrow = Vs + jj * D + lane * DPL;
-          if constexpr (DPL == 4) {
-            const uint2 w = *reinterpret_cast<const uint2*>(vrow);
-            v[0] = bf16_lo(w.x); v[1] = bf16_hi(w.x);
-            v[2] = bf16_lo(w.y); v[3] = bf16_hi(w.y);
-          } else {
-            const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow);
-            v[0] = bf16_lo(w); v[1] = bf16_hi(w);
-          }
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            const float p = Ps[(warp * RPW + r) * kTile + jj];
-#pragma unroll
-            for (int d = 0; d < DPL; ++d) acc[r][d] += p * v[d];
-          }
-        }
-        __syncwarp();
-      }
+      const bool ok = j < p.n_blocks && ps <= col_limit &&
+                      !(p.window >= 0 && ps + p.page - 1 <= qpos_min - p.window);
+      const unsigned m = __ballot_sync(0xffffffffu, ok);
+      if (ok) seen[n + __popc(m & ((1u << lane) - 1u))] = make_int2(ps, pid);
+      n += __popc(m);
     }
+    if (lane == 0) n_seen_s = n;
   }
+  __syncthreads();
+  const int n_seen = n_seen_s;
+  const int seg_lo = n_seen * split / S, seg_hi = n_seen * (split + 1) / S;
 
-  // Finalise: rows of this tile that exist in the output; invalid rows hold
-  // acc = 0 and l = 0, so they store exact zeros.
+  // The first walked sub-tile at or after `t` (skips are exact).
+  auto settle = [&](Tile t) {
+    while (t.k < t.end) {
+      const int ps = seen[t.k].x;
+      if (t.sub < p.page && ps + t.sub <= col_limit) {
+        const int n = min(kT, p.page - t.sub);
+        if (p.window >= 0 && ps + t.sub + n - 1 <= qpos_min - p.window) {
+          t.sub += kT;
+          continue;
+        }
+        return t;
+      }
+      ++t.k;
+      t.sub = 0;
+    }
+    return t;
+  };
+  auto next = [&](Tile t) {
+    t.sub += kT;
+    return settle(t);
+  };
+  const Tile first = settle(Tile{seg_lo, 0, seg_hi});
+  // Position pp of tile t: element offset in the pool, or -1 (zeros).
+  auto tile_off = [&](const Tile& t) {
+    const int2 e = seen[t.k];
+    const int col0 = e.x + t.sub;
+    const int n = min(kT, min(p.page - t.sub, len - col0));
+    const size_t row = (size_t)e.y * p.page + t.sub;
+    return [=](int pp) -> long long {
+      return pp < n ? (long long)(((row + pp) * p.Hkv + kvh) * D) : -1;
+    };
+  };
+  int n_rec = 0, last_k = -1;
+  auto record = [&](const Tile& t) {
+    if (vrec != nullptr && tid == 0 && t.k != last_k) vrec[n_rec++] = seen[t.k].x / p.page;
+    last_k = t.k;
+  };
+
+  float* ex = reinterpret_cast<float*>(sb + L::kRing);
+  const uint32_t ex_addr = base + L::kRing;
+
+  // The CUDA-core path for RR rows.
+  auto rows_path = [&](auto rr) {
+    constexpr int RR = decltype(rr)::value;
+    float* Qs = reinterpret_cast<float*>(sb + L::kQ);
+    int qp[RR];
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = row0 + wrow0 + r;
-    if (row >= row_end) continue;
-    const int t = row / G, g = row % G;
-    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-    uint16_t* o = out + ((size_t)(b * C + t) * Hq + kvh * G + g) * D + lane * DPL;
-    if constexpr (DPL == 4) {
-      uint2 w;
-      w.x = f32_to_bf16(acc[r][0] * inv) | (f32_to_bf16(acc[r][1] * inv) << 16);
-      w.y = f32_to_bf16(acc[r][2] * inv) | (f32_to_bf16(acc[r][3] * inv) << 16);
-      *reinterpret_cast<uint2*>(o) = w;
+    for (int r = 0; r < RR; ++r)  // -1: a row past n_valid sees nothing
+      qp[r] = r < n_valid ? qbase + (row0 + r) / p.G : -1;
+    Rows<D, RR> st;
+    st.init();
+    run_ring<false>(
+        first, next,
+        [&](const Tile& t, int stage) {
+          load_rows_tile<D>(base + L::kRing + stage * L::kStage, p.k, p.v, tile_off(t));
+        },
+        [&]() { load_rows_q<D, RR>(Qs, n_valid, p.scale_log2, q_row); },
+        [&](const Tile& t, int stage) {
+          record(t);
+          const int col0 = seen[t.k].x + t.sub;
+          const int n = min(kT, p.page - t.sub);
+          st.step(sb + L::kRing + stage * L::kStage, Qs, n, [&](int r, int pp) {
+            const int col = col0 + pp;
+            bool ok = col <= qp[r] && col < len;
+            if (p.window >= 0) ok = ok && col > qp[r] - p.window;
+            return ok;
+          });
+        });
+    st.export_state(reinterpret_cast<float*>(sb + L::kWarpArea), ex, L::kExportRows);
+  };
+
+  if constexpr (kChunk) {
+    if (n_valid > 8) {
+      // The tensor-core path: one warpgroup, 64 rows.
+      const uint32_t qa = base + L::kQ;
+      constexpr int CH = D / 8;
+      for (int i = tid; i < kMaxRows * CH; i += kThreads) {
+        const int r = i / CH, cc = i % CH;
+        const bool ok = r < n_valid;
+        hw::cp_async_16(swz(qa, kMaxRows, r, cc), ok ? q_row(r) + cc * 8 : p.q, ok);
+      }
+      const int g = lane >> 2, tq = lane & 3;
+      const int wrow = warp * 16 + g;
+      const int qp[2] = {qbase + (row0 + wrow) / p.G, qbase + (row0 + wrow + 8) / p.G};
+      float s[32], o[D / 2];
+      uint32_t pa[kT / 16][4];
+#pragma unroll
+      for (int x = 0; x < D / 2; ++x) o[x] = 0.f;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) s[x] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < kT / 16; ++kc) pa[kc][0] = pa[kc][1] = pa[kc][2] = pa[kc][3] = 0u;
+      float mrow[2] = {kMaskValue, kMaskValue}, l[2] = {0.f, 0.f}, alpha[2];
+      auto pin = [&]() {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) hw::fence_reg(s[x]);
+#pragma unroll
+        for (int x = 0; x < D / 2; ++x) hw::fence_reg(o[x]);
+#pragma unroll
+        for (int kc = 0; kc < kT / 16; ++kc)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hw::fence_reg(pa[kc][e]);
+      };
+      run_ring<true>(
+          first, next,
+          [&](const Tile& t, int stage) {
+            const uint32_t ka = base + L::kRing + stage * L::kStage;
+            const uint32_t va = ka + L::kSwzTile;
+            auto off = tile_off(t);
+            for (int i = tid; i < kT * CH; i += kThreads) {
+              const int pp = i / CH, cc = i % CH;
+              const long long e = off(pp);
+              const bool ok = e >= 0;
+              const size_t at = ok ? (size_t)e + cc * 8 : 0;
+              hw::cp_async_16(swz(ka, kT, pp, cc), p.k + at, ok);
+              hw::cp_async_16(swz(va, kT, pp, cc), p.v + at, ok);
+            }
+          },
+          [&]() {},
+          [&](const Tile& t, int stage) {
+            record(t);
+            const uint32_t ka = base + L::kRing + stage * L::kStage;
+            const uint32_t va = ka + L::kSwzTile;
+            const int col0 = seen[t.k].x + t.sub;
+            const int n = min(kT, p.page - t.sub);
+            pin();
+            hw::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < D / 16; ++kk) {
+              const uint32_t a = qa + (kk / 4) * kMaxRows * 128 + (kk % 4) * 32;
+              const uint32_t bb = ka + (kk / 4) * kT * 128 + (kk % 4) * 32;
+              hw::wgmma_ss_m64n64(s, hw::desc_sw128(a, 16, 1024), hw::desc_sw128(bb, 16, 1024),
+                                  kk > 0);
+            }
+            hw::wgmma_commit();
+            hw::wgmma_wait<0>();
+#pragma unroll
+            for (int x = 0; x < 32; ++x) hw::fence_reg(s[x]);
+            const bool edge = n < kT || col0 + kT - 1 > qpos_min ||
+                              (p.window >= 0 && col0 <= qpos_max - p.window);
+            if (edge)
+              chunk_softmax<true>(s, mrow, l, alpha, p.scale_log2, qp, col0, n, len, p.window, tq);
+            else
+              chunk_softmax<false>(s, mrow, l, alpha, p.scale_log2, qp, col0, n, len, p.window,
+                                   tq);
+#pragma unroll
+            for (int x = 0; x < D / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+#pragma unroll
+            for (int kc = 0; kc < kT / 16; ++kc) {
+              pa[kc][0] = hw::cvt_bf16x2(s[8 * kc + 0], s[8 * kc + 1]);
+              pa[kc][1] = hw::cvt_bf16x2(s[8 * kc + 2], s[8 * kc + 3]);
+              pa[kc][2] = hw::cvt_bf16x2(s[8 * kc + 4], s[8 * kc + 5]);
+              pa[kc][3] = hw::cvt_bf16x2(s[8 * kc + 6], s[8 * kc + 7]);
+            }
+            pin();
+            hw::wgmma_fence();
+#pragma unroll
+            for (int kc = 0; kc < kT / 16; ++kc) {
+              const uint64_t vd = hw::desc_sw128(va + kc * 16 * 128, kT * 128, 1024);
+              if constexpr (D == 128)
+                hw::wgmma_rs_m64n128_tb(o, pa[kc], vd);
+              else
+                hw::wgmma_rs_m64n64_tb(o, pa[kc], vd);
+            }
+            hw::wgmma_commit();
+            hw::wgmma_wait<0>();
+#pragma unroll
+            for (int x = 0; x < D / 2; ++x) hw::fence_reg(o[x]);
+          });
+      // Export: full row sums across the quad, m and l by row, acc by column.
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const int r = wrow + 8 * h;
+        if (tq == 0) {
+          ex[r] = mrow[h];
+          ex[kMaxRows + r] = l[h];
+        }
+#pragma unroll
+        for (int jn = 0; jn < D / 8; ++jn)
+          *reinterpret_cast<float2*>(ex + 2 * kMaxRows + r * D + 8 * jn + 2 * tq) =
+              make_float2(o[4 * jn + 2 * h], o[4 * jn + 2 * h + 1]);
+      }
+    } else if (n_valid > 4) {
+      rows_path(std::integral_constant<int, 8>{});
+    } else if (n_valid > 2) {
+      rows_path(std::integral_constant<int, 4>{});
+    } else if (n_valid > 1) {
+      rows_path(std::integral_constant<int, 2>{});
     } else {
-      *reinterpret_cast<uint32_t*>(o) =
-          f32_to_bf16(acc[r][0] * inv) | (f32_to_bf16(acc[r][1] * inv) << 16);
+      rows_path(std::integral_constant<int, 1>{});
     }
+  } else {
+    rows_path(std::integral_constant<int, R>{});
   }
+  if (vrec != nullptr && tid == 0)
+    for (int j = n_rec; j < p.n_blocks; ++j) vrec[j] = -1;
+  merge_store<D>(ex_addr, L::kExportRows, S, n_valid, n_out, out_row);
 }
 
-template <int D, int RPW>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* phys,
-                   const int* logical, const int* lens, const int* q_lens, void* out, int B,
-                   int C, int Hq, int Hkv, int n_blocks, int page, int window, float scale,
-                   cudaStream_t stream) {
-  using S = Smem<D, RPW>;
-  auto kernel = paged_decode_kernel<D, RPW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::total);
-  if (err != cudaSuccess) return err;
-  const int rows = C * (Hq / Hkv);
-  const dim3 grid(B * Hkv, (rows + S::R - 1) / S::R);
-  kernel<<<grid, kThreads, S::total, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), phys, logical, lens, q_lens,
-      static_cast<uint16_t*>(out), C, Hq, Hkv, n_blocks, page, window, scale);
-  return cudaGetLastError();
+template <int D, int R, bool kChunk>
+cudaError_t launch(const Args& a, int B, int dev, cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  const dim3 grid(a.splits * a.n_rt, B * a.Hkv);
+  return launch_clusters(paged_decode_kernel<D, R, kChunk>, opted, dev, grid, a.splits,
+                         (int)Layout<D, R, kChunk>::bytes(a.n_blocks), a, stream);
 }
 
+// The instantiation for `rows` = C * G folded rows: up to 8 rows, the
+// CUDA-core path alone with R rows; more, row tiles of 64 with both paths.
 template <int D>
-cudaError_t launch_rows(int rpw, const void* q, const void* k, const void* v, const int* phys,
-                        const int* logical, const int* lens, const int* q_lens, void* out,
-                        int B, int C, int Hq, int Hkv, int n_blocks, int page, int window,
-                        float scale, cudaStream_t stream) {
-  switch (rpw) {
-    case 1:
-      return launch<D, 1>(q, k, v, phys, logical, lens, q_lens, out, B, C, Hq, Hkv, n_blocks,
-                          page, window, scale, stream);
-    case 2:
-      return launch<D, 2>(q, k, v, phys, logical, lens, q_lens, out, B, C, Hq, Hkv, n_blocks,
-                          page, window, scale, stream);
-    case 4:
-      return launch<D, 4>(q, k, v, phys, logical, lens, q_lens, out, B, C, Hq, Hkv, n_blocks,
-                          page, window, scale, stream);
-    default:
-      return launch<D, 8>(q, k, v, phys, logical, lens, q_lens, out, B, C, Hq, Hkv, n_blocks,
-                          page, window, scale, stream);
-  }
+cudaError_t launch_rows(const Args& a, int B, int rows, int dev, cudaStream_t stream) {
+  if (rows <= 1) return launch<D, 1, false>(a, B, dev, stream);
+  if (rows <= 2) return launch<D, 2, false>(a, B, dev, stream);
+  if (rows <= 4) return launch<D, 4, false>(a, B, dev, stream);
+  if (rows <= 8) return launch<D, 8, false>(a, B, dev, stream);
+  return launch<D, 8, true>(a, B, dev, stream);
+}
+
+// Fills `a` for a call; splits <= 0 picks them (pick_splits over B * Hkv
+// items: the host does not know which row tiles past the first hold rows).
+cudaError_t make_args(Args* a, const void* q, const void* k_pool, const void* v_pool,
+                      const void* phys, const void* logical, const void* lens,
+                      const void* q_lens, void* out, int* visit, int B, int C, int Hq, int Hkv,
+                      int D, int n_blocks, int page, int window, float scale, int splits,
+                      int* dev) {
+  if ((D != 64 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || C <= 0 || n_blocks <= 0)
+    return cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t err = device_sms(&sms, dev);
+  if (err != cudaSuccess) return err;
+  const int per_sm = C * (Hq / Hkv) > 8 ? kChunkCtasPerSm : kRowCtasPerSm;
+  if (splits <= 0) splits = pick_splits(B * Hkv, n_blocks, sms, per_sm);
+  if (splits != 1 && splits != 2 && splits != 4 && splits != 8) return cudaErrorInvalidValue;
+  a->q = static_cast<const uint16_t*>(q);
+  a->k = static_cast<const uint16_t*>(k_pool);
+  a->v = static_cast<const uint16_t*>(v_pool);
+  a->phys = static_cast<const int*>(phys);
+  a->logical = static_cast<const int*>(logical);
+  a->lens = static_cast<const int*>(lens);
+  a->q_lens = static_cast<const int*>(q_lens);
+  a->out = static_cast<uint16_t*>(out);
+  a->visit = visit;
+  a->C = C;
+  a->Hq = Hq;
+  a->Hkv = Hkv;
+  a->G = Hq / Hkv;
+  a->n_blocks = n_blocks;
+  a->page = page;
+  a->window = window;
+  a->splits = splits;
+  a->n_rt = (C * a->G + kMaxRows - 1) / kMaxRows;
+  a->scale_log2 = scale * kLog2e;
+  return cudaSuccess;
+}
+
+cudaError_t run(const Args& a, int B, int D, int dev, cudaStream_t st) {
+  const int rows = a.C * a.G;
+  return D == 128 ? launch_rows<128>(a, B, rows, dev, st) : launch_rows<64>(a, B, rows, dev, st);
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Returns a cudaError_t code:
-// 0 on a successful launch. cudaErrorInvalidValue for an unsupported head
+// 0 on a successful launch, cudaErrorInvalidValue for an unsupported head
 // dim. No synchronisation: the kernel runs on `stream`.
 extern "C" int paged_decode_bf16(const void* q, const void* k_pool, const void* v_pool,
                                  const void* phys, const void* logical, const void* lens,
                                  const void* q_lens, void* out, int B, int C, int Hq, int Hkv,
                                  int D, int n_blocks, int page, int window, float scale,
                                  void* stream) {
-  const int rows = C * (Hq / Hkv);
-  const int rpw = rows <= 4 ? 1 : rows <= 8 ? 2 : rows <= 16 ? 4 : 8;
-  const int* ph = static_cast<const int*>(phys);
-  const int* lg = static_cast<const int*>(logical);
-  const int* ln = static_cast<const int*>(lens);
-  const int* ql = static_cast<const int*>(q_lens);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  Args a;
+  int dev = 0;
+  cudaError_t err = make_args(&a, q, k_pool, v_pool, phys, logical, lens, q_lens, out, nullptr,
+                              B, C, Hq, Hkv, D, n_blocks, page, window, scale, 0, &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(run(a, B, D, dev, static_cast<cudaStream_t>(stream)));
+}
+
+// paged_decode_bf16 that also records each CTA's walk into `visit` (B * Hkv,
+// n_rt, splits, n_blocks) int32: the logical pages it walked in order, -1
+// after. `splits` in {1, 2, 4, 8} overrides the split count; 0 keeps the
+// kernel's own choice (paged_decode_attr reports it).
+extern "C" int paged_decode_bf16_visit(const void* q, const void* k_pool, const void* v_pool,
+                                       const void* phys, const void* logical, const void* lens,
+                                       const void* q_lens, void* out, int B, int C, int Hq,
+                                       int Hkv, int D, int n_blocks, int page, int window,
+                                       float scale, void* stream, void* visit, int splits) {
+  Args a;
+  int dev = 0;
+  cudaError_t err = make_args(&a, q, k_pool, v_pool, phys, logical, lens, q_lens, out,
+                              static_cast<int*>(visit), B, C, Hq, Hkv, D, n_blocks, page, window,
+                              scale, splits, &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(run(a, B, D, dev, static_cast<cudaStream_t>(stream)));
+}
+
+// The launch paged_decode_bf16 makes at this shape: out[0] registers a
+// thread, out[1] dynamic shared memory bytes a CTA, out[2] threads a CTA,
+// out[3] local (spill) bytes a thread, out[4] the split (cluster) size,
+// out[5] CTAs in the grid. Returns a cudaError_t code.
+extern "C" int paged_decode_attr(int B, int C, int Hq, int Hkv, int D, int n_blocks, int page,
+                                 int* out) {
+  Args a;
+  int dev = 0;
+  cudaError_t err = make_args(&a, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, nullptr, B, C, Hq, Hkv, D, n_blocks, page, -1, 1.f, 0,
+                              &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = C * a.G;
+  cudaFuncAttributes fa;
+  int smem = 0;
+#define REPRO_ATTR(DD, RR, CK)                                              \
+  do {                                                                       \
+    err = cudaFuncGetAttributes(&fa, paged_decode_kernel<DD, RR, CK>);       \
+    smem = (int)Layout<DD, RR, CK>::bytes(n_blocks);                         \
+  } while (0)
   if (D == 128) {
-    err = launch_rows<128>(rpw, q, k_pool, v_pool, ph, lg, ln, ql, out, B, C, Hq, Hkv, n_blocks,
-                           page, window, scale, st);
-  } else if (D == 64) {
-    err = launch_rows<64>(rpw, q, k_pool, v_pool, ph, lg, ln, ql, out, B, C, Hq, Hkv, n_blocks,
-                          page, window, scale, st);
+    if (rows <= 1) REPRO_ATTR(128, 1, false);
+    else if (rows <= 2) REPRO_ATTR(128, 2, false);
+    else if (rows <= 4) REPRO_ATTR(128, 4, false);
+    else if (rows <= 8) REPRO_ATTR(128, 8, false);
+    else REPRO_ATTR(128, 8, true);
   } else {
-    err = cudaErrorInvalidValue;
+    if (rows <= 1) REPRO_ATTR(64, 1, false);
+    else if (rows <= 2) REPRO_ATTR(64, 2, false);
+    else if (rows <= 4) REPRO_ATTR(64, 4, false);
+    else if (rows <= 8) REPRO_ATTR(64, 8, false);
+    else REPRO_ATTR(64, 8, true);
   }
-  return static_cast<int>(err);
+#undef REPRO_ATTR
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = smem;
+  out[2] = kThreads;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = a.splits;
+  out[5] = a.splits * a.n_rt * B * Hkv;
+  return 0;
 }

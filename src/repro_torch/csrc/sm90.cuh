@@ -99,6 +99,26 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool v
                : "memory");
 }
 
+// 16 bytes from global memory at `src` into shared memory at `dst`, past L1
+// (cp.async.cg); with `valid` false nothing is read and the 16 bytes are
+// written as zeros (`src` must still be a mapped address).
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Closes this thread's cp.async copies issued since the last commit into a group.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's cp.async groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // One arrival on mbarrier `bar` once this thread's earlier cp.async copies
 // have landed; it counts against the arrivals the barrier was set up for.
 __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
@@ -125,6 +145,46 @@ __device__ __forceinline__ void named_arrive(int id, int n) {
 
 __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
+}
+
+// ---- thread block clusters ----------------------------------------------------
+
+// This CTA's rank in its cluster (0 for a cluster of one).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives and waits: shared-memory
+// writes before it are visible to the cluster's CTAs after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address of this CTA's shared-memory location `addr` in the CTA of
+// rank `rank` of the cluster (distributed shared memory).
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---- register reallocation between warpgroups -------------------------------

@@ -1,11 +1,12 @@
 """Time one CUDA kernel built from several source trees in one process, so
-that two versions of it are compared on one card within one call: B2, the
-flash forward (``csrc/flash_fwd.cu``), B3, the contiguous decode
+that two versions of it are compared on one card within one call: B1, the
+paged decode (``csrc/paged_decode.cu``), B2, the flash forward
+(``csrc/flash_fwd.cu``), B3, the contiguous decode
 (``csrc/contig_decode.cu``), or B5 and B6, the flash backward's dQ and
 dK/dV kernels (``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``).
 
     PYTHONPATH=src python -m repro_torch.kernels.compare_kernels \
-        [--kernel flash_fwd|contig_decode|flash_bwd_dq|flash_bwd_dkv] \
+        [--kernel paged_decode|flash_fwd|contig_decode|flash_bwd_dq|flash_bwd_dkv] \
         --csrc parent=DIR --csrc this=src/repro_torch/csrc
 
 Each DIR holds the kernel's source and the headers it includes (the ``csrc``
@@ -51,7 +52,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_fwd,
     launch_flash_bwd_delta,
 )
-from repro_torch.kernels.flash_decode import decode_chunk
+from repro_torch.kernels.flash_decode import decode_chunk, fold_schedule
 
 __all__ = ["SHAPES", "OUTPUT_TOL", "build", "median_ms", "host_us", "main"]
 
@@ -59,16 +60,23 @@ __all__ = ["SHAPES", "OUTPUT_TOL", "build", "median_ms", "host_us", "main"]
 # the plain-version limit of the kernels' checks (chip_smoke.KERNEL_TOL).
 OUTPUT_TOL = 2e-2
 
-# kernel -> shape name -> dims. flash_fwd: (B, Sq = Skv, Hq = Hkv, D, with
+# kernel -> shape name -> dims. paged_decode: (B, C, Hq, Hkv, D, page,
+# max_len), a mixed step of the continuous path with lengths 560-640 by row,
+# every row one decode token (narrow) or row 0 a C-token chunk (wide),
+# sawtooth, folded before timing. flash_fwd: (B, Sq = Skv, Hq = Hkv, D, with
 # lse), the static path's second prefill (deepseek-7b's D 128 and zamba2's
 # D 80) and the training forward, causal, sawtooth. contig_decode: (B,
-# S_max, Hq, Hkv, D), a static decode step with per-row lengths 700-731,
+# S_max, Hq, Hkv, D), a static decode step with per-row lengths 700-731
+# (deepseek-7b's D 128, zamba2's D 80, and D 64 with GQA 4),
 # sawtooth. flash_bwd_dq, flash_bwd_dkv: (B, Sq = Skv, Hq = Hkv, D), the
 # training backward, causal, sawtooth, from B2's lse and B4's delta.
 SHAPES = {
+    "paged_decode": {"narrow": (8, 1, 32, 32, 128, 64, 1024),
+                     "wide": (8, 256, 32, 32, 128, 64, 1024)},
     "flash_fwd": {"prefill": (8, 700, 32, 128, False), "prefill_d80": (8, 700, 32, 80, False),
                   "train": (4, 1024, 32, 128, True)},
     "contig_decode": {"decode_d128": (8, 1024, 32, 32, 128),
+                      "decode_d80": (8, 1024, 32, 32, 80),
                       "decode_d64_gqa4": (8, 1024, 32, 8, 64)},
     "flash_bwd_dq": {"train": (4, 1024, 32, 128)},
     "flash_bwd_dkv": {"train": (4, 1024, 32, 128)},
@@ -179,6 +187,33 @@ def _flash_fwd_case(fns: dict, dims: tuple, gen) -> tuple:
     return launch, outs
 
 
+def _paged_decode_case(fns: dict, dims: tuple, gen) -> tuple:
+    """(launch(name), {name: outputs}) of B1 at ``dims``: a pool with a
+    spare page and a shuffled block table, the sawtooth schedule folded
+    once."""
+    b, c, hq, hkv, d, page, max_len = dims
+    nb = max_len // page
+    n_pages = b * nb + 1
+    q = _bf16(gen, (b, c, hq, d))
+    k, v = _bf16(gen, (n_pages, page, hkv, d)), _bf16(gen, (n_pages, page, hkv, d))
+    bt = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[: b * nb] + 1)
+    bt = bt.reshape(b, nb).to(torch.int32)
+    lens = torch.randint(560, 641, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    q_lens = torch.ones((b,), dtype=torch.int32, device="cuda")
+    q_lens[0] = c
+    phys, logical = fold_schedule(lens, bt, order_group=nb)
+    args = (b, c, hq, hkv, d, nb, page, -1, float(d ** -0.5),
+            torch.cuda.current_stream().cuda_stream)
+    outs = {name: (torch.empty_like(q),) for name in fns}
+
+    def launch(name):
+        return fns[name](q.data_ptr(), k.data_ptr(), v.data_ptr(), phys.data_ptr(),
+                         logical.data_ptr(), lens.data_ptr(), q_lens.data_ptr(),
+                         outs[name][0].data_ptr(), *args)
+
+    return launch, outs
+
+
 def _contig_decode_case(fns: dict, dims: tuple, gen) -> tuple:
     """(launch(name), {name: outputs}) of B3 at ``dims``."""
     b, s_max, hq, hkv, d = dims
@@ -223,7 +258,8 @@ def _flash_bwd_case(kernel: str):
     return case
 
 
-_CASES = {"flash_fwd": _flash_fwd_case, "contig_decode": _contig_decode_case,
+_CASES = {"paged_decode": _paged_decode_case, "flash_fwd": _flash_fwd_case,
+          "contig_decode": _contig_decode_case,
           "flash_bwd_dq": _flash_bwd_case("flash_bwd_dq"),
           "flash_bwd_dkv": _flash_bwd_case("flash_bwd_dkv")}
 

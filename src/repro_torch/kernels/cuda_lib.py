@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
-entry point (all but ``paged_decode.cu`` include ``csrc/common.cuh``; the
-flash forward and the backward's dQ and dK/dV kernels also ``csrc/sm90.cuh``,
-Hopper's TMA, mbarrier, wgmma and setmaxnreg in raw PTX). It is compiled by
+entry point (all include ``csrc/common.cuh``; the flash forward, the
+backward's dQ and dK/dV kernels and, through ``csrc/decode_core.cuh``, the
+two decode kernels also ``csrc/sm90.cuh``: Hopper's TMA, cp.async,
+mbarriers, clusters, wgmma and setmaxnreg in raw PTX). It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/repro_torch/``
 (listed in ``.gitignore``), named by a hash of the source, every header of
 ``csrc/`` and the flags, at first use, and loaded with ``ctypes``. Nothing is
@@ -53,6 +54,7 @@ class Kernel:
     entry: str         # exported C function
     argtypes: tuple    # ctypes argument types of ``entry``
     replaces: str      # the Pallas kernel this one replaces (file:line)
+    extra: tuple = ()  # further C entries of the library: (name, argtypes) pairs
 
 
 KERNELS = {
@@ -64,6 +66,10 @@ KERNELS = {
         # B, C, Hq, Hkv, D, n_blocks, page, window, scale, stream
         argtypes=(_P,) * 8 + (_I,) * 8 + (_F, _P),
         replaces="src/repro/kernels/flash_decode.py:122",
+        # the same launch recording its walk (+ visit, splits); the launch's
+        # attributes at a shape (B, C, Hq, Hkv, D, n_blocks, page, out)
+        extra=(("paged_decode_bf16_visit", (_P,) * 8 + (_I,) * 8 + (_F, _P, _P, _I)),
+               ("paged_decode_attr", (_I,) * 7 + (_P,))),
     ),
     "flash_fwd": Kernel(
         name="flash_fwd",
@@ -82,6 +88,9 @@ KERNELS = {
         # snake, scale, stream
         argtypes=(_P,) * 5 + (_I,) * 9 + (_F, _P),
         replaces="src/repro/kernels/flash_decode.py:94",
+        # as paged_decode's; attributes at (B, S_max, Hq, Hkv, D, chunk, out)
+        extra=(("contig_decode_bf16_visit", (_P,) * 5 + (_I,) * 9 + (_F, _P, _P, _I)),
+               ("contig_decode_attr", (_I,) * 6 + (_P,))),
     ),
     "flash_bwd_delta": Kernel(
         name="flash_bwd_delta",
@@ -197,8 +206,9 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
         lib = ctypes.CDLL(str(path))
         spec = KERNELS[name]
-        fn = getattr(lib, spec.entry)
-        fn.argtypes = list(spec.argtypes)
-        fn.restype = ctypes.c_int
+        for entry, argtypes in ((spec.entry, spec.argtypes), *spec.extra):
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib

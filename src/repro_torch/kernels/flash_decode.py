@@ -5,11 +5,12 @@ name: with a ``block_table`` it is ragged paged attention, without one a
 single-token decode over contiguous caches.
 
 The contiguous branch (``_flash_decode_contiguous``) launches
-``csrc/contig_decode.cu``: one block per (row, kv head) holding its GQA
-query heads, the cache cut into chunks as the reference cuts it
-(:func:`decode_chunk`) and walked in ``kv_index(order, b*Hkv + h, c,
-n_chunks)`` order, the mask derived in-kernel from per-row lengths. Its
-plain version is ``repro_torch.core.attention.decode_attention``.
+``csrc/contig_decode.cu``: a work item per (row, kv head, tile of its GQA
+query heads), the cache cut into chunks as the reference cuts it
+(:func:`decode_chunk`), walked in ``kv_index(order, b*Hkv + h, c,
+n_chunks)`` order, each chunk in 64-position tiles, the mask derived
+in-kernel from per-row lengths. Its plain version is
+``repro_torch.core.attention.decode_attention``.
 
 ``paged_flash_decode_fwd`` is the port of the JAX package's wrapper of the
 same name. It folds the traversal schedule into two (B, n_blocks) operands
@@ -17,6 +18,12 @@ before the launch: each row's logical visit order (sawtooth parity keyed on
 the row's cache length, or the effective reversal group ``order_group``)
 and the physical pool pages gathered along it from the block table. The
 kernel (``csrc/paged_decode.cu``) walks the pages in that order.
+
+Both kernels split a work item's walk across the S CTAs of a cluster
+(:func:`decode_splits`): the tiles (B3) or pages (B1) the item sees, in walk
+order, cut into S contiguous segments, the partial softmax states merged in
+split order. :func:`paged_decode_walks` and :func:`contig_decode_walks` are
+the host models of the walks the kernels record (``visit_out``).
 
 For tensors on the CPU each wrapper returns its plain version
 (``decode_attention`` and ``paged_decode_attention``, re-exported here).
@@ -37,6 +44,7 @@ from repro_torch.core.schedule import (
     page_visit_order_dynamic,
 )
 from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.flash_attention import _check_visit
 
 __all__ = [
     "flash_decode_fwd",
@@ -47,10 +55,166 @@ __all__ = [
     "fold_schedule",
     "launch_paged_decode",
     "paged_decode_attention",
+    "DECODE_TILE",
+    "DECODE_ROW_TILE",
+    "decode_splits",
+    "paged_decode_splits",
+    "contig_decode_rows",
+    "contig_decode_splits",
+    "paged_decode_walks",
+    "contig_decode_walks",
+    "decode_kernel_attr",
 ]
 
 _HEAD_DIMS = (64, 128)            # the paged kernel (B1)
 _CONTIG_HEAD_DIMS = (64, 80, 128)  # the contiguous decode (B3)
+# The kernels' tiles (csrc/decode_core.cuh): positions of a ring tile, and
+# folded query rows of one of B1's row tiles.
+DECODE_TILE = 64
+DECODE_ROW_TILE = 64
+
+
+# CTAs an SM the kernels fit at D 128: the CUDA-core instantiations, and
+# B1's with the tensor-core path (more than 8 folded rows).
+_ROW_CTAS_PER_SM = 3
+_CHUNK_CTAS_PER_SM = 2
+
+
+def decode_splits(n_items: int, n_units: int, sms: int, per_sm: int = _ROW_CTAS_PER_SM) -> int:
+    """The CTAs a work item's walk is split across (the cluster size): the
+    largest S in {1, 2, 4, 8} whose ``n_items`` x S CTAs all fit on the
+    card at once at ``per_sm`` CTAs an SM (no second wave), but no more
+    splits than an item's ``n_units`` pages or tiles; at least 1
+    (``pick_splits`` in ``csrc/decode_core.cuh``)."""
+    s = 1
+    while s < 8 and n_items * 2 * s <= per_sm * sms and 2 * s <= n_units:
+        s *= 2
+    return s
+
+
+def paged_decode_splits(b: int, hkv: int, n_blocks: int, sms: int, rows: int = 1) -> int:
+    """B1's split count for ``rows`` = C * G folded rows: over B * Hkv items
+    (the host cannot see which row tiles past the first hold rows) and the
+    row's ``n_blocks`` pages."""
+    per_sm = _CHUNK_CTAS_PER_SM if rows > 8 else _ROW_CTAS_PER_SM
+    return decode_splits(b * hkv, n_blocks, sms, per_sm)
+
+
+def contig_decode_rows(g: int) -> int:
+    """Query heads a B3 work item holds: the GQA group rounded up to 1, 2, 4
+    or 8 (larger groups take several items)."""
+    return 1 if g <= 1 else 2 if g <= 2 else 4 if g <= 4 else 8
+
+
+def contig_decode_splits(b: int, hkv: int, g: int, s_max: int, sms: int) -> int:
+    """B3's split count: over its B * Hkv * ceil(G / rows) items and the
+    cache's 64-position tiles."""
+    rows = contig_decode_rows(g)
+    return decode_splits(b * hkv * -(-g // rows), -(-s_max // DECODE_TILE), sms)
+
+
+def _segments(seen: list, splits: int, width: int) -> list:
+    """``seen`` cut into ``splits`` contiguous segments (split s takes
+    ``seen[n s // S : n (s + 1) // S]``), each padded with -1 to ``width``."""
+    n = len(seen)
+    segs = [seen[n * s // splits: n * (s + 1) // splits] for s in range(splits)]
+    return [seg + [-1] * (width - len(seg)) for seg in segs]
+
+
+def paged_decode_walks(logical, lens, q_lens, *, c: int, g: int, hkv: int, page: int,
+                       window: Optional[int], splits: int) -> torch.Tensor:
+    """What B1 records in ``visit_out`` (B * Hkv, n_rt, splits, n_blocks)
+    int32: row tile rt of row b holds folded rows [64 rt, 64 rt + 64) of C *
+    G, of which the first ``min(C, q_len) * G`` are valid (none when len is
+    0). It sees the pages, in ``logical``'s visit order, whose first column
+    is at most min(len - 1, its last valid row's q_pos) and which do not lie
+    wholly left of the window of its first valid row; split s walks the
+    s-th contiguous segment of them. Pages are logical ids, -1 past a
+    segment; the same for every kv head."""
+    logical = torch.as_tensor(logical).cpu().tolist()
+    lens = torch.as_tensor(lens).cpu().tolist()
+    q_lens = torch.as_tensor(q_lens).cpu().tolist()
+    n_blocks = len(logical[0])
+    rows = c * g
+    n_rt = -(-rows // DECODE_ROW_TILE)
+    out = []
+    for vis, ln, ql in zip(logical, lens, q_lens):
+        tiles = []
+        for rt in range(n_rt):
+            row0 = rt * DECODE_ROW_TILE
+            n_out = min(DECODE_ROW_TILE, rows - row0)
+            n_valid = max(0, min(min(c, max(ql, 0)) * g - row0, n_out)) if ln > 0 else 0
+            if n_valid == 0:
+                tiles.append([[-1] * n_blocks for _ in range(splits)])
+                continue
+            qbase = ln - ql
+            qpos_min = qbase + row0 // g
+            qpos_max = qbase + (row0 + n_valid - 1) // g
+            col_limit = min(ln - 1, qpos_max)
+            seen = [p for p in vis if p * page <= col_limit
+                    and not (window is not None and p * page + page - 1 <= qpos_min - window)]
+            tiles.append(_segments(seen, splits, n_blocks))
+        out.extend([tiles] * hkv)
+    return torch.tensor(out, dtype=torch.int32).reshape(len(lens) * hkv, n_rt, splits, n_blocks)
+
+
+def contig_decode_walks(lens, *, s_max: int, hkv: int, g: int, chunk: int, order,
+                        snake_group: Optional[int], window: Optional[int],
+                        splits: int) -> torch.Tensor:
+    """What B3 records in ``visit_out`` (B * Hkv, n_rt, splits, W) int32, W =
+    n_chunks * ceil(chunk / 64), chunk = ``decode_chunk(chunk, s_max)``: for
+    item (b, h) the chunks in ``kv_index_host(order, b * Hkv + h, j,
+    n_chunks)`` order, each cut into 64-position tiles in ascending order,
+    keeping the tiles that hold a position p with first <= p < len (first =
+    len - window with a window, else 0); split s records the first position
+    of each tile of the s-th contiguous segment, then -1. The same for every
+    row tile of an item's query heads; all -1 for a row of length 0."""
+    from repro_torch.core.schedule import kv_index_host
+
+    snake = DEFAULT_SNAKE_GROUP if snake_group is None else int(snake_group)
+    ch = decode_chunk(chunk, s_max)
+    n_chunks = -(-s_max // ch)
+    width = n_chunks * -(-ch // DECODE_TILE)
+    rows = contig_decode_rows(g)
+    n_rt = -(-g // rows)
+    lens = torch.as_tensor(lens).cpu().tolist()
+    out = []
+    for b, ln in enumerate(lens):
+        ln = min(max(ln, 0), s_max)
+        first = max(0, ln - window) if window is not None else 0
+        for h in range(hkv):
+            seen = []
+            if ln > 0:
+                for j in range(n_chunks):
+                    c0 = kv_index_host(order, b * hkv + h, j, n_chunks, snake_group=snake) * ch
+                    c1 = min(c0 + ch, ln)
+                    seen += [t0 for t0 in range(c0, c1, DECODE_TILE)
+                             if min(t0 + DECODE_TILE, c1) > first]
+                item = _segments(seen, splits, width)
+            else:
+                item = [[-1] * width for _ in range(splits)]
+            out.append([item] * n_rt)
+    return torch.tensor(out, dtype=torch.int32).reshape(len(lens) * hkv, n_rt, splits, width)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_kernel_attr(kernel: str, shape: tuple, device=None) -> dict:
+    """What the launch of ``kernel`` ("paged_decode": shape (B, C, Hq, Hkv,
+    D, n_blocks, page); "contig_decode": (B, S_max, Hq, Hkv, D, chunk))
+    runs: registers and local (spill) bytes a thread, dynamic shared memory
+    and threads a CTA, the split (cluster) size and the grid's CTAs."""
+    import ctypes
+
+    vals = (ctypes.c_int * 6)(*([-1] * 6))
+    with torch.cuda.device(device):
+        err = getattr(cuda_lib.load(kernel), f"{kernel}_attr")(*shape, vals)
+    if err:
+        raise RuntimeError(f"{kernel}_attr{shape} returned cudaError_t {err}")
+    return {"registers": vals[0], "dynamic_smem_bytes": vals[1], "threads": vals[2],
+            "local_bytes": vals[3], "cluster_size": vals[4], "ctas": vals[5]}
 
 
 def _check_cuda_operands(q, k_pool, v_pool, phys, logical, lens, q_lens) -> None:
@@ -142,10 +306,13 @@ def _flash_decode_contiguous(q, k_cache, v_cache, cache_len, *, order, window, s
 
 
 def launch_contig_decode(q, k_cache, v_cache, lens, *, order=Order.CYCLIC, window=None,
-                         scale=None, chunk=512, snake_group=None):
+                         scale=None, chunk=512, snake_group=None, visit_out=None, splits=None):
     """Launch the contiguous decode kernel on the current stream: q (B, 1,
     Hq, D), caches (B, S_max, Hkv, D) bfloat16, ``lens`` (B,) int32; returns
-    the (B, 1, Hq, D) bfloat16 output (exact zeros for rows of length 0)."""
+    the (B, 1, Hq, D) bfloat16 output (exact zeros for rows of length 0).
+    ``splits`` (1, 2, 4 or 8) overrides the kernel's split count
+    (:func:`contig_decode_splits`); ``visit_out``, an int32 tensor shaped as
+    :func:`contig_decode_walks`'s result, receives the walk."""
     order = Order.parse(order)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"contig_decode kernel takes one query position, q {tuple(q.shape)}")
@@ -177,19 +344,34 @@ def launch_contig_decode(q, k_cache, v_cache, lens, *, order=Order.CYCLIC, windo
     if snake < 1:
         raise ValueError(f"snake_group must be >= 1, got {snake_group}")
     scale_ = float(d ** -0.5 if scale is None else scale)
-    spec = cuda_lib.KERNELS["contig_decode"]
-    fn = getattr(cuda_lib.load("contig_decode"), spec.entry)
+    ch = decode_chunk(chunk, s_max)
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), b, s_max, hq, hkv, d, -1 if window is None else int(window), ch,
+            cuda_lib.ORDER_CODES[order.value], snake, scale_,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    lib = cuda_lib.load("contig_decode")
     with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), b, s_max, hq, hkv, d, -1 if window is None else int(window),
-            decode_chunk(chunk, s_max), cuda_lib.ORDER_CODES[order.value], snake, scale_,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if visit_out is None and splits is None:
+            err = getattr(lib, cuda_lib.KERNELS["contig_decode"].entry)(*args)
+        else:
+            g = hq // hkv
+            n_split = _check_splits(splits) or contig_decode_splits(b, hkv, g, s_max,
+                                                                    _sms(q.device))
+            width = -(-s_max // ch) * -(-ch // DECODE_TILE)
+            shape = (b * hkv, -(-g // contig_decode_rows(g)), n_split, width)
+            _check_visit(visit_out, shape, q.device, "visit_out")
+            err = lib.contig_decode_bf16_visit(
+                *args, None if visit_out is None else visit_out.data_ptr(), splits or 0)
     if err != 0:
         raise RuntimeError(f"contig_decode kernel launch failed: cudaError_t {err}")
     cuda_lib.launch_counts["contig_decode"] += 1
     return out
+
+
+def _check_splits(splits):
+    if splits is not None and splits not in (1, 2, 4, 8):
+        raise ValueError(f"splits must be 1, 2, 4 or 8, got {splits}")
+    return splits
 
 
 def paged_flash_decode_fwd(
@@ -240,25 +422,36 @@ def fold_schedule(lens, block_table, *, order=Order.CYCLIC, snake_group=None, or
     return phys, visit.to(torch.int32).contiguous()
 
 
-def launch_paged_decode(q, k_pool, v_pool, phys, logical, lens, q_lens, *, window=None, scale=None):
+def launch_paged_decode(q, k_pool, v_pool, phys, logical, lens, q_lens, *, window=None, scale=None,
+                        visit_out=None, splits=None):
     """Launch the CUDA kernel on folded operands (see :func:`fold_schedule`)
     on the current stream; returns the (B, C, Hq, D) bfloat16 output. The
     page ids in ``phys`` must lie in ``[0, n_pages)``: the pool's block
-    tables always do, and checking them here would cost a device sync."""
+    tables always do, and checking them here would cost a device sync.
+    ``splits`` (1, 2, 4 or 8) overrides the kernel's split count
+    (:func:`paged_decode_splits`); ``visit_out``, an int32 tensor shaped as
+    :func:`paged_decode_walks`'s result, receives the walk."""
     _check_cuda_operands(q, k_pool, v_pool, phys, logical, lens, q_lens)
     b, c, hq, d = q.shape
     _, page, hkv, _ = k_pool.shape
     n_blocks = phys.shape[1]
     out = torch.empty_like(q)
     scale_ = float(d ** -0.5 if scale is None else scale)
-    fn = getattr(cuda_lib.load("paged_decode"), cuda_lib.KERNELS["paged_decode"].entry)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), phys.data_ptr(),
+    args = (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), phys.data_ptr(),
             logical.data_ptr(), lens.data_ptr(), q_lens.data_ptr(), out.data_ptr(),
             b, c, hq, hkv, d, n_blocks, page, -1 if window is None else int(window),
-            scale_, torch.cuda.current_stream(q.device).cuda_stream,
-        )
+            scale_, torch.cuda.current_stream(q.device).cuda_stream)
+    lib = cuda_lib.load("paged_decode")
+    with torch.cuda.device(q.device):
+        if visit_out is None and splits is None:
+            err = getattr(lib, cuda_lib.KERNELS["paged_decode"].entry)(*args)
+        else:
+            n_split = _check_splits(splits) or paged_decode_splits(
+                b, hkv, n_blocks, _sms(q.device), c * (hq // hkv))
+            shape = (b * hkv, -(-c * (hq // hkv) // DECODE_ROW_TILE), n_split, n_blocks)
+            _check_visit(visit_out, shape, q.device, "visit_out")
+            err = lib.paged_decode_bf16_visit(
+                *args, None if visit_out is None else visit_out.data_ptr(), splits or 0)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed: cudaError_t {err}")
     cuda_lib.launch_counts["paged_decode"] += 1

@@ -36,7 +36,19 @@ from repro_torch.kernels.flash_attention import (
     kernel_traversal,
     launch_flash_bwd_delta,
 )
-from repro_torch.kernels.flash_decode import flash_decode_fwd, paged_flash_decode_fwd
+from repro_torch.kernels.flash_decode import (
+    contig_decode_splits,
+    contig_decode_walks,
+    decode_chunk,
+    decode_kernel_attr,
+    flash_decode_fwd,
+    fold_schedule,
+    launch_contig_decode,
+    launch_paged_decode,
+    paged_decode_splits,
+    paged_decode_walks,
+    paged_flash_decode_fwd,
+)
 from repro_torch.kernels.ssd import ssd_fwd
 from repro_torch.models.ssm import ssd_chunked
 
@@ -52,24 +64,43 @@ def _bf16(gen, shape, dev):
     return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
 
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _paged_case(gen, dev, *, page, g, c, hkv=2, d=128, b=4):
+    """A pool with a spare page, a shuffled block table, rows of length
+    max, about half, 0 and 5 (q_lens c, about half, 0 and 0)."""
+    nb = max(6, -(-(c + 40) // page))
+    n_pages = b * nb + 1
+    bf = torch.bfloat16
+    k = torch.randn((n_pages, page, hkv, d), generator=gen, device=dev).to(bf)
+    v = torch.randn((n_pages, page, hkv, d), generator=gen, device=dev).to(bf)
+    q = torch.randn((b, c, hkv * g, d), generator=gen, device=dev).to(bf)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[: b * nb] + 1)
+    bt = bt.reshape(b, nb).to(torch.int32)
+    lens = torch.tensor([nb * page, nb * page // 2 + 3, 0, 5], dtype=torch.int32, device=dev)
+    qls = torch.tensor([c, (c + 1) // 2, 0, 0], dtype=torch.int32, device=dev)
+    return q, k, v, bt, lens, qls
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("page", [8, 64])
 @pytest.mark.parametrize("g", [1, 4])
-@pytest.mark.parametrize("c", [1, 7, 40])
+@pytest.mark.parametrize("c", [1, 7, 15, 40, 64, 65, 256])
 def test_cuda_kernel_matches_plain(cuda, page, g, c):
     """bf16 kernel vs the plain version in f32 on the same bf16 inputs:
-    2e-2 abs (bf16 output rounding); zero rows exact."""
-    gen = torch.Generator(device=cuda).manual_seed(page * 100 + g * 10 + c)
-    b, hkv, d, nb = 4, 2, 128, 6
-    n_pages = b * nb + 1
-    bf = torch.bfloat16
-    k = torch.randn((n_pages, page, hkv, d), generator=gen, device=cuda).to(bf)
-    v = torch.randn((n_pages, page, hkv, d), generator=gen, device=cuda).to(bf)
-    q = torch.randn((b, c, hkv * g, d), generator=gen, device=cuda).to(bf)
-    bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda)[: b * nb] + 1)
-    bt = bt.reshape(b, nb).to(torch.int32)
-    lens = torch.tensor([nb * page, nb * page // 2 + 3, 0, 5], dtype=torch.int32, device=cuda)
-    qls = torch.tensor([c, (c + 1) // 2, 0, 0], dtype=torch.int32, device=cuda)
+    2e-2 abs (bf16 output rounding); zero rows exact. Chunks of 15 rows and
+    more run on the tensor cores, 64 and 65 cross a row tile's edge; the
+    walk each CTA records equals the host model at the kernel's own split
+    count, which paged_decode_attr reports."""
+    gen = torch.Generator(device=cuda).manual_seed(page * 1000 + g * 10 + c)
+    q, k, v, bt, lens, qls = _paged_case(gen, cuda, page=page, g=g, c=c)
+    b, nb, hkv = q.shape[0], bt.shape[1], k.shape[2]
+    splits = paged_decode_splits(b, hkv, nb, _sms(cuda), c * g)
+    attr = decode_kernel_attr("paged_decode", (b, c, q.shape[2], hkv, q.shape[3], nb, page),
+                              cuda)
+    assert attr["cluster_size"] == splits
     for order in Order:
         group = resolve_order_group(order, 2, nb)
         for window in (None, page + 3):
@@ -85,6 +116,62 @@ def test_cuda_kernel_matches_plain(cuda, page, g, c):
             o = out.float()
             assert torch.all(o[zero] == 0.0)
             assert (o - ref)[~zero].abs().max().item() <= 2e-2
+            phys, logical = fold_schedule(lens, bt, order_group=group)
+            want = paged_decode_walks(logical, lens, qls, c=c, g=g, hkv=hkv, page=page,
+                                      window=window, splits=splits)
+            visit = torch.full(tuple(want.shape), -7, dtype=torch.int32, device=cuda)
+            again = launch_paged_decode(q, k, v, phys, logical, lens, qls, window=window,
+                                        visit_out=visit)
+            torch.cuda.synchronize()
+            assert torch.equal(visit.cpu(), want)
+            assert torch.equal(again, out)
+
+
+def _stale(pool, bt, lens, fill):
+    """``pool`` with every position at or past its row's length (the tail of
+    a row's last page, its unused pages, the spare page) set to ``fill``."""
+    n_pages, page = pool.shape[:2]
+    live = torch.zeros((n_pages, page), dtype=torch.bool, device=pool.device)
+    pos = torch.arange(bt.shape[1] * page, device=pool.device).reshape(bt.shape[1], page)
+    for b in range(bt.shape[0]):
+        live[bt[b].long()] = pos < lens[b]
+    out = pool.clone()
+    out[~live] = fill
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("c,g,page,d", [(1, 1, 64, 128), (1, 8, 64, 128), (7, 1, 8, 64),
+                                        (15, 1, 64, 128), (65, 1, 64, 64), (256, 1, 64, 128)])
+def test_paged_decode_split_walks_bits_and_stale_tails(cuda, splits, c, g, page, d):
+    """At every cluster size: within 2e-2 of the plain version, the recorded
+    walk equal to the host model, two launches equal to the bit, and a
+    pool whose positions past each row's length hold NaN giving the same
+    bits as one holding zeros there (the copies zero them; masking P alone
+    would not keep 0 x NaN out of P V)."""
+    gen = torch.Generator(device=cuda).manual_seed(splits * 100 + c + g + d)
+    q, k, v, bt, lens, qls = _paged_case(gen, cuda, page=page, g=g, c=c, d=d)
+    hkv, nb = k.shape[2], bt.shape[1]
+    group = resolve_order_group("sawtooth", None, nb)
+    phys, logical = fold_schedule(lens, bt, order_group=group)
+    want = paged_decode_walks(logical, lens, qls, c=c, g=g, hkv=hkv, page=page, window=None,
+                              splits=splits)
+    visit = torch.full(tuple(want.shape), -7, dtype=torch.int32, device=cuda)
+    kz, vz = _stale(k, bt, lens, 0.0), _stale(v, bt, lens, 0.0)
+    kn, vn = _stale(k, bt, lens, float("nan")), _stale(v, bt, lens, float("nan"))
+    out = launch_paged_decode(q, kz, vz, phys, logical, lens, qls, visit_out=visit,
+                              splits=splits)
+    again = launch_paged_decode(q, kz, vz, phys, logical, lens, qls, splits=splits)
+    nan = launch_paged_decode(q, kn, vn, phys, logical, lens, qls, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.equal(visit.cpu(), want)
+    assert torch.equal(again, out) and torch.equal(nan, out)
+    ref = paged_decode_attention(q.float(), kz.float(), vz.float(), lens, bt, q_lens=qls,
+                                 order_group=group)
+    zero = (torch.arange(c, device=cuda)[None, :] >= qls[:, None]) | (lens[:, None] == 0)
+    assert torch.all(out.float()[zero] == 0)
+    assert (out.float() - ref)[~zero].abs().max().item() <= 2e-2
 
 
 @pytest.mark.gpu
@@ -101,6 +188,12 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="multiple"):
         paged_flash_decode_fwd(torch.zeros((1, 1, 3, 128), dtype=torch.bfloat16, device=cuda),
                                kb, kb, 4, bt)
+    lens = torch.tensor([4], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="splits"):
+        launch_paged_decode(qb, kb, kb, bt, bt, lens, lens, splits=3)
+    with pytest.raises(ValueError, match="visit_out"):
+        launch_paged_decode(qb, kb, kb, bt, bt, lens, lens, splits=2,
+                            visit_out=torch.zeros((2, 1, 1, 2), dtype=torch.int32, device=cuda))
 
 
 def _visible(sq, skv, causal, window, dev):
@@ -178,6 +271,30 @@ def test_flash_fwd_kernel_matrix(cuda, d, g, sq, skv, causal, window):
     _check_flash_fwd(cuda, d, g, causal, window, sq, skv, seed=sq * 11 + skv + g + d)
 
 
+def _contig_walk_check(q, k, v, lens, *, order, window, chunk, snake_group, splits=None,
+                       out=None):
+    """The walk B3 records at ``splits`` (None: its own choice, which
+    contig_decode_attr reports) equals the host model, and the launch gives
+    ``out``'s bits."""
+    b, _, hq, d = q.shape
+    s_max, hkv = k.shape[1], k.shape[2]
+    n = splits or contig_decode_splits(b, hkv, hq // hkv, s_max, _sms(q.device))
+    if splits is None:
+        attr = decode_kernel_attr("contig_decode",
+                                  (b, s_max, hq, hkv, d, decode_chunk(chunk, s_max)), q.device)
+        assert attr["cluster_size"] == n
+    want = contig_decode_walks(lens, s_max=s_max, hkv=hkv, g=hq // hkv, chunk=chunk,
+                               order=order, snake_group=snake_group, window=window, splits=n)
+    visit = torch.full(tuple(want.shape), -7, dtype=torch.int32, device=q.device)
+    got = launch_contig_decode(q, k, v, lens, order=order, window=window, chunk=chunk,
+                               snake_group=snake_group, visit_out=visit, splits=splits)
+    torch.cuda.synchronize()
+    assert torch.equal(visit.cpu(), want)
+    if out is not None:
+        assert torch.equal(got, out)
+    return got
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("g", [1, 4, 8])
 @pytest.mark.parametrize("window", [None, 100])
@@ -185,7 +302,7 @@ def test_flash_fwd_kernel_matrix(cuda, d, g, sq, skv, causal, window):
 def test_contig_decode_kernel_matches_plain(cuda, g, window, chunk):
     """bf16 kernel vs the plain version in f32: 2e-2 abs on rows of
     positive length; a row of length 0 is exact zeros. S_max 300 is not a
-    multiple of the chunk."""
+    multiple of the chunk. The recorded walk equals the host model."""
     gen = torch.Generator(device=cuda).manual_seed(g * 10 + (window or 0) + chunk)
     b, hkv, d, s_max = 4, 2, 128, 300
     q = _bf16(gen, (b, 1, hkv * g, d), cuda)
@@ -200,6 +317,39 @@ def test_contig_decode_kernel_matches_plain(cuda, g, window, chunk):
         assert cuda_lib.launch_counts["contig_decode"] == n0 + 1
         ref = decode_attention(q.float(), k.float(), v.float(), lens, window=window)
         ok = lens > 0
+        assert (out.float() - ref)[ok].abs().max().item() <= 2e-2
+        assert torch.all(out[~ok] == 0)
+        _contig_walk_check(q, k, v, lens, order=order, window=window, chunk=chunk,
+                           snake_group=2, out=out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("d,g", [(128, 1), (80, 1), (64, 4), (128, 8)])
+def test_contig_decode_split_walks_bits_and_stale_tails(cuda, splits, d, g):
+    """At every cluster size: within 2e-2 of the plain version, the recorded
+    walk equal to the host model, two launches equal to the bit, and caches
+    holding NaN at and past each row's length giving the same bits as caches
+    holding zeros there."""
+    gen = torch.Generator(device=cuda).manual_seed(splits * 100 + d + g)
+    b, hkv, s_max = 5, 2, 1024
+    q = _bf16(gen, (b, 1, hkv * g, d), cuda)
+    k, v = _bf16(gen, (b, s_max, hkv, d), cuda), _bf16(gen, (b, s_max, hkv, d), cuda)
+    lens = torch.tensor([1024, 0, 715, 7, 300], dtype=torch.int32, device=cuda)
+    tail = torch.arange(s_max, device=cuda)[None, :] >= lens[:, None]
+    kz, vz, kn, vn = k.clone(), v.clone(), k.clone(), v.clone()
+    kz[tail], vz[tail], kn[tail], vn[tail] = 0.0, 0.0, float("nan"), float("nan")
+    ok = lens > 0
+    for window in (None, 100):
+        out = launch_contig_decode(q, kz, vz, lens, order="sawtooth", window=window,
+                                   splits=splits)
+        _contig_walk_check(q, kz, vz, lens, order="sawtooth", window=window, chunk=512,
+                           snake_group=None, splits=splits, out=out)
+        nan = launch_contig_decode(q, kn, vn, lens, order="sawtooth", window=window,
+                                   splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(nan, out)
+        ref = decode_attention(q.float(), kz.float(), vz.float(), lens, window=window)
         assert (out.float() - ref)[ok].abs().max().item() <= 2e-2
         assert torch.all(out[~ok] == 0)
 
@@ -236,6 +386,11 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
         flash_decode_fwd(torch.zeros((1, 1, 3, 128), dtype=bf, device=cuda), kv, kv, lens)
     with pytest.raises(ValueError, match="aligned"):
         flash_decode_fwd(odd[:, :1], kv, kv, lens)
+    with pytest.raises(ValueError, match="splits"):
+        launch_contig_decode(q1, kv, kv, lens, splits=16)
+    with pytest.raises(ValueError, match="visit_out"):
+        launch_contig_decode(q1, kv, kv, lens, splits=1,
+                             visit_out=torch.zeros((2, 1, 1, 3), dtype=torch.int32, device=cuda))
 
 
 def _rel(got, want) -> float:
@@ -375,9 +530,10 @@ def test_flash_fwd_kernel_head_dim_80(cuda, causal, window, sq, skv):
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("window", [None, 100])
 def test_contig_decode_kernel_head_dim_80(cuda, g, window):
-    """B3 at head dim 80 (lanes 0-7 own two bf16 pairs, the rest one)
-    against the plain version: 2e-2 abs on rows of positive length, exact
-    zeros on a row of length 0."""
+    """B3 at head dim 80 (a lane pair splits the 80 dims 40 and 40 for the
+    scores; for P V lanes 0-7 own two bf16 pairs, the rest one) against the
+    plain version: 2e-2 abs on rows of positive length, exact zeros on a row
+    of length 0; the recorded walk equals the host model."""
     gen = torch.Generator(device=cuda).manual_seed(g * 10 + (window or 0) + 80)
     b, hkv, d, s_max = 4, 2, 80, 300
     q = _bf16(gen, (b, 1, hkv * g, d), cuda)
@@ -390,6 +546,8 @@ def test_contig_decode_kernel_head_dim_80(cuda, g, window):
         ok = lens > 0
         assert (out.float() - ref)[ok].abs().max().item() <= 2e-2
         assert torch.all(out[~ok] == 0)
+        _contig_walk_check(q, k, v, lens, order=order, window=window, chunk=512,
+                           snake_group=2, out=out)
 
 
 def _ssd_inputs(gen, bsz, s, h, n, dev, state):
