@@ -62,8 +62,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    informational long shape; B7: the second prefill group of mamba2 and of
    zamba2): the kernel, its bound, the plain version and one library call
    where there is one (SDPA's backward for B4-B6 together; none for B7);
-   B1's and B3's launch attributes (registers, shared memory, cluster
-   size) and their two-step sawtooth/cyclic readings; and, informational,
+   B1's, B3's and B7's launch attributes (registers, spill, shared memory,
+   cluster size, CTAs), B1's and B3's two-step sawtooth/cyclic readings;
+   and, informational,
    B1 and B3 at one sequence of 8187 positions at every cluster size;
 5. the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -252,8 +253,9 @@ def phase_device() -> dict:
                                          f"assume {KERNEL_TILES[kname]}")
             attrs[kname][d] = rec
             print(f"[build] {kname} D{d}: {json.dumps(rec)}")
+    c7515 = {k: sum("C7515" in line for line in v["log"].splitlines()) for k, v in built.items()}
     return {"smi": smi, "name": name, "bw": bw, "peak": peak, "peak_f32": peak_f32,
-            "flash_fwd_attr": attrs["flash_fwd"], "kernel_attr": attrs,
+            "flash_fwd_attr": attrs["flash_fwd"], "kernel_attr": attrs, "c7515": c7515,
             "build_seconds": {k: v["seconds"] for k, v in built.items()}}
 
 
@@ -1981,7 +1983,9 @@ def _ssd_work(bsz: int, s: int, h: int, n: int, p: int = 64) -> tuple[int, float
     Flops: C B^T once per (batch row, chunk), being the same for every head,
     on the positions j <= i; then per head W X (j <= i), C S^T and the state
     update, over each chunk's positions below S. The third value is the
-    part of those that B7 runs as float32 FMAs (all but C B^T)."""
+    part of those whose operands are float32 (all but C B^T): B7 runs
+    each as two bf16 products (hi and lo parts) on the tensor cores, which
+    the bound does not count twice."""
     nbytes = 2 * bsz * s * h * p * 2 + bsz * s * h * 4 + h * 4 + 2 * bsz * s * n * 2
     nbytes += bsz * h * p * n * 4
     fl16 = fl32 = 0.0
@@ -2000,10 +2004,13 @@ def phase_ssd_kernel_times(dev_info: dict) -> dict:
     passes it (None). No single PyTorch call computes the scan: library_ms
     is None. bound_ms takes every product at the dense bf16 peak, the rate
     that tensor-core products at float32 accuracy (split bf16, 3xTF32)
-    approach; ``bound_f32_fma_ms`` is this design's own bound, with the
-    float32 products at the data sheet's float32 rate outside the tensor
-    cores."""
-    from repro_torch.kernels.ssd import launch_ssd, ssd_fwd
+    approach (B7's split-bf16 products do twice that work);
+    ``bound_f32_fma_ms``, for comparison, is the bound of a design that runs
+    the float32 products as FMAs at the data sheet's float32 rate outside
+    the tensor cores. ``kernel_attr``: the launch's
+    registers, spill bytes, shared memory, threads, cluster size and CTAs
+    (``ssd_kernel_attr``), with the build's C7515 advisories."""
+    from repro_torch.kernels.ssd import launch_ssd, ssd_fwd, ssd_kernel_attr
     from repro_torch.models.ssm import ssd_chunked
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -2026,7 +2033,9 @@ def phase_ssd_kernel_times(dev_info: dict) -> dict:
         rec.update(shape={"B": bsz, "S": s, "H": h, "P": 64, "N": nd, "chunk": 128},
                    bound_f32_fma_ms=max(nbytes / dev_info["bw"] * 1e3, t_fma), flops_f32=fl32,
                    max_abs_err=_rel_err(got_y, ry), state_rel_err=_rel_err(got_fin, rfin),
-                   max_abs_err_is="max-abs error over max |plain|")
+                   max_abs_err_is="max-abs error over max |plain|",
+                   kernel_attr=ssd_kernel_attr(bsz, h, nd)
+                   | {"c7515_advisories": dev_info["c7515"]["ssd"]})
         print(f"[time] ssd {arch}: " + json.dumps(rec))
         assert rec["max_abs_err"] <= SSD_Y_TOL and rec["state_rel_err"] <= SSD_STATE_TOL, rec
         out[arch] = rec
@@ -2241,8 +2250,9 @@ def main(argv=None) -> int:
         state_rel_err=max(ssd_worst["state"], ssd_worst["chained_state"],
                           *(r["state_rel_err"] for r in ssd_times.values())),
         bound_f32_fma_ms=ssd_times["mamba2-130m"]["bound_f32_fma_ms"],
+        kernel_attr=ssd_times["mamba2-130m"]["kernel_attr"],
         zamba2_shape={k: ssd_times["zamba2-2_7b"][k]
-                      for k in (*timing_keys, "bound_f32_fma_ms")},
+                      for k in (*timing_keys, "bound_f32_fma_ms", "kernel_attr")},
         launches_per_prefill={"mamba2": mamba["launches"]["ssd"] / mamba["prefill_calls"],
                               "zamba2": zamba["launches"]["ssd"] / zamba["prefill_calls"]},
         wrong_variants=ssd_check["controls"]))

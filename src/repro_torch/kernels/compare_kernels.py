@@ -2,11 +2,12 @@
 that two versions of it are compared on one card within one call: B1, the
 paged decode (``csrc/paged_decode.cu``), B2, the flash forward
 (``csrc/flash_fwd.cu``), B3, the contiguous decode
-(``csrc/contig_decode.cu``), or B5 and B6, the flash backward's dQ and
-dK/dV kernels (``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``).
+(``csrc/contig_decode.cu``), B5 and B6, the flash backward's dQ and
+dK/dV kernels (``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``), or B7,
+the Mamba-2 SSD scan (``csrc/ssd.cu``).
 
     PYTHONPATH=src python -m repro_torch.kernels.compare_kernels \
-        [--kernel paged_decode|flash_fwd|contig_decode|flash_bwd_dq|flash_bwd_dkv] \
+        [--kernel paged_decode|flash_fwd|contig_decode|flash_bwd_dq|flash_bwd_dkv|ssd] \
         --csrc parent=DIR --csrc this=src/repro_torch/csrc
 
 Each DIR holds the kernel's source and the headers it includes (the ``csrc``
@@ -19,7 +20,8 @@ the first variant's within ``OUTPUT_TOL`` (variants whose tiles or
 summation order differ agree only up to bf16 rounding; for B5 and B6, whose
 gradients reach magnitudes where one bf16 step exceeds it, the difference
 is taken over max |first variant's output|, as ``chip_smoke.py`` holds
-them to the plain backward), then the variants
+them to the plain backward; for B7 too, y within ``SSD_Y_TOL`` and the
+final state within ``SSD_STATE_TOL``, ``chip_smoke.py``'s limits), then the variants
 are timed in rounds whose order alternates (A B C, C B A, ...). Each round
 takes three readings of each variant after 5 warm-ups (:func:`median_ms`,
 :func:`host_us`): the median of 30 batches of back-to-back launches timed
@@ -54,7 +56,8 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.flash_decode import decode_chunk, fold_schedule
 
-__all__ = ["SHAPES", "OUTPUT_TOL", "build", "median_ms", "host_us", "main"]
+__all__ = ["SHAPES", "OUTPUT_TOL", "SSD_Y_TOL", "SSD_STATE_TOL", "build", "median_ms", "host_us",
+           "main"]
 
 # Max abs difference between two variants' outputs (bf16 o; float32 lse):
 # the plain-version limit of the kernels' checks (chip_smoke.KERNEL_TOL).
@@ -69,7 +72,11 @@ OUTPUT_TOL = 2e-2
 # S_max, Hq, Hkv, D), a static decode step with per-row lengths 700-731
 # (deepseek-7b's D 128, zamba2's D 80, and D 64 with GQA 4),
 # sawtooth. flash_bwd_dq, flash_bwd_dkv: (B, Sq = Skv, Hq = Hkv, D), the
-# training backward, causal, sawtooth, from B2's lse and B4's delta.
+# training backward, causal, sawtooth, from B2's lse and B4's delta. ssd:
+# (B, S, H, P, N, with an initial state), the SSM paths' second prefill
+# group (mamba2-130m's 24 heads at N 128, zamba2-2.7b's 80 at N 64) from a
+# zero state as ops.ssd starts it, and one long sequence from a random
+# state (informational).
 SHAPES = {
     "paged_decode": {"narrow": (8, 1, 32, 32, 128, 64, 1024),
                      "wide": (8, 256, 32, 32, 128, 64, 1024)},
@@ -80,9 +87,15 @@ SHAPES = {
                       "decode_d64_gqa4": (8, 1024, 32, 8, 64)},
     "flash_bwd_dq": {"train": (4, 1024, 32, 128)},
     "flash_bwd_dkv": {"train": (4, 1024, 32, 128)},
+    "ssd": {"mamba2": (8, 700, 24, 64, 128, False), "zamba2": (8, 700, 80, 64, 64, False),
+            "long_informational": (1, 4096, 24, 64, 128, True)},
 }
 # Kernels whose output difference is read relative to max |output|.
-_RELATIVE = ("flash_bwd_dq", "flash_bwd_dkv")
+_RELATIVE = ("flash_bwd_dq", "flash_bwd_dkv", "ssd")
+# B7's limits (chip_smoke.SSD_Y_TOL, SSD_STATE_TOL), relative to max |output|:
+# y, then the final state.
+SSD_Y_TOL = 1e-2
+SSD_STATE_TOL = 1e-4
 
 
 def build(kernel: str, variants: dict[str, Path]) -> dict:
@@ -258,24 +271,53 @@ def _flash_bwd_case(kernel: str):
     return case
 
 
+def _ssd_case(fns: dict, dims: tuple, gen) -> tuple:
+    """(launch(name), {name: (y, final state)}) of B7 at ``dims``, inputs at
+    the model's scales as ``chip_smoke._ssd_case`` draws them."""
+    b, s, h, p, n, with_state = dims
+    x = _bf16(gen, (b, s, h, p))
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device="cuda") - 3)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    bm, cm = _bf16(gen, (b, s, n)), _bf16(gen, (b, s, n))
+    init = torch.randn((b, h, p, n), generator=gen, device="cuda") if with_state else None
+    outs = {name: (torch.empty_like(x), torch.empty((b, h, p, n), device="cuda"))
+            for name in fns}
+    args = (b, s, h, p, n, torch.cuda.current_stream().cuda_stream)
+
+    def launch(name):
+        y, fin = outs[name]
+        return fns[name](x.data_ptr(), dt.data_ptr(), a.data_ptr(), bm.data_ptr(),
+                         cm.data_ptr(), None if init is None else init.data_ptr(), y.data_ptr(),
+                         fin.data_ptr(), *args)
+
+    return launch, outs
+
+
 _CASES = {"paged_decode": _paged_decode_case, "flash_fwd": _flash_fwd_case,
           "contig_decode": _contig_decode_case,
           "flash_bwd_dq": _flash_bwd_case("flash_bwd_dq"),
-          "flash_bwd_dkv": _flash_bwd_case("flash_bwd_dkv")}
+          "flash_bwd_dkv": _flash_bwd_case("flash_bwd_dkv"),
+          "ssd": _ssd_case}
 
 
-def _diff(kernel: str, got: tuple, first: tuple) -> float:
-    """Max-abs difference of ``got`` from ``first`` over their outputs;
+def _diffs(kernel: str, got: tuple, first: tuple) -> list:
+    """Max-abs difference of each of ``got``'s outputs from ``first``'s;
     relative to max |first| for the kernels of ``_RELATIVE``."""
-    worst = 0.0
+    out = []
     for x, y in zip(got, first):
         if x is None:
             continue
         d = (x.float() - y.float()).abs().max().item()
         if kernel in _RELATIVE:
             d /= max(y.float().abs().max().item(), 1e-30)
-        worst = max(worst, d)
-    return worst
+        out.append(d)
+    return out
+
+
+def _within(kernel: str, diffs: list) -> bool:
+    if kernel == "ssd":
+        return diffs[0] <= SSD_Y_TOL and diffs[1] <= SSD_STATE_TOL
+    return all(d <= OUTPUT_TOL for d in diffs)
 
 
 def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> dict:
@@ -291,7 +333,8 @@ def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> d
     for name in names:
         call(name)
     torch.cuda.synchronize()
-    diff = {name: _diff(kernel, outs[name], outs[names[0]]) for name in names}
+    diffs = {name: _diffs(kernel, outs[name], outs[names[0]]) for name in names}
+    diff = {name: max(d) for name, d in diffs.items()}
     readings = {
         "ms": lambda fn: median_ms(fn),
         "ms_single": lambda fn: median_ms(fn, batched=False),
@@ -304,7 +347,9 @@ def compare(kernel: str, fns: dict, shape: str, rounds: int, seed: int = 0) -> d
                 runs[key][name].append(read(lambda: call(name)))
     rec = {"kernel": kernel, "shape": shape, "dims": dims,
            ("max_rel_diff_vs_" if kernel in _RELATIVE else "max_abs_diff_vs_") + names[0]: diff,
-           "within_tol": all(x <= OUTPUT_TOL for x in diff.values())}
+           "within_tol": all(_within(kernel, d) for d in diffs.values())}
+    if kernel == "ssd":
+        rec["rel_diff_y_state_vs_" + names[0]] = diffs
     for key, by_name in runs.items():
         rec[key + "_median_of_rounds"] = {n: statistics.median(t) for n, t in by_name.items()}
         rec[key + "_rounds"] = by_name

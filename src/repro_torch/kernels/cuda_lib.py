@@ -2,9 +2,10 @@
 
 Each kernel is one source under ``src/repro_torch/csrc/`` with a plain C
 entry point (all include ``csrc/common.cuh``; the flash forward, the
-backward's dQ and dK/dV kernels and, through ``csrc/decode_core.cuh``, the
-two decode kernels also ``csrc/sm90.cuh``: Hopper's TMA, cp.async,
-mbarriers, clusters, wgmma and setmaxnreg in raw PTX). It is compiled by
+backward's dQ and dK/dV kernels, the SSD scan and, through
+``csrc/decode_core.cuh``, the two decode kernels also ``csrc/sm90.cuh``:
+Hopper's TMA, cp.async, mbarriers, clusters, wgmma and setmaxnreg in raw
+PTX). It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``build/repro_torch/``
 (listed in ``.gitignore``), named by a hash of the source, every header of
 ``csrc/`` and the flags, at first use, and loaded with ``ctypes``. Nothing is
@@ -125,6 +126,10 @@ KERNELS = {
         # x, dt, a, b, c, init_state, y, final, B, S, H, P, N, stream
         argtypes=(_P,) * 8 + (_I,) * 5 + (_P,),
         replaces="src/repro/kernels/ssd.py:40",
+        # the same launch recording each CTA's items (+ visit); the
+        # launch's attributes at (B, H, N, out)
+        extra=(("ssd_fwd_bf16_visit", (_P,) * 8 + (_I,) * 5 + (_P, _P)),
+               ("ssd_attr", (_I,) * 3 + (_P,))),
     ),
 }
 

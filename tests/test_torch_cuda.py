@@ -49,7 +49,7 @@ from repro_torch.kernels.flash_decode import (
     paged_decode_walks,
     paged_flash_decode_fwd,
 )
-from repro_torch.kernels.ssd import ssd_fwd
+from repro_torch.kernels.ssd import ssd_fwd, ssd_grid, ssd_kernel_attr, ssd_walks
 from repro_torch.models.ssm import ssd_chunked
 
 
@@ -561,14 +561,18 @@ def _ssd_inputs(gen, bsz, s, h, n, dev, state):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [64, 128])
-@pytest.mark.parametrize("s", [1, 77, 128, 700])
+@pytest.mark.parametrize("s", [1, 77, 128, 129, 700])
 @pytest.mark.parametrize("state", [False, True], ids=["zero", "init"])
-def test_ssd_kernel_matches_plain(cuda, n, s, state):
+@pytest.mark.parametrize("bsz", [2, 24], ids=["B2", "B24"])
+def test_ssd_kernel_matches_plain(cuda, n, s, state, bsz):
     """B7 against ssd_chunked in float32 on the same bf16 inputs: y within
     1e-2 of max |plain| (y is written in bf16), the float32 final state
-    within 1e-3 of max |plain|; one launch; a second run gives equal bits."""
-    gen = torch.Generator(device=cuda).manual_seed(n + s + state)
-    x, dt, a, b, c, init = _ssd_inputs(gen, 2, s, 6, n, cuda, state)
+    within 1e-3 of max |plain|; one launch; a second run gives equal bits.
+    S 129 ends one position past a chunk; B 24 x 6 heads is 144 work items,
+    more than the first round of a 132-SM card's persistent grid. (The B 2
+    cases keep their seed n + s + state; B 24 adds 24.)"""
+    gen = torch.Generator(device=cuda).manual_seed(n + s + state + (0 if bsz == 2 else bsz))
+    x, dt, a, b, c, init = _ssd_inputs(gen, bsz, s, 6, n, cuda, state)
     n0 = cuda_lib.launch_counts["ssd"]
     y, fin = ssd_fwd(x, dt, a, b, c, init_state=init)
     y2, fin2 = ssd_fwd(x, dt, a, b, c, init_state=init)
@@ -580,6 +584,36 @@ def test_ssd_kernel_matches_plain(cuda, n, s, state):
     assert _rel(y, ry) <= 1e-2
     assert _rel(fin, rfin) <= 1e-3
     assert torch.equal(y, y2) and torch.equal(fin, fin2)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_records_its_walk(cuda):
+    """Each CTA of B7's persistent grid records the items it took: equal to
+    the host model ``ssd_walks`` at the kernel's own grid (``ssd_grid``),
+    which takes more than one round here; the outputs equal the unrecorded
+    launch's bits."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    bsz, h = 3, 50  # 150 items: more than one round of 132 SMs
+    x, dt, a, b, c, init = _ssd_inputs(gen, bsz, 300, h, 64, cuda, True)
+    grid = ssd_grid(bsz, h, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    want = ssd_walks(bsz, h, grid)
+    visit = torch.full(tuple(want.shape), -7, dtype=torch.int32, device=cuda)
+    y, fin = ssd_fwd(x, dt, a, b, c, init_state=init, visit_out=visit)
+    y0, fin0 = ssd_fwd(x, dt, a, b, c, init_state=init)
+    torch.cuda.synchronize()
+    assert torch.equal(visit.cpu(), want)
+    assert torch.equal(y, y0) and torch.equal(fin, fin0)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_attr(cuda):
+    """B7's launch attributes: one CTA an SM at most, no spill, the shared
+    memory of its ring."""
+    for n, smem in ((128, 218144), (64, 136224)):
+        attr = ssd_kernel_attr(8, 24, n, cuda)
+        assert attr["local_bytes"] == 0 and attr["cluster_size"] == 1
+        assert attr["dynamic_smem_bytes"] == smem and attr["threads"] == 512
+        assert attr["ctas"] == min(192, torch.cuda.get_device_properties(cuda).multi_processor_count)
 
 
 @pytest.mark.gpu
