@@ -30,11 +30,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    against one, a bitwise repeat, and deliberately wrong variants that must
    fail its limits;
 3. main paths on full-width deepseek-7b (random weights from a seed):
-   served by the continuous ServeEngine, with ``paged_decode`` launches ==
-   layers x mixed steps; then by the static ServeEngine (the default
-   scheduler), with ``flash_fwd`` launches == layers x prefills,
+   served by the continuous ServeEngine, every mixed step a replay of one
+   of its two captured CUDA graphs (width 1 and the chunk width), with
+   ``paged_decode`` launches == layers x mixed steps; then by the static
+   ServeEngine (the default scheduler), every decode step a replay of its
+   one captured graph, with ``flash_fwd`` launches == layers x prefills,
    ``contig_decode`` launches == layers x decode steps and no
-   ``paged_decode`` launch; then, with the serving weights released,
+   ``paged_decode`` launch (a replay counts the launches its capture
+   issued; steps are counted from the engine's spans and stats); each
+   captured step then replayed once against the same step run eagerly on
+   the same inputs and state, logits and every cache or page written equal
+   to the bit; then, with the serving weights released,
    trained for 4 adamw_factored steps (batch 4 x 1024, remat full), with
    ``flash_fwd`` launches == 2 x layers x steps (forward and remat
    recompute) and 120 of each backward kernel, a falling loss, and step 0
@@ -50,7 +56,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    from seed 0, each serving the same 12 requests through the static
    ServeEngine, with ``ssd`` launches == layers x prefills (zamba2 also
    ``flash_fwd`` == 9 x prefills and ``contig_decode`` == 9 x decode
-   steps) and the first prefill's logits held to the plain versions';
+   steps), each decode step a replay of the engine's one graph, held to the
+   eager step to the bit as above, and the first prefill's logits held to
+   the plain versions'; last, a step with an ``.item()`` inside, whose
+   capture must raise;
 4. kernel times at the main paths' shapes (B1: one narrow and one wide
    step; B2: the second prefill group, at head dim 128 and at zamba2's 80,
    and the training shape with lse, each in the sawtooth and the cyclic
@@ -815,7 +824,9 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
     eng = ServeEngine(lm, params, scheduler="continuous", batch_size=8, max_len=1024,
                       page_size=64, device="cuda")
 
-    # Every logit the engine computes is checked for NaN/inf on the device.
+    # Every logit the engine computes is checked for NaN/inf on the device:
+    # the check is part of the step, so it is captured with it and runs at
+    # every replay.
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     inner = eng.lm.decode_step
 
@@ -826,10 +837,14 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
 
     eng.lm = dataclasses.replace(eng.lm, decode_step=checked)
 
-    # Warm-up (cuBLAS handles, allocator); not part of the measured run.
+    # Warm-up (cuBLAS handles, allocator) and the capture of both widths'
+    # graphs (a 300-token prompt takes wide steps, its last token a narrow
+    # one); not part of the measured run.
     rng = np.random.default_rng(99)
     eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
                           max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+    assert eng.compiled_step_count() == 2, eng.step_graphs()
+    replays = {name: g.replays for name, g in eng.step_graphs().items()}
 
     reqs = _main_requests(cfg.vocab)
     eng.tracer.clear()
@@ -840,12 +855,17 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     stats = eng.last_stats
+    graphs = eng.step_graphs()
+    replayed = {name: g.replays - replays[name] for name, g in graphs.items()}
 
     statuses = [r.status for r in results]
     assert all(s == "ok" for s in statuses), statuses
     assert all(r.steps == 32 and len(r.tokens) == 32 for r in results), [r.steps for r in results]
     assert int(bad.item()) == 0, f"{int(bad.item())} non-finite logits"
-    assert eng.compiled_step_count() <= 2, eng.compiled_step_count()
+    # Every mixed step a replay of one of the two graphs captured before.
+    assert eng.compiled_step_count() == 2 and list(graphs) == list(replays), graphs
+    assert sum(replayed.values()) == stats.mixed_steps, (replayed, stats)
+    assert replayed["mixed/1"] == stats.mixed_steps - stats.wide_steps, (replayed, stats)
     assert stats.pages_adopted > 0, stats
     want = cfg.n_layers * stats.mixed_steps
     assert launches["paged_decode"] == want, (launches, want)
@@ -873,11 +893,18 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
         "step_ms_wide_mean": float(np.mean(steps_by_width["wide"])) if steps_by_width["wide"] else None,
         "launches": launches,
         "launches_per_step": launches["paged_decode"] / max(stats.mixed_steps, 1),
+        "graph_replays": replayed,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print("[serve] " + json.dumps(out))
+    out["graphs"] = phase_graphs(eng, "continuous")
+    out["step_idle"] = {
+        key: _step_idle(steps_by_width[key], out["graphs"][name]["replay_ms"])
+        for key, name in zip(("narrow", "wide"), out["graphs"])  # mixed/1, mixed/<chunk>
+    }
+    print("[serve] steps, wall against a replay's device time: " + json.dumps(out["step_idle"]))
     if profile:
-        phase_profile(eng, cfg, "continuous", ("serve.device_step",))
+        out["profile"] = phase_profile(eng, cfg, "continuous", ("serve.device_step",))
     del eng
     torch.cuda.empty_cache()
     return out
@@ -890,26 +917,14 @@ def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(lm, params, scheduler="static", batch_size=8, max_len=1024, device="cuda")
-    bad = torch.zeros((), dtype=torch.int64, device="cuda")
-    calls = {"prefill": 0, "decode": 0}
-
-    def checked(fn, key):
-        def run(*args):
-            logits, caches = fn(*args)
-            bad.add_((~torch.isfinite(logits)).sum())
-            calls[key] += 1
-            return logits, caches
-        return run
-
-    eng.lm = dataclasses.replace(lm, prefill=checked(lm.prefill, "prefill"),
-                                 decode_step=checked(lm.decode_step, "decode"))
+    bad = _check_logits(eng, lm)
     rng = np.random.default_rng(98)
     eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
                           max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+    replays = eng.step_graphs()["decode"].replays
 
     reqs = _main_requests(cfg.vocab)
     eng.tracer.clear()
-    calls.update(prefill=0, decode=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
@@ -918,20 +933,18 @@ def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
+    spans, calls = _step_spans(eng)
+    replayed = eng.step_graphs()["decode"].replays - replays
 
     statuses = [r.status for r in results]
     assert all(s == "ok" for s in statuses), statuses
     assert all(r.steps == 32 and len(r.tokens) == 32 for r in results), [r.steps for r in results]
     assert int(bad.item()) == 0, f"{int(bad.item())} non-finite logits"
     assert calls == {"prefill": 2, "decode": 62}, calls
+    assert eng.compiled_step_count() == 1 and replayed == calls["decode"], (replayed, calls)
     assert launches["flash_fwd"] == cfg.n_layers * calls["prefill"], (launches, calls)
     assert launches["contig_decode"] == cfg.n_layers * calls["decode"], (launches, calls)
     assert launches["paged_decode"] == 0, launches
-
-    spans: dict[str, list] = {"serve.prefill": [], "serve.decode_step": []}
-    for ev in eng.tracer.events():
-        if ev.name in spans:
-            spans[ev.name].append(ev.dur_ns / 1e6)
     tokens = sum(r.steps for r in results)
     out = {
         "requests": len(results),
@@ -944,12 +957,18 @@ def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
         "decode_calls": calls["decode"],
         "prefill_ms_mean": float(np.mean(spans["serve.prefill"])),
         "decode_step_ms_mean": float(np.mean(spans["serve.decode_step"])),
+        "decode_step_ms_range": [min(spans["serve.decode_step"]), max(spans["serve.decode_step"])],
+        "graph_replays": replayed,
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print("[static] " + json.dumps(out))
+    out["graphs"] = phase_graphs(eng, "static")
+    out["step_idle"] = _step_idle(spans["serve.decode_step"], out["graphs"]["decode"]["replay_ms"])
+    print("[static] decode steps, wall against a replay's device time: "
+          + json.dumps(out["step_idle"]))
     if profile:
-        phase_profile(eng, cfg, "static", tuple(spans))
+        out["profile"] = phase_profile(eng, cfg, "static", tuple(spans))
     del eng
     torch.cuda.empty_cache()
     return out
@@ -987,26 +1006,14 @@ def phase_ssm_path(arch: str, profile: bool = False) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
 
     eng = ServeEngine(lm, params, scheduler="static", batch_size=8, max_len=1024, device="cuda")
-    bad = torch.zeros((), dtype=torch.int64, device="cuda")
-    calls = {"prefill": 0, "decode": 0}
-
-    def checked(fn, key):
-        def run(*args):
-            logits, caches = fn(*args)
-            bad.add_((~torch.isfinite(logits)).sum())
-            calls[key] += 1
-            return logits, caches
-        return run
-
-    eng.lm = dataclasses.replace(lm, prefill=checked(lm.prefill, "prefill"),
-                                 decode_step=checked(lm.decode_step, "decode"))
+    bad = _check_logits(eng, lm)
     rng = np.random.default_rng(97)
     eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
                           max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+    replays = eng.step_graphs()["decode"].replays
 
     reqs = _main_requests(cfg.vocab)
     eng.tracer.clear()
-    calls.update(prefill=0, decode=0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
@@ -1015,12 +1022,15 @@ def phase_ssm_path(arch: str, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
+    spans, calls = _step_spans(eng)
+    replayed = eng.step_graphs()["decode"].replays - replays
 
     statuses = [r.status for r in results]
     assert all(s == "ok" for s in statuses), statuses
     assert all(r.steps == 32 and len(r.tokens) == 32 for r in results), [r.steps for r in results]
     assert int(bad.item()) == 0, f"{int(bad.item())} non-finite logits"
     assert calls == {"prefill": 2, "decode": 62}, calls
+    assert eng.compiled_step_count() == 1 and replayed == calls["decode"], (replayed, calls)
     want = {name: 0 for name in launches}
     want["ssd"] = cfg.n_layers * calls["prefill"]
     if hybrid:
@@ -1053,10 +1063,6 @@ def phase_ssm_path(arch: str, profile: bool = False) -> dict:
     f32_err = {"kernels": _rel_err(got, exact), "plain": _rel_err(ref, exact)}
     del exact_lm, exact
 
-    spans: dict[str, list] = {"serve.prefill": [], "serve.decode_step": []}
-    for ev in eng.tracer.events():
-        if ev.name in spans:
-            spans[ev.name].append(ev.dur_ns / 1e6)
     tokens = sum(r.steps for r in results)
     out = {
         "arch": cfg.name,
@@ -1071,6 +1077,8 @@ def phase_ssm_path(arch: str, profile: bool = False) -> dict:
         "buckets": [int(first.shape[1])],
         "prefill_ms_mean": float(np.mean(spans["serve.prefill"])),
         "decode_step_ms_mean": float(np.mean(spans["serve.decode_step"])),
+        "decode_step_ms_range": [min(spans["serve.decode_step"]), max(spans["serve.decode_step"])],
+        "graph_replays": replayed,
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "params_b": n_params / 1e9,
@@ -1091,11 +1099,97 @@ def phase_ssm_path(arch: str, profile: bool = False) -> dict:
         if controls[name] <= SSM_LOGITS_TOL:
             raise AssertionError(f"{arch}: the logits check cannot tell the wrong B7 {name} "
                                  f"from the kernel: {controls}")
+    out["graphs"] = phase_graphs(eng, label)
+    out["step_idle"] = _step_idle(spans["serve.decode_step"], out["graphs"]["decode"]["replay_ms"])
+    print(f"[{label}] decode steps, wall against a replay's device time: "
+          + json.dumps(out["step_idle"]))
     if profile:
         out["profile"] = phase_profile(eng, cfg, label, tuple(spans))
     del eng, lm, plain_lm, params
     torch.cuda.empty_cache()
     return out
+
+
+def _check_logits(eng, lm):
+    """A device counter of non-finite logits, added to by the engine's
+    prefill and by its decode step (captured with the step, so counted at
+    every replay)."""
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+
+    def checked(fn):
+        def run(*args):
+            logits, caches = fn(*args)
+            bad.add_((~torch.isfinite(logits)).sum())
+            return logits, caches
+        return run
+
+    eng.lm = dataclasses.replace(lm, prefill=checked(lm.prefill),
+                                 decode_step=checked(lm.decode_step))
+    return bad
+
+
+def _step_spans(eng) -> tuple[dict, dict]:
+    """The static engine's step spans in ms, and how many of each."""
+    spans: dict[str, list] = {"serve.prefill": [], "serve.decode_step": []}
+    for ev in eng.tracer.events():
+        if ev.name in spans:
+            spans[ev.name].append(ev.dur_ns / 1e6)
+    return spans, {"prefill": len(spans["serve.prefill"]),
+                   "decode": len(spans["serve.decode_step"])}
+
+
+def phase_graphs(eng, label: str) -> dict:
+    """Each of ``eng``'s captured steps replayed once against the same step
+    run eagerly on the same inputs (the last step the run staged at that
+    width) and the same state (restored from a snapshot): the logits, the
+    greedy tokens and every cache or pool page the step writes must be
+    equal to the bit."""
+    out = {}
+    for name, g in eng.step_graphs().items():
+        assert g.graph is not None, f"{label} {name} was not captured"
+        diffs = g.replay_against_eager()
+        torch.cuda.synchronize()
+        unequal = {k: v["max_abs_diff"] for k, v in diffs.items() if not v["equal"]}
+        if unequal:
+            raise AssertionError(f"{label} {name}: replay differs from the eager step: {unequal}")
+        # The step's device time: one replay between two CUDA events (the
+        # host's part, one graph launch, is microseconds). The replays run
+        # on from the state the run left; nothing reads it after.
+        replay_ms = _median_ms(g, warmup=1, reps=5, batched=False)
+        out[name] = {"launches_per_replay": g.launches, "compared": len(diffs),
+                     "unequal": unequal, "replay_ms": replay_ms}
+        print(f"[graph] {label} {name}: replay against eager on {len(diffs)} tensors "
+              f"(outputs and state): equal to the bit; launches a replay "
+              f"{json.dumps(g.launches)}; device time of a replay {replay_ms:.3f} ms")
+    return out
+
+
+def _step_idle(walls: list, replay_ms: float) -> dict:
+    """A step's mean wall (its span) against its graph's device time: the
+    share of the step the card idles while the host plans, stages and
+    samples."""
+    mean = float(np.mean(walls))
+    return {"step_ms_mean": mean, "replay_ms": replay_ms, "idle_share": 1.0 - replay_ms / mean}
+
+
+def phase_unsafe_capture() -> str:
+    """A step that reads a value on the host (an ``.item()`` inside it)
+    must make its capture raise, naming the step; the card works after."""
+    from repro_torch.serve.step_graph import StepCaptureError, StepGraph
+
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    step = StepGraph("host-read step", lambda n: (x * n.sum().item(),), {"n": (2,)},
+                     device="cuda")
+    try:
+        step.capture()
+    except StepCaptureError as err:
+        msg = str(err)
+    else:
+        raise AssertionError("the capture of a step with an .item() inside did not raise")
+    assert "host-read step" in msg and step.graph is None, msg
+    assert float((x + 1).sum()) == 10.0
+    print(f"[graph] a step with an .item() inside: capture raised: {msg[:300]}")
+    return msg
 
 
 def _kernel_kind(name: str) -> str:
@@ -1121,13 +1215,20 @@ def _profile(run, label: str, steps: int) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us = _busy_us(spans)
+    # From the first graph replay on (the static paths' eager prefill
+    # before it): the device's idle share over the replayed steps.
+    replays = [e.time_range.start for e in events if e.name.startswith("cudaGraphLaunch")]
+    replayed = None
+    if replays and spans:
+        t0_us, t1_us = min(replays), max(b for _, b in spans)
+        busy_in = _busy_us([(max(a, t0_us), b) for a, b in spans if b > t0_us])
+        replayed = {"window_s": (t1_us - t0_us) / 1e6, "device_busy_s": busy_in / 1e6,
+                    "device_idle_share": 1.0 - busy_in / max(t1_us - t0_us, 1e-9),
+                    "graph_launches": len(replays)}
     by_kind: dict[str, list] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -1141,6 +1242,7 @@ def _profile(run, label: str, steps: int) -> dict:
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "from_first_replay": replayed,
         "steps": steps,
         "kernels": len(kernels),
         "kernels_per_step": len(kernels) / max(steps, 1),
@@ -1152,6 +1254,16 @@ def _profile(run, label: str, steps: int) -> dict:
     return out
 
 
+def _busy_us(spans) -> float:
+    """Length of the union of sorted (start, end) intervals."""
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def phase_profile(eng, cfg, label: str, step_spans: tuple) -> dict:
     """Half of the main path's requests (16 new tokens each, to keep the
     trace small) under torch.profiler; a step is one span named in
@@ -1161,7 +1273,11 @@ def phase_profile(eng, cfg, label: str, step_spans: tuple) -> dict:
     prof = _profile(lambda: eng.generate(reqs), label, 0)
     steps = sum(ev.name in step_spans for ev in eng.tracer.events())
     prof.update(steps=steps, kernels_per_step=prof["kernels"] / max(steps, 1))
-    print(f"[profile] {label}: {steps} steps, {prof['kernels_per_step']:.0f} kernels a step")
+    rep = prof["from_first_replay"]
+    print(f"[profile] {label}: {steps} steps, {prof['kernels_per_step']:.0f} kernels a step; "
+          f"device idle {prof['device_idle_share']:.3f} of the run, "
+          + (f"{rep['device_idle_share']:.3f} from the first graph replay on" if rep
+             else "no graph replay seen"))
     return prof
 
 
@@ -2170,6 +2286,7 @@ def main(argv=None) -> int:
     small_train = phase_small_train()
     mamba = phase_ssm_path("mamba2-130m", profile=args.profile)
     zamba = phase_ssm_path("zamba2-2_7b", profile=args.profile)
+    phase_unsafe_capture()
     times = phase_kernel_times(dev_info, main_path)
     static_times = phase_static_kernel_times(dev_info)
     d80_times = phase_static_kernel_times(dev_info, d=80)

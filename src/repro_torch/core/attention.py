@@ -312,6 +312,7 @@ def decode_attention(
     order: Order | str = Order.CYCLIC,
     snake_group: Optional[int] = None,
     order_group=None,
+    fold=None,
 ) -> torch.Tensor:
     """Single-position decode attention against a contiguous cache.
 
@@ -327,9 +328,10 @@ def decode_attention(
         return paged_decode_attention(
             q, k_cache, v_cache, cache_len, block_table, q_lens=q_lens, window=window,
             scale=scale, order=order, snake_group=snake_group, order_group=order_group,
+            fold=fold,
         )
-    if q_lens is not None or order_group is not None:
-        raise ValueError("q_lens and order_group require the paged layout (block_table)")
+    if q_lens is not None or order_group is not None or fold is not None:
+        raise ValueError("q_lens, order_group and fold require the paged layout (block_table)")
     b, one, hq, d = q.shape
     if one != 1:
         raise ValueError(f"contiguous decode takes a single query position, got {one}")
@@ -372,6 +374,7 @@ def paged_decode_attention(
     order: Order | str = Order.CYCLIC,
     snake_group: Optional[int] = None,
     order_group=None,
+    fold=None,
 ) -> torch.Tensor:
     """Ragged attention of q (B, C, Hq, D) over a paged KV pool.
 
@@ -381,8 +384,10 @@ def paged_decode_attention(
     positions at or before its own (and after ``pos - window`` with a
     window). Pages are walked in visit order: ``order_group`` (the effective
     reversal group) when given, else ``order``/``snake_group``; the parity
-    driver is ``cache_len``. Rows with nothing to attend to (q_len 0, len 0)
-    come back as exact zeros.
+    driver is ``cache_len``; ``fold``, the walk already folded for these
+    lengths as (phys, logical) page ids in visit order, replaces that
+    choice. Rows with nothing to attend to (q_len 0, len 0) come back as
+    exact zeros.
     """
     b, c, hq, d = q.shape
     _, page, hkv, _ = k_pool.shape
@@ -395,11 +400,14 @@ def paged_decode_attention(
     q_pos = (lens - qls)[:, None] + tq                       # (B, C)
     q_valid = tq < qls[:, None]
 
-    if order_group is not None:
-        visit = page_visit_order_dynamic(lens, n_blocks, order_group)
+    if fold is not None:
+        phys, visit = (t.long() for t in fold)
     else:
-        visit = page_visit_order(order, lens, n_blocks, snake_group=snake_group)
-    phys = torch.gather(block_table.to(device=dev, dtype=torch.int64), 1, visit.long())
+        if order_group is not None:
+            visit = page_visit_order_dynamic(lens, n_blocks, order_group)
+        else:
+            visit = page_visit_order(order, lens, n_blocks, snake_group=snake_group)
+        phys = torch.gather(block_table.to(device=dev, dtype=torch.int64), 1, visit.long())
 
     qf = q.float().reshape(b, c, hkv, g, d).permute(0, 2, 3, 1, 4) * scale_
     offs = torch.arange(page, dtype=torch.int32, device=dev)[None, :]

@@ -14,11 +14,15 @@ module on machines without ``nvcc``.
 
 ``launch_counts`` holds one integer per kernel. A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernel.
+went through the kernel. A CUDA graph capture calls the wrappers without
+running their kernels: it takes what it issued back out of the counts
+(``recording``) and adds it again at each replay (``add_launches``), so the
+counts stay the launches the card ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -36,6 +40,8 @@ __all__ = [
     "load",
     "launch_counts",
     "reset_launch_counts",
+    "recording",
+    "add_launches",
 ]
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -143,6 +149,27 @@ _loaded: dict[str, ctypes.CDLL] = {}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a dict that receives, when the block ends, the launches each
+    wrapper issued inside it; those are taken back out of
+    ``launch_counts`` (a graph capture issues launches the card does not
+    run until a replay)."""
+    before = dict(launch_counts)
+    issued: dict[str, int] = {}
+    try:
+        yield issued
+    finally:
+        issued.update({name: launch_counts[name] - n for name, n in before.items()})
+        launch_counts.update(before)
+
+
+def add_launches(counts: dict) -> None:
+    """Count ``counts`` (kernel -> launches) as run: a replay's launches."""
+    for name, n in counts.items():
+        launch_counts[name] += n
 
 
 def _nvcc() -> str:

@@ -270,6 +270,7 @@ def flash_decode_fwd(
     block_table: Optional[torch.Tensor] = None,
     q_lens=None,
     order_group=None,
+    fold=None,
 ) -> torch.Tensor:
     """Decode attention. Contiguous: q (B, 1, Hq, D), caches (B, S_max,
     Hkv, D), ``cache_len`` scalar or (B,). With ``block_table`` (B,
@@ -279,9 +280,10 @@ def flash_decode_fwd(
         return paged_flash_decode_fwd(
             q, k_cache, v_cache, cache_len, block_table, q_lens=q_lens, order=order,
             window=window, scale=scale, snake_group=snake_group, order_group=order_group,
+            fold=fold,
         )
-    if q_lens is not None or order_group is not None:
-        raise ValueError("q_lens and order_group require the paged layout (block_table)")
+    if q_lens is not None or order_group is not None or fold is not None:
+        raise ValueError("q_lens, order_group and fold require the paged layout (block_table)")
     return _flash_decode_contiguous(
         q, k_cache, v_cache, cache_len, order=Order.parse(order), window=window,
         scale=scale, chunk=chunk, snake_group=snake_group,
@@ -294,14 +296,12 @@ def _flash_decode_contiguous(q, k_cache, v_cache, cache_len, *, order, window, s
         return decode_attention(q, k_cache, v_cache, cache_len, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_fwd: unsupported device {q.device}")
-    b = q.shape[0]
-    if isinstance(cache_len, int):  # the static path's shared length: no host copy
-        lens = torch.full((b,), cache_len, dtype=torch.int32, device=q.device)
-    else:
-        lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(b).contiguous()
+    # A tensor length (the static path's 0-d ``len``) stays on the device:
+    # a captured step reads it at each replay.
+    lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(q.shape[0])
     return launch_contig_decode(
-        q, k_cache, v_cache, lens, order=order, window=window, scale=scale, chunk=chunk,
-        snake_group=snake_group,
+        q, k_cache, v_cache, lens.contiguous(), order=order, window=window, scale=scale,
+        chunk=chunk, snake_group=snake_group,
     )
 
 
@@ -387,14 +387,18 @@ def paged_flash_decode_fwd(
     scale: Optional[float] = None,
     snake_group: Optional[int] = None,
     order_group=None,
+    fold=None,
 ) -> torch.Tensor:
     """Ragged paged attention: q (B, C, Hq, D); pools (n_pages, page, Hkv, D);
-    block_table (B, n_blocks); cache_len and q_lens (B,). See
+    block_table (B, n_blocks); cache_len and q_lens (B,). ``fold``, the
+    (phys, logical) pair of :func:`fold_schedule` for these lengths, skips
+    the fold (a step folds once for all its layers). See
     :func:`paged_decode_attention` for the semantics."""
     if q.device.type == "cpu":
         return paged_decode_attention(
             q, k_pool, v_pool, cache_len, block_table, q_lens=q_lens, window=window,
             scale=scale, order=order, snake_group=snake_group, order_group=order_group,
+            fold=fold,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode_fwd: unsupported device {q.device}")
@@ -404,7 +408,7 @@ def paged_flash_decode_fwd(
     if b == 0 or c == 0 or block_table.shape[1] == 0:
         return torch.zeros_like(q)
     lens, qls = row_meta(b, c, cache_len, q_lens, q.device)
-    phys, visit = fold_schedule(
+    phys, visit = fold if fold is not None else fold_schedule(
         lens, block_table, order=order, snake_group=snake_group, order_group=order_group
     )
     return launch_paged_decode(q, k_pool, v_pool, phys, visit, lens, qls, window=window, scale=scale)

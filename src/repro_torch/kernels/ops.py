@@ -156,18 +156,20 @@ def attention_decode(
     q_lens=None,
     snake_group: Optional[int] = None,
     order_group=None,
+    fold=None,
 ) -> torch.Tensor:
     """Decode attention vs a KV cache. Contiguous (no ``block_table``): q
     (B, 1, Hq, D) against caches (B, S_max, Hkv, D) with valid length
     ``cache_len``. Paged: ragged q (B, C, Hq, D) against pools (n_pages,
     page, Hkv, D) through ``block_table`` (B, n_blocks), pages visited in
-    schedule order (``order_group`` overrides ``order``). ``reference``
+    schedule order (``order_group`` overrides ``order``; ``fold``, the
+    walk folded once for a step, overrides both). ``reference``
     computes what ``torch`` does (the reference's decode oracle is the
     same function)."""
     impl = _resolve(impl, q, "decode")
     kw = dict(
         window=window, scale=scale, block_table=block_table, q_lens=q_lens, order=order,
-        snake_group=snake_group, order_group=order_group,
+        snake_group=snake_group, order_group=order_group, fold=fold,
     )
     if impl == "cuda":
         return flash_decode_fwd(q, k_cache, v_cache, cache_len, **kw)

@@ -94,12 +94,13 @@ def hybrid_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: tor
 
 def hybrid_init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cpu") -> dict:
     """Zero caches: ``mamba`` states (groups, every, B, ...), the sites'
-    contiguous KV caches ``attn`` (groups, B, S, Hkv, hd) and ``len`` 0."""
+    contiguous KV caches ``attn`` (groups, B, S, Hkv, hd) and ``len`` 0 (a
+    0-d int32 tensor)."""
     g, e = n_groups(cfg), cfg.ssm.shared_attn_every
     return {
         "mamba": ssm.mamba_init_state(cfg, batch, device=device, lead=(g, e)),
         "attn": T.init_cache(cfg, batch, max_len, device=device, n_layers=g),
-        "len": 0,
+        "len": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
@@ -131,7 +132,7 @@ def hybrid_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: t
         h = h + (z + f - zin)
         filled = T.fill_cache(cfg, T._layer_cache(caches["attn"], gi), k, v)
     caches["attn"]["len"] = filled["len"]
-    caches["len"] = x.shape[1]
+    caches["len"] = filled["len"]
     return h, caches
 
 
@@ -141,6 +142,7 @@ def hybrid_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, caches: dict)
     shared = params["shared"]
     h0 = x
     pos = caches["len"]
+    attn = T.decode_view(cfg, dict(caches["attn"], len=pos), x.shape[0], 1)  # shared by the sites
     h = x
     for gi, gp in enumerate(params["mamba"]):
         for ei, lp in enumerate(gp):
@@ -150,7 +152,7 @@ def hybrid_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, caches: dict)
         zin = _proj_in(shared, cfg, h, h0)
         a, lc = T.attn_decode(shared["attn"], cfg,
                               L.rmsnorm(shared["ln_attn"], zin, cfg.norm_eps),
-                              dict(T._layer_cache(caches["attn"], gi), len=pos))
+                              T._layer_cache(attn, gi))
         z = zin + a
         f = T.ffn_apply(shared["ffn"], cfg, L.rmsnorm(shared["ln_ffn"], z, cfg.norm_eps))
         h = h + (z + f - zin)

@@ -18,8 +18,10 @@ path: ``prefill`` returns ``{"mamba": {"conv", "ssd"}, "len"}`` with the
 states of all layers stacked on a leading axis (hybrid: ``(groups, every)``,
 plus the shared block's contiguous KV caches ``attn``, one per application
 site), and ``decode_step`` is the exact recurrent step, writing the states
-in place. Their ``loss`` is the reference's; training them on the card is a
-later slice. MoE, enc-dec and VLM are later slices too.
+in place. Every ``len`` is a 0-d int32 tensor on the device, so no decode
+step reads a host value (the serve engine captures it as a CUDA graph).
+Their ``loss`` is the reference's; training them on the card is a later
+slice. MoE, enc-dec and VLM are later slices too.
 """
 
 from __future__ import annotations
@@ -205,7 +207,8 @@ def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
                 h = h + out
                 for name, t in states.items():
                     t[i].copy_(st[name])
-            caches = {"mamba": states, "len": s}
+            caches = {"mamba": states,
+                      "len": torch.full((), s, dtype=torch.int32, device=x.device)}
         h = L.rmsnorm(params["ln_f"], h[:, -1:], cfg.norm_eps)
         return _logits(params, cfg, h), caches
 

@@ -12,8 +12,10 @@ its scan):
 
   * contiguous: ``k``/``v`` (L, B, S, Hkv, hd) with ``S = max_len``, or
     ``min(max_len, window)`` as a ring buffer for sliding-window configs,
-    and one ``len`` (a Python int) shared by the batch and the layers (the
-    reference keeps the same scalar per layer);
+    and one ``len``, a 0-d int32 tensor on the caches' device, shared by
+    the batch and the layers (the reference keeps the same scalar per
+    layer). Decode reads and writes it on the device only, so a decode
+    step holds no host value and can be captured as a CUDA graph;
   * paged: ``k_pages``/``v_pages`` (L, n_pages, page, Hkv, hd), one
     ``block_table`` and per-row ``len`` (B,). Invalid chunk rows (``t >=
     q_len``) are routed to the reserved dummy page 0, which no sequence owns
@@ -33,6 +35,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import fold_schedule
 from repro_torch.models import layers as L
 
 __all__ = [
@@ -50,6 +53,7 @@ __all__ = [
     "page_geometry",
     "init_cache",
     "fill_cache",
+    "decode_view",
 ]
 
 
@@ -134,13 +138,17 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     the ``block_table`` (B, n_blocks), ``len`` (B,) tokens already cached,
     and optionally ``q_len`` (B,) valid chunk rows and ``order_group``): x
     (B, C, d) is a ragged chunk, ``len`` advances by ``q_len``.
-    Contiguous (``k``/``v`` (B, S, Hkv, hd), ``len`` an int): x (B, 1, d),
-    one token at position ``len`` for every row, ``len`` advances by one.
+    Contiguous (``k``/``v`` (B, S, Hkv, hd), ``len`` a 0-d int32 tensor): x
+    (B, 1, d), one token at position ``len`` for every row, ``len``
+    advances by one. The indices every layer of a step shares come from
+    :func:`decode_view` (made here when ``cache`` lacks them).
     Returns (out (B, C, d), cache).
     """
     dt = cfg.activation_dtype()
     b = x.shape[0]
     hd = cfg.hd
+    if "valid" not in cache:
+        cache = decode_view(cfg, cache, b, x.shape[1])
     q = L.dense(p["wq"], x, dtype=dt).reshape(b, -1, cfg.n_heads, hd)
     k = L.dense(p["wk"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
     v = L.dense(p["wv"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
@@ -156,25 +164,22 @@ def _attn_decode_contiguous(cfg: ModelConfig, cache: dict, q, k, v):
     b, one = q.shape[:2]
     if one != 1:
         raise ValueError(f"contiguous decode takes a single query position, got {one}")
-    pos = int(cache["len"])
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=q.device)
+    pos = cache["len"]
+    positions = pos.reshape(1, 1).expand(b, 1)
     q = L.rope(q, positions, theta=cfg.rope_theta)
     k = L.rope(k, positions, theta=cfg.rope_theta)
-    s_max = cache["k"].shape[1]
-    write = pos % s_max if cfg.window is not None else pos  # SWA ring buffer
-    _cache_write(cfg, cache, "k", k, write)
-    _cache_write(cfg, cache, "v", v, write)
-    cache = dict(cache, len=pos + 1)
+    _cache_write(cfg, cache, "k", k, cache["write_row"])
+    _cache_write(cfg, cache, "v", v, cache["write_row"])
     o = ops.attention_decode(
         q,
         cache["k"],
         cache["v"],
-        min(pos + 1, s_max),
+        cache["valid"],
         order=cfg.attn_order,
         snake_group=cfg.snake_group,
         impl=cfg.attn_impl,
     )
-    return o, cache
+    return o, dict(cache, len=pos + 1)
 
 
 def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
@@ -201,36 +206,56 @@ def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
 
 
 def _attn_decode_paged(cfg: ModelConfig, cache: dict, q, k, v):
-    b, c = q.shape[:2]
-    lens = cache["len"]
-    bt = cache["block_table"]
-    page = cache["k_pages"].shape[1]
-    capacity = bt.shape[1] * page
-    q_lens = cache.get("q_len")
-    if q_lens is None:
-        q_lens = torch.full((b,), c, dtype=torch.int32, device=q.device)
-
+    c = q.shape[1]
+    lens, q_lens = cache["len"], cache["q_len"]
     positions = lens[:, None] + torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
     q = L.rope(q, positions, theta=cfg.rope_theta)
     k = L.rope(k, positions, theta=cfg.rope_theta)
 
     cache = _paged_write(cfg, dict(cache), k, v, lens, q_lens)
     cache["len"] = lens + q_lens
-    # The parity driver of the page walk is the length after this write.
-    valid = torch.clamp(lens + q_lens, max=capacity)
     o = ops.attention_decode(
         q,
         cache["k_pages"],
         cache["v_pages"],
-        valid,
+        cache["valid"],
         order=cfg.attn_order,
         snake_group=cfg.snake_group,
         impl=cfg.attn_impl,
-        block_table=bt,
+        block_table=cache["block_table"],
         q_lens=q_lens,
-        order_group=cache.get("order_group"),
+        fold=cache["fold"],
     )
     return o, cache
+
+
+def decode_view(cfg: ModelConfig, caches: dict, b: int, c: int) -> dict:
+    """``caches`` plus what every layer of one decode step shares, made
+    once for the step, on the device (nothing is read by the host, so the
+    step can be captured as a CUDA graph). Paged: ``q_len`` (all C when
+    absent), ``valid`` (B,) the lengths after the step's writes clamped to
+    the capacity (the parity driver of the page walk), and ``fold``, the
+    (B, n_blocks) int32 physical and logical page ids in each row's visit
+    order (``order_group`` when given, else the config's order), which the
+    kernel takes as they are. Contiguous: ``write_row`` (1,) the cache row
+    the token goes to (a ring buffer's ``len % S`` with a window; clamped
+    into the cache, as the reference's ``dynamic_update_slice`` clamps) and
+    ``valid`` (B,) the positions attended, ``min(len + 1, S)``."""
+    pos = caches["len"]
+    if "k_pages" in caches:
+        q_lens = caches.get("q_len")
+        if q_lens is None:
+            q_lens = torch.full((b,), c, dtype=torch.int32, device=pos.device)
+        bt = caches["block_table"]
+        valid = torch.clamp(pos + q_lens, max=bt.shape[1] * caches["k_pages"].shape[-3])
+        fold = fold_schedule(valid, bt, order=cfg.attn_order, snake_group=cfg.snake_group,
+                             order_group=caches.get("order_group"))
+        return dict(caches, q_len=q_lens, valid=valid, fold=fold)
+    s_max = caches["k"].shape[-3]
+    write = pos % s_max if cfg.window is not None else pos  # SWA ring buffer
+    row = torch.clamp(write, 0, s_max - 1).reshape(1).long()
+    valid = torch.clamp(pos + 1, max=s_max).expand(b).contiguous()
+    return dict(caches, write_row=row, valid=valid)
 
 
 def page_geometry(cfg: ModelConfig, max_len: int) -> tuple[int, int]:
@@ -249,9 +274,9 @@ def init_cache(
 
     Contiguous (``cfg.kv_layout == "contiguous"``): ``k``/``v`` (B, S, Hkv,
     hd) with ``S = max_len``, or ``min(max_len, window)`` (a ring buffer)
-    for sliding-window configs, and ``len`` 0. Paged: pages (batch *
-    n_blocks, page, Hkv, hd), an identity ``block_table`` and zero ``len``
-    (B,). With ``n_layers`` the tensors gain a leading layer axis (one
+    for sliding-window configs, and ``len`` 0 (a 0-d int32 tensor). Paged:
+    pages (batch * n_blocks, page, Hkv, hd), an identity ``block_table`` and
+    zero ``len`` (B,). With ``n_layers`` the tensors gain a leading layer axis (one
     allocation for the whole stack); the other entries are shared.
     """
     _int8_not_ported(cfg)
@@ -276,31 +301,28 @@ def init_cache(
     size = min(max_len, cfg.window) if cfg.window is not None else max_len
     shape = lead + (batch, size, cfg.n_kv_heads, cfg.hd)
     return {
-        "len": 0,
+        "len": torch.zeros((), dtype=torch.int32, device=device),
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
 
 
-def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, pos: int) -> None:
-    """Write ``val`` (B, s, H, D) at sequence offset ``pos``, in place. The
-    start is clamped so the slice fits, as ``dynamic_update_slice`` clamps
-    it in the reference. (Without int8 caches, which raise here, the
+def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, rows) -> None:
+    """Write ``val`` (B, s, H, D) at the cache rows ``rows`` (s,) int64, a
+    device tensor, in place. (Without int8 caches, which raise here, the
     reference's ``_cache_read`` is the identity.)"""
     _int8_not_ported(cfg)
     buf = cache[name]
-    s = val.shape[1]
-    start = min(max(int(pos), 0), buf.shape[1] - s)
-    buf[:, start : start + s] = val.to(buf.dtype)
+    buf.index_copy_(1, rows, val.to(buf.dtype))
 
 
 def fill_cache(cfg: ModelConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
     """Write prefill K/V (B, s, Hkv, hd) into a fresh cache, in place, and
-    return it with ``len = s``. A contiguous cache keeps the last ``S``
-    positions when ``s >= S``; a sliding-window ring buffer then rolls them
-    by ``s % S`` so position p sits at index ``p % S``, where decode writes
-    it. A paged cache must have the identity block table of
-    :func:`init_cache`."""
+    return it with ``len = s`` (a 0-d int32 tensor). A contiguous cache
+    keeps the last ``S`` positions when ``s >= S``; a sliding-window ring
+    buffer then rolls them by ``s % S`` so position p sits at index ``p %
+    S``, where decode writes it. A paged cache must have the identity block
+    table of :func:`init_cache`."""
     if "k_pages" in cache:
         return _fill_cache_paged(cfg, cache, k, v)
     s = k.shape[1]
@@ -312,9 +334,10 @@ def fill_cache(cfg: ModelConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) 
             if shift:
                 k = torch.roll(k, shift, dims=1)
                 v = torch.roll(v, shift, dims=1)
-    _cache_write(cfg, cache, "k", k, 0)
-    _cache_write(cfg, cache, "v", v, 0)
-    return dict(cache, len=s)
+    rows = torch.arange(k.shape[1], device=k.device)
+    _cache_write(cfg, cache, "k", k, rows)
+    _cache_write(cfg, cache, "v", v, rows)
+    return dict(cache, len=torch.full((), s, dtype=torch.int32, device=k.device))
 
 
 def _fill_cache_paged(cfg: ModelConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -440,12 +463,15 @@ def stack_decode(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, caches: 
     n_pages, page, Hkv, hd) and the per-step ``block_table``, ``len``,
     ``q_len`` and ``order_group`` shared by all layers; ``len`` advances by
     ``q_len``. Contiguous: ``k``/``v`` (L, B, S, Hkv, hd) and the shared
-    ``len``, which advances by one."""
+    ``len`` (0-d), which advances by one. What the layers share (the page
+    walk folded once for the step, the write row) comes from one
+    :func:`decode_view`."""
     h = x
+    step = decode_view(cfg, caches, *x.shape[:2])
     out = caches
     for i, lp in enumerate(layers):
         a, lc = attn_decode(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps),
-                            _layer_cache(caches, i))
+                            _layer_cache(step, i))
         h = h + a
         h = h + ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
         out = dict(caches, len=lc["len"])

@@ -20,13 +20,27 @@ tokens are on the host, so they bracket the device time of the step.
 ``scheduler="continuous"``: each iteration plans one ragged **mixed step**
 (``serve.scheduler``): every
 decoding slot contributes a q_len=1 row and the rest of the token budget
-goes to prompts as prefill chunks. The step runs eagerly through
-``LM.decode_step`` over the pool (``serve.kv_pool``), whose pages are
-written in place and walked in the paper's traversal order; the effective
-reversal group comes from ``resolve_order_group(cfg.attn_order,
-cfg.snake_group, blocks_per_seq)``. A step has one of two widths: 1 when
-every row decodes, ``prefill_chunk`` otherwise. Identical prompt prefixes
-share pages (adoption + copy-on-write).
+goes to prompts as prefill chunks. The step runs ``LM.decode_step`` over
+the pool (``serve.kv_pool``), whose pages are written in place and walked
+in the paper's traversal order; the effective reversal group comes from
+``resolve_order_group(cfg.attn_order, cfg.snake_group, blocks_per_seq)``.
+A step has one of two widths: 1 when every row decodes, ``prefill_chunk``
+otherwise. Identical prompt prefixes share pages (adoption +
+copy-on-write).
+
+Steps as captured graphs (``serve.step_graph``), the counterpart of the
+reference's jitted steps: on the card the continuous mixed step is one
+CUDA graph per width (two at most, sharing one memory pool) and the static
+decode step one graph per engine, each captured at its first use and
+replayed for every step after; tokens, block table, lengths, q_lens and
+the reversal group reach it through static buffers, and greedy argmax runs
+inside it. The engine owns what a graph's pointers bake in: the pool's
+pages (its host state is reset at each ``generate()``) and the static
+decode caches of ``max_len``, into which each group's prefill result is
+copied. The static prefill stays eager: its shape changes with each
+group's bucket. On the CPU the same step functions run eagerly over the
+same buffers. A failed capture or replay raises; nothing falls back to
+eager.
 
 Sampling is per row in both paths: greedy at temperature 0 (argmax in the
 logits' dtype, first maximum on ties, as the reference), otherwise a
@@ -60,6 +74,7 @@ from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve.kv_pool import PagedKVPool, assemble_cache_view
 from repro_torch.serve.scheduler import ContinuousScheduler
+from repro_torch.serve.step_graph import StepGraph
 
 __all__ = [
     "Request",
@@ -279,7 +294,12 @@ class ServeEngine:
         self.batch_size = batch_size
         self.max_len = max_len
         self.seed = int(seed)
-        self._step_widths: set[int] = set()
+        # What outlives a generate() call, as the reference's jit cache
+        # does: the captured steps and the buffers their pointers bake in.
+        self._mixed: dict[int, StepGraph] = {}     # continuous, by width
+        self._decode: Optional[StepGraph] = None   # static decode step
+        self._decode_caches: Optional[dict] = None
+        self._graph_pool = None
         self.last_pool: Optional[PagedKVPool] = None
 
         # ---- telemetry (same series names as the reference engine) ----
@@ -328,9 +348,28 @@ class ServeEngine:
         return results
 
     def compiled_step_count(self) -> int:
-        """Distinct step widths used so far (at most two: 1 and the chunk
-        width) — the counterpart of the reference's compiled variants."""
-        return len(self._step_widths)
+        """Step graphs the engine holds, over its whole life: continuous, one
+        per mixed-step width used (at most two: 1 and the chunk width);
+        static, the decode step (at most one). The counterpart of the
+        reference's compiled variants. On the CPU they are the same steps'
+        buffers, run eagerly."""
+        return len(self._mixed) + (self._decode is not None)
+
+    def step_graphs(self) -> dict:
+        """The engine's steps by name: ``"mixed/<width>"`` and ``"decode"``."""
+        out = {f"mixed/{w}": g for w, g in sorted(self._mixed.items())}
+        if self._decode is not None:
+            out["decode"] = self._decode
+        return out
+
+    def _new_step(self, name: str, fn, inputs: dict, state) -> StepGraph:
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        step = StepGraph(name, fn, inputs, device=self.device, state=state,
+                         pool=self._graph_pool)
+        self._m_compiles.inc()
+        self.tracer.instant("serve.compile", step=name, variants=self.compiled_step_count() + 1)
+        return step
 
     def _record_result(self, res: GenerationResult) -> None:
         self._m_req_finished.inc()
@@ -362,16 +401,48 @@ class ServeEngine:
             out[i, length - len(p) :] = p
         return out
 
-    def _sample(self, logits: torch.Tensor, temps: np.ndarray, seeds: np.ndarray,
-                count: int) -> np.ndarray:
+    def _pick(self, logits: torch.Tensor, greedy: torch.Tensor, draws) -> np.ndarray:
+        """``greedy`` (the int32 argmax of ``logits`` over the last axis) as
+        a host array, with the positions of ``draws`` — (index, temperature,
+        seed) — replaced by draws from the logits there."""
+        if draws:
+            greedy = greedy.clone()
+            for idx, temp, seed in draws:
+                greedy[idx] = sample_token(logits[idx], temp, seed)
+        return greedy.cpu().numpy()
+
+    def _sample(self, logits: torch.Tensor, greedy: torch.Tensor, temps: np.ndarray,
+                seeds: np.ndarray, count: int) -> np.ndarray:
         """One token per row of logits (B, V), as a host array: greedy where
         the temperature is 0, else a draw with sample index ``count``."""
-        toks = torch.argmax(logits, dim=-1)
-        for b in np.flatnonzero(temps > 0.0):
-            toks[b] = sample_token(
-                logits[b], float(temps[b]), sample_seed(self.seed, seeds[b], count)
-            )
-        return toks.to(torch.int32).cpu().numpy()
+        return self._pick(logits, greedy, [
+            (int(b), float(temps[b]), sample_seed(self.seed, seeds[b], count))
+            for b in np.flatnonzero(temps > 0.0)
+        ])
+
+    def _decode_step(self, caches: dict) -> StepGraph:
+        """The static decode step over the engine's own caches, holding
+        ``caches`` (a group's prefill result) from now on. The first call
+        allocates the caches in their shapes and captures the step before
+        the copy, so its warm-up writes land in buffers the copy
+        overwrites."""
+        if self._decode is None:
+            self._decode_caches = _tree_map(torch.zeros_like, caches)
+            step = self._new_step("static decode step", self._decode_fn(self._decode_caches),
+                                  {"tokens": (self.batch_size, 1)},
+                                  _tree_leaves(self._decode_caches))
+            step.capture()
+            self._decode = step
+        _copy_tree(self._decode_caches, caches)
+        return self._decode
+
+    def _decode_fn(self, caches: dict):
+        def step(tokens):
+            logits, new = self.lm.decode_step(self.params, tokens, caches)
+            _copy_tree(caches, new)  # the advanced lengths, for the next replay
+            last = logits[:, -1]
+            return last, _argmax(last)
+        return step
 
     @torch.no_grad()
     def _generate_batch(self, group: Sequence[Request], base_idx: int, t0: float):
@@ -397,7 +468,10 @@ class ServeEngine:
         with tr.span("serve.prefill", rows=n, bucket=bucket):
             batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
             logits, caches = self.lm.prefill(self.params, batch, self.max_len)
-            cur = self._sample(logits[:, -1], temps, seeds, 0)
+            last = logits[:, -1]
+            cur = self._sample(last, _argmax(last), temps, seeds, 0)
+            step = self._decode_step(caches)
+            del logits, caches
         self._m_tok_prefill.inc(n * bucket)
         ttft = time.perf_counter() - t0
         generated = np.zeros((n, max_new), np.int32)
@@ -428,9 +502,9 @@ class ServeEngine:
             if done.all():
                 break
             with tr.span("serve.decode_step", t=t):
-                tok = torch.as_tensor(cur[:, None], device=self.device)
-                logits, caches = self.lm.decode_step(self.params, tok, caches)
-                cur = self._sample(logits[:, -1], temps, seeds, t + 1)
+                step.stage(tokens=cur[:, None])
+                last, greedy = step()
+                cur = self._sample(last, greedy, temps, seeds, t + 1)
             self._m_tok_decode.inc(int((~done).sum()))
         total = time.perf_counter() - t0
 
@@ -451,24 +525,47 @@ class ServeEngine:
 
     # ---- the mixed step ------------------------------------------------------
 
+    def _mixed_step(self, width: int, pool: PagedKVPool) -> StepGraph:
+        """The mixed step of ``width`` over the engine's pool, created and
+        captured at its first use: every input zeroed, so its warm-up
+        writes only the dummy page 0."""
+        step = self._mixed.get(width)
+        if step is None:
+            n = self.batch_size
+            step = self._new_step(
+                f"mixed step (width {width})", self._mixed_fn(pool.pages),
+                {"tokens": (n, width), "block_table": (n, pool.blocks_per_seq), "lens": (n,),
+                 "q_lens": (n,), "order_group": ()},
+                # The pages but the dummy page 0: the invalid rows' writes
+                # land there in no fixed order, and nothing reads them.
+                [t[:, 1:] for t in pool.pages.values()],
+            )
+            step.capture()
+            self._mixed[width] = step
+        return step
+
+    def _mixed_fn(self, pages: dict):
+        def step(tokens, block_table, lens, q_lens, order_group):
+            caches = assemble_cache_view(pages, block_table, lens, q_lens, order_group)
+            logits, _ = self.lm.decode_step(self.params, tokens, caches)
+            return logits, _argmax(logits)
+        return step
+
     @torch.no_grad()
-    def _mixed_step(self, tokens, pool, qlens, order_group, temps, seeds, counts) -> np.ndarray:
+    def _run_mixed(self, step: StepGraph, tokens, pool, qlens, order_group, temps, seeds,
+                   counts) -> np.ndarray:
         """One ragged step: (n_slots, width) tokens -> the sampled token at
         every chunk position, as a host array (greedy everywhere; a
         sampling row draws at its last valid position, the only one the
         host reads, with sample index ``counts[row]``)."""
-        caches = assemble_cache_view(
-            pool.pages, pool.block_tables, pool.lens, qlens, order_group, device=self.device
-        )
-        tok = torch.as_tensor(tokens, device=self.device)
-        logits, _ = self.lm.decode_step(self.params, tok, caches)
-        toks = torch.argmax(logits, dim=-1)
-        for b in np.flatnonzero((temps > 0.0) & (qlens > 0)):
-            p = int(qlens[b]) - 1
-            toks[b, p] = sample_token(
-                logits[b, p], float(temps[b]), sample_seed(self.seed, seeds[b], counts[b])
-            )
-        return toks.to(torch.int32).cpu().numpy()
+        step.stage(tokens=tokens, block_table=pool.block_tables, lens=pool.lens, q_lens=qlens,
+                   order_group=order_group)
+        logits, greedy = step()
+        return self._pick(logits, greedy, [
+            ((int(b), int(qlens[b]) - 1), float(temps[b]),
+             sample_seed(self.seed, seeds[b], counts[b]))
+            for b in np.flatnonzero((temps > 0.0) & (qlens > 0))
+        ])
 
     # ---- continuous path -----------------------------------------------------
 
@@ -480,15 +577,19 @@ class ServeEngine:
         )
         sched.submit(list(requests))
         idx_of = {id(r): i for i, r in enumerate(requests)}  # default seeds
-        pool = PagedKVPool(
-            cfg, cfg.n_layers, n_slots, self._cap,
-            device=self.device,
-            prefix_sharing=self.prefix_sharing,
-            registry=self.obs,
-            admission=self.admission,
-            n_pages=self.pool_pages,
-        )
-        self.last_pool = pool
+        pool = self.last_pool
+        if pool is None:
+            pool = self.last_pool = PagedKVPool(
+                cfg, cfg.n_layers, n_slots, self._cap,
+                device=self.device,
+                prefix_sharing=self.prefix_sharing,
+                registry=self.obs,
+                admission=self.admission,
+                n_pages=self.pool_pages,
+            )
+        else:
+            pool.reset()
+            pool.emit_gauges()
         order_group = resolve_order_group(cfg.attn_order, cfg.snake_group, pool.blocks_per_seq)
 
         results: dict[int, GenerationResult] = {}
@@ -583,10 +684,7 @@ class ServeEngine:
                 self._m_budget.set(planned / sched.token_budget)
 
                 width = 1 if all(it.q_len == 1 for it in plan) else self._chunk
-                if width not in self._step_widths:
-                    self._step_widths.add(width)
-                    self._m_compiles.inc()
-                    tr.instant("serve.compile", width=width, variants=len(self._step_widths))
+                mixed = self._mixed_step(width, pool)
                 tokens = np.full((n_slots, width), self.eos, np.int32)
                 qlens = np.zeros((n_slots,), np.int32)
                 n_decode = n_prefill = 0
@@ -604,7 +702,8 @@ class ServeEngine:
                 # The device span closes once the sampled tokens are on the
                 # host, so it brackets the step's device time.
                 with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned):
-                    toks = self._mixed_step(tokens, pool, qlens, order_group, temps, seeds, counts)
+                    toks = self._run_mixed(mixed, tokens, pool, qlens, order_group, temps,
+                                           seeds, counts)
                 step += 1
                 n_steps += 1
                 n_wide += width > 1
@@ -687,3 +786,30 @@ class ServeEngine:
         seeds[slot] = idx if req.seed is None else req.seed
         counts[slot] = 0
         return st
+
+
+def _argmax(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy tokens: int32 argmax over the last axis (first maximum)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+def _copy_tree(dst: dict, src: dict) -> None:
+    """Copy every tensor of ``src`` into the same place in ``dst``, in
+    place, skipping those that already are ``dst``'s (written in place)."""
+    for k, d in dst.items():
+        if isinstance(d, dict):
+            _copy_tree(d, src[k])
+        elif src[k] is not d:
+            d.copy_(src[k])

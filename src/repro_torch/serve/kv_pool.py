@@ -50,21 +50,19 @@ class AdmissionError(PoolError, ValueError):
     """Admission-path misuse (occupied slot, unusable pool geometry)."""
 
 
-def assemble_cache_view(
-    pages: dict, block_table, lens, q_lens=None, order_group=None, *, device
-) -> dict:
+def assemble_cache_view(pages: dict, block_table, lens, q_lens=None, order_group=None) -> dict:
     """The cache dict ``decode_step`` takes: the pool tensors plus this
     step's block table (B, n_blocks), lengths (B,), valid chunk rows (B,)
-    and effective reversal group, moved to ``device``. Unlike the JAX
-    package the host arrays are not tiled across layers: the eager layer
-    loop shares one copy."""
-    view = dict(pages)
-    view["block_table"] = torch.as_tensor(np.asarray(block_table), dtype=torch.int32, device=device)
-    view["len"] = torch.as_tensor(np.asarray(lens), dtype=torch.int32, device=device)
+    and effective reversal group (a 0-d int32 tensor), all device tensors,
+    used as they are: the engine keeps them in a step's static buffers, so
+    a captured step reads each replay's values, and a new reversal group
+    needs no new capture. Unlike the JAX package the host arrays are not
+    tiled across layers: the layer loop shares one copy."""
+    view = dict(pages, block_table=block_table, len=lens)
     if q_lens is not None:
-        view["q_len"] = torch.as_tensor(np.asarray(q_lens), dtype=torch.int32, device=device)
+        view["q_len"] = q_lens
     if order_group is not None:
-        view["order_group"] = int(order_group)
+        view["order_group"] = order_group
     return view
 
 
@@ -158,15 +156,30 @@ class PagedKVPool:
                 f"pool of {n_pages} pages cannot fit one {self.blocks_per_seq}"
                 f"-page capacity row"
             )
-        self.alloc = PagePool(n_pages + 1)  # +1 dummy page 0
+        self.n_pages = n_pages
 
-        shape = (n_layers, self.alloc.n_pages, self.page, cfg.n_kv_heads, cfg.hd)
+        shape = (n_layers, n_pages + 1, self.page, cfg.n_kv_heads, cfg.hd)  # +1 dummy page 0
         dt = dtype or cfg.activation_dtype()
         self.pages: dict[str, torch.Tensor] = {
             name: torch.zeros(shape, dtype=dt, device=device)
             for name in ("k_pages", "v_pages")
         }
+        self.reset()
+        self._registry = registry
+        if registry is not None:
+            self._m_adopted = registry.counter("pool.pages_adopted")
+            self._m_adopted_tokens = registry.counter("pool.tokens_adopted")
+            self._m_cow = registry.counter("pool.cow_forks")
+            self.emit_gauges()
 
+    def reset(self) -> None:
+        """Every page free, no slot, an empty registry and zero counters.
+        The device pages stay allocated (and their contents stale, behind
+        lengths of 0): a captured step keeps their addresses, so an engine
+        resets its pool between ``generate()`` calls instead of building a
+        new one."""
+        n_slots = self.n_slots
+        self.alloc = PagePool(self.n_pages + 1)  # +1 dummy page 0
         self.block_tables = np.zeros((n_slots, self.blocks_per_seq), np.int32)
         self.lens = np.zeros((n_slots,), np.int32)
         # Per-slot written high-water mark (the furthest position this slot
@@ -181,12 +194,6 @@ class PagedKVPool:
         self.shared_hits = 0
         self.shared_tokens = 0
         self.cow_forks = 0
-        self._registry = registry
-        if registry is not None:
-            self._m_adopted = registry.counter("pool.pages_adopted")
-            self._m_adopted_tokens = registry.counter("pool.tokens_adopted")
-            self._m_cow = registry.counter("pool.cow_forks")
-            self.emit_gauges()
 
     # ---- admission / lifecycle ----------------------------------------------
 

@@ -189,8 +189,9 @@ def test_prefill_and_decode_match_reference(models):
         if cfg.family == "hybrid":
             for name in ("k", "v"):
                 _close(pc["attn"][name], jc["attn"][name], BLOCK, err_msg=name)
-            assert pc["attn"]["len"] == pc["len"]
-        assert pc["len"] == int(jc["len"])
+            assert int(pc["attn"]["len"]) == int(pc["len"])
+        assert pc["len"].dim() == 0 and pc["len"].dtype == torch.int32  # on the device
+        assert int(pc["len"]) == int(jc["len"])
 
     assert tuple(pc["mamba"]["ssd"].shape) == tuple(np.shape(jc["mamba"]["ssd"]))
     check_caches()
@@ -201,7 +202,7 @@ def test_prefill_and_decode_match_reference(models):
         pl, pc = lm.decode_step(params, torch.from_numpy(nxt), pc)
         _close(pl, jl, LOGITS)
     check_caches()
-    assert pc["len"] == s + 5
+    assert int(pc["len"]) == s + 5
 
 
 def test_prefill_then_decode_equals_a_longer_prefill(models):

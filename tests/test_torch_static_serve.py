@@ -79,7 +79,8 @@ def test_prefill_and_decode_match_reference(weights, kw):
     assert pc["k"].shape == (lm.cfg.n_layers, B, size, lm.cfg.n_kv_heads, lm.cfg.hd)
     for name in ("k", "v"):
         _close(pc[name], jc[name])
-    assert pc["len"] == S and np.all(np.asarray(jc["len"]) == S)
+    assert pc["len"].dim() == 0 and pc["len"].dtype == torch.int32  # on the device
+    assert int(pc["len"]) == S and np.all(np.asarray(jc["len"]) == S)
     # Decode steps (past the ring buffer's wrap with a window).
     for _ in range(4):
         nxt = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
@@ -89,7 +90,7 @@ def test_prefill_and_decode_match_reference(weights, kw):
         _close(pl, jl)
     for name in ("k", "v"):
         _close(pc[name], jc[name])
-    assert pc["len"] == S + 4
+    assert int(pc["len"]) == S + 4
 
 
 def test_paged_prefill_fills_pages_like_reference(weights):

@@ -1,0 +1,295 @@
+"""The serve engine's captured steps (``repro_torch.serve.step_graph``).
+
+On the CPU every step runs eagerly over the same static buffers the card
+replays, so these tests hold the step functions to what a capture needs:
+
+* no host read inside a step: one step of each captured kind (the
+  continuous mixed step at width 1 and at the chunk width; the static
+  decode step of the dense, SSM and hybrid families) runs under a dispatch
+  mode that fails on ``aten._local_scalar_dense`` (any ``.item()``,
+  ``int(t)`` or ``bool(t)``);
+* buffers that outlive ``generate()``: two calls on one engine use the
+  same step buffers, pool pages and decode caches (same ``data_ptr``), and
+  ``compiled_step_count()`` stays at most 2 (continuous) and 1 (static);
+* the second ``generate()`` call's greedy streams equal the reference
+  engine's second call, token for token;
+* multi-step static decode with the 0-d tensor ``len`` through the
+  engine's step equals the reference's logits (f32, atol = rtol = 2e-4,
+  the tolerance of ``test_torch_static_serve.py``).
+
+The reduced configs (f32) with the reference's weights (``params_from_jax``)
+are used where the reference is compared; JAX is imported only there, so
+the GPU cases run on the card without it:
+
+  python -m pytest -q --noconftest -m gpu tests/test_torch_step_graph.py
+
+On the card, each captured step replayed once must equal the same step run
+eagerly on the same inputs and state, to the bit (logits, greedy tokens and
+every cache or page written), and a step that reads a host value must make
+capture raise.
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.configs import get_config
+from repro_torch.models import build_model
+from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve.step_graph import StepCaptureError, StepGraph
+
+TOL = dict(atol=2e-4, rtol=2e-4)
+CONT = dict(batch_size=2, max_len=96, page_size=8, prefill_chunk=16)
+STATIC = dict(batch_size=3, max_len=64)
+ARCHS = ["deepseek-7b", "mamba2-130m", "zamba2-2_7b"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+class NoHostRead(TorchDispatchMode):
+    """Fails on any read of a tensor's value by the host."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise AssertionError("host read inside a captured step")
+        return func(*args, **(kwargs or {}))
+
+
+def _specs(vocab, n=5, seed=7):
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(2, vocab, size=24).astype(np.int32)
+    out = []
+    for i in range(n):
+        toks = np.concatenate([sysp, rng.integers(2, vocab, size=3 + 7 * i).astype(np.int32)])
+        out.append(dict(tokens=toks, max_new_tokens=4 + i, rid=i))
+    return out
+
+
+def _engine(arch, scheduler, device="cpu", cfg_kw=None, seed=0):
+    cfg = get_config(arch).reduced().with_(**(cfg_kw or {}))
+    lm = build_model(cfg, device=device)
+    kw = CONT if scheduler == "continuous" else STATIC
+    return ServeEngine(lm, lm.init(seed), scheduler=scheduler, device=device, **kw)
+
+
+# ---- CPU: what a capture needs ----------------------------------------------------
+
+
+def test_guard_catches_host_reads():
+    """The dispatch-mode guard sees every form of host read a step could
+    hide (the contiguous step read ``int(cache["len"])`` before)."""
+    t = torch.tensor(3, dtype=torch.int32)
+    for read in (lambda: t.item(), lambda: int(t), lambda: bool(t), lambda: torch.full((2,), t)):
+        with pytest.raises(AssertionError, match="host read"):
+            with NoHostRead():
+                read()
+
+
+@pytest.mark.parametrize("kind", ["mixed/1", "mixed/16", "deepseek-7b", "mamba2-130m",
+                                  "zamba2-2_7b"])
+def test_captured_steps_read_no_host_value(kind):
+    """One step of each kind, on the inputs and state its engine left, runs
+    under the guard; it is the function the card captures."""
+    if kind.startswith("mixed"):
+        eng = _engine("deepseek-7b", "continuous")
+    else:
+        eng = _engine(kind, "static")
+    eng.generate([Request(**s) for s in _specs(eng.lm.cfg.vocab)])
+    step = eng.step_graphs()["decode" if kind in ARCHS else kind]
+    with NoHostRead():
+        logits, greedy = step()
+    assert torch.isfinite(logits).all() and greedy.dtype == torch.int32
+
+
+@pytest.mark.parametrize("scheduler,arch", [("continuous", "deepseek-7b"),
+                                            ("static", "deepseek-7b"),
+                                            ("static", "mamba2-130m"),
+                                            ("static", "zamba2-2_7b")])
+def test_generate_twice_reuses_step_buffers(scheduler, arch):
+    eng = _engine(arch, scheduler)
+    specs = _specs(eng.lm.cfg.vocab)
+
+    def pointers():
+        return {name: [t.untyped_storage().data_ptr() for t in (*g.inputs.values(), *g.state)]
+                for name, g in eng.step_graphs().items()}
+
+    first = eng.generate([Request(**s) for s in specs])
+    ptrs = pointers()
+    count = eng.compiled_step_count()
+    second = eng.generate([Request(**s) for s in specs])
+    assert pointers() == ptrs
+    assert eng.compiled_step_count() == count
+    if scheduler == "continuous":
+        assert sorted(ptrs) == ["mixed/1", "mixed/16"] and count == 2
+        pages = [t.untyped_storage().data_ptr() for t in eng.last_pool.pages.values()]
+        assert all(p in ptrs["mixed/1"] and p in ptrs["mixed/16"] for p in pages)
+        eng.last_pool.check_invariants()
+    else:
+        assert list(ptrs) == ["decode"] and count == 1
+    for a, b in zip(first, second):  # greedy: the same streams again
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """(jax, the reference's build_model/get_config/engine/Request,
+    params_from_jax), imported only by the tests that compare with it."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_config as ref_get_config
+    from repro.models import build_model as ref_build_model
+    from repro.serve import Request as RefRequest
+    from repro.serve import ServeEngine as RefEngine
+    from repro_torch.testing import params_from_jax
+
+    def models(arch, **kw):
+        jlm = ref_build_model(ref_get_config(arch).reduced().with_(**kw))
+        jparams = jlm.init(jax.random.PRNGKey(0))
+        lm = build_model(get_config(arch).reduced().with_(**kw), device="cpu")
+        return jlm, jparams, lm, params_from_jax(jax.tree.map(np.asarray, jparams))
+
+    return models, RefEngine, RefRequest
+
+
+@pytest.mark.parametrize("scheduler,arch", [("continuous", "deepseek-7b"),
+                                            ("static", "deepseek-7b"),
+                                            ("static", "mamba2-130m"),
+                                            ("static", "zamba2-2_7b")])
+def test_second_generate_equals_reference(reference, scheduler, arch):
+    """A second ``generate()`` (reset pool, reused steps and caches; other
+    prompts than the first) gives the reference engine's second call."""
+    models, RefEngine, RefRequest = reference
+    jlm, jparams, lm, params = models(arch)
+    kw = CONT if scheduler == "continuous" else STATIC
+    ref = RefEngine(jlm, jparams, scheduler=scheduler, **kw)
+    eng = ServeEngine(lm, params, scheduler=scheduler, device="cpu", **kw)
+    for seed in (7, 8):
+        specs = _specs(lm.cfg.vocab, seed=seed)
+        want = ref.generate([RefRequest(**s) for s in specs])
+        got = eng.generate([Request(**s) for s in specs])
+    for a, b in zip(want, got):
+        assert b.status == a.status == "ok" and b.steps == a.steps
+        np.testing.assert_array_equal(b.tokens, a.tokens)
+    if scheduler == "continuous":
+        for key in ("mixed_steps", "wide_steps", "pages_adopted", "cow_forks"):
+            assert getattr(eng.last_stats, key) == getattr(ref.last_stats, key), key
+        assert eng.compiled_step_count() == ref.compiled_step_count() <= 2
+    else:
+        assert eng.compiled_step_count() == 1
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=32)], ids=["full", "swa"])
+def test_static_decode_step_with_tensor_len_equals_reference(reference, kw):
+    """Prefill, then 6 decode steps through the engine's step (its own
+    caches, the prefill copied in, ``len`` a 0-d int32 tensor advanced on
+    the device) against the reference's ``decode_step`` (past the ring
+    buffer's wrap with the window)."""
+    import jax.numpy as jnp
+
+    models, _, _ = reference
+    jlm, jparams, lm, params = models("deepseek-7b", **kw)
+    eng = ServeEngine(lm, params, device="cpu", batch_size=3, max_len=60)
+    toks = np.random.default_rng(1).integers(2, lm.cfg.vocab, size=(3, 30)).astype(np.int32)
+    jl, jc = jlm.prefill(jparams, {"tokens": jnp.asarray(toks)}, 60)
+    _, pc = lm.prefill(params, {"tokens": torch.from_numpy(toks)}, 60)
+    step = eng._decode_step(pc)
+    caches = eng._decode_caches
+    for t in range(6):
+        nxt = np.argmax(np.asarray(jl)[:, -1], -1).astype(np.int32)[:, None]
+        jl, jc = jlm.decode_step(jparams, jnp.asarray(nxt), jc)
+        step.stage(tokens=nxt)
+        last, greedy = step()
+        np.testing.assert_allclose(last.numpy(), np.asarray(jl)[:, -1], **TOL)
+        np.testing.assert_array_equal(greedy.numpy(), np.asarray(jl)[:, -1].argmax(-1))
+        assert caches["len"].dim() == 0 and caches["len"].dtype == torch.int32
+        assert int(caches["len"]) == 31 + t == int(np.asarray(jc["len"])[0])
+    for name in ("k", "v"):
+        np.testing.assert_allclose(caches[name].numpy(), np.asarray(jc[name]), **TOL)
+
+
+def test_step_graph_stages_into_one_buffer():
+    """Inputs are int32 views of one flat buffer; staging writes the named
+    ones and leaves the rest; on the CPU a call runs the function."""
+    seen = []
+
+    def fn(a, b, g):
+        seen.append((a.clone(), b.clone(), g.clone()))
+        return (a * 2, b + g)
+
+    step = StepGraph("test step", fn, {"a": (2, 3), "b": (4,), "g": ()}, device="cpu")
+    assert {k: tuple(v.shape) for k, v in step.inputs.items()} == {"a": (2, 3), "b": (4,), "g": ()}
+    step.stage(a=np.arange(6).reshape(2, 3), b=[1, 2, 3, 4], g=5)
+    out = step()
+    step.stage(g=7)
+    out2 = step()
+    np.testing.assert_array_equal(out[0].numpy(), 2 * np.arange(6).reshape(2, 3))
+    np.testing.assert_array_equal(out2[1].numpy(), [8, 9, 10, 11])
+    assert step.graph is None   # nothing is captured on the CPU
+    assert len(seen) == 2
+
+
+# ---- on the card ----------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the steps are captured as CUDA graphs there")
+    return torch.device("cuda")
+
+
+# Small bf16 models whose attention fits the decode kernels (head dim 64);
+# the SSM prefill runs the plain scan (B7 takes the full-width shapes only).
+CARD_KW = dict(dtype="bfloat16", param_dtype="bfloat16", d_model=256, n_heads=4, n_kv_heads=2,
+               head_dim=64, d_ff=512, vocab=1024, ssd_impl="torch")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheduler,arch", [("continuous", "deepseek-7b"),
+                                            ("static", "deepseek-7b"),
+                                            ("static", "mamba2-130m"),
+                                            ("static", "zamba2-2_7b")])
+def test_replay_equals_eager_on_card(cuda, scheduler, arch):
+    from repro_torch.kernels import cuda_lib
+
+    eng = _engine(arch, scheduler, device=cuda, cfg_kw=CARD_KW)
+    specs = _specs(1024)
+    res = eng.generate([Request(**s) for s in specs])   # captures the steps
+    assert all(r.status == "ok" for r in res)
+    graphs = eng.step_graphs()
+    assert len(graphs) == (2 if scheduler == "continuous" else 1)
+    assert all(g.graph is not None and g.replays > 0 for g in graphs.values())
+    replays = {name: g.replays for name, g in graphs.items()}
+    cuda_lib.reset_launch_counts()
+    again = eng.generate([Request(**s) for s in specs])  # replays only
+    assert [r.tokens.tolist() for r in again] == [r.tokens.tolist() for r in res]
+    assert eng.step_graphs() == graphs and eng.compiled_step_count() == len(graphs)
+    if arch != "mamba2-130m":   # a replay counts the launches its capture issued
+        key = "paged_decode" if scheduler == "continuous" else "contig_decode"
+        sites = eng.lm.cfg.n_layers // (2 if arch == "zamba2-2_7b" else 1)
+        assert {g.launches[key] for g in graphs.values()} == {sites}
+        ran = sum(g.launches[key] * (g.replays - replays[name]) for name, g in graphs.items())
+        assert cuda_lib.launch_counts[key] == ran > 0
+    for name, g in graphs.items():
+        diffs = g.replay_against_eager()
+        assert all(d["equal"] for d in diffs.values()), (name, diffs)
+
+
+@pytest.mark.gpu
+def test_capture_of_a_host_read_raises(cuda):
+    x = torch.arange(4, dtype=torch.float32, device=cuda)
+
+    def unsafe(n):
+        return (x * int(n.sum().item()),)
+
+    step = StepGraph("unsafe step", unsafe, {"n": (2,)}, device=cuda)
+    with pytest.raises(StepCaptureError, match="capture of the unsafe step"):
+        step.capture()
+    assert step.graph is None
+    assert float((x + 1).sum()) == 10.0   # the card still works
