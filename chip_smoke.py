@@ -32,7 +32,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3. main paths on full-width deepseek-7b (random weights from a seed):
    served by the continuous ServeEngine, every mixed step a replay of one
    of its two captured CUDA graphs (width 1 and the chunk width), with
-   ``paged_decode`` launches == layers x mixed steps; then by the static
+   ``paged_decode`` launches == layers x mixed steps; then the same
+   requests through new continuous engines with online order adaptation
+   (A8): (a) its LLC model at the card's L2, (b) at a capacity small
+   enough to switch (it must), (c) the fixed order, (d) (b)'s switches
+   forced with the controller's decisions replaced, (e) (d) with a wrong
+   page walk from the first switch on; (b) must equal (d) to the bit, every
+   run keep two step graphs and launch B1 layers x mixed steps, a stream
+   that (b) and (c) make differently must be tied there to bf16's
+   resolution, (b)'s logits stay within ADAPT_SHIFT_LIMIT of (c)'s until
+   then, and (e)'s exceed it; then by the static
    ServeEngine (the default scheduler), every decode step a replay of its
    one captured graph, with ``flash_fwd`` launches == layers x prefills,
    ``contig_decode`` launches == layers x decode steps and no
@@ -75,6 +84,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    cluster size, CTAs), B1's and B3's two-step sawtooth/cyclic readings;
    and, informational,
    B1 and B3 at one sequence of 8187 positions at every cluster size;
+   then the walks B2 and B6 take, played through an LRU model of the
+   card's L2 (and of half of it) in the sawtooth and the cyclic order,
+   modeled miss, cold and non-compulsory bytes beside each one's time;
 5. the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -160,6 +172,26 @@ SSD_STATE_TOL = 1e-4
 # only the B7 matrix's limits tell them apart (PERF.md, §6).
 SSM_LOGITS_TOL = 1e-1
 _SSM_CONTROLS_CAUGHT = ("decay_dropped",)
+
+# The adaptive continuous path (phase_adapt_path): full-width deepseek-7b
+# through the continuous engine with online order adaptation, on the main
+# path's 12 requests. Run (b) models an LLC of ADAPT_SMALL_CAPACITY bytes, a
+# cut far under the card's 50 MiB L2, so that the controller switches on
+# this traffic; run (a) models the card's own L2.
+ADAPT_SMALL_CAPACITY = 131_072
+# Run (d) replays (b) with the controller's decisions forced at the steps
+# (b) recorded: the same staged inputs into the same kernels, so the token
+# streams and every logit must be equal to the bit (B1 adds its pages in
+# one fixed order per walk, and a replay equals the eager step).
+# Against the fixed-order run (c), B1 adds up pages in another order after a
+# switch, so a bf16 logit may round one step apart and a near-tied greedy
+# token flip: at each stream's first differing token the two runs' top-2
+# margins must pass repro_torch.testing.within_tie_rule (the smaller at most
+# one bf16 ulp of the top logit, the larger below two), and until that token
+# (b)'s logits stay within ADAPT_SHIFT_LIMIT of (c)'s. A deliberately wrong
+# walk from the first switch on (run (e): every full page of a row read as
+# its first page) must exceed that limit.
+ADAPT_SHIFT_LIMIT = 0.5
 
 # Data-sheet peaks by card name: (bytes/s, dense bf16 flop/s, float32 flop/s
 # outside the tensor cores).
@@ -897,6 +929,7 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print("[serve] " + json.dumps(out))
+    out["streams"] = {r.rid: r.tokens.tolist() for r in results}
     out["graphs"] = phase_graphs(eng, "continuous")
     out["step_idle"] = {
         key: _step_idle(steps_by_width[key], out["graphs"][name]["replay_ms"])
@@ -908,6 +941,272 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
     del eng
     torch.cuda.empty_cache()
     return out
+
+
+class _WalkView:
+    """What ``ServeEngine._run_mixed`` reads of the pool (block table and
+    lengths), with the block table replaced."""
+
+    def __init__(self, pool, block_tables):
+        self.block_tables, self.lens = block_tables, pool.lens
+
+
+def _adapt_run(cfg, lm, params, label: str, *, forced=None, wrong_walk_from=None,
+               **engine_kw) -> dict:
+    """One run of the 12 main requests through a new continuous engine with
+    ``engine_kw``, its two step graphs captured in a warm-up with the
+    controller held. Records, for every token a request is given, the step
+    that made it and that row's logits (kept on the card), the reversal
+    group staged each step, the switches (step, order) and the sampler's
+    host time a sample. ``forced`` (step -> order) replaces the controller's
+    decisions by those switches; ``wrong_walk_from`` makes every step from
+    that one on read each row's full pages as its first page."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(lm, params, scheduler="continuous", batch_size=8, max_len=1024,
+                      page_size=64, device="cuda", **engine_kw)
+    ctl = eng.order_ctl
+    adapting = ctl.enabled
+    ctl.enabled = False
+    rng = np.random.default_rng(99)
+    eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                          max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+    assert eng.compiled_step_count() == 2, (label, eng.step_graphs())
+    assert ctl.switches == 0 and ctl.order.value == cfg.attn_order, label
+    ctl.enabled = adapting
+    if forced is not None:
+        ctl.enabled = True
+
+        def replay(step_epoch, pool, sampler, step_q=None):
+            if step_epoch not in forced:
+                return False
+            ctl.switch_to(forced[step_epoch])
+            return True
+
+        ctl.maybe_adapt = replay
+
+    sample_s = []
+    sample = eng.llc.sample
+
+    def timed_sample(pool, step_q=None):
+        t0 = time.perf_counter()
+        took = sample(pool, step_q=step_q)
+        sample_s.append(time.perf_counter() - t0)
+        return took
+
+    eng.llc.sample = timed_sample
+
+    logits_at: dict = {}   # (rid, token index) -> (step, logits row on the card)
+    staged: list = []
+    sched_of: dict = {}
+    admit, run = eng._admit, eng._run_mixed
+
+    def admit_rec(req, slot, sched, *rest):
+        sched_of["sched"] = sched
+        return admit(req, slot, sched, *rest)
+
+    def run_rec(step, tokens, pool, qlens, order_group, *rest):
+        idx = len(staged)
+        staged.append(int(order_group))
+        view = pool
+        if wrong_walk_from is not None and idx >= wrong_walk_from:
+            bt = pool.block_tables.copy()
+            for b in np.flatnonzero(qlens > 0):
+                full = int(pool.lens[b]) // pool.page  # pages written before this step
+                bt[b, 1:full] = bt[b, 0]
+            view = _WalkView(pool, bt)
+        toks = run(step, tokens, view, qlens, order_group, *rest)
+        sched = sched_of["sched"]
+        rows, pos, keys = [], [], []
+        for b in np.flatnonzero(qlens > 0):
+            st, q = sched.slots[b], int(qlens[b])
+            if st.prefilling and st.prompt_pos + q < len(st.prompt):
+                continue  # a prompt chunk that samples nothing
+            rows.append(int(b))
+            pos.append(q - 1)
+            keys.append((st.request.rid, len(st.generated)))
+        last = step.outputs[0][rows, pos].clone()
+        for j, key in enumerate(keys):
+            logits_at[key] = (idx, last[j])
+        return toks
+
+    eng._admit, eng._run_mixed = admit_rec, run_rec
+    reqs = _main_requests(cfg.vocab)
+    eng.tracer.clear()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+    stats = eng.last_stats
+    assert all(r.status == "ok" and r.steps == 32 for r in results), label
+    assert eng.compiled_step_count() == 2, (label, eng.step_graphs())
+    assert launches["paged_decode"] == cfg.n_layers * stats.mixed_steps, (label, launches)
+    assert len(staged) == stats.mixed_steps and len(logits_at) == 12 * 32, label
+    walls: dict[str, list] = {"narrow": [], "wide": []}
+    switches = []
+    for ev in eng.tracer.events():
+        if ev.name == "serve.device_step":
+            walls["narrow" if ev.args["width"] == 1 else "wide"].append(ev.dur_ns / 1e6)
+        elif ev.name == "serve.order_switch":
+            switches.append((ev.args["step"], ev.args["order"]))
+    out = {
+        "label": label,
+        "tokens": {r.rid: r.tokens.tolist() for r in results},
+        "logits_at": logits_at,
+        "staged_groups": staged,
+        "switches": switches,
+        "final_order": ctl.order.value,
+        "capacity_bytes": eng.llc.capacity_bytes,
+        "history": [{k: h[k] for k in ("sample", "max_len", "footprint_bytes", "active_rows",
+                                       "fwd_miss", "shared_frac", "current_order")}
+                    for h in eng.llc.history],
+        "samples": len(sample_s),
+        "sample_host_ms_mean": 1e3 * float(np.mean(sample_s)) if sample_s else None,
+        "sample_host_ms_max": 1e3 * max(sample_s) if sample_s else None,
+        "mixed_steps": stats.mixed_steps,
+        "wide_steps": stats.wide_steps,
+        "wall_s": wall,
+        "tokens_per_s": sum(r.steps for r in results) / wall,
+        "step_ms_narrow_mean": float(np.mean(walls["narrow"])),
+        "step_ms_wide_mean": float(np.mean(walls["wide"])),
+        "launches": launches,
+        "compiled_steps": eng.compiled_step_count(),
+    }
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _first_differences(x: dict, c: dict) -> list:
+    """Per request whose stream differs between runs ``x`` and ``c``: the
+    first differing token, each run's token, top logit and top-2 margin
+    there, and the step of ``x`` that made it."""
+    from repro_torch.testing import top2_margin
+
+    out = []
+    for rid, toks in sorted(x["tokens"].items()):
+        other = c["tokens"][rid]
+        k = next((i for i, (a, b) in enumerate(zip(toks, other)) if a != b), None)
+        if k is None:
+            continue
+        step, row = x["logits_at"][(rid, k)]
+        top_x, m_x = top2_margin(row)
+        top_c, m_c = top2_margin(c["logits_at"][(rid, k)][1])
+        out.append({"rid": rid, "token": k, "step": step, "tokens": [toks[k], other[k]],
+                    "top": [top_x, top_c], "top2_margin": [m_x, m_c]})
+    return out
+
+
+def _logit_shift(x: dict, c: dict, from_step: int) -> dict:
+    """Max |logits of x - logits of c| over every token up to and including
+    each stream's first difference (the tokens both runs made from the same
+    context), all of them and those x made from step ``from_step`` on."""
+    shifts, after = [], []
+    for rid, toks in x["tokens"].items():
+        other = c["tokens"][rid]
+        last = next((i for i, (a, b) in enumerate(zip(toks, other)) if a != b), len(toks) - 1)
+        for k in range(last + 1):
+            step, row = x["logits_at"][(rid, k)]
+            d = float((row.float() - c["logits_at"][(rid, k)][1].float()).abs().max())
+            shifts.append(d)
+            if step >= from_step:
+                after.append(d)
+    return {"tokens": len(shifts), "max": max(shifts), "tokens_after": len(after),
+            "max_after": max(after) if after else None,
+            "median_after": float(np.median(after)) if after else None}
+
+
+def phase_adapt_path(cfg, lm, params, main: dict) -> dict:
+    """The continuous deepseek-7b engine at full width with online order
+    adaptation (A8), on the main path's 12 requests: (a) adaptation on at
+    the card's L2 (the realistic setting), (b) at ADAPT_SMALL_CAPACITY,
+    which must switch at least once, (c) the config's fixed order, (d) (b)'s
+    switches forced with the controller's decisions replaced, (e) (d) with a
+    wrong walk from the first switch on. Checks: (b) equals (d) to the bit;
+    two step graphs in every run; B1 launched layers x mixed steps; the tie
+    rule and the logit shift between (b) and (c); the control beyond the
+    shift limit."""
+    from repro_torch.core.cache_model import device_hw_config
+    from repro_torch.testing import bf16_ulp, within_tie_rule
+
+    l2 = device_hw_config().cache_bytes
+    a = _adapt_run(cfg, lm, params, "a", adapt_order=True, llc_capacity_bytes=l2)
+    b = _adapt_run(cfg, lm, params, "b", adapt_order=True,
+                   llc_capacity_bytes=ADAPT_SMALL_CAPACITY)
+    c = _adapt_run(cfg, lm, params, "c")
+    if not b["switches"]:
+        raise AssertionError(f"phase_adapt_path: (b) at {ADAPT_SMALL_CAPACITY} modeled bytes "
+                             "did not switch; the history: " + json.dumps(b["history"]))
+    forced = dict(b["switches"])
+    d = _adapt_run(cfg, lm, params, "d", forced=forced)
+    first = b["switches"][0][0]  # switched after this many steps: step index `first` on
+    e = _adapt_run(cfg, lm, params, "e", forced=forced, wrong_walk_from=first)
+
+    # Exact: the forced replay equals the adaptive run, tokens and logits.
+    assert d["switches"] == b["switches"], (d["switches"], b["switches"])
+    assert d["staged_groups"] == b["staged_groups"], "staged reversal groups differ"
+    assert d["tokens"] == b["tokens"], "the forced replay's streams differ from (b)'s"
+    assert d["logits_at"].keys() == b["logits_at"].keys()
+    unequal = [key for key, (_, row) in b["logits_at"].items()
+               if not torch.equal(row, d["logits_at"][key][1])]
+    assert not unequal, f"(d)'s logits differ from (b)'s at {len(unequal)} tokens"
+    # The tie rule between (b) and (c), at each stream's first difference.
+    diffs = _first_differences(b, c)
+    for rec in diffs:
+        top = max(abs(t) for t in rec["top"])
+        rec["ulp"] = bf16_ulp(top)
+        rec["tie"] = within_tie_rule(rec["top2_margin"], top)
+        print(f"[adapt] stream {rec['rid']} differs from the fixed-order run at token "
+              f"{rec['token']} (step {rec['step']}): " + json.dumps(rec))
+    broken = [r for r in diffs if not r["tie"]]
+    shift = _logit_shift(b, c, first)
+    control = _logit_shift(e, c, first)
+    summary = {
+        "runs": {r["label"]: {k: r[k] for k in (
+            "capacity_bytes", "switches", "final_order", "samples", "sample_host_ms_mean",
+            "sample_host_ms_max", "mixed_steps", "wide_steps", "wall_s", "tokens_per_s",
+            "step_ms_narrow_mean", "step_ms_wide_mean", "compiled_steps")}
+            for r in (a, b, c, d, e)},
+        "b_staged_groups": b["staged_groups"],
+        "b_equals_d": True,
+        "streams_equal_to_fixed_order": not diffs,
+        "c_equals_main_path": c["tokens"] == main["streams"],
+        "first_differences": diffs,
+        "logit_shift": shift,
+        "control_logit_shift": control,
+        "shift_limit": ADAPT_SHIFT_LIMIT,
+        "paged_decode_launches": {r["label"]: r["launches"]["paged_decode"]
+                                  for r in (a, b, c, d, e)},
+    }
+    print("[adapt] " + json.dumps(summary))
+    print("[adapt] (b) sampler history (footprint, modeled miss bytes per order, the order "
+          "after the sample): " + json.dumps(b["history"]))
+    print("[adapt] (a) sampler history: " + json.dumps(a["history"][-3:]))
+    assert len(set(b["staged_groups"][:first])) == 1, b["staged_groups"]
+    if broken:
+        raise AssertionError("phase_adapt_path: a stream flipped from the fixed-order one "
+                             "outside the tie rule: " + json.dumps(broken))
+    if shift["max"] > ADAPT_SHIFT_LIMIT:
+        raise AssertionError(f"phase_adapt_path: (b)'s logits moved {shift['max']} from "
+                             f"(c)'s before the streams differ (limit {ADAPT_SHIFT_LIMIT})")
+    if not (control["max_after"] or 0.0) > ADAPT_SHIFT_LIMIT:
+        raise AssertionError("phase_adapt_path: the wrong walk's logits stayed within the "
+                             f"shift limit: {control}")
+    print(f"[adapt] checks: (b) == (d) to the bit over {len(b['logits_at'])} tokens; two "
+          f"step graphs in every run; tie rule held at {len(diffs)} flipped streams; logit "
+          f"shift {shift['max']:.4f} <= {ADAPT_SHIFT_LIMIT}; wrong-walk control "
+          f"{control['max_after']:.4f} > {ADAPT_SHIFT_LIMIT}")
+    launches = {}
+    for r in (a, b, c, d, e):
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    summary["launches"] = launches
+    for r in (a, b, c, d, e):
+        r.pop("logits_at")
+    return summary
 
 
 def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
@@ -2092,6 +2391,60 @@ def phase_long_bwd_times(dev_info: dict) -> dict:
     return rec
 
 
+def phase_l2_model(static_times: dict, d80_times: dict, train_times: dict,
+                   long_times: dict) -> dict:
+    """The walks B2 and B6 take on this card played through the LRU model
+    of an L2 (``kernels.traffic.fwd_walk_llc_model``/``dkv_walk_llc_model``,
+    one CTA per SM in lock step), in the sawtooth and the cyclic order, at
+    the card's L2 size (``torch.cuda.get_device_properties``) and at half
+    of it: B2 at the static path's second prefill (D 128 and zamba2's D 80),
+    the training shape and the 16k shape; B6 at the training shape. Beside
+    each, the kernel's time in that order measured in this run (phase 4).
+    Modeled bytes; no limit."""
+    from repro_torch.core.cache_model import H100, device_hw_config
+    from repro_torch.kernels.flash_attention import kernel_traversal
+    from repro_torch.kernels.traffic import dkv_walk_llc_model, fwd_walk_llc_model
+
+    hw = device_hw_config()
+    print(f"[model] L2 config: the card reports {hw.name}, {hw.n_workers} SMs, L2 "
+          f"{hw.cache_bytes} bytes; the data-sheet constant H100: {H100.n_workers} SMs, L2 "
+          f"{H100.cache_bytes} bytes")
+    caps = {"l2": float(hw.cache_bytes), "half_l2": hw.cache_bytes / 2}
+    shapes = [
+        ("flash_fwd", "prefill D128", (8, 700, 32, 128), static_times["flash_fwd"]["orders_ms"]),
+        ("flash_fwd", "prefill D80", (8, 700, 32, 80), d80_times["flash_fwd"]["orders_ms"]),
+        ("flash_fwd", "train", (4, 1024, 32, 128), train_times["flash_fwd"]["orders_ms"]),
+        ("flash_fwd", "long 16k", (1, 16384, 32, 128), long_times["orders_ms"]),
+        ("flash_bwd_dkv", "train", (4, 1024, 32, 128),
+         train_times["flash_bwd_dkv"]["orders_ms"]),
+    ]
+    out = {"card": {"name": hw.name, "sms": hw.n_workers, "l2_bytes": hw.cache_bytes},
+           "shapes": []}
+    for kernel, label, (bsz, seq, heads, d), measured in shapes:
+        model = fwd_walk_llc_model if kernel == "flash_fwd" else dkv_walk_llc_model
+        rec = {"kernel": kernel, "shape": label,
+               "dims": {"B": bsz, "S": seq, "H": heads, "D": d, "causal": True}}
+        for order in ("sawtooth", "cyclic"):
+            tr = kernel_traversal(seq, seq, 1, kernel=kernel, order=order, causal=True,
+                                  window=None)
+            t0 = time.perf_counter()
+            results = model(tr, bsz * heads, hw.n_workers, capacities=list(caps.values()),
+                            head_dim=d, seq_q=seq, seq_kv=seq)
+            host_s = time.perf_counter() - t0
+            rec[order] = {
+                **{name: {"miss_bytes": r.misses, "cold_bytes": r.cold_misses,
+                          "non_compulsory_bytes": r.non_compulsory_misses}
+                   for name, r in zip(caps, results)},
+                "read_bytes": results[0].accesses,
+                "measured_ms": measured[order],
+                "host_s": host_s,
+            }
+        out["shapes"].append(rec)
+        print(f"[model] {kernel} {label} (B {bsz}, S {seq}, {heads} x {d}): modeled L2 bytes "
+              f"of its walks, beside its measured ms: " + json.dumps(rec))
+    return out
+
+
 def _ssd_work(bsz: int, s: int, h: int, n: int, p: int = 64) -> tuple[int, float, float]:
     """(bytes, flops, float32 flops) of B7 on these shapes, started from
     zeros as ops.ssd starts it on the main path (no initial state read).
@@ -2275,6 +2628,7 @@ def main(argv=None) -> int:
     ssd_check = phase_ssd_matrix()
     cfg, lm, params = build_main_model()
     main_path = phase_main_path(cfg, lm, params, profile=args.profile)
+    adapt = phase_adapt_path(cfg, lm, params, main_path)
     static = phase_static_path(cfg, lm, params, profile=args.profile)
     del lm, params
     torch.cuda.empty_cache()
@@ -2295,9 +2649,10 @@ def main(argv=None) -> int:
     long_bwd = phase_long_bwd_times(dev_info)
     ssd_times = phase_ssd_kernel_times(dev_info)
     split_times = phase_split_times()
+    l2_model = phase_l2_model(static_times, d80_times, train_times, long_times)
 
-    paths = {"continuous": main_path, "static": static, "train": train, "mamba2": mamba,
-             "zamba2": zamba}
+    paths = {"continuous": main_path, "adapt": adapt, "static": static, "train": train,
+             "mamba2": mamba, "zamba2": zamba}
     by_path = {name: {path: rec["launches"][name] for path, rec in paths.items()}
                for name in main_path["launches"]}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
@@ -2318,6 +2673,8 @@ def main(argv=None) -> int:
                launches_per_prefill=static["launches"]["flash_fwd"] / static["prefill_calls"],
                launches_per_train_step=train["launches"]["flash_fwd"] / train["steps"],
                orders_ms=fwd["orders_ms"],
+               modeled_l2={r["shape"]: {o: r[o] for o in ("sawtooth", "cyclic")}
+                           for r in l2_model["shapes"] if r["kernel"] == "flash_fwd"},
                train_shape={k: train_times["flash_fwd"][k] for k in (*timing_keys, "orders_ms")},
                d80_zamba2_shape={k: d80_times["flash_fwd"][k]
                                  for k in (*timing_keys, "orders_ms")},
@@ -2342,8 +2699,11 @@ def main(argv=None) -> int:
         rec = train_times[name]
         err = max(bwd_worst[key], bwd_worst["dv"] if key == "dk" else 0.0, rec["max_abs_err"])
         extra = {}
+        if name == "flash_bwd_dkv":
+            extra["modeled_l2"] = {r["shape"]: {o: r[o] for o in ("sawtooth", "cyclic")}
+                                   for r in l2_model["shapes"] if r["kernel"] == name}
         if name != "flash_bwd_delta":
-            extra = dict(orders_ms=rec["orders_ms"], kernel_attr=dev_info["kernel_attr"][name],
+            extra.update(orders_ms=rec["orders_ms"], kernel_attr=dev_info["kernel_attr"][name],
                          long_shape_informational={
                              "shape": long_bwd["shape"], "orders_ms": long_bwd["orders_ms"][name],
                              "bound_ms": long_bwd["bound_ms"][name], "bound_by": "operations",
@@ -2378,7 +2738,10 @@ def main(argv=None) -> int:
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s; training "
           f"{train['tokens_per_s'][-1]:.0f} tokens/s at step {train['steps'] - 1}, peak "
           f"{train['peak_mem_gb']:.2f} GB; loop {loop['interrupted']}; mamba2 "
-          f"{mamba['tokens_per_s']:.1f} and zamba2 {zamba['tokens_per_s']:.1f} tokens/s")
+          f"{mamba['tokens_per_s']:.1f} and zamba2 {zamba['tokens_per_s']:.1f} tokens/s; "
+          f"adaptive continuous {adapt['runs']['b']['tokens_per_s']:.1f} tokens/s, switches "
+          f"{adapt['runs']['b']['switches']}, (a) at the card's L2 "
+          f"{adapt['runs']['a']['switches']}")
     print(dev_info["smi"])
     print("checked kernels: " + json.dumps([k["name"] for k in kernels]))
     print(json.dumps({"kernels": kernels}))

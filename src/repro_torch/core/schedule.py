@@ -1,9 +1,10 @@
 """The paper's KV traversal: tile orders of the flash forward grid and page
 visit orders of the paged serve path.
 
-The subset of ``repro.core.schedule`` (the Traversal IR) that the port's
-flash attention (forward and backward) and ragged paged attention consume.
-The three order families are one grouped-reversal arithmetic with different
+A port of ``repro.core.schedule`` (the Traversal IR): what the port's
+flash attention (forward and backward) and ragged paged attention consume,
+and the host wavefront models (:class:`KVSchedule`, :class:`BwdKVSchedule`,
+:func:`step_page_visits`) that the cache models replay. The three order families are one grouped-reversal arithmetic with different
 group sizes:
 
   cyclic        : group 1, every pass scans pages 0..n-1;
@@ -29,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import torch
 
@@ -43,7 +44,11 @@ __all__ = [
     "kv_index_host",
     "num_kv_tiles_for",
     "q_tile_bounds_for",
+    "step_page_visits",
     "Traversal",
+    "KVSchedule",
+    "BwdKVSchedule",
+    "bwd_kv_schedule",
 ]
 
 # Default block_snake group size (pages) when none is configured.
@@ -164,6 +169,35 @@ def kv_index_host(
     if order is Order.CYCLIC:
         return j
     return _snake_pos_host(i, j, n_kv, _resolve_group(order, snake_group, n_kv))
+
+
+def step_page_visits(
+    order: Order | str,
+    row_pages: Sequence[Sequence[int]],
+    parities: Sequence[int],
+    *,
+    snake_group: Optional[int] = None,
+) -> Iterator[tuple[int, int]]:
+    """Shared-page visit order of one ragged mixed serve step: row ``b``
+    walks its physical pages ``row_pages[b]`` in its own order (parity
+    ``parities[b]``, the visited length), and the rows advance in lock
+    step, so at inner step ``j`` every row still walking visits its
+    ``j``-th page. Yields ``(row, physical_page)`` in that interleaved
+    order, the trace the cache simulator plays to model rows that share
+    prefix pages."""
+    order = Order.parse(order)
+    rows = [list(p) for p in row_pages]
+    if len(rows) != len(parities):
+        raise ValueError(f"{len(rows)} rows vs {len(parities)} parities")
+    orders = [
+        [pages[kv_index_host(order, par, j, len(pages), snake_group=snake_group)]
+         for j in range(len(pages))]
+        for pages, par in zip(rows, parities)
+    ]
+    for j in range(max((len(o) for o in orders), default=0)):
+        for b, visit in enumerate(orders):
+            if j < len(visit):
+                yield b, visit[j]
 
 
 def num_kv_tiles_for(
@@ -297,6 +331,11 @@ class Traversal:
         """Untrimmed KV tile of step ``j`` of pass ``i`` over the full
         ``n_kv`` range: the blockwise path masks instead of trimming."""
         return kv_index(self.order, i, j, self.n_kv, snake_group=self.snake_group)
+
+    def visit_order(self, parity) -> torch.Tensor:
+        """(B, n_kv) visit-order rows over the full ``n_kv`` range for
+        per-row ``parity`` drivers (the paged decode's page walk)."""
+        return page_visit_order(self.order, parity, self.n_kv, snake_group=self.snake_group)
 
     # ---- index arithmetic of the transposed (dK/dV) grid ----------------------
 
@@ -464,3 +503,137 @@ class Traversal:
                     pos[w] += 1
                     if pos[w] >= len(assign):
                         active[w] = False
+
+
+# ---- host wavefront models over the Traversal ----------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSchedule:
+    """The forward traversal of one attention problem as a host model: a
+    view of :class:`Traversal` (``.traversal``) with the paper's
+    persistent-worker wavefront (Alg. 2 round-robin, the lock step of
+    §3.4) on top. ``window`` trims the low end of each Q tile's KV range."""
+
+    order: Order
+    n_q: int
+    n_kv: int
+    causal: bool = False
+    q_block: int = 128
+    kv_block: int = 128
+    snake_group: Optional[int] = None
+    window: Optional[int] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "order", Order.parse(self.order))
+        if self.n_q <= 0 or self.n_kv <= 0:
+            raise ValueError(f"empty schedule: n_q={self.n_q} n_kv={self.n_kv}")
+
+    @property
+    def traversal(self) -> Traversal:
+        return Traversal(order=self.order, n_q=self.n_q, n_kv=self.n_kv, causal=self.causal,
+                         window=self.window, q_block=self.q_block, kv_block=self.kv_block,
+                         snake_group=self.snake_group)
+
+    def kv_range(self, q_tile: int) -> int:
+        lo, hi = self.traversal.kv_bounds_host(q_tile)
+        return max(hi - lo + 1, 0)
+
+    def kv_order(self, q_tile: int, local_iter: Optional[int] = None) -> list[int]:
+        """KV tiles visited for ``q_tile``; ``local_iter`` is the parity
+        key (default the Q tile)."""
+        return self.traversal.kv_order(q_tile, local_iter)
+
+    def page_order(self, parity) -> torch.Tensor:
+        """(B, n_kv) visit order over this schedule's KV tiles for per-row
+        ``parity``."""
+        return self.traversal.visit_order(parity)
+
+    def worker_assignments(self, n_workers: int) -> list[list[int]]:
+        return self.traversal.worker_assignments(n_workers)
+
+    def wavefront_trace(self, n_workers: int) -> Iterator[tuple[int, str, int]]:
+        """Lock-step wavefront access trace: (worker, tensor, tile) with
+        'Q' once a Q tile, 'K' and 'V' each inner step, 'O' at its end."""
+        yield from self.traversal.wavefront(n_workers)
+
+    def flat_trace(self, n_workers: int = 1) -> list[tuple[str, int]]:
+        return [(t, tile) for (_, t, tile) in self.wavefront_trace(n_workers)]
+
+    def bwd(self, window: Optional[int] = None) -> "BwdKVSchedule":
+        """The transposed (dK/dV) schedule over the same tile geometry."""
+        return BwdKVSchedule(order=self.order, n_q=self.n_q, n_kv=self.n_kv, causal=self.causal,
+                             window=self.window if window is None else window,
+                             q_block=self.q_block, kv_block=self.kv_block,
+                             snake_group=self.snake_group)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdKVSchedule:
+    """The transposed (dK/dV) traversal as a host model: each worker keeps
+    one KV tile resident and streams the Q tiles that see it, parity keyed
+    on the worker-local resident counter. Causal trimming cuts the low end
+    of each Q range, a window the high end."""
+
+    order: Order
+    n_q: int
+    n_kv: int
+    causal: bool = False
+    window: Optional[int] = None
+    q_block: int = 128
+    kv_block: int = 128
+    snake_group: Optional[int] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "order", Order.parse(self.order))
+        if self.n_q <= 0 or self.n_kv <= 0:
+            raise ValueError(f"empty schedule: n_q={self.n_q} n_kv={self.n_kv}")
+
+    @property
+    def traversal(self) -> Traversal:
+        return Traversal(order=self.order, n_q=self.n_q, n_kv=self.n_kv, causal=self.causal,
+                         window=self.window, q_block=self.q_block, kv_block=self.kv_block,
+                         snake_group=self.snake_group)
+
+    def q_bounds(self, kv_tile: int) -> tuple[int, int]:
+        return q_tile_bounds_for(kv_tile, self.n_q, causal=self.causal, window=self.window,
+                                 q_block=self.q_block, kv_block=self.kv_block)
+
+    def q_range(self, kv_tile: int) -> int:
+        lo, hi = self.q_bounds(kv_tile)
+        return max(hi - lo + 1, 0)
+
+    def q_order(self, kv_tile: int, local_iter: Optional[int] = None) -> list[int]:
+        """Q tiles streamed while ``kv_tile`` is resident."""
+        return self.traversal.q_order(kv_tile, local_iter)
+
+    def worker_assignments(self, n_workers: int) -> list[list[int]]:
+        return self.traversal.worker_assignments(n_workers, transposed=True)
+
+    def wavefront_trace(self, n_workers: int) -> Iterator[tuple[int, str, int]]:
+        """Lock-step wavefront trace of the dK/dV grid: 'K' and 'V' once a
+        resident tile, 'Q' and 'dO' each inner step (Q tile ids), 'dK' and
+        'dV' at its end."""
+        for w, tensor, key in self.traversal.wavefront(n_workers, transposed=True):
+            # One GQA group here: the stream keys (group, q tile) -> q tile.
+            yield (w, tensor, key[1] if tensor in ("Q", "dO") else key)
+
+    def flat_trace(self, n_workers: int = 1) -> list[tuple[str, int]]:
+        return [(t, tile) for (_, t, tile) in self.wavefront_trace(n_workers)]
+
+
+def bwd_kv_schedule(
+    order: Order | str,
+    n_q: int,
+    n_kv: int,
+    *,
+    causal: bool = False,
+    window: Optional[int] = None,
+    q_block: int = 128,
+    kv_block: int = 128,
+    snake_group: Optional[int] = None,
+) -> BwdKVSchedule:
+    """The transposed (dK/dV) schedule from grid geometry."""
+    return BwdKVSchedule(order=Order.parse(order), n_q=n_q, n_kv=n_kv, causal=causal,
+                         window=window, q_block=q_block, kv_block=kv_block,
+                         snake_group=snake_group)

@@ -12,8 +12,10 @@ config supports it and the static one otherwise, as the JAX launcher does.
 The flags are the JAX launcher's (``repro.launch.serve``) plus ``--device``
 (default ``cuda``; with no GPU the launcher raises unless ``--device cpu``
 is given). Flags of features not ported yet exit with an error naming the
-ROADMAP item. ``--llc-every`` defaults to 0 here (the LLC sampler is not
-ported); the JAX launcher's default is 8.
+ROADMAP item. ``--attn-order auto`` turns on online order adaptation
+(``serve.adapt``): the engine seeds its first order from
+``--autotune-cache`` and re-picks it every ``--adapt-epoch`` mixed steps
+from the modeled-LLC gauges that ``--llc-every`` also samples.
 """
 
 from __future__ import annotations
@@ -47,14 +49,6 @@ def pick_scheduler(choice: str, cfg) -> str:
 def _unported(args) -> list[str]:
     """Flags set to a feature the port does not have yet."""
     checks = [
-        (args.attn_order == "auto", "--attn-order auto", "A8 online order adaptation"),
-        (args.adapt_epoch != 8, "--adapt-epoch", "A8 online order adaptation"),
-        (args.adapt_hysteresis != 0.05, "--adapt-hysteresis", "A8 online order adaptation"),
-        (args.adapt_confirm != 2, "--adapt-confirm", "A8 online order adaptation"),
-        (args.autotune_cache != _AUTOTUNE_CACHE, "--autotune-cache",
-         "A8 online order adaptation"),
-        (args.llc_every > 0, "--llc-every > 0", "A8 LLC sampling"),
-        (args.llc_capacity_mib is not None, "--llc-capacity-mib", "A8 LLC sampling"),
         (args.admission == "optimistic", "--admission optimistic", "A9 resilience"),
         (args.max_preemptions != 2, "--max-preemptions", "A9 resilience"),
         (args.chaos_step_fail > 0, "--chaos-step-fail", "A9 resilience (faults)"),
@@ -83,7 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--attn-order", default="sawtooth",
                     choices=[o.value for o in Order] + ["auto"],
-                    help="KV traversal order of the paged attention walk")
+                    help="KV traversal order of the paged attention walk; 'auto' "
+                         "enables online adaptation (seeded from the autotune cache, "
+                         "re-picked from the live modeled-LLC gauges every "
+                         "--adapt-epoch steps)")
     ap.add_argument("--snake-group", type=int, default=None,
                     help="block_snake reversal window in KV pages")
     ap.add_argument("--adapt-epoch", type=int, default=8)
@@ -120,9 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="dump the obs metrics registry as JSONL here")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write the span trace as Chrome-trace JSON here")
-    ap.add_argument("--llc-every", type=int, default=0,
-                    help="LLC gauge sampling cadence (not ported: must stay 0)")
-    ap.add_argument("--llc-capacity-mib", type=float, default=None)
+    ap.add_argument("--llc-every", type=int, default=8,
+                    help="llc.* gauge sampling cadence in mixed steps (0 disables)")
+    ap.add_argument("--llc-capacity-mib", type=float, default=None,
+                    help="modeled LLC capacity of the llc.* gauges (MiB)")
     ap.add_argument("--log-every", type=int, default=0, metavar="STEPS",
                     help="print a one-line stats summary every N mixed steps")
     return ap
@@ -140,11 +138,16 @@ def main(argv=None):
             "traversal order 'block_snake' needs --snake-group (the reversal "
             f"window in KV pages); valid orders are: {valid}"
         )
+    adapt = args.attn_order == "auto"
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = cfg.with_(attn_order=args.attn_order, snake_group=args.snake_group)
+    if not adapt:
+        # 'auto' starts from the arch's configured order, which the
+        # controller may re-seed from the cache and re-pick from there.
+        cfg = cfg.with_(attn_order=args.attn_order)
+    cfg = cfg.with_(snake_group=args.snake_group)
     lm = build_model(cfg, device=args.device)
     params = lm.init(0)
 
@@ -158,13 +161,26 @@ def main(argv=None):
         token_budget=args.token_budget,
         prefill_chunk=args.prefill_chunk,
         prefix_sharing=not args.no_prefix_sharing,
+        llc_every=args.llc_every,
+        llc_capacity_bytes=args.llc_capacity_mib * 2**20 if args.llc_capacity_mib else None,
         log_every_steps=args.log_every,
+        adapt_order=adapt,
+        adapt_epoch=args.adapt_epoch,
+        adapt_hysteresis=args.adapt_hysteresis,
+        adapt_confirm=args.adapt_confirm,
+        autotune_cache=args.autotune_cache,
         admission=args.admission,
         max_queue=args.max_queue,
         admit_watermark=args.admit_watermark,
         pool_pages=args.pool_pages,
         device=args.device,
     )
+    if adapt and eng.order_ctl is not None:
+        seeded = ("seeded from autotune cache" if eng.order_ctl.seeded_from
+                  else "no autotune-cache hit")
+        print(f"order adaptation on: starting order={eng.order_ctl.order.value} ({seeded}), "
+              f"epoch={args.adapt_epoch}, hysteresis={args.adapt_hysteresis}, "
+              f"confirm={args.adapt_confirm}")
     rng = np.random.default_rng(0)
     reqs = [
         Request(

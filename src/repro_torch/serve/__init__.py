@@ -1,3 +1,4 @@
+from repro_torch.serve.adapt import ORDER_INDEX, OrderAdaptController
 from repro_torch.serve.engine import (
     CONTINUOUS_FAMILIES,
     REQUEST_STATUSES,
@@ -18,6 +19,8 @@ from repro_torch.serve.kv_pool import (
 from repro_torch.serve.scheduler import ContinuousScheduler, Slot, StepItem
 
 __all__ = [
+    "ORDER_INDEX",
+    "OrderAdaptController",
     "CONTINUOUS_FAMILIES",
     "REQUEST_STATUSES",
     "GenerationResult",

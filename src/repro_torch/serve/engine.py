@@ -22,8 +22,12 @@ tokens are on the host, so they bracket the device time of the step.
 decoding slot contributes a q_len=1 row and the rest of the token budget
 goes to prompts as prefill chunks. The step runs ``LM.decode_step`` over
 the pool (``serve.kv_pool``), whose pages are written in place and walked
-in the paper's traversal order; the effective reversal group comes from
-``resolve_order_group(cfg.attn_order, cfg.snake_group, blocks_per_seq)``.
+in the paper's traversal order. The order belongs to an
+``OrderAdaptController`` (``serve.adapt``), which starts from
+``cfg.attn_order``/``cfg.snake_group`` (or the autotune cache's winner) and,
+with ``adapt_order=True``, re-picks it every ``adapt_epoch`` mixed steps
+from the modeled-LLC readings of an ``LLCSampler`` (``obs.llc``) on the
+live pool; every step stages the order's reversal group, resolved then.
 A step has one of two widths: 1 when every row decodes, ``prefill_chunk``
 otherwise. Identical prompt prefixes share pages (adoption +
 copy-on-write).
@@ -52,8 +56,7 @@ those three numbers, not on its slot or its neighbours.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): speculative drafters, the host KV tier, fault injection and
-optimistic admission, online order adaptation and LLC sampling, and
-sharded serving.
+optimistic admission, and sharded serving.
 """
 
 from __future__ import annotations
@@ -67,11 +70,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.schedule import resolve_order_group
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LM, build_model
+from repro_torch.obs.llc import DEFAULT_CAPACITY_BYTES, LLCSampler
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import Tracer
+from repro_torch.serve.adapt import OrderAdaptController
 from repro_torch.serve.kv_pool import PagedKVPool, assemble_cache_view
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.step_graph import StepGraph
@@ -96,14 +100,6 @@ REQUEST_STATUSES = ("ok", "deadline", "cancelled", "shed", "failed")
 _UNPORTED = {
     "mesh": (None, "A14 sharded serving"),
     "pcfg": (None, "A14 sharded serving"),
-    "llc_every": (0, "A8 LLC sampling"),
-    "llc_capacity_bytes": (None, "A8 LLC sampling"),
-    "adapt_order": (False, "A8 online order adaptation"),
-    "adapt_epoch": (8, "A8 online order adaptation"),
-    "adapt_hysteresis": (0.05, "A8 online order adaptation"),
-    "adapt_confirm": (2, "A8 online order adaptation"),
-    "adapt_shared_threshold": (0.25, "A8 online order adaptation"),
-    "autotune_cache": (None, "A8 online order adaptation"),
     "max_preemptions": (2, "A9 resilience (preemption)"),
     "faults": (None, "A9 resilience (fault injection)"),
     "host_pages": (None, "A10 tiered KV memory"),
@@ -217,6 +213,14 @@ class ServeEngine:
         max_queue: Optional[int] = None,
         admit_watermark: Optional[float] = None,
         pool_pages: Optional[int] = None,
+        llc_every: int = 0,
+        llc_capacity_bytes: Optional[float] = None,
+        adapt_order: bool = False,
+        adapt_epoch: int = 8,
+        adapt_hysteresis: float = 0.05,
+        adapt_confirm: int = 2,
+        adapt_shared_threshold: float = 0.25,
+        autotune_cache: Optional[str] = None,
         device="cuda",
         **unported,
     ):
@@ -235,7 +239,18 @@ class ServeEngine:
         ``prefix_sharing=False`` disables page dedup. ``max_queue`` sheds the
         newest arrived requests beyond it; ``admit_watermark`` pauses
         admission at that pool occupancy. Metrics go to ``registry`` and
-        spans to ``tracer`` (fresh per engine by default)."""
+        spans to ``tracer`` (fresh per engine by default).
+
+        Continuous only: ``llc_every > 0`` samples the modeled-LLC gauges
+        (``llc.*``) every that many mixed steps, at a modeled capacity of
+        ``llc_capacity_bytes`` (default ``obs.llc.DEFAULT_CAPACITY_BYTES``).
+        ``adapt_order=True`` lets the ``OrderAdaptController`` re-pick the
+        traversal order every ``adapt_epoch`` mixed steps: a switch needs at
+        least ``adapt_hysteresis`` fractional modeled-byte improvement on
+        ``adapt_confirm`` consecutive samples, the shared-prefix model is
+        blended in above a shared-page fraction of
+        ``adapt_shared_threshold``, and ``autotune_cache`` (an
+        ``autotune_cache.jsonl`` path) seeds the first order."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"ServeEngine() got an unexpected keyword argument {name!r}")
@@ -328,6 +343,35 @@ class ServeEngine:
         self._m_cancel = r.counter("serve.cancelled")
         self._m_failed = r.counter("serve.failed")
         self._m_admit_paused = r.gauge("serve.admission_paused")
+        self.llc: Optional[LLCSampler] = None
+        self.order_ctl: Optional[OrderAdaptController] = None
+        if scheduler == "continuous":
+            elem_bytes = (1 if cfg.kv_cache_dtype == "int8"
+                          else torch.empty((), dtype=cfg.activation_dtype()).element_size())
+            capacity = llc_capacity_bytes or DEFAULT_CAPACITY_BYTES
+            # The controller owns the live (order, snake_group) pair also
+            # when adaptation is off, so serve.current_order and
+            # serve.order_switches exist on every continuous engine and the
+            # staged reversal group has one source.
+            self.order_ctl = OrderAdaptController(
+                self.obs, order=cfg.attn_order, snake_group=cfg.snake_group,
+                epoch=adapt_epoch, hysteresis=adapt_hysteresis, confirm=adapt_confirm,
+                shared_threshold=adapt_shared_threshold, enabled=adapt_order,
+            )
+            if adapt_order and autotune_cache:
+                self.order_ctl.seed_from_cache(
+                    autotune_cache, arch=cfg.name, seq_bucket=max_len,
+                    capacity_mib=capacity / 2**20,
+                    backend="gpu" if self.device.type == "cuda" else "cpu",
+                )
+            self.llc = LLCSampler(
+                self.obs, page=self._page, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.hd, elem_bytes=elem_bytes,
+                current_order=self.order_ctl.order.value,
+                snake_group=self.order_ctl.snake_group, every=llc_every,
+                capacity_bytes=capacity,
+                **({"orders": self.order_ctl.candidate_orders} if adapt_order else {}),
+            )
 
     def cancel(self, rid: int) -> None:
         """Retire request ``rid`` at the next step boundary with
@@ -590,7 +634,7 @@ class ServeEngine:
         else:
             pool.reset()
             pool.emit_gauges()
-        order_group = resolve_order_group(cfg.attn_order, cfg.snake_group, pool.blocks_per_seq)
+        ctl = self.order_ctl
 
         results: dict[int, GenerationResult] = {}
         cur = np.full((n_slots,), self.eos, np.int32)  # last sampled token
@@ -701,6 +745,9 @@ class ServeEngine:
 
                 # The device span closes once the sampled tokens are on the
                 # host, so it brackets the step's device time.
+                # The order in effect now (a switch after the last step
+                # takes effect here): one staged int32, nothing captured.
+                order_group = ctl.effective_group(pool.blocks_per_seq)
                 with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned):
                     toks = self._run_mixed(mixed, tokens, pool, qlens, order_group, temps,
                                            seeds, counts)
@@ -728,6 +775,15 @@ class ServeEngine:
                     if st.record(tok):
                         finish(it.slot)
                 pool.emit_gauges()
+                # step_q, the widest decode chunk (the query width a KV sweep
+                # is amortized over), is 1: no speculative rows (A11).
+                if ctl.enabled:
+                    # Adaptation samples on its own cadence: the decision
+                    # needs a fresh reading, not the last gauge.
+                    if ctl.maybe_adapt(n_steps, pool, self.llc, step_q=1):
+                        tr.instant("serve.order_switch", order=ctl.order.value, step=n_steps)
+                else:
+                    self.llc.maybe_sample(n_steps, pool, step_q=1)
             self._m_step_time.observe(time.perf_counter() - t_iter)
             if self._log_every and n_steps and n_steps % self._log_every == 0:
                 self._log_stats_line(n_steps, pool, sched)

@@ -1,4 +1,5 @@
-"""Loading the JAX package's weights into the port, for the parity tests.
+"""Loading the JAX package's weights into the port, for the parity tests,
+and the tie rule that holds two bf16 runs whose sums ran in another order.
 
 ``params_from_jax`` takes the reference's param pytree with every leaf
 already a numpy array (``jax.tree.map(np.asarray, params)``; this module
@@ -18,10 +19,12 @@ too.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "to_torch", "bf16_ulp", "top2_margin", "within_tie_rule"]
 
 
 def to_torch(a, device="cpu") -> torch.Tensor:
@@ -82,3 +85,31 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def bf16_ulp(x: float) -> float:
+    """One unit in the last place of bfloat16 (8 significant bits) at
+    magnitude ``|x|``: ``2**(floor(log2|x|) - 7)``; 0 at 0."""
+    x = abs(float(x))
+    return 0.0 if x == 0.0 else 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def top2_margin(logits: torch.Tensor) -> tuple[float, float]:
+    """(top logit, top minus second) of one row of logits, in the logits'
+    own values (bf16 stays bf16, read as float)."""
+    top2 = torch.topk(logits.float(), 2).values
+    return float(top2[0]), float(top2[0] - top2[1])
+
+
+def within_tie_rule(margins, top: float) -> bool:
+    """Whether two greedy runs that differ at a token were tied there, to
+    bf16's resolution. ``margins`` are the two runs' top-2 logit margins at
+    the first differing token, ``top`` the top logit there. Two runs of one
+    model whose attention adds the same float32 terms in another order
+    (another KV visit order) can round a logit one bf16 step apart, so a
+    flip is allowed where the smaller margin is at most one ulp of ``top``
+    (:func:`bf16_ulp`) and the larger is below two: one step of rounding
+    in each run, and no more."""
+    u = bf16_ulp(top)
+    lo, hi = sorted(float(m) for m in margins)
+    return lo <= u and hi < 2 * u

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of the JAX package, and its
 entry points run on the card unless the caller names the CPU."""
 
+import json
 import os
 import pkgutil
 import re
@@ -100,12 +101,12 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
     (["--draft", "ngram"], "A11"),
     (["--host-pages", "4"], "A10"),
     (["--admission", "optimistic"], "A9"),
-    (["--llc-every", "8"], "A8"),
-    (["--attn-order", "auto"], "A8"),
-    (["--adapt-epoch", "4"], "A8"),
-    (["--adapt-hysteresis", "0.1"], "A8"),
-    (["--adapt-confirm", "3"], "A8"),
-    (["--autotune-cache", "cache.jsonl"], "A8"),
+    (["--chaos-step-fail", "1"], "A9"),
+    (["--chaos-fetch-fail", "1"], "A9"),
+    (["--spill-watermark", "0.5"], "A10"),
+    (["--draft-len", "2"], "A11"),
+    (["--draft-model", "deepseek-7b"], "A11"),
+    (["--ckpt-dir", "checkpoints"], "A12"),
     (["--max-preemptions", "3"], "A9"),
     (["--prefetch-depth", "4"], "A10"),
 ])
@@ -114,6 +115,25 @@ def test_launcher_refuses_unported_flags(flag, item, capsys):
         launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu", *flag])
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+def test_launcher_serves_with_order_adaptation(capsys, tmp_path):
+    """The order-adaptation and LLC flags (ported) serve on the CPU: the
+    engine starts from the configured order, samples the modeled LLC and
+    exports the adaptation series."""
+    out_path = tmp_path / "metrics.jsonl"
+    launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--batch-size", "2", "--max-new", "4",
+                       "--max-len", "64", "--page-size", "8", "--attn-order", "auto",
+                       "--adapt-epoch", "2", "--adapt-hysteresis", "0.1", "--adapt-confirm", "1",
+                       "--autotune-cache", str(tmp_path / "none.jsonl"), "--llc-every", "2",
+                       "--llc-capacity-mib", "0.5", "--metrics-out", str(out_path)])
+    out = capsys.readouterr().out
+    assert "order adaptation on: starting order=sawtooth (no autotune-cache hit)" in out
+    assert "served 3 requests, 12 tokens" in out
+    names = {json.loads(line)["name"] for line in out_path.read_text().splitlines()}
+    assert {"serve.order_switches", "serve.current_order", "llc.samples",
+            "llc.modeled_miss_bytes"} <= names
 
 
 def test_launcher_auto_scheduler_needs_a_ported_family():

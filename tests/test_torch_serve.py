@@ -126,8 +126,8 @@ def test_sample_token_follows_softmax():
     (dict(drafter=object()), "A11"),
     (dict(host_pages=4), "A10"),
     (dict(faults=object()), "A9"),
-    (dict(adapt_order=True), "A8"),
-    (dict(llc_every=4), "A8"),
+    (dict(spill_watermark=0.5), "A10"),
+    (dict(max_preemptions=3), "A9"),
     (dict(admission="optimistic"), "A9"),
     (dict(mesh=object()), "A14"),
 ])
@@ -135,6 +135,25 @@ def test_unported_engine_arguments_raise(models, kwargs, item):
     _, _, lm, params = models
     with pytest.raises(NotImplementedError, match=item):
         ServeEngine(lm, params, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(adapt_order=True), dict(llc_every=4), dict(llc_capacity_bytes=2**20),
+    dict(adapt_order=True, adapt_epoch=3, adapt_hysteresis=0.2, adapt_confirm=1,
+         adapt_shared_threshold=0.5, autotune_cache="missing.jsonl"),
+], ids=["adapt_order", "llc_every", "llc_capacity_bytes", "adapt_all"])
+def test_order_adaptation_arguments_are_accepted(models, kwargs):
+    """The A8 arguments build the controller and the sampler on the
+    continuous path and leave the greedy streams as they were."""
+    _, _, lm, params = models
+    specs = _specs(lm.cfg.vocab, n=3, new=4)
+    plain = ServeEngine(lm, params, scheduler="continuous", device="cpu", **KW)
+    want = [r.tokens.tolist() for r in plain.generate([Request(**s) for s in specs])]
+    eng = ServeEngine(lm, params, scheduler="continuous", device="cpu", **KW, **kwargs)
+    assert eng.order_ctl.enabled == kwargs.get("adapt_order", False)
+    assert eng.llc.capacity_bytes == kwargs.get("llc_capacity_bytes", 3 * 2**20)
+    assert [r.tokens.tolist() for r in eng.generate([Request(**s) for s in specs])] == want
+    assert eng.obs.find("serve.order_switches") is not None
 
 
 def test_engine_argument_checks(models):

@@ -5,9 +5,10 @@ replays, so these tests hold the step functions to what a capture needs:
 
 * no host read inside a step: one step of each captured kind (the
   continuous mixed step at width 1 and at the chunk width; the static
-  decode step of the dense, SSM and hybrid families) runs under a dispatch
-  mode that fails on ``aten._local_scalar_dense`` (any ``.item()``,
-  ``int(t)`` or ``bool(t)``);
+  decode step of the dense, SSM and hybrid families, and both mixed widths
+  after a traversal-order switch) runs under a dispatch mode that fails on
+  ``aten._local_scalar_dense`` (any ``.item()``, ``int(t)`` or
+  ``bool(t)``);
 * buffers that outlive ``generate()``: two calls on one engine use the
   same step buffers, pool pages and decode caches (same ``data_ptr``), and
   ``compiled_step_count()`` stays at most 2 (continuous) and 1 (static);
@@ -93,16 +94,26 @@ def test_guard_catches_host_reads():
 
 
 @pytest.mark.parametrize("kind", ["mixed/1", "mixed/16", "deepseek-7b", "mamba2-130m",
-                                  "zamba2-2_7b"])
+                                  "zamba2-2_7b", "mixed/1 after a switch",
+                                  "mixed/16 after a switch"])
 def test_captured_steps_read_no_host_value(kind):
     """One step of each kind, on the inputs and state its engine left, runs
-    under the guard; it is the function the card captures."""
+    under the guard; it is the function the card captures. After an order
+    switch (forced at the third mixed step, sawtooth to cyclic) both widths
+    have run with the new reversal group staged, and still read nothing."""
     if kind.startswith("mixed"):
         eng = _engine("deepseek-7b", "continuous")
     else:
         eng = _engine(kind, "static")
+    if kind.endswith("after a switch"):
+        ctl = eng.order_ctl
+        ctl.enabled = True
+        ctl.maybe_adapt = lambda n, *a, **k: n == 3 and ctl.switch_to("cyclic") is None
     eng.generate([Request(**s) for s in _specs(eng.lm.cfg.vocab)])
-    step = eng.step_graphs()["decode" if kind in ARCHS else kind]
+    step = eng.step_graphs()["decode" if kind in ARCHS else kind.split()[0]]
+    if kind.endswith("after a switch"):
+        assert eng.order_ctl.switches == 1 and eng.compiled_step_count() == 2
+        assert int(step.inputs["order_group"]) == 1  # cyclic, staged after the switch
     with NoHostRead():
         logits, greedy = step()
     assert torch.isfinite(logits).all() and greedy.dtype == torch.int32
