@@ -49,7 +49,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    issued; steps are counted from the engine's spans and stats); each
    captured step then replayed once against the same step run eagerly on
    the same inputs and state, logits and every cache or page written equal
-   to the bit; then, with the serving weights released,
+   to the bit; then with int8 KV caches (A5) through both engines (B1 and
+   B3 reading the caches dequantized to bf16 inside the captured steps):
+   every request ok, replays equal to eager steps int8 pages and scale
+   planes included, the launch counts above, the caches under
+   INT8_BYTES_LIMIT of bf16's bytes, the first step's logits within
+   INT8_REL_LIMIT of the bf16 run's and, with the scales dropped, beyond
+   it; then optimistic admission (A9) on a pool of OPT_POOL_PAGES pages,
+   twice on one engine: preemptions and restores, the rerun equal to the
+   bit, flips against the main path tied to bf16's resolution; then
+   injected faults (a step failure retried once, equal to the main path
+   to the bit; one failing twice, its rows failed; a pool exhaustion and a
+   cancel); no run without an injected fault may show a step retry or a
+   failed request; then, with the serving weights released,
    trained for 4 adamw_factored steps (batch 4 x 1024, remat full), with
    ``flash_fwd`` launches == 2 x layers x steps (forward and remat
    recompute) and 120 of each backward kernel, a falling loss, and step 0
@@ -192,6 +204,38 @@ ADAPT_SMALL_CAPACITY = 131_072
 # walk from the first switch on (run (e): every full page of a row read as
 # its first page) must exceed that limit.
 ADAPT_SHIFT_LIMIT = 0.5
+
+# int8 KV caches (phase_int8_continuous, phase_int8_static): the first mixed
+# step's logits (continuous, at its valid positions) and the first decode
+# step's (static) within INT8_REL_LIMIT of the bf16 run's, as max |int8 -
+# bf16| over max |bf16| (the limit of the reference's test_kv_cache.py); the
+# same step with the scales dropped (each int8 read as its value) must
+# exceed it. The caches, payload and scales, under INT8_BYTES_LIMIT of the
+# bf16 caches' bytes (one byte a value and a float32 scale a 128-value
+# vector: 0.516).
+INT8_REL_LIMIT = 0.1
+INT8_BYTES_LIMIT = 0.75
+# Optimistic admission under real pool pressure (phase_optimistic_path): an
+# allocatable pool of OPT_POOL_PAGES pages of 64 positions (every slot's
+# worst case is 128) on the main requests: decode growth runs out, and
+# victims are preempted and restored by re-prefill (two preemptions in a
+# run of the same schedule on the CPU). A restored row's K/V come from a
+# wide step where they came from narrow ones, and the batch's rows move to
+# other steps' widths, so a bf16 logit may round one step apart: the run is
+# held exactly to its own rerun, and to the main path's streams by the tie
+# rule at each first difference, its logits within ADAPT_SHIFT_LIMIT of the
+# main path's until then.
+OPT_POOL_PAGES = 30
+OPT_MAX_PREEMPTIONS = 8
+# Injected faults (phase_fault_path) on an engine of the main path's
+# settings: a device-step failure at mixed step FAULT_STEP, once (retried on
+# the same inputs: streams and logits equal to the main path's to the bit)
+# and twice (that step's rows fail, the rest serve on); a pool exhaustion
+# armed at FAULT_EXHAUST_STEP (a preemption) and a cancel of
+# FAULT_CANCEL_RID at FAULT_CANCEL_STEP.
+FAULT_STEP = 10
+FAULT_EXHAUST_STEP = 20
+FAULT_CANCEL_STEP, FAULT_CANCEL_RID = 30, 5
 
 # Data-sheet peaks by card name: (bytes/s, dense bf16 flop/s, float32 flop/s
 # outside the tensor cores).
@@ -951,41 +995,56 @@ class _WalkView:
         self.block_tables, self.lens = block_tables, pool.lens
 
 
-def _adapt_run(cfg, lm, params, label: str, *, forced=None, wrong_walk_from=None,
-               **engine_kw) -> dict:
-    """One run of the 12 main requests through a new continuous engine with
-    ``engine_kw``, its two step graphs captured in a warm-up with the
-    controller held. Records, for every token a request is given, the step
-    that made it and that row's logits (kept on the card), the reversal
-    group staged each step, the switches (step, order) and the sampler's
-    host time a sample. ``forced`` (step -> order) replaces the controller's
-    decisions by those switches; ``wrong_walk_from`` makes every step from
-    that one on read each row's full pages as its first page."""
-    from repro_torch.kernels import cuda_lib
+def _warm_engine(cfg, lm, params, **engine_kw):
+    """A continuous engine of the main path's settings and ``engine_kw``,
+    with a device counter of the non-finite logits its steps compute
+    (captured with them) and both step widths captured in a warm-up with
+    the order controller held. Returns (engine, counter)."""
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(lm, params, scheduler="continuous", batch_size=8, max_len=1024,
                       page_size=64, device="cuda", **engine_kw)
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    inner = eng.lm.decode_step
+
+    def checked(p, tokens, caches):
+        logits, caches = inner(p, tokens, caches)
+        bad.add_((~torch.isfinite(logits)).sum())
+        return logits, caches
+
+    eng.lm = dataclasses.replace(eng.lm, decode_step=checked)
     ctl = eng.order_ctl
     adapting = ctl.enabled
     ctl.enabled = False
     rng = np.random.default_rng(99)
     eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
                           max_new_tokens=2, eos_id=-1) for n in (300, 20)])
-    assert eng.compiled_step_count() == 2, (label, eng.step_graphs())
-    assert ctl.switches == 0 and ctl.order.value == cfg.attn_order, label
+    assert eng.compiled_step_count() == 2, eng.step_graphs()
+    assert ctl.switches == 0 and ctl.order.value == cfg.attn_order
     ctl.enabled = adapting
-    if forced is not None:
-        ctl.enabled = True
+    return eng, bad
 
-        def replay(step_epoch, pool, sampler, step_q=None):
-            if step_epoch not in forced:
-                return False
-            ctl.switch_to(forced[step_epoch])
-            return True
 
-        ctl.maybe_adapt = replay
+_RUN_COUNTERS = ("serve.step_retries", "serve.failed", "serve.preemptions",
+                 "serve.restore_tokens", "serve.cancelled")
 
+
+def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=True,
+                  audit=False) -> dict:
+    """The 12 main requests through ``eng`` (warmed by ``_warm_engine``),
+    recording, for every token a request is given, the step that made it
+    and that row's logits (kept on the card); the reversal group staged
+    each step; the first step's staged inputs and its logits at the valid
+    positions; the switches; the sampler's host time a sample; and the
+    resilience counters of the run. ``wrong_walk_from`` makes every step
+    from that one on read each row's full pages as its first page;
+    ``audit`` checks the pool's invariants before every step. With
+    ``expect_ok`` every request must end ``ok`` with 32 tokens. Each run
+    checks its logits finite, its two step graphs, and B1 launched layers x
+    mixed steps."""
+    from repro_torch.kernels import cuda_lib
+
+    ctl = eng.order_ctl
     sample_s = []
     sample = eng.llc.sample
 
@@ -999,16 +1058,19 @@ def _adapt_run(cfg, lm, params, label: str, *, forced=None, wrong_walk_from=None
 
     logits_at: dict = {}   # (rid, token index) -> (step, logits row on the card)
     staged: list = []
+    first: dict = {}
     sched_of: dict = {}
     admit, run = eng._admit, eng._run_mixed
 
-    def admit_rec(req, slot, sched, *rest):
+    def admit_rec(req, slot, sched, *rest, **kw):
         sched_of["sched"] = sched
-        return admit(req, slot, sched, *rest)
+        return admit(req, slot, sched, *rest, **kw)
 
     def run_rec(step, tokens, pool, qlens, order_group, *rest):
         idx = len(staged)
         staged.append(int(order_group))
+        if audit:
+            pool.check_invariants()
         view = pool
         if wrong_walk_from is not None and idx >= wrong_walk_from:
             bt = pool.block_tables.copy()
@@ -1017,6 +1079,12 @@ def _adapt_run(cfg, lm, params, label: str, *, forced=None, wrong_walk_from=None
                 bt[b, 1:full] = bt[b, 0]
             view = _WalkView(pool, bt)
         toks = run(step, tokens, view, qlens, order_group, *rest)
+        if idx == 0:
+            first.update(tokens=tokens.copy(), block_table=view.block_tables.copy(),
+                         lens=pool.lens.copy(), q_lens=qlens.copy(),
+                         order_group=int(order_group), width=tokens.shape[1],
+                         logits=torch.cat([step.outputs[0][b, :int(qlens[b])]
+                                           for b in np.flatnonzero(qlens > 0)]).clone())
         sched = sched_of["sched"]
         rows, pos, keys = [], [], []
         for b in np.flatnonzero(qlens > 0):
@@ -1028,34 +1096,51 @@ def _adapt_run(cfg, lm, params, label: str, *, forced=None, wrong_walk_from=None
             keys.append((st.request.rid, len(st.generated)))
         last = step.outputs[0][rows, pos].clone()
         for j, key in enumerate(keys):
+            assert key not in logits_at, (label, key)
             logits_at[key] = (idx, last[j])
         return toks
 
     eng._admit, eng._run_mixed = admit_rec, run_rec
     reqs = _main_requests(cfg.vocab)
+    before = {name: eng.obs.value(name) for name in _RUN_COUNTERS}
+    bad.zero_()
     eng.tracer.clear()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    results = eng.generate(reqs)
-    torch.cuda.synchronize()
+    try:
+        results = eng.generate(reqs)
+        torch.cuda.synchronize()
+    finally:
+        eng._admit, eng._run_mixed, eng.llc.sample = admit, run, sample
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     stats = eng.last_stats
-    assert all(r.status == "ok" and r.steps == 32 for r in results), label
+    if expect_ok:
+        assert all(r.status == "ok" and r.steps == 32 for r in results), \
+            (label, [(r.status, r.steps) for r in results])
+        assert len(logits_at) == 12 * 32, label
+    assert int(bad.item()) == 0, f"{label}: {int(bad.item())} non-finite logits"
     assert eng.compiled_step_count() == 2, (label, eng.step_graphs())
     assert launches["paged_decode"] == cfg.n_layers * stats.mixed_steps, (label, launches)
-    assert len(staged) == stats.mixed_steps and len(logits_at) == 12 * 32, label
+    assert len(staged) == stats.mixed_steps, label
     walls: dict[str, list] = {"narrow": [], "wide": []}
-    switches = []
+    switches, events = [], []
     for ev in eng.tracer.events():
         if ev.name == "serve.device_step":
             walls["narrow" if ev.args["width"] == 1 else "wide"].append(ev.dur_ns / 1e6)
         elif ev.name == "serve.order_switch":
             switches.append((ev.args["step"], ev.args["order"]))
-    out = {
+        elif ev.name in ("serve.preempt", "serve.step_retry", "serve.preempt_restore"):
+            events.append({"name": ev.name, **(ev.args or {}),
+                           **({"ms": ev.dur_ns / 1e6} if ev.dur_ns >= 0 else {})})
+    return {
         "label": label,
+        "events": events,
         "tokens": {r.rid: r.tokens.tolist() for r in results},
+        "statuses": {r.rid: r.status for r in results},
+        "n_preemptions": {r.rid: r.n_preemptions for r in results},
         "logits_at": logits_at,
+        "first_step": first,
         "staged_groups": staged,
         "switches": switches,
         "final_order": ctl.order.value,
@@ -1068,13 +1153,35 @@ def _adapt_run(cfg, lm, params, label: str, *, forced=None, wrong_walk_from=None
         "sample_host_ms_max": 1e3 * max(sample_s) if sample_s else None,
         "mixed_steps": stats.mixed_steps,
         "wide_steps": stats.wide_steps,
+        "stats": stats.as_dict(),
+        "counters": {name: eng.obs.value(name) - before[name] for name in _RUN_COUNTERS},
         "wall_s": wall,
         "tokens_per_s": sum(r.steps for r in results) / wall,
-        "step_ms_narrow_mean": float(np.mean(walls["narrow"])),
-        "step_ms_wide_mean": float(np.mean(walls["wide"])),
+        "step_ms_narrow_mean": float(np.mean(walls["narrow"])) if walls["narrow"] else None,
+        "step_ms_wide_mean": float(np.mean(walls["wide"])) if walls["wide"] else None,
         "launches": launches,
         "compiled_steps": eng.compiled_step_count(),
     }
+
+
+def _adapt_run(cfg, lm, params, label: str, *, forced=None, wrong_walk_from=None,
+               **engine_kw) -> dict:
+    """One run of the 12 main requests through a new continuous engine with
+    ``engine_kw`` (``_recorded_run``). ``forced`` (step -> order) replaces
+    the controller's decisions by those switches."""
+    eng, bad = _warm_engine(cfg, lm, params, **engine_kw)
+    ctl = eng.order_ctl
+    if forced is not None:
+        ctl.enabled = True
+
+        def replay(step_epoch, pool, sampler, step_q=None):
+            if step_epoch not in forced:
+                return False
+            ctl.switch_to(forced[step_epoch])
+            return True
+
+        ctl.maybe_adapt = replay
+    out = _recorded_run(eng, bad, cfg, label, wrong_walk_from=wrong_walk_from)
     del eng
     torch.cuda.empty_cache()
     return out
@@ -1119,7 +1226,7 @@ def _logit_shift(x: dict, c: dict, from_step: int) -> dict:
             "median_after": float(np.median(after)) if after else None}
 
 
-def phase_adapt_path(cfg, lm, params, main: dict) -> dict:
+def phase_adapt_path(cfg, lm, params, main: dict) -> tuple[dict, dict]:
     """The continuous deepseek-7b engine at full width with online order
     adaptation (A8), on the main path's 12 requests: (a) adaptation on at
     the card's L2 (the realistic setting), (b) at ADAPT_SMALL_CAPACITY,
@@ -1128,7 +1235,8 @@ def phase_adapt_path(cfg, lm, params, main: dict) -> dict:
     wrong walk from the first switch on. Checks: (b) equals (d) to the bit;
     two step graphs in every run; B1 launched layers x mixed steps; the tie
     rule and the logit shift between (b) and (c); the control beyond the
-    shift limit."""
+    shift limit. Returns the summary and run (c), whose logits the later
+    phases hold their runs to."""
     from repro_torch.core.cache_model import device_hw_config
     from repro_torch.testing import bf16_ulp, within_tie_rule
 
@@ -1204,14 +1312,341 @@ def phase_adapt_path(cfg, lm, params, main: dict) -> dict:
         for k, v in r["launches"].items():
             launches[k] = launches.get(k, 0) + v
     summary["launches"] = launches
-    for r in (a, b, c, d, e):
+    for r in (a, b, d, e):
         r.pop("logits_at")
-    return summary
+    return summary, c
 
 
-def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
+def _rel_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|, in float32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def _no_retry_or_failure(run: dict) -> None:
+    """A run without injected faults must show no step retry and no failed
+    request: on the card a swallowed kernel failure would show as one."""
+    c = run["counters"]
+    assert c["serve.step_retries"] == 0 and c["serve.failed"] == 0, (run["label"], c)
+
+
+def phase_int8_continuous(cfg, params, fixed: dict, main: dict) -> dict:
+    """The main requests through a continuous engine with int8 KV pages
+    (A5): B1 reads the pool dequantized whole to bf16 inside each captured
+    step, as the reference dequantizes before its kernel. Checks: every
+    request ok, finite logits, both widths replays equal to their eager
+    steps (logits, tokens, every int8 page and scale plane but page 0), B1
+    layers x mixed steps, the pool's bytes under INT8_BYTES_LIMIT of bf16's,
+    the first mixed step's logits within INT8_REL_LIMIT of the bf16 run's
+    (run (c) of phase_adapt_path, the same staged inputs) and the same step
+    with the scales dropped beyond it; no retry and no failure."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+
+    cfg8 = cfg.with_(kv_cache_dtype="int8")
+    eng, bad = _warm_engine(cfg, build_model(cfg8, device="cuda"), params)
+    run = _recorded_run(eng, bad, cfg, "int8 continuous")
+    _no_retry_or_failure(run)
+    pool = eng.last_pool
+    assert sorted(pool.pages) == ["k_pages", "k_pages_scale", "v_pages", "v_pages_scale"]
+    bf16_bytes = 2 * sum(t.numel() for name, t in pool.pages.items() if "scale" not in name)
+    ratio = pool.nbytes() / bf16_bytes
+    f8, f16 = run["first_step"], fixed["first_step"]
+    for key in ("tokens", "block_table", "lens", "q_lens", "order_group"):
+        assert np.array_equal(f8[key], f16[key]), f"int8 and bf16 first steps differ in {key}"
+    rel = _rel_max(f8["logits"], f16["logits"])
+    # The first step again, eagerly, on its staged inputs (its rows' lengths
+    # were 0, so it reads only what it writes): once as it is, once with the
+    # scales dropped.
+    step = eng.step_graphs()[f"mixed/{f8['width']}"]
+    step.stage(tokens=f8["tokens"], block_table=f8["block_table"], lens=f8["lens"],
+               q_lens=f8["q_lens"], order_group=f8["order_group"])
+    rows = np.flatnonzero(f8["q_lens"] > 0)
+
+    def valid(logits):
+        return torch.cat([logits[b, :int(f8["q_lens"][b])] for b in rows])
+
+    again = valid(step.run_eager()[0])
+    dequantize = T._dequantize_kv
+    T._dequantize_kv = lambda q, scale, dtype: q.to(dtype)
+    try:
+        control = valid(step.run_eager()[0])
+    finally:
+        T._dequantize_kv = dequantize
+    rel_control = _rel_max(control, f16["logits"])
+    graphs = phase_graphs(eng, "int8 continuous")
+    assert all(g["compared"] == 6 for g in graphs.values()), graphs  # 2 outputs, 4 pool tensors
+    # What int8 adds to a step, op by op (informational): one layer's K
+    # dequantized whole (a step does it for K and V of every layer) and one
+    # wide step's K chunk quantized, each against its bytes at 3.35 TB/s.
+    k0, s0 = pool.pages["k_pages"][0], pool.pages["k_pages_scale"][0]
+    chunk = torch.randn((8, f8["width"], cfg.n_kv_heads, cfg.hd), device="cuda",
+                        dtype=torch.bfloat16)
+    ops = {
+        "dequantize_layer_ms": _median_ms(lambda: T._dequantize_kv(k0, s0, torch.bfloat16)),
+        "dequantize_layer_bound_ms": (3 * k0.numel() + 4 * s0.numel()) / 3.35e12 * 1e3,
+        "quantize_wide_chunk_ms": _median_ms(lambda: T._quantize_kv(chunk)),
+        "quantize_wide_chunk_bound_ms": (3 * chunk.numel() + 4 * chunk.numel() // cfg.hd)
+        / 3.35e12 * 1e3,
+    }
+    ops["dequantize_step_ms"] = 2 * cfg.n_layers * ops["dequantize_layer_ms"]
+    out = {
+        "tokens_per_s": run["tokens_per_s"],
+        "step_ms_narrow_mean": run["step_ms_narrow_mean"],
+        "step_ms_wide_mean": run["step_ms_wide_mean"],
+        "replay_ms": {name: g["replay_ms"] for name, g in graphs.items()},
+        "bf16": {"tokens_per_s": main["tokens_per_s"],
+                 "step_ms_narrow_mean": main["step_ms_narrow_mean"],
+                 "step_ms_wide_mean": main["step_ms_wide_mean"],
+                 "replay_ms": {name: g["replay_ms"] for name, g in main["graphs"].items()}},
+        "mixed_steps": run["mixed_steps"],
+        "wide_steps": run["wide_steps"],
+        "pool_bytes": pool.nbytes(),
+        "bf16_pool_bytes": bf16_bytes,
+        "pool_bytes_ratio": ratio,
+        "first_step_rel": rel,
+        "first_step_rel_scales_dropped": rel_control,
+        "first_step_eager_equals_replay": bool(torch.equal(again, f8["logits"])),
+        "ops": ops,
+        "streams_equal_to_bf16": sum(run["tokens"][rid] == fixed["tokens"][rid]
+                                     for rid in run["tokens"]),
+        "launches": run["launches"],
+    }
+    print("[int8] continuous: " + json.dumps(out))
+    if ratio >= INT8_BYTES_LIMIT:
+        raise AssertionError(f"int8 pool at {ratio:.4f} of bf16's bytes (limit {INT8_BYTES_LIMIT})")
+    if not rel < INT8_REL_LIMIT:
+        raise AssertionError(f"int8 first mixed step {rel} from bf16's (limit {INT8_REL_LIMIT})")
+    if rel_control <= INT8_REL_LIMIT:
+        raise AssertionError(f"int8 with the scales dropped stayed within the limit: {rel_control}")
+    print(f"[int8] continuous checks: pool {ratio:.4f} of bf16's bytes; first mixed step "
+          f"{rel:.4f} from bf16's (limit {INT8_REL_LIMIT}), scales dropped {rel_control:.4f}; "
+          f"B1 {run['launches']['paged_decode']} launches over {run['mixed_steps']} steps")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8_static(cfg, params, static: dict) -> dict:
+    """The main requests through the static engine with int8 caches: B2 in
+    the prefill (on the fresh bf16 K/V, as in the reference), B3 in each
+    decode step reading the cache dequantized whole. phase_static_path's
+    checks, and: the decode caches' bytes under INT8_BYTES_LIMIT of bf16's,
+    the first decode step's logits within INT8_REL_LIMIT of the bf16 run's
+    and the same step with the scales dropped beyond it (prefill and step
+    run eagerly)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as T
+
+    lm8 = build_model(cfg.with_(kv_cache_dtype="int8"), device="cuda")
+    out = phase_static_path(cfg, lm8, params, label="int8 static")
+    ratio = out["cache_bytes"] / static["cache_bytes"]
+    rel = _rel_max(out["first_decode_logits"], static["first_decode_logits"])
+    reqs = _main_requests(cfg.vocab)[:8]
+    bucket = max(len(r.tokens) for r in reqs)
+    tokens = np.full((8, bucket), cfg.eos_id, np.int32)
+    for i, r in enumerate(reqs):
+        tokens[i, bucket - len(r.tokens):] = r.tokens
+    with torch.no_grad():
+        logits, caches = lm8.prefill(params, {"tokens": torch.as_tensor(tokens, device="cuda")},
+                                     1024)
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        eager, _ = lm8.decode_step(params, nxt, caches)
+        dequantize = T._dequantize_kv
+        T._dequantize_kv = lambda q, scale, dtype: q.to(dtype)
+        try:
+            control, _ = lm8.decode_step(params, nxt, caches)
+        finally:
+            T._dequantize_kv = dequantize
+    rel_control = _rel_max(control[:, -1], static["first_decode_logits"])
+    rec = {
+        "tokens_per_s": out["tokens_per_s"],
+        "decode_step_ms_mean": out["decode_step_ms_mean"],
+        "prefill_ms_mean": out["prefill_ms_mean"],
+        "replay_ms": out["graphs"]["decode"]["replay_ms"],
+        "bf16": {"tokens_per_s": static["tokens_per_s"],
+                 "decode_step_ms_mean": static["decode_step_ms_mean"],
+                 "prefill_ms_mean": static["prefill_ms_mean"],
+                 "replay_ms": static["graphs"]["decode"]["replay_ms"]},
+        "cache_bytes": out["cache_bytes"],
+        "bf16_cache_bytes": static["cache_bytes"],
+        "cache_bytes_ratio": ratio,
+        "first_decode_rel": rel,
+        "first_decode_rel_scales_dropped": rel_control,
+        "first_decode_eager_equals_replay": bool(torch.equal(eager[:, -1],
+                                                             out["first_decode_logits"])),
+        "launches": out["launches"],
+    }
+    print("[int8] static: " + json.dumps(rec))
+    if ratio >= INT8_BYTES_LIMIT:
+        raise AssertionError(f"int8 caches at {ratio:.4f} of bf16's bytes")
+    if not rel < INT8_REL_LIMIT:
+        raise AssertionError(f"int8 first decode step {rel} from bf16's (limit {INT8_REL_LIMIT})")
+    if rel_control <= INT8_REL_LIMIT:
+        raise AssertionError(f"int8 with the scales dropped stayed within the limit: {rel_control}")
+    print(f"[int8] static checks: caches {ratio:.4f} of bf16's bytes; first decode step "
+          f"{rel:.4f} from bf16's, scales dropped {rel_control:.4f}")
+    del lm8, caches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _same_runs(x: dict, y: dict) -> list:
+    """What differs between two recorded runs meant to be equal to the bit:
+    streams, statuses, preemptions, work counters, staged groups, and the
+    logits of every token."""
+    bad = [key for key in ("tokens", "statuses", "n_preemptions", "stats", "staged_groups")
+           if x[key] != y[key]]
+    if x["logits_at"].keys() != y["logits_at"].keys():
+        return bad + ["logits_at keys"]
+    unequal = [key for key, (_, row) in x["logits_at"].items()
+               if not torch.equal(row, y["logits_at"][key][1])]
+    return bad + ([f"logits at {len(unequal)} tokens"] if unequal else [])
+
+
+def _tie_check(x: dict, fixed: dict, tag: str) -> dict:
+    """``x`` against the main path's run (c) of phase_adapt_path: the tie
+    rule at each stream's first difference, and the logit shift until then
+    within ADAPT_SHIFT_LIMIT."""
+    from repro_torch.testing import bf16_ulp, within_tie_rule
+
+    diffs = _first_differences(x, fixed)
+    for rec in diffs:
+        top = max(abs(t) for t in rec["top"])
+        rec["ulp"] = bf16_ulp(top)
+        rec["tie"] = within_tie_rule(rec["top2_margin"], top)
+        print(f"[{tag}] stream {rec['rid']} differs from the main path at token "
+              f"{rec['token']} (step {rec['step']}): " + json.dumps(rec))
+    shift = _logit_shift(x, fixed, 0)
+    broken = [r for r in diffs if not r["tie"]]
+    if broken:
+        raise AssertionError(f"{tag}: a stream flipped from the main path's outside the tie "
+                             "rule: " + json.dumps(broken))
+    if shift["max"] > ADAPT_SHIFT_LIMIT:
+        raise AssertionError(f"{tag}: logits moved {shift['max']} from the main path's before "
+                             f"the streams differ (limit {ADAPT_SHIFT_LIMIT})")
+    return {"first_differences": diffs, "logit_shift": shift}
+
+
+def _sum_launches(*runs) -> dict:
+    out: dict = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_optimistic_path(cfg, lm, params, fixed: dict) -> dict:
+    """Optimistic admission (A9) under real pressure: the main requests on
+    a pool of OPT_POOL_PAGES pages, twice on one engine. Checks: every
+    request ok, at least one preemption and restored tokens, two step
+    graphs, the pool's invariants before every step and after; the second
+    run equal to the first to the bit; against the main path, the tie rule
+    and the logit shift (``_tie_check``); B1 layers x mixed steps; no retry
+    and no failure."""
+    eng, bad = _warm_engine(cfg, lm, params, admission="optimistic",
+                            pool_pages=OPT_POOL_PAGES, max_preemptions=OPT_MAX_PREEMPTIONS)
+    x = _recorded_run(eng, bad, cfg, "optimistic", audit=True)
+    y = _recorded_run(eng, bad, cfg, "optimistic rerun", audit=True)
+    eng.last_pool.check_invariants()
+    for run in (x, y):
+        _no_retry_or_failure(run)
+    st = x["stats"]
+    assert st["preemptions"] >= 1 and st["restore_tokens"] > 0, st
+    assert x["counters"]["serve.preemptions"] == st["preemptions"], x["counters"]
+    assert sum(x["n_preemptions"].values()) == st["preemptions"], x["n_preemptions"]
+    differ = _same_runs(x, y)
+    if differ:
+        raise AssertionError(f"phase_optimistic_path: the rerun differs in {differ}")
+    ties = _tie_check(x, fixed, "optimistic")
+    out = {
+        "pool_pages": OPT_POOL_PAGES,
+        "preemptions": st["preemptions"],
+        "restore_tokens": st["restore_tokens"],
+        "n_preemptions": x["n_preemptions"],
+        "events": x["events"],
+        "mixed_steps": x["mixed_steps"],
+        "wide_steps": x["wide_steps"],
+        "main_path_steps": [fixed["mixed_steps"], fixed["wide_steps"]],
+        "tokens_per_s": [x["tokens_per_s"], y["tokens_per_s"]],
+        "main_path_tokens_per_s": fixed["tokens_per_s"],
+        "step_ms_narrow_mean": x["step_ms_narrow_mean"],
+        "step_ms_wide_mean": x["step_ms_wide_mean"],
+        "rerun_equal": True,
+        "streams_equal_to_main_path": sum(x["tokens"][rid] == fixed["tokens"][rid]
+                                          for rid in x["tokens"]),
+        **ties,
+        "launches": _sum_launches(x, y),
+    }
+    print("[optimistic] " + json.dumps(out))
+    print(f"[optimistic] checks: {st['preemptions']} preemptions, {st['restore_tokens']} tokens "
+          f"restored; the rerun equal to the bit over {len(x['logits_at'])} tokens; tie rule "
+          f"held at {len(ties['first_differences'])} flipped streams; logit shift "
+          f"{ties['logit_shift']['max']:.4f} <= {ADAPT_SHIFT_LIMIT}")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fault_path(cfg, lm, params, fixed: dict) -> dict:
+    """Injected faults (A9) on an engine of the main path's settings: (i) a
+    device-step failure at FAULT_STEP, retried once: one retry, streams and
+    logits equal to the main path's to the bit; (ii) the same step failing
+    twice: that step's rows fail, the rest end ok and the engine serves on;
+    (iii) a pool exhaustion and a cancel: one request cancelled, the rest
+    ok, a preemption counted. The pool's invariants hold before every step
+    (and, as the engine checks, after each step a fault fired in)."""
+    from repro_torch.serve import FaultPlan
+
+    eng, bad = _warm_engine(cfg, lm, params)
+    plans = {
+        "i": FaultPlan().fail_device_step(FAULT_STEP),
+        "ii": FaultPlan().fail_device_step(FAULT_STEP, times=2),
+        "iii": FaultPlan().exhaust_pool(FAULT_EXHAUST_STEP).cancel(FAULT_CANCEL_STEP,
+                                                                   rid=FAULT_CANCEL_RID),
+    }
+    runs = {}
+    for name, plan in plans.items():
+        eng.faults = plan
+        runs[name] = _recorded_run(eng, bad, cfg, f"fault ({name})", expect_ok=name == "i",
+                                   audit=True)
+        assert plan.exhausted, (name, plan.fired)
+        runs[name]["fired"] = plan.fired
+    eng.faults = None
+    one, two, three = runs["i"], runs["ii"], runs["iii"]
+    assert one["counters"]["serve.step_retries"] == 1 and one["counters"]["serve.failed"] == 0
+    differ = _same_runs(one, fixed)
+    if differ:
+        raise AssertionError(f"fault (i): the retried run differs from the main path in {differ}")
+    statuses = two["statuses"]
+    failed = [rid for rid, s in statuses.items() if s == "failed"]
+    ok = [rid for rid, s in statuses.items() if s == "ok"]
+    assert two["counters"]["serve.step_retries"] == 1, two["counters"]
+    assert failed and ok and len(failed) + len(ok) == 12, statuses
+    assert two["stats"]["failed"] == len(failed) == two["counters"]["serve.failed"], two["stats"]
+    assert all(len(two["tokens"][rid]) == 32 for rid in ok), two["tokens"]
+    statuses = three["statuses"]
+    assert [rid for rid, s in statuses.items() if s == "cancelled"] == [FAULT_CANCEL_RID], statuses
+    assert all(s == "ok" and len(three["tokens"][rid]) == 32
+               for rid, s in statuses.items() if rid != FAULT_CANCEL_RID), statuses
+    assert three["stats"]["preemptions"] >= 1 and three["stats"]["cancelled"] == 1, three["stats"]
+    _no_retry_or_failure(three)
+    out = {name: {k: r[k] for k in ("statuses", "counters", "fired", "events", "mixed_steps",
+                                    "tokens_per_s")} for name, r in runs.items()}
+    out["launches"] = _sum_launches(one, two, three)
+    print("[faults] " + json.dumps(out))
+    print(f"[faults] checks: (i) one retry, streams and logits equal to the main path's; (ii) "
+          f"{len(failed)} rows failed at step {FAULT_STEP}, {len(ok)} ok; (iii) rid "
+          f"{FAULT_CANCEL_RID} cancelled, {three['stats']['preemptions']} preemption(s)")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_static_path(cfg, lm, params, profile: bool = False, label: str = "static") -> dict:
     """The same 12 requests through the static engine: two groups of 8 rows
-    (the second padded), each one prefill and 31 decode steps."""
+    (the second padded), each one prefill and 31 decode steps. Keeps the
+    first decode step's logits and the decode caches' bytes."""
     from repro_torch.kernels import cuda_lib
     from repro_torch.serve import Request, ServeEngine
 
@@ -1221,6 +1656,15 @@ def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
     eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
                           max_new_tokens=2, eos_id=-1) for n in (300, 20)])
     replays = eng.step_graphs()["decode"].replays
+    first_decode = {}
+    sample = eng._sample
+
+    def sample_rec(logits, greedy, temps, seeds, count):
+        if count == 1 and not first_decode:
+            first_decode["logits"] = logits.clone()
+        return sample(logits, greedy, temps, seeds, count)
+
+    eng._sample = sample_rec
 
     reqs = _main_requests(cfg.vocab)
     eng.tracer.clear()
@@ -1261,11 +1705,14 @@ def phase_static_path(cfg, lm, params, profile: bool = False) -> dict:
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("[static] " + json.dumps(out))
-    out["graphs"] = phase_graphs(eng, "static")
+    print(f"[{label}] " + json.dumps(out))
+    out["graphs"] = phase_graphs(eng, label)
     out["step_idle"] = _step_idle(spans["serve.decode_step"], out["graphs"]["decode"]["replay_ms"])
-    print("[static] decode steps, wall against a replay's device time: "
+    print(f"[{label}] decode steps, wall against a replay's device time: "
           + json.dumps(out["step_idle"]))
+    out["first_decode_logits"] = first_decode["logits"]
+    out["cache_bytes"] = sum(t.numel() * t.element_size()
+                             for name, t in eng._decode_caches.items() if name != "len")
     if profile:
         out["profile"] = phase_profile(eng, cfg, "static", tuple(spans))
     del eng
@@ -2628,9 +3075,13 @@ def main(argv=None) -> int:
     ssd_check = phase_ssd_matrix()
     cfg, lm, params = build_main_model()
     main_path = phase_main_path(cfg, lm, params, profile=args.profile)
-    adapt = phase_adapt_path(cfg, lm, params, main_path)
+    adapt, fixed = phase_adapt_path(cfg, lm, params, main_path)
     static = phase_static_path(cfg, lm, params, profile=args.profile)
-    del lm, params
+    int8_cont = phase_int8_continuous(cfg, params, fixed, main_path)
+    int8_static = phase_int8_static(cfg, params, static)
+    optimistic = phase_optimistic_path(cfg, lm, params, fixed)
+    faults = phase_fault_path(cfg, lm, params, fixed)
+    del lm, params, fixed
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = phase_train_main(profile=args.profile)
@@ -2651,8 +3102,9 @@ def main(argv=None) -> int:
     split_times = phase_split_times()
     l2_model = phase_l2_model(static_times, d80_times, train_times, long_times)
 
-    paths = {"continuous": main_path, "adapt": adapt, "static": static, "train": train,
-             "mamba2": mamba, "zamba2": zamba}
+    paths = {"continuous": main_path, "adapt": adapt, "static": static,
+             "int8_continuous": int8_cont, "int8_static": int8_static, "optimistic": optimistic,
+             "faults": faults, "train": train, "mamba2": mamba, "zamba2": zamba}
     by_path = {name: {path: rec["launches"][name] for path, rec in paths.items()}
                for name in main_path["launches"]}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
@@ -2741,7 +3193,11 @@ def main(argv=None) -> int:
           f"{mamba['tokens_per_s']:.1f} and zamba2 {zamba['tokens_per_s']:.1f} tokens/s; "
           f"adaptive continuous {adapt['runs']['b']['tokens_per_s']:.1f} tokens/s, switches "
           f"{adapt['runs']['b']['switches']}, (a) at the card's L2 "
-          f"{adapt['runs']['a']['switches']}")
+          f"{adapt['runs']['a']['switches']}; int8 continuous "
+          f"{int8_cont['tokens_per_s']:.1f} and static {int8_static['tokens_per_s']:.1f} "
+          f"tokens/s (bf16 {main_path['tokens_per_s']:.1f}, {static['tokens_per_s']:.1f}); "
+          f"optimistic {optimistic['preemptions']} preemptions, "
+          f"{optimistic['tokens_per_s'][0]:.1f} tokens/s")
     print(dev_info["smi"])
     print("checked kernels: " + json.dumps([k["name"] for k in kernels]))
     print(json.dumps({"kernels": kernels}))

@@ -16,6 +16,10 @@ ROADMAP item. ``--attn-order auto`` turns on online order adaptation
 (``serve.adapt``): the engine seeds its first order from
 ``--autotune-cache`` and re-picks it every ``--adapt-epoch`` mixed steps
 from the modeled-LLC gauges that ``--llc-every`` also samples.
+``--admission optimistic`` lets decode growth oversubscribe the pool
+(``--pool-pages`` below the worst case makes the pressure real) and
+preempts up to ``--max-preemptions`` times a request; ``--chaos-step-fail
+N`` injects one device-step failure at mixed step N (retried once).
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.core.schedule import Order
 from repro_torch.models import build_model
-from repro_torch.serve import Request, ServeEngine, supports_continuous
+from repro_torch.serve import FaultPlan, Request, ServeEngine, supports_continuous
 
 _AUTOTUNE_CACHE = "artifacts/hillclimb/autotune_cache.jsonl"
 
@@ -49,10 +53,7 @@ def pick_scheduler(choice: str, cfg) -> str:
 def _unported(args) -> list[str]:
     """Flags set to a feature the port does not have yet."""
     checks = [
-        (args.admission == "optimistic", "--admission optimistic", "A9 resilience"),
-        (args.max_preemptions != 2, "--max-preemptions", "A9 resilience"),
-        (args.chaos_step_fail > 0, "--chaos-step-fail", "A9 resilience (faults)"),
-        (args.chaos_fetch_fail > 0, "--chaos-fetch-fail", "A9/A10 faults"),
+        (args.chaos_fetch_fail > 0, "--chaos-fetch-fail", "A10 tiered KV memory (fetch faults)"),
         (args.host_pages is not None, "--host-pages", "A10 tiered KV memory"),
         (args.spill_watermark is not None, "--spill-watermark", "A10 tiered KV memory"),
         (args.prefetch_depth != 2, "--prefetch-depth", "A10 tiered KV memory"),
@@ -111,7 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--draft", default="none", choices=["none", "ngram", "model"])
     ap.add_argument("--draft-len", type=int, default=4, metavar="K")
     ap.add_argument("--draft-model", default=None, metavar="ARCH")
-    ap.add_argument("--chaos-step-fail", type=int, default=0, metavar="N")
+    ap.add_argument("--chaos-step-fail", type=int, default=0, metavar="N",
+                    help="inject one transient device-step failure at mixed step N "
+                         "(retried once)")
     ap.add_argument("--chaos-fetch-fail", type=int, default=0, metavar="N")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="dump the obs metrics registry as JSONL here")
@@ -150,6 +153,9 @@ def main(argv=None):
     cfg = cfg.with_(snake_group=args.snake_group)
     lm = build_model(cfg, device=args.device)
     params = lm.init(0)
+    faults = None
+    if args.chaos_step_fail > 0:
+        faults = FaultPlan().fail_device_step(args.chaos_step_fail)
 
     eng = ServeEngine(
         lm,
@@ -172,7 +178,9 @@ def main(argv=None):
         admission=args.admission,
         max_queue=args.max_queue,
         admit_watermark=args.admit_watermark,
+        max_preemptions=args.max_preemptions,
         pool_pages=args.pool_pages,
+        faults=faults,
         device=args.device,
     )
     if adapt and eng.order_ctl is not None:
@@ -211,6 +219,13 @@ def main(argv=None):
             f"({stats.prompt_tokens_adopted} tokens), "
             f"{stats.cow_forks} CoW forks"
         )
+        if stats.preemptions or stats.shed or stats.deadline_miss or stats.failed:
+            print(
+                f"  resilience: {stats.preemptions} preemptions "
+                f"({stats.restore_tokens} tokens re-prefilled), "
+                f"{stats.shed} shed, {stats.deadline_miss} deadline, "
+                f"{stats.cancelled} cancelled, {stats.failed} failed"
+            )
     for r in results[:4]:
         print(f"  rid={r.rid} -> {r.tokens.tolist()}")
 

@@ -22,6 +22,12 @@ its scan):
     and every read masks; duplicate writes there are harmless whichever one
     lands.
 
+With ``kv_cache_dtype="int8"`` every K/V vector is stored quantized
+(``dist.compression.quantize_int8_vec``) beside a float32 scale plane
+``<name>_scale`` of the cache's shape less the head dim; as in the
+reference, a decode step dequantizes the whole cache before the attention
+call, so the decode kernels see the activation dtype.
+
 Full-sequence attention goes through ``repro_torch.kernels.ops.attention``,
 decode through ``ops.attention_decode``.
 """
@@ -34,6 +40,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import compression
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import fold_schedule
 from repro_torch.models import layers as L
@@ -52,17 +59,10 @@ __all__ = [
     "stack_decode",
     "page_geometry",
     "init_cache",
+    "kv_buffers",
     "fill_cache",
     "decode_view",
 ]
-
-
-def _int8_not_ported(cfg: ModelConfig) -> None:
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "kv_cache_dtype='int8' (quantized KV pages) is not ported yet: "
-            "ROADMAP §A5"
-        )
 
 
 # --------------------------------------------------------------------------
@@ -172,8 +172,8 @@ def _attn_decode_contiguous(cfg: ModelConfig, cache: dict, q, k, v):
     _cache_write(cfg, cache, "v", v, cache["write_row"])
     o = ops.attention_decode(
         q,
-        cache["k"],
-        cache["v"],
+        _cache_read(cfg, cache, "k"),
+        _cache_read(cfg, cache, "v"),
         cache["valid"],
         order=cfg.attn_order,
         snake_group=cfg.snake_group,
@@ -184,9 +184,8 @@ def _attn_decode_contiguous(cfg: ModelConfig, cache: dict, q, k, v):
 
 def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
     """Write chunk k/v (B, C, Hkv, hd) at positions ``starts[b] + t`` for
-    ``t < q_lens[b]`` through the block table, in place; invalid rows go to
-    dummy page 0."""
-    _int8_not_ported(cfg)
+    ``t < q_lens[b]`` through the block table, in place (int8 pages:
+    quantized, with their scales); invalid rows go to dummy page 0."""
     b, c = k.shape[:2]
     bt = cache["block_table"]
     page = cache["k_pages"].shape[1]
@@ -200,8 +199,12 @@ def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
     phys = torch.gather(bt, 1, page_log.long())
     phys = torch.where(valid, phys, torch.zeros_like(phys)).long()
     for name, val in (("k_pages", k), ("v_pages", v)):
-        pages = cache[name]
-        pages[phys, offset] = val.to(pages.dtype)
+        if cfg.kv_cache_dtype == "int8":
+            qv, sc = _quantize_kv(val)
+            cache[name][phys, offset] = qv
+            cache[name + "_scale"][phys, offset] = sc
+        else:
+            cache[name][phys, offset] = val.to(cache[name].dtype)
     return cache
 
 
@@ -216,8 +219,8 @@ def _attn_decode_paged(cfg: ModelConfig, cache: dict, q, k, v):
     cache["len"] = lens + q_lens
     o = ops.attention_decode(
         q,
-        cache["k_pages"],
-        cache["v_pages"],
+        _cache_read(cfg, cache, "k_pages"),
+        _cache_read(cfg, cache, "v_pages"),
         cache["valid"],
         order=cfg.attn_order,
         snake_group=cfg.snake_group,
@@ -258,6 +261,23 @@ def decode_view(cfg: ModelConfig, caches: dict, b: int, c: int) -> dict:
     return dict(caches, write_row=row, valid=valid)
 
 
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head)-vector symmetric int8: x (..., hd) -> (q, scale)."""
+    return compression.quantize_int8_vec(x)
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return compression.dequantize_int8_vec(q, scale, dtype)
+
+
+def _cache_read(cfg: ModelConfig, cache: dict, name: str) -> torch.Tensor:
+    """Cache entry ``name`` in the activation dtype: an int8 cache
+    dequantized whole (a new tensor), any other as it is."""
+    if cfg.kv_cache_dtype == "int8":
+        return _dequantize_kv(cache[name], cache[name + "_scale"], cfg.activation_dtype())
+    return cache[name]
+
+
 def page_geometry(cfg: ModelConfig, max_len: int) -> tuple[int, int]:
     """(page rows, blocks-per-sequence) for a paged cache of ``max_len``;
     the page defaults to ``kv_block`` so pages coincide with KV tiles."""
@@ -276,11 +296,11 @@ def init_cache(
     hd) with ``S = max_len``, or ``min(max_len, window)`` (a ring buffer)
     for sliding-window configs, and ``len`` 0 (a 0-d int32 tensor). Paged:
     pages (batch * n_blocks, page, Hkv, hd), an identity ``block_table`` and
-    zero ``len`` (B,). With ``n_layers`` the tensors gain a leading layer axis (one
-    allocation for the whole stack); the other entries are shared.
+    zero ``len`` (B,); the K/V tensors in the cache's format
+    (:func:`kv_buffers`: int8 ones carry scale planes). With ``n_layers``
+    the tensors gain a leading layer axis (one allocation for the whole
+    stack); the other entries are shared.
     """
-    _int8_not_ported(cfg)
-    dt = dtype or cfg.activation_dtype()
     lead = () if n_layers is None else (n_layers,)
     if cfg.kv_layout == "paged":
         if cfg.window is not None:
@@ -295,23 +315,38 @@ def init_cache(
             "block_table": torch.arange(batch * bpr, dtype=torch.int32, device=device).reshape(
                 batch, bpr
             ),
-            "k_pages": torch.zeros(shape, dtype=dt, device=device),
-            "v_pages": torch.zeros(shape, dtype=dt, device=device),
+            **kv_buffers(cfg, ("k_pages", "v_pages"), shape, dtype=dtype, device=device),
         }
     size = min(max_len, cfg.window) if cfg.window is not None else max_len
     shape = lead + (batch, size, cfg.n_kv_heads, cfg.hd)
-    return {
-        "len": torch.zeros((), dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-    }
+    return {"len": torch.zeros((), dtype=torch.int32, device=device),
+            **kv_buffers(cfg, ("k", "v"), shape, dtype=dtype, device=device)}
+
+
+def kv_buffers(cfg: ModelConfig, names, shape, *, dtype=None, device="cpu") -> dict:
+    """Zero K/V buffers ``names`` of ``shape`` (..., hd) in the cache's
+    format: ``dtype`` (default the activation dtype), or with
+    ``kv_cache_dtype="int8"`` int8 payloads each beside a float32
+    ``<name>_scale`` of ones shaped as the payload less the head dim."""
+    if cfg.kv_cache_dtype == "int8":
+        out = {}
+        for name in names:
+            out[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            out[name + "_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=device)
+        return out
+    dt = dtype or cfg.activation_dtype()
+    return {name: torch.zeros(shape, dtype=dt, device=device) for name in names}
 
 
 def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, rows) -> None:
     """Write ``val`` (B, s, H, D) at the cache rows ``rows`` (s,) int64, a
-    device tensor, in place. (Without int8 caches, which raise here, the
-    reference's ``_cache_read`` is the identity.)"""
-    _int8_not_ported(cfg)
+    device tensor, in place (an int8 cache: quantized, and its scales
+    beside)."""
+    if cfg.kv_cache_dtype == "int8":
+        q, scale = _quantize_kv(val)
+        cache[name].index_copy_(1, rows, q)
+        cache[name + "_scale"].index_copy_(1, rows, scale)
+        return
     buf = cache[name]
     buf.index_copy_(1, rows, val.to(buf.dtype))
 
@@ -433,8 +468,9 @@ def stack_apply(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions
 
 def _layer_cache(caches: dict, i: int) -> dict:
     """Layer ``i``'s view of the stacked caches (the shared entries as they
-    are)."""
+    are): the K/V tensors and their int8 scale planes."""
     names = ("k_pages", "v_pages") if "k_pages" in caches else ("k", "v")
+    names += tuple(n + "_scale" for n in names if n + "_scale" in caches)
     return dict(caches, **{n: caches[n][i] for n in names})
 
 

@@ -6,8 +6,10 @@ from repro_torch.serve.engine import (
     Request,
     ServeEngine,
     StepStats,
+    select_victim,
     supports_continuous,
 )
+from repro_torch.serve.faults import FAULT_SITES, Fault, FaultPlan, StepFault
 from repro_torch.serve.kv_pool import (
     AdmissionError,
     PagedKVPool,
@@ -27,7 +29,12 @@ __all__ = [
     "Request",
     "ServeEngine",
     "StepStats",
+    "select_victim",
     "supports_continuous",
+    "FAULT_SITES",
+    "Fault",
+    "FaultPlan",
+    "StepFault",
     "AdmissionError",
     "PagedKVPool",
     "PagePool",

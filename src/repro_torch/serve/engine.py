@@ -54,13 +54,30 @@ index); the request seed defaults to the submission index. The draws
 cannot match ``jax.random``; a request's sampled stream depends only on
 those three numbers, not on its slot or its neighbours.
 
+Resilience, continuous path, as in the reference: ``admission=
+"optimistic"`` reserves only prompts, so decode growth can oversubscribe
+the pool; a ``PoolExhausted`` while a step is made writable preempts a
+victim (``select_victim``: lowest priority, then not a prefix donor, then
+fewest generated tokens, then slot), which is requeued at the queue head
+and restored by a chunked re-prefill of prompt + generated-so-far through
+the same two mixed-step widths (nothing is captured anew), or fails once
+past its preemption bound. A failed step dispatch is retried once, then
+the step's rows fail (``status="failed"``) and serving goes on. The pool
+is written in place, so the retry relies on a step being idempotent: it
+writes positions ``len..len+q_len`` that only it reads, and ``len``
+advances on the host after success only. On the card a replay that fails
+raises (a CUDA error is sticky; no retry could succeed). ``faults`` (a
+``serve.faults.FaultPlan``) injects pool exhaustion, admission refusals,
+step failures and cancels at planned steps.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): speculative drafters, the host KV tier, fault injection and
-optimistic admission, and sharded serving.
+item): the host KV tier (A10), speculative drafters (A11) and sharded
+serving (A14).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -76,9 +93,15 @@ from repro_torch.obs.llc import DEFAULT_CAPACITY_BYTES, LLCSampler
 from repro_torch.obs.metrics import Registry
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve.adapt import OrderAdaptController
-from repro_torch.serve.kv_pool import PagedKVPool, assemble_cache_view
+from repro_torch.serve.faults import FaultPlan
+from repro_torch.serve.kv_pool import (
+    AdmissionError,
+    PagedKVPool,
+    PoolExhausted,
+    assemble_cache_view,
+)
 from repro_torch.serve.scheduler import ContinuousScheduler
-from repro_torch.serve.step_graph import StepGraph
+from repro_torch.serve.step_graph import StepCaptureError, StepGraph
 
 __all__ = [
     "Request",
@@ -88,6 +111,7 @@ __all__ = [
     "CONTINUOUS_FAMILIES",
     "REQUEST_STATUSES",
     "supports_continuous",
+    "select_victim",
     "sample_seed",
     "sample_token",
 ]
@@ -95,13 +119,12 @@ __all__ = [
 CONTINUOUS_FAMILIES = ("dense",)
 REQUEST_STATUSES = ("ok", "deadline", "cancelled", "shed", "failed")
 
-# Engine arguments of features that later slices port, with the value that
-# means "off". Any other value raises NotImplementedError naming the item.
+# Engine arguments of features that later slices port (A10, A11, A14), with
+# the value that means "off". Any other value raises NotImplementedError
+# naming the item.
 _UNPORTED = {
     "mesh": (None, "A14 sharded serving"),
     "pcfg": (None, "A14 sharded serving"),
-    "max_preemptions": (2, "A9 resilience (preemption)"),
-    "faults": (None, "A9 resilience (fault injection)"),
     "host_pages": (None, "A10 tiered KV memory"),
     "spill_watermark": (None, "A10 tiered KV memory"),
     "prefetch_depth": (2, "A10 tiered KV memory"),
@@ -129,6 +152,11 @@ class Request:
     deadline_s: Optional[float] = None
                                   # wall-clock budget from engine start,
                                   # checked at step boundaries
+    priority: int = 0             # preemption shield: lower is preempted
+                                  # first (admission stays FIFO)
+    max_preemptions: Optional[int] = None
+                                  # overrides the engine's bound before
+                                  # status="failed"
 
 
 @dataclasses.dataclass
@@ -140,6 +168,7 @@ class GenerationResult:
     tpot_s: float = 0.0           # mean time per token after the first
                                   # (NaN when <= 1 token was generated)
     status: str = "ok"            # one of REQUEST_STATUSES
+    n_preemptions: int = 0        # times preempted and restored
 
 
 @dataclasses.dataclass
@@ -152,12 +181,24 @@ class StepStats:
     pages_adopted: int = 0        # prefix pages adopted instead of computed
     prompt_tokens_adopted: int = 0
     cow_forks: int = 0
+    preemptions: int = 0          # victim slots evicted under pool pressure
+    restore_tokens: int = 0       # tokens re-prefilled by restores
     shed: int = 0
     deadline_miss: int = 0
     cancelled: int = 0
+    failed: int = 0               # past the preemption bound, or a failed step
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def select_victim(candidates) -> int:
+    """The preemption victim among ``candidates``, tuples ``(slot,
+    priority, n_generated, shared_donor)``: the lowest priority, then a
+    non-donor (releasing a prefix donor frees fewer pages than it holds),
+    then the fewest generated tokens (the cheapest re-prefill), then the
+    lowest slot."""
+    return min(candidates, key=lambda c: (c[1], bool(c[3]), c[2], c[0]))[0]
 
 
 def _tpot(elapsed_after_first: float, n_tok: int) -> float:
@@ -212,7 +253,9 @@ class ServeEngine:
         admission: str = "reserve",
         max_queue: Optional[int] = None,
         admit_watermark: Optional[float] = None,
+        max_preemptions: int = 2,
         pool_pages: Optional[int] = None,
+        faults: Optional[FaultPlan] = None,
         llc_every: int = 0,
         llc_capacity_bytes: Optional[float] = None,
         adapt_order: bool = False,
@@ -238,8 +281,18 @@ class ServeEngine:
         ``prefill_chunk``-token prompt chunks (default: 4 pages).
         ``prefix_sharing=False`` disables page dedup. ``max_queue`` sheds the
         newest arrived requests beyond it; ``admit_watermark`` pauses
-        admission at that pool occupancy. Metrics go to ``registry`` and
-        spans to ``tracer`` (fresh per engine by default).
+        admission at that pool occupancy (default 0.9 under optimistic
+        admission, 1.0, never, under reserve). Metrics go to ``registry``
+        and spans to ``tracer`` (fresh per engine by default).
+
+        Continuous only: ``admission="optimistic"`` reserves only prompts,
+        and pool pressure preempts a slot, which is restored by re-prefill
+        at most ``max_preemptions`` times (``Request.max_preemptions``
+        overrides it) before it fails; ``pool_pages`` sets the pool's
+        allocatable pages below every slot's worst case, the knob that
+        makes real pressure reachable. ``faults`` attaches a ``FaultPlan``
+        (the engine's attribute; a plan set after a warm-up serves the
+        next ``generate()``).
 
         Continuous only: ``llc_every > 0`` samples the modeled-LLC gauges
         (``llc.*``) every that many mixed steps, at a modeled capacity of
@@ -261,13 +314,8 @@ class ServeEngine:
                 )
         if scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
-        if admission == "optimistic":
-            raise NotImplementedError(
-                "admission='optimistic' (oversubscribed pool + preemption) is "
-                "not ported yet: ROADMAP §A9"
-            )
-        if admission != "reserve":
-            raise ValueError(f"unknown admission discipline {admission!r}")
+        if admission not in ("reserve", "optimistic"):
+            raise AdmissionError(f"unknown admission discipline {admission!r}")
         self.device = resolve_device(device)
         if lm.device != self.device:
             raise ValueError(f"model built on {lm.device}, engine asked for {self.device}")
@@ -302,8 +350,12 @@ class ServeEngine:
         self.prefix_sharing = prefix_sharing
         self.admission = admission
         self.max_queue = max_queue
+        self.max_preemptions = max_preemptions
         self.pool_pages = pool_pages
-        self._watermark = 1.0 if admit_watermark is None else admit_watermark
+        self.faults = faults
+        if admit_watermark is None:
+            admit_watermark = 0.9 if admission == "optimistic" else 1.0
+        self._watermark = admit_watermark
         self._cap = max_len if bounded else None
         self._cancelled: set[int] = set()
         self.batch_size = batch_size
@@ -338,6 +390,9 @@ class ServeEngine:
         self._m_queue = r.gauge("serve.queue_depth")
         self._m_active = r.gauge("serve.active_slots")
         self._m_budget = r.gauge("serve.budget_utilization")
+        self._m_preempt = r.counter("serve.preemptions")
+        self._m_restore_tok = r.counter("serve.restore_tokens")
+        self._m_retries = r.counter("serve.step_retries")
         self._m_shed = r.counter("serve.shed")
         self._m_deadline = r.counter("serve.deadline_miss")
         self._m_cancel = r.counter("serve.cancelled")
@@ -630,13 +685,19 @@ class ServeEngine:
                 registry=self.obs,
                 admission=self.admission,
                 n_pages=self.pool_pages,
+                faults=self.faults,
             )
         else:
+            pool.faults = self.faults
             pool.reset()
             pool.emit_gauges()
         ctl = self.order_ctl
+        faults = self.faults
 
         results: dict[int, GenerationResult] = {}
+        resume: dict[int, list] = {}       # preempted: id(request) -> generated
+        n_preempts: dict[int, int] = {}    # id(request) -> times preempted
+        n_preempt = n_restore = 0
         cur = np.full((n_slots,), self.eos, np.int32)  # last sampled token
         temps = np.zeros((n_slots,), np.float32)
         seeds = np.zeros((n_slots,), np.int64)
@@ -656,6 +717,7 @@ class ServeEngine:
                 ttft_s=ttft,
                 tpot_s=_tpot((now - t0) - ttft, n_tok),
                 status=status,
+                n_preemptions=n_preempts.get(id(r), 0),
             )
             results[id(r)] = res
             self._cancelled.discard(r.rid)
@@ -668,15 +730,53 @@ class ServeEngine:
             temps[slot] = 0.0
             resolve(st.request, list(st.generated), status)
 
+        def preempt(slot: int) -> None:
+            # Evict a live slot under pool pressure: release its pages and
+            # requeue it at the queue head (restored by a chunked re-prefill
+            # of prompt + generated-so-far), or fail it past its bound.
+            nonlocal n_preempt
+            st = sched.retire(slot)
+            pool.release(slot)
+            cur[slot] = self.eos
+            temps[slot] = 0.0
+            r = st.request
+            n_pre = n_preempts[id(r)] = n_preempts.get(id(r), 0) + 1
+            limit = self.max_preemptions if r.max_preemptions is None else r.max_preemptions
+            if n_pre > limit:
+                resolve(r, list(st.generated), "failed")
+                return
+            resume[id(r)] = list(st.generated)
+            sched.requeue(r)
+            n_preempt += 1
+            self._m_preempt.inc()
+            self._m_req_requeued.inc()
+            tr.instant("serve.preempt", rid=r.rid, slot=slot, generated=len(st.generated))
+
+        def preempt_victim() -> bool:
+            cands = [
+                (i, sched.slots[i].request.priority, len(sched.slots[i].generated),
+                 pool.shared_donor(i))
+                for i in sched.runnable_slots()
+                if not sched.slots[i].done
+            ]
+            if not cands:
+                return False
+            preempt(select_victim(cands))
+            return True
+
         step = 0
         n_steps = n_wide = 0
         while sched.has_work():
             t_iter = time.perf_counter()
             with tr.span("serve.step", step=step):
                 # ---- step-boundary lifecycle checks ----
+                if faults is not None:
+                    faults.begin_step(step)
+                    for rid in faults.take_cancels():
+                        self._cancelled.add(int(rid))
                 if self._cancelled:
                     for r in sched.drain_waiting(lambda r: r.rid in self._cancelled):
-                        resolve(r, [], "cancelled")
+                        resolve(r, resume.pop(id(r), []), "cancelled")
                     for i in list(sched.active_slots()):
                         if sched.slots[i].request.rid in self._cancelled:
                             finish(i, "cancelled")
@@ -684,38 +784,62 @@ class ServeEngine:
                 for r in sched.drain_waiting(
                     lambda r: r.deadline_s is not None and now_s > r.deadline_s
                 ):
-                    resolve(r, [], "deadline")
+                    resolve(r, resume.pop(id(r), []), "deadline")
                 for i in list(sched.active_slots()):
                     r = sched.slots[i].request
                     if r.deadline_s is not None and now_s > r.deadline_s:
                         finish(i, "deadline")
 
                 # Admission: fill free slots with arrived requests while the
-                # pool can reserve their (sharing-reduced) worst case.
+                # pool can reserve what the discipline guarantees; the
+                # watermark pauses it under pressure (never with no slot
+                # active). A preempted request's admission is its restore.
                 paused = pool.occupancy() >= self._watermark and bool(sched.active_slots())
                 self._m_admit_paused.set(float(paused))
                 while not paused and (slot := sched.free_slot()) is not None:
                     req = sched.pop_admissible(step)
                     if req is None:
                         break
-                    st = self._admit(req, slot, sched, pool, temps, seeds, counts,
-                                     idx_of.get(id(req), 0))
+                    restored = id(req) in resume
+                    with (tr.span("serve.preempt_restore", rid=req.rid) if restored
+                          else contextlib.nullcontext()):
+                        st = self._admit(req, slot, sched, pool, temps, seeds, counts,
+                                         idx_of.get(id(req), 0), prior=resume.get(id(req)))
                     if st is None:
                         sched.requeue(req)  # no pages yet; retry after retirements
                         self._m_req_requeued.inc()
                         break
+                    resume.pop(id(req), None)
                     self._m_req_admitted.inc()
+                    if restored and st.prompt is not None:
+                        n_re = int(len(st.prompt) - st.prompt_pos)
+                        n_restore += n_re
+                        self._m_restore_tok.inc(n_re)
                     if st.done:  # zero-limit request: emits nothing
                         finish(slot)
 
                 if self.max_queue is not None:
                     for r in sched.shed_over(step, self.max_queue):
-                        resolve(r, [], "shed")
+                        resolve(r, resume.pop(id(r), []), "shed")
 
-                with tr.span("serve.plan_step"):
-                    plan = sched.plan_step()
-                for it in plan:
-                    pool.ensure_writable(it.slot, it.q_len)
+                # Plan under pressure: make every planned row writable; a
+                # PoolExhausted (optimistic growth or an injected fault)
+                # preempts a victim, possibly the failing slot, and plans
+                # again. Each round removes a slot, so this ends;
+                # ensure_writable is idempotent for the rows it already did.
+                while True:
+                    with tr.span("serve.plan_step"):
+                        plan = sched.plan_step()
+                    if not plan:
+                        break
+                    try:
+                        for it in plan:
+                            pool.ensure_writable(it.slot, it.q_len)
+                    except PoolExhausted:
+                        if not preempt_victim():
+                            raise
+                        continue
+                    break
                 self._m_queue.set(len(sched.waiting))
                 self._m_active.set(len(sched.active_slots()))
                 if not plan:
@@ -748,9 +872,37 @@ class ServeEngine:
                 # The order in effect now (a switch after the last step
                 # takes effect here): one staged int32, nothing captured.
                 order_group = ctl.effective_group(pool.blocks_per_seq)
-                with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned):
-                    toks = self._run_mixed(mixed, tokens, pool, qlens, order_group, temps,
+
+                def dispatch():
+                    # An injected device fault fires before anything is
+                    # staged or run, so the retry runs the same step on the
+                    # same state.
+                    if faults is not None:
+                        faults.raise_if("device.step")
+                    return self._run_mixed(mixed, tokens, pool, qlens, order_group, temps,
                                            seeds, counts)
+
+                with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned):
+                    try:
+                        toks = dispatch()
+                    except StepCaptureError:
+                        raise
+                    except Exception as err:
+                        # One transient failure is retried; a second fails
+                        # the step's rows, and serving goes on.
+                        self._m_retries.inc()
+                        tr.instant("serve.step_retry", step=step, error=repr(err))
+                        try:
+                            toks = dispatch()
+                        except StepCaptureError:
+                            raise
+                        except Exception as again:
+                            tr.instant("serve.step_failed", step=step, error=repr(again))
+                            for it in plan:
+                                if sched.slots[it.slot] is not None:
+                                    finish(it.slot, "failed")
+                            step += 1
+                            continue
                 step += 1
                 n_steps += 1
                 n_wide += width > 1
@@ -774,6 +926,9 @@ class ServeEngine:
                     cur[it.slot] = tok
                     if st.record(tok):
                         finish(it.slot)
+                if faults is not None and faults.fired_this_step:
+                    # A step that absorbed a fault is followed by a pool audit.
+                    pool.check_invariants()
                 pool.emit_gauges()
                 # step_q, the widest decode chunk (the query width a KV sweep
                 # is amortized over), is 1: no speculative rows (A11).
@@ -798,9 +953,12 @@ class ServeEngine:
             pages_adopted=pool.shared_hits,
             prompt_tokens_adopted=pool.shared_tokens,
             cow_forks=pool.cow_forks,
+            preemptions=n_preempt,
+            restore_tokens=n_restore,
             shed=by_status.get("shed", 0),
             deadline_miss=by_status.get("deadline", 0),
             cancelled=by_status.get("cancelled", 0),
+            failed=by_status.get("failed", 0),
         )
         return [results[id(r)] for r in requests]
 
@@ -817,11 +975,20 @@ class ServeEngine:
             f"adopted={pool.shared_hits} cow={pool.cow_forks}"
         )
 
-    def _admit(self, req: Request, slot: int, sched, pool, temps, seeds, counts, idx: int):
+    def _admit(self, req: Request, slot: int, sched, pool, temps, seeds, counts, idx: int,
+               prior: Optional[list] = None):
         """Admit ``req`` into ``slot``: the pool adopts any registered shared
         prefix and reserves the rest; the prompt's other tokens run through
         the mixed step as chunks. Returns the placed ``Slot``, or None if
-        the pool lacks pages."""
+        the pool lacks pages.
+
+        ``prior`` (a preempted request's generated tokens) makes this a
+        restore: the prompt becomes prompt + prior, re-prefilled in chunks
+        through the same mixed step, the slot's generated list starts as
+        ``prior`` (so the limit and EOS go on counting) and the sample
+        index resumes at ``len(prior)``; a draw depends only on (engine
+        seed, request seed, index), so the restored stream is the
+        uninterrupted one."""
         cap = self._cap
         prompt = np.asarray(req.tokens, np.int32)[-cap:]
         if len(prompt) == 0:
@@ -831,16 +998,20 @@ class ServeEngine:
             st = sched.place(slot, req, eos_id=self._eos_for(req), new_limit=0)
             st.done = True
             return st
-        shared = pool.admit(slot, prompt, new_limit)
+        prior = list(prior) if prior else []
+        # len(prompt + prior) <= cap by the new_limit clamp above.
+        full = np.concatenate([prompt, np.asarray(prior, np.int32)]) if prior else prompt
+        shared = pool.admit(slot, full, new_limit - len(prior))
         if shared is None:
             return None
         st = sched.place(
             slot, req, eos_id=self._eos_for(req), new_limit=new_limit,
-            prompt=prompt, prompt_pos=shared,
+            prompt=full, prompt_pos=shared,
         )
+        st.generated = prior
         temps[slot] = req.temperature
         seeds[slot] = idx if req.seed is None else req.seed
-        counts[slot] = 0
+        counts[slot] = len(prior)
         return st
 
 

@@ -7,14 +7,27 @@ follows the reference line for line; the parity tests drive both pools in
 lock step. The device side is one K and one V tensor of shape
 (L, n_pages, page, Hkv, hd), updated in place by the mixed step and by
 copy-on-write forks (the JAX pool is functional and rebinds fresh arrays).
+An int8 pool (``kv_cache_dtype="int8"``) holds int8 pages and, in the same
+dict, their float32 scale planes (L, n_pages, page, Hkv), so a fork copies
+both and a captured step bakes in both.
 
 Page 0 is a reserved dummy: free slots and the invalid rows of a ragged
 step point their writes at it. Full prompt pages are registered in a
 content-hash registry (a rolling CRC over the chain of page tokens, with an
 exact token comparison on every hit); ``admit`` adopts a matching prefix
 (refcount bump, no compute) and the first write into a shared page forks it
-(``ensure_writable``). Admission reserves each request's worst case
-(``admission="reserve"``), so lazy growth and forks never fail mid-flight.
+(``ensure_writable``). Two admission disciplines:
+
+* ``admission="reserve"`` (default): each request's worst case is
+  reserved, so lazy growth and forks never fail mid-flight;
+* ``admission="optimistic"``: only the prompt's pages are reserved, and
+  decode growth takes the unreserved rest, so the pool can be
+  oversubscribed and growth can raise :class:`PoolExhausted`, which the
+  engine answers by preempting a slot.
+
+``faults`` (a ``serve.faults.FaultPlan``) drives the ``pool.alloc`` and
+``pool.admit`` injection hooks; without one each hook is one ``is None``
+test.
 """
 
 from __future__ import annotations
@@ -43,7 +56,9 @@ class PoolError(RuntimeError):
 
 
 class PoolExhausted(PoolError):
-    """Page allocation could not be satisfied from the free list."""
+    """Page allocation could not be satisfied from the free list: under
+    ``admission="reserve"`` only through fault injection, under
+    ``"optimistic"`` the pressure the engine answers with preemption."""
 
 
 class AdmissionError(PoolError, ValueError):
@@ -71,15 +86,18 @@ class PagePool:
 
     Page 0 is never handed out (reserved dummy). ``reserved`` tracks pages
     promised to admitted-but-not-yet-written sequences; ``available`` is
-    what a new admission may claim.
+    what a new admission may claim. With ``faults`` attached, an ``alloc``
+    the plan schedules to fail raises :class:`PoolExhausted` as a real
+    exhaustion would.
     """
 
-    def __init__(self, n_pages: int):
+    def __init__(self, n_pages: int, *, faults=None):
         if n_pages < 2:
             raise AdmissionError(f"pool needs >= 2 pages (1 dummy), got {n_pages}")
         self.n_pages = n_pages
         self._free: list[int] = list(range(n_pages - 1, 0, -1))  # pop() -> low ids
         self.reserved = 0
+        self.faults = faults
 
     @property
     def free_count(self) -> int:
@@ -90,6 +108,10 @@ class PagePool:
         return self.free_count - self.reserved
 
     def alloc(self, n: int) -> list[int]:
+        if self.faults is not None and self.faults.take("pool.alloc"):
+            raise PoolExhausted(
+                f"injected pool exhaustion: want {n}, free {self.free_count}"
+            )
         if n > self.free_count:
             raise PoolExhausted(
                 f"page pool exhausted: want {n}, free {self.free_count}"
@@ -102,7 +124,8 @@ class PagePool:
 
 def _copy_page(dst: torch.Tensor, src_id: int, dst_id: int) -> None:
     """In place: physical page ``src_id`` of every layer copied onto
-    ``dst_id`` (dst is (L, n_pages, ...)); O(page) traffic."""
+    ``dst_id`` (dst is (L, n_pages, ...): pages or scale planes); O(page)
+    traffic."""
     dst[:, dst_id].copy_(dst[:, src_id])
 
 
@@ -128,27 +151,20 @@ class PagedKVPool:
         registry=None,
         admission: str = "reserve",
         n_pages: Optional[int] = None,
+        faults=None,
     ):
         if cfg.window is not None:
             raise ValueError("paged KV pools require full attention (window=None)")
-        if admission == "optimistic":
-            raise NotImplementedError(
-                "admission='optimistic' (oversubscribed pool + preemption) is "
-                "not ported yet: ROADMAP §A9"
-            )
-        if admission != "reserve":
+        if admission not in ("reserve", "optimistic"):
             raise AdmissionError(f"unknown admission discipline {admission!r}")
-        if cfg.kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                "kv_cache_dtype='int8' (quantized KV pages) is not ported yet: "
-                "ROADMAP §A5"
-            )
         self.cfg = cfg
         self.n_slots = n_slots
         self.prefix_sharing = prefix_sharing
         self.admission = admission
         self.page, self.blocks_per_seq = T.page_geometry(cfg, max_len)
         self.capacity = self.blocks_per_seq * self.page
+        # ``n_pages`` (allocatable, dummy excluded) defaults to every slot at
+        # capacity; fewer oversubscribes the pool (optimistic admission).
         if n_pages is None:
             n_pages = n_slots * self.blocks_per_seq
         if n_pages < self.blocks_per_seq:
@@ -157,13 +173,11 @@ class PagedKVPool:
                 f"-page capacity row"
             )
         self.n_pages = n_pages
+        self.faults = faults
 
         shape = (n_layers, n_pages + 1, self.page, cfg.n_kv_heads, cfg.hd)  # +1 dummy page 0
-        dt = dtype or cfg.activation_dtype()
-        self.pages: dict[str, torch.Tensor] = {
-            name: torch.zeros(shape, dtype=dt, device=device)
-            for name in ("k_pages", "v_pages")
-        }
+        self.pages: dict[str, torch.Tensor] = T.kv_buffers(
+            cfg, ("k_pages", "v_pages"), shape, dtype=dtype, device=device)
         self.reset()
         self._registry = registry
         if registry is not None:
@@ -177,9 +191,9 @@ class PagedKVPool:
         The device pages stay allocated (and their contents stale, behind
         lengths of 0): a captured step keeps their addresses, so an engine
         resets its pool between ``generate()`` calls instead of building a
-        new one."""
+        new one. The allocator takes the pool's current ``faults``."""
         n_slots = self.n_slots
-        self.alloc = PagePool(self.n_pages + 1)  # +1 dummy page 0
+        self.alloc = PagePool(self.n_pages + 1, faults=self.faults)  # +1 dummy page 0
         self.block_tables = np.zeros((n_slots, self.blocks_per_seq), np.int32)
         self.lens = np.zeros((n_slots,), np.int32)
         # Per-slot written high-water mark (the furthest position this slot
@@ -199,6 +213,16 @@ class PagedKVPool:
 
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page)
+
+    def nbytes(self) -> int:
+        """Device bytes of the pool: pages and scale planes, dummy included."""
+        return sum(t.numel() * t.element_size() for t in self.pages.values())
+
+    def can_admit(self, prompt_len: int, max_new: int) -> bool:
+        """Worst-case admissibility ignoring prefix sharing (sharing only
+        lowers the need; ``admit`` checks the exact one)."""
+        worst = self.pages_for(min(prompt_len + max_new, self.capacity))
+        return self.alloc.available >= worst
 
     def match_prefix(self, prompt: np.ndarray) -> tuple[int, list[int]]:
         """Longest registered prefix of ``prompt``: (tokens covered, pages).
@@ -235,17 +259,22 @@ class PagedKVPool:
 
     def admit(self, slot: int, prompt: np.ndarray, max_new: int) -> Optional[int]:
         """Admit a request into ``slot``: adopt the shared prefix and reserve
-        the worst case of owned pages. Returns the number of prompt tokens
-        adopted (0 if none), or None when the pool lacks pages."""
+        the owned pages the discipline guarantees (reserve: prompt + full
+        ``max_new``; optimistic: the prompt's only). Returns the number of
+        prompt tokens adopted (0 if none), or None when the pool lacks pages
+        (or an injected ``pool.admit`` fault refuses)."""
         if self._slot_pages[slot] or self._slot_reserved[slot] or self.lens[slot]:
             raise AdmissionError(f"slot {slot} is occupied")
+        if self.faults is not None and self.faults.take("pool.admit"):
+            return None
         prompt = np.asarray(prompt, np.int32)
         prompt_len = min(len(prompt), self.capacity)
         covered, pids = self.match_prefix(prompt)
         # Adopted pages strictly below the write boundary are never written
         # again; a partially covered tail page forks on its first write.
         n_safe = covered // self.page
-        worst = self.pages_for(min(prompt_len + max_new, self.capacity))
+        guaranteed = prompt_len + max_new if self.admission == "reserve" else prompt_len
+        worst = self.pages_for(min(guaranteed, self.capacity))
         need = max(worst - n_safe, 0)
         if self.alloc.available < need:
             return None
@@ -266,11 +295,21 @@ class PagedKVPool:
         return covered
 
     def _take_page(self, slot: int) -> int:
-        if self._slot_reserved[slot] <= 0:
-            raise AssertionError("allocation beyond reservation")
-        (pid,) = self.alloc.alloc(1)
-        self.alloc.reserved -= 1
-        self._slot_reserved[slot] -= 1
+        if self._slot_reserved[slot] > 0:
+            (pid,) = self.alloc.alloc(1)
+            self.alloc.reserved -= 1
+            self._slot_reserved[slot] -= 1
+        else:
+            # Beyond the reservation: optimistic growth only, and only from
+            # the unreserved rest (never a page promised to another slot).
+            if self.admission == "reserve":
+                raise AssertionError("allocation beyond reservation")
+            if self.alloc.available < 1:
+                raise PoolExhausted(
+                    f"optimistic growth for slot {slot}: free "
+                    f"{self.alloc.free_count}, reserved {self.alloc.reserved}"
+                )
+            (pid,) = self.alloc.alloc(1)
         self._ref[pid] = 1
         return pid
 
@@ -282,7 +321,9 @@ class PagedKVPool:
     def ensure_writable(self, slot: int, n: int = 1) -> None:
         """Make positions ``[len, len+n)`` of ``slot`` writable: materialize
         missing pages, copy-on-write-fork shared ones, unregister a
-        sole-owned registered page about to diverge."""
+        sole-owned registered page about to diverge. Idempotent; raises
+        :class:`PoolExhausted` only beyond a reservation (optimistic
+        growth) or by injection, leaving what it made writable so far."""
         start = int(self.lens[slot])
         end = min(start + n, self.capacity)
         if end <= start:
@@ -336,6 +377,12 @@ class PagedKVPool:
                 self._chain_next[h] = (pid, ptoks.copy())
                 self._page_parent[pid] = h
             h = _hash_step(h, ptoks)
+
+    def shared_donor(self, slot: int) -> bool:
+        """Whether ``slot`` holds a page other slots hold too (refcount >
+        1): releasing it frees fewer pages than it holds, so preemption
+        prefers other victims."""
+        return any(self._ref[pid] > 1 for pid in self._slot_pages[slot])
 
     def occupancy(self) -> float:
         """Held fraction of the allocatable pool (admission watermark)."""

@@ -8,6 +8,8 @@ rest of the token budget is dealt to prompts as chunks of up to
 long prompt advances chunk by chunk while decode rows keep emitting.
 Admission is FIFO in arrival order; ``Request.arrival`` (a step number)
 holds a request out of the queue until the engine's step counter reaches it.
+A *suspended* slot stays placed (it counts against admission and keeps its
+``Slot``) but is left out of step plans until it is resumed.
 """
 
 from __future__ import annotations
@@ -76,6 +78,8 @@ class ContinuousScheduler:
             raise ValueError(f"token_budget must be >= 1, got {token_budget}")
         self.waiting: list = []
         self.slots: list[Optional[Slot]] = [None] * n_slots
+        # Placed slots excluded from step plans (``suspend``/``resume``).
+        self.suspended: set[int] = set()
         self._rr = 0                  # round-robin cursor over prefill slots
 
     def submit(self, requests: Sequence) -> None:
@@ -98,6 +102,10 @@ class ContinuousScheduler:
     def active_slots(self) -> list[int]:
         return [i for i, s in enumerate(self.slots) if s is not None]
 
+    def runnable_slots(self) -> list[int]:
+        """Active slots eligible for step plans (suspended ones left out)."""
+        return [i for i, s in enumerate(self.slots) if s is not None and i not in self.suspended]
+
     def next_arrival(self) -> Optional[int]:
         return getattr(self.waiting[0], "arrival", 0) if self.waiting else None
 
@@ -109,7 +117,8 @@ class ContinuousScheduler:
 
     def requeue(self, request) -> None:
         """Put an admissible-but-unplaceable request back at the queue head
-        (no pages free yet — admission stays FIFO, no overtaking)."""
+        (no pages free yet — admission stays FIFO, no overtaking). Preempted
+        requests land here too: they restart before later arrivals."""
         self.waiting.insert(0, request)
 
     def drain_waiting(self, pred) -> list:
@@ -144,7 +153,7 @@ class ContinuousScheduler:
         decode_rows: list[int] = []
         prefill_rows: list[int] = []
         for i, st in enumerate(self.slots):
-            if st is None or st.done:
+            if st is None or st.done or i in self.suspended:
                 continue
             (prefill_rows if st.prefilling else decode_rows).append(i)
         items = [StepItem(i, 1, False) for i in decode_rows]
@@ -193,8 +202,18 @@ class ContinuousScheduler:
         self.slots[slot] = st
         return st
 
+    def suspend(self, slot: int) -> None:
+        """Leave a placed slot out of step plans until :meth:`resume`."""
+        assert self.slots[slot] is not None, f"slot {slot} is empty"
+        self.suspended.add(slot)
+
+    def resume(self, slot: int) -> None:
+        """Return a suspended slot to step planning."""
+        self.suspended.discard(slot)
+
     def retire(self, slot: int) -> Slot:
         st = self.slots[slot]
         assert st is not None
         self.slots[slot] = None
+        self.suspended.discard(slot)
         return st

@@ -26,11 +26,15 @@ zeroed inputs: the caller captures where what that writes is dead (a
 paged step with every ``q_len`` 0 writes only the dummy page 0; the static
 decode step's caches are overwritten by the first prefill's). The capture
 itself runs nothing: the launches it issued are taken back out of
-``cuda_lib.launch_counts`` and added again at every replay.
+``cuda_lib.launch_counts`` and added again at every replay. Python's cyclic
+garbage collector is run before the capture and held off during it: a dead
+engine's graphs destroyed mid-capture would invalidate it (the capture is
+in CUDA's global mode, where such a call from any thread is an error).
 """
 
 from __future__ import annotations
 
+import gc
 import math
 from typing import Callable, Optional
 
@@ -103,6 +107,9 @@ class StepGraph:
             raise StepCaptureError(f"warm-up of the {self.name} failed: {err}") from err
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with cuda_lib.recording() as issued:
                 with torch.cuda.graph(graph, pool=self.pool):
@@ -112,6 +119,9 @@ class StepGraph:
                 f"capture of the {self.name} failed (a host read or synchronisation "
                 f"inside the step?): {err}"
             ) from err
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self.outputs = graph, tuple(outputs)
         self.launches = {k: v for k, v in issued.items() if v}
 

@@ -100,14 +100,11 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 @pytest.mark.parametrize("flag,item", [
     (["--draft", "ngram"], "A11"),
     (["--host-pages", "4"], "A10"),
-    (["--admission", "optimistic"], "A9"),
-    (["--chaos-step-fail", "1"], "A9"),
-    (["--chaos-fetch-fail", "1"], "A9"),
+    (["--chaos-fetch-fail", "1"], "A10"),
     (["--spill-watermark", "0.5"], "A10"),
     (["--draft-len", "2"], "A11"),
     (["--draft-model", "deepseek-7b"], "A11"),
     (["--ckpt-dir", "checkpoints"], "A12"),
-    (["--max-preemptions", "3"], "A9"),
     (["--prefetch-depth", "4"], "A10"),
 ])
 def test_launcher_refuses_unported_flags(flag, item, capsys):
@@ -115,6 +112,27 @@ def test_launcher_refuses_unported_flags(flag, item, capsys):
         launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu", *flag])
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--admission", "optimistic", "--pool-pages", "4", "--max-preemptions", "10"],
+     "preemptions"),
+    (["--chaos-step-fail", "2"], "served 3 requests, 24 tokens"),
+], ids=["optimistic", "chaos_step_fail"])
+def test_launcher_serves_under_pool_pressure_and_faults(flags, want, capsys, tmp_path):
+    """The resilience flags serve on the CPU: an oversubscribed optimistic
+    pool preempts and restores, and an injected step failure is retried
+    (the metrics record one retry)."""
+    out_path = tmp_path / "metrics.jsonl"
+    launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--batch-size", "2", "--max-new", "8",
+                       "--max-len", "64", "--page-size", "16", "--prefill-chunk", "16",
+                       "--metrics-out", str(out_path), *flags])
+    out = capsys.readouterr().out
+    assert want in out and "served 3 requests, 24 tokens" in out
+    records = [json.loads(line) for line in out_path.read_text().splitlines()]
+    retries = [r["value"] for r in records if r["name"] == "serve.step_retries"]
+    assert retries == [1.0 if "--chaos-step-fail" in flags else 0.0]
 
 
 def test_launcher_serves_with_order_adaptation(capsys, tmp_path):

@@ -3,8 +3,8 @@ JAX package's, over the same random operation sequences.
 
 Every host-side field must be identical after every operation: block
 tables, lengths, refcounts, free list, reservations, the prefix registry,
-the adoption and copy-on-write counters, and the scheduler's plans, queue
-and slots. The device side is checked too: each walk writes the same values
+the adoption and copy-on-write counters, and the scheduler's plans, queue,
+slots and suspended set. The device side is checked too: each walk writes the same values
 into both pools through their block tables, so after copy-on-write forks the
 page contents must still be equal.
 """
@@ -165,8 +165,6 @@ def test_pool_geometry_and_gauges_match():
     assert pr.snapshot() == rr.snapshot()
     with pytest.raises(port_pool.AdmissionError):
         port.admit(0, prompt, 1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        port_pool.PagedKVPool(cfg, 1, 1, MAX_LEN, device="cpu", admission="optimistic")
 
 
 # ---- scheduler ------------------------------------------------------------------
@@ -200,7 +198,7 @@ def test_scheduler_lock_step_random_walk(seed):
     port = port_sched.ContinuousScheduler(n_slots, token_budget=budget, prefill_chunk=chunk)
     next_rid, step = 0, 0
     for _ in range(60):
-        op = rng.integers(0, 6)
+        op = rng.integers(0, 7)
         if op == 0:
             reqs = [_Req(next_rid + i, int(rng.integers(0, step + 4))) for i in range(3)]
             next_rid += 3
@@ -242,10 +240,18 @@ def test_scheduler_lock_step_random_walk(seed):
             max_q = int(rng.integers(0, 4))
             assert [r.rid for r in port.shed_over(step, max_q)] == \
                 [r.rid for r in ref.shed_over(step, max_q)]
-        else:
+        elif op == 5:
             pred = lambda r: r.rid % 4 == 1
             assert [r.rid for r in port.drain_waiting(pred)] == \
                 [r.rid for r in ref.drain_waiting(pred)]
+        elif port.active_slots():
+            # Suspend an active slot or resume a suspended one: suspended
+            # slots stay placed but leave the plans.
+            slot = int(rng.choice(port.active_slots()))
+            for sched in (ref, port):
+                (sched.resume if slot in sched.suspended else sched.suspend)(slot)
+        assert port.suspended == ref.suspended
+        assert port.runnable_slots() == ref.runnable_slots()
         assert port.has_work() == ref.has_work()
         assert port.active_slots() == ref.active_slots()
         assert port.next_arrival() == ref.next_arrival()

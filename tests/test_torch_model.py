@@ -5,7 +5,9 @@ loaded into the port with ``params_from_jax``. Both models run the ragged
 chunk step ``decode_step`` over a paged cache with a shuffled block table:
 one prefill chunk (ragged q_lens, a free row), then 8 greedy decode steps.
 Logits and the written pages must agree within 2e-4 (f32; the layers sum in
-other orders), and the greedy tokens must be equal.
+other orders), and the greedy tokens must be equal. The other dense configs
+(qwen2-72b, codeqwen1_5-7b, llama3-405b, paper-gb10) are cases of the same
+test.
 """
 
 import math
@@ -29,6 +31,8 @@ from repro_torch.testing import params_from_jax
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 PAGE, MAX_LEN, B = 8, 48, 3
+# The other dense configs, held to the reference as cases of the tests below.
+OTHER_DENSE = ["qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10"]
 
 
 @pytest.fixture(autouse=True)
@@ -38,8 +42,12 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def models():
-    jcfg = ref_get_config("deepseek-7b").reduced().with_(kv_layout="paged", page_size=PAGE)
-    cfg = get_config("deepseek-7b").reduced().with_(kv_layout="paged", page_size=PAGE)
+    return _models("deepseek-7b")
+
+
+def _models(arch):
+    jcfg = ref_get_config(arch).reduced().with_(kv_layout="paged", page_size=PAGE)
+    cfg = get_config(arch).reduced().with_(kv_layout="paged", page_size=PAGE)
     jlm = ref_build_model(jcfg)
     jparams = jlm.init(jax.random.PRNGKey(0))
     lm = build_model(cfg, device="cpu")
@@ -81,9 +89,12 @@ def _check_pages(jc, pc):
         np.testing.assert_allclose(pc[name].numpy()[:, 1:], np.asarray(jc[name])[:, 1:], **TOL)
 
 
-@pytest.mark.parametrize("order,group", [("cyclic", 1), ("sawtooth", 6), ("block_snake", 2)])
-def test_decode_step_matches_reference(models, order, group):
-    jlm, jparams, lm, params = models
+@pytest.mark.parametrize("order,group,arch", [
+    ("cyclic", 1, "deepseek-7b"), ("sawtooth", 6, "deepseek-7b"), ("block_snake", 2, "deepseek-7b"),
+    *[("sawtooth", 6, arch) for arch in OTHER_DENSE],
+], ids=["cyclic-1", "sawtooth-6", "block_snake-2", *OTHER_DENSE])
+def test_decode_step_matches_reference(models, order, group, arch):
+    jlm, jparams, lm, params = models if arch == "deepseek-7b" else _models(arch)
     rng = np.random.default_rng(group)
     pc, jc = _caches(lm.cfg, rng)
     c = 13
@@ -164,11 +175,6 @@ def test_layers_match_reference():
 
 
 def test_unported_model_paths_raise():
-    cfg = get_config("deepseek-7b").reduced()
-    with pytest.raises(NotImplementedError, match="A5"):
-        T.init_cache(cfg.with_(kv_layout="paged", kv_cache_dtype="int8"), 1, 16)
-    with pytest.raises(NotImplementedError, match="A5"):
-        T.init_cache(cfg.with_(kv_cache_dtype="int8"), 1, 16)
     with pytest.raises(NotImplementedError, match="encdec"):
         build_model(get_config("seamless-m4t-medium").reduced(), device="cpu")
     with pytest.raises(NotImplementedError, match="moe"):

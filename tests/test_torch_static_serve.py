@@ -13,6 +13,10 @@ port by ``params_from_jax``:
   padding into a shared bucket, a cancelled request, an expired deadline, a
   0-limit row, a prompt longer than ``max_len`` and a short last group.
 * The launcher's ``--scheduler static`` and ``auto`` on the CPU.
+
+The other dense configs (qwen2-72b, codeqwen1_5-7b, llama3-405b, paper-gb10
+``.reduced()``, each with its own reference init) are cases of the prefill
+and the engine tests.
 """
 
 import numpy as np
@@ -36,6 +40,8 @@ from repro_torch.testing import params_from_jax
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 B, S, MAX_LEN = 3, 45, 60
+# The other dense configs, held to the reference as cases of the tests below.
+OTHER_DENSE = ["qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10"]
 
 
 @pytest.fixture(autouse=True)
@@ -50,10 +56,17 @@ def weights():
     return jparams, params_from_jax(jax.tree.map(np.asarray, jparams))
 
 
-def _models(weights, **kw):
-    jparams, params = weights
-    jlm = ref_build_model(ref_get_config("deepseek-7b").reduced().with_(**kw))
-    lm = build_model(get_config("deepseek-7b").reduced().with_(**kw), device="cpu")
+def _models(weights, arch="deepseek-7b", **kw):
+    """Reference and port models of ``arch`` (its ``.reduced()`` config
+    with ``kw``) and their weights: deepseek-7b's shared ones, another
+    arch's from its own reference init."""
+    if arch == "deepseek-7b":
+        jparams, params = weights
+    else:
+        jparams = ref_build_model(ref_get_config(arch).reduced()).init(jax.random.PRNGKey(0))
+        params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    jlm = ref_build_model(ref_get_config(arch).reduced().with_(**kw))
+    lm = build_model(get_config(arch).reduced().with_(**kw), device="cpu")
     return jlm, jparams, lm, params
 
 
@@ -66,7 +79,8 @@ def _close(got: torch.Tensor, want):
     dict(window=32),
     dict(attn_order="cyclic"),
     dict(attn_order="block_snake", snake_group=2, q_block=16, kv_block=16),
-], ids=["full", "swa", "cyclic", "block_snake"])
+    *[dict(arch=arch) for arch in OTHER_DENSE],
+], ids=["full", "swa", "cyclic", "block_snake", *OTHER_DENSE])
 def test_prefill_and_decode_match_reference(weights, kw):
     jlm, jparams, lm, params = _models(weights, **kw)
     rng = np.random.default_rng(len(kw))
@@ -121,13 +135,16 @@ def _specs(vocab, seed=3):
             for i, (n, m) in enumerate(lens_new)]
 
 
-@pytest.mark.parametrize("order", ["cyclic", "sawtooth", "block_snake"])
-def test_static_engine_greedy_streams_equal_reference(weights, order):
+@pytest.mark.parametrize("order,arch", [
+    ("cyclic", "deepseek-7b"), ("sawtooth", "deepseek-7b"), ("block_snake", "deepseek-7b"),
+    *[("sawtooth", arch) for arch in OTHER_DENSE],
+], ids=["cyclic", "sawtooth", "block_snake", *OTHER_DENSE])
+def test_static_engine_greedy_streams_equal_reference(weights, order, arch):
     """Groups of 3 (the last one short); rid 2 asks for 0 tokens, rid 3's
     prompt is longer than max_len (its tail is kept and its limit clamped),
     rid 5 is cancelled before the run and rid 6's deadline has passed at
     the first boundary."""
-    jlm, jparams, lm, params = _models(weights, attn_order=order, snake_group=2)
+    jlm, jparams, lm, params = _models(weights, arch, attn_order=order, snake_group=2)
     specs = _specs(lm.cfg.vocab)
     specs[6]["deadline_s"] = 0.0
     kw = dict(batch_size=3, max_len=64)

@@ -95,22 +95,26 @@ def test_guard_catches_host_reads():
 
 @pytest.mark.parametrize("kind", ["mixed/1", "mixed/16", "deepseek-7b", "mamba2-130m",
                                   "zamba2-2_7b", "mixed/1 after a switch",
-                                  "mixed/16 after a switch"])
+                                  "mixed/16 after a switch", "mixed/1 int8", "mixed/16 int8",
+                                  "deepseek-7b int8", "zamba2-2_7b int8"])
 def test_captured_steps_read_no_host_value(kind):
     """One step of each kind, on the inputs and state its engine left, runs
     under the guard; it is the function the card captures. After an order
     switch (forced at the third mixed step, sawtooth to cyclic) both widths
-    have run with the new reversal group staged, and still read nothing."""
+    have run with the new reversal group staged, and still read nothing.
+    With int8 KV caches the steps quantize what they write and dequantize
+    the caches they read, and still read nothing."""
+    cfg_kw = {"kv_cache_dtype": "int8"} if kind.endswith("int8") else None
     if kind.startswith("mixed"):
-        eng = _engine("deepseek-7b", "continuous")
+        eng = _engine("deepseek-7b", "continuous", cfg_kw=cfg_kw)
     else:
-        eng = _engine(kind, "static")
+        eng = _engine(kind.split()[0], "static", cfg_kw=cfg_kw)
     if kind.endswith("after a switch"):
         ctl = eng.order_ctl
         ctl.enabled = True
         ctl.maybe_adapt = lambda n, *a, **k: n == 3 and ctl.switch_to("cyclic") is None
     eng.generate([Request(**s) for s in _specs(eng.lm.cfg.vocab)])
-    step = eng.step_graphs()["decode" if kind in ARCHS else kind.split()[0]]
+    step = eng.step_graphs()["decode" if kind.split()[0] in ARCHS else kind.split()[0]]
     if kind.endswith("after a switch"):
         assert eng.order_ctl.switches == 1 and eng.compiled_step_count() == 2
         assert int(step.inputs["order_group"]) == 1  # cyclic, staged after the switch
@@ -262,14 +266,16 @@ CARD_KW = dict(dtype="bfloat16", param_dtype="bfloat16", d_model=256, n_heads=4,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("scheduler,arch", [("continuous", "deepseek-7b"),
-                                            ("static", "deepseek-7b"),
-                                            ("static", "mamba2-130m"),
-                                            ("static", "zamba2-2_7b")])
-def test_replay_equals_eager_on_card(cuda, scheduler, arch):
+@pytest.mark.parametrize("scheduler,arch,kv", [("continuous", "deepseek-7b", "bfloat16"),
+                                               ("static", "deepseek-7b", "bfloat16"),
+                                               ("static", "mamba2-130m", "bfloat16"),
+                                               ("static", "zamba2-2_7b", "bfloat16"),
+                                               ("continuous", "deepseek-7b", "int8"),
+                                               ("static", "deepseek-7b", "int8")])
+def test_replay_equals_eager_on_card(cuda, scheduler, arch, kv):
     from repro_torch.kernels import cuda_lib
 
-    eng = _engine(arch, scheduler, device=cuda, cfg_kw=CARD_KW)
+    eng = _engine(arch, scheduler, device=cuda, cfg_kw=dict(CARD_KW, kv_cache_dtype=kv))
     specs = _specs(1024)
     res = eng.generate([Request(**s) for s in specs])   # captures the steps
     assert all(r.status == "ok" for r in res)

@@ -9,7 +9,8 @@ packages generate bit for bit alike.
 * ``cross_entropy`` and ``LM.loss``: within 1e-5 relative; step-0
   gradients of every leaf within 1e-4 (``jax.grad`` of the reference's
   loss), also under ``remat="full"``, for a GQA (1 kv head) and a
-  sliding-window (32) variant.
+  sliding-window (32) variant, and for the other dense configs (qwen2-72b,
+  codeqwen1_5-7b, llama3-405b, paper-gb10).
 * The optimizers, ``adamw`` and ``adamw_factored``, fed the same numpy
   gradients: params and moments after two steps equal the reference's to
   float32 rounding (Adam's first step is about lr * sign(g), so the two are
@@ -75,10 +76,9 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _cfgs(**kw):
+def _cfgs(arch="deepseek-7b", **kw):
     kw = {**TILES, **kw}
-    return ref_get_config("deepseek-7b").reduced().with_(**kw), \
-        get_config("deepseek-7b").reduced().with_(**kw)
+    return ref_get_config(arch).reduced().with_(**kw), get_config(arch).reduced().with_(**kw)
 
 
 def _batches(vocab, n, seed=0):
@@ -145,14 +145,16 @@ def test_cross_entropy_equals_reference():
                 np.testing.assert_allclose(got_m[k].item(), float(want_m[k]), rtol=1e-5)
 
 
-@pytest.mark.parametrize("variant", ["dense", "gqa", "swa", "remat"])
+@pytest.mark.parametrize("variant", ["dense", "gqa", "swa", "remat", "qwen2-72b",
+                                     "codeqwen1_5-7b", "llama3-405b", "paper-gb10"])
 def test_loss_and_step0_grads_equal_reference(dense, variant):
-    """LM.loss within 1e-5 relative and d loss / d params within 1e-4."""
+    """LM.loss within 1e-5 relative and d loss / d params within 1e-4; the
+    variants of deepseek-7b, then the other dense configs."""
     if variant == "dense":
         jlm, jparams, lm, batches = dense
     else:
         kw = {"gqa": dict(n_kv_heads=1), "swa": dict(window=32),
-              "remat": dict(remat="full")}[variant]
+              "remat": dict(remat="full")}.get(variant, dict(arch=variant))
         jcfg, cfg = _cfgs(**kw)
         jlm = ref_build_model(jcfg)
         jparams = jlm.init(jax.random.PRNGKey(1))
