@@ -75,7 +75,7 @@ class ModelConfig:
     eos_id: int = 1                          # end-of-sequence token id
     dtype: str = "bfloat16"                  # activation/compute dtype
     param_dtype: str = "float32"
-    attn_impl: str = "auto"                  # auto | cuda | torch
+    attn_impl: str = "auto"                  # auto | cuda | torch | reference | recompute
     attn_order: str = "sawtooth"             # cyclic | sawtooth | block_snake
     snake_group: Optional[int] = None        # block_snake reversal window
     q_block: int = 512

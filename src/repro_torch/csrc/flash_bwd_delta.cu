@@ -13,9 +13,11 @@
 //
 // What bounds it on this card: bytes. It reads o and dO once (2 * D * 2
 // bytes a row) for 2 * D flops, far below the 295 flops a byte at which the
-// tensor cores would be the limit. Design: D / 8 threads a row, each loading
-// 16 bytes of o and of dO, a shuffle sum across the row's lanes; a warp
-// covers 2 (D 128) or 4 (D 64) whole rows, so every load is coalesced.
+// tensor cores would be the limit. Design: D / 8 lanes a row load 16 bytes
+// of o and of dO each, inside a group of the next power of two of lanes (16
+// at D 80, zamba2's head dim: lanes 10-15 add zeros), and a shuffle sum runs
+// across the group; a warp covers 2 (D 128 and 80) or 4 (D 64) whole rows,
+// so every load is coalesced.
 
 #include "common.cuh"
 
@@ -25,15 +27,26 @@ using namespace repro;
 
 constexpr int kThreads = 256;
 
+// Lanes a row: D / 8 rounded up to a power of two, so that a row's lanes
+// form one aligned group of the warp for the shuffle sum.
+template <int D>
+__host__ __device__ constexpr int lanes_per_row() {
+  int n = 1;
+  while (n < D / 8) n *= 2;
+  return n;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_delta_kernel(const uint16_t* o, const uint16_t* dO, float* delta, int n_rows) {
-  constexpr int L = D / 8;  // lanes a row, 8 bf16 each
+  static_assert(D % 8 == 0, "a lane loads 8 bf16 (16 bytes)");
+  constexpr int L = lanes_per_row<D>();
+  static_assert(L <= 32, "a row's lanes lie in one warp");
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long row = t / L;
   const int c = (int)(t % L);
   float sum = 0.f;
-  if (row < n_rows) {
+  if (row < n_rows && c < D / 8) {
     const size_t off = (size_t)row * D + c * 8;
     float a[8], b[8];
     unpack8(*reinterpret_cast<const uint4*>(o + off), a);
@@ -49,7 +62,7 @@ __global__ void __launch_bounds__(kThreads)
 template <int D>
 cudaError_t launch(const uint16_t* o, const uint16_t* dO, float* delta, int n_rows,
                    cudaStream_t stream) {
-  const long long threads = (long long)n_rows * (D / 8);
+  const long long threads = (long long)n_rows * lanes_per_row<D>();
   const unsigned blocks = (unsigned)((threads + kThreads - 1) / kThreads);
   flash_bwd_delta_kernel<D><<<blocks, kThreads, 0, stream>>>(o, dO, delta, n_rows);
   return cudaGetLastError();
@@ -69,6 +82,7 @@ extern "C" int flash_bwd_delta_bf16(const void* o, const void* dO, void* delta, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_rows <= 0) return 0;
   if (D == 128) return static_cast<int>(launch<128>(o_, do_, d_, n_rows, st));
+  if (D == 80) return static_cast<int>(launch<80>(o_, do_, d_, n_rows, st));
   if (D == 64) return static_cast<int>(launch<64>(o_, do_, d_, n_rows, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -61,6 +61,17 @@
 // by TMA (positions past Skv left out), which runs on while the next item
 // starts.
 //
+// Head dims: 64 (one 128-byte panel a row) and 128 (two panels). D 80
+// (zamba2's shared attention) runs the D 128 layout, as the forward (B2)
+// does, in the same shared memory: the tensor maps' innermost extent is
+// 80, so TMA writes zeros into columns 80-127 of every K, V, Q and dO
+// tile; S^T = K Q^T and dP^T = V dO^T take only the 5 k-steps that hold
+// data (their own instantiation: the k-step count is a template parameter,
+// since a wgmma issued under a runtime condition makes ptxas serialise
+// every product); dV = P^T dO and dK = dS^T Q compute 128 columns, of
+// which the TMA stores write 80. Its cost: 3/8 of those two products is
+// spent on zeros.
+//
 // What bounds it on this card: at the training shape (B 4, S 1024, 32 heads
 // of 128, causal) the four products over the visible (query, key) pairs take
 // 68.8 GFLOP, 0.070 ms at the bf16 peak, and the bytes (q, k, v, dO, dk, dv
@@ -227,9 +238,10 @@ __device__ __forceinline__ void producer(const CUtensorMap* tq, const CUtensorMa
 constexpr int kBarTurn = 1, kBarEpilogue = 3;
 
 // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 KV rows against the
-// Q and dO tiles of stage st. The first k-step writes the accumulators
-// without reading them, so they hold no live values between products.
-template <int DP>
+// Q and dO tiles of stage st, over the KS k-steps of 16 columns that hold
+// data. The first k-step writes the accumulators without reading them, so
+// they hold no live values between products.
+template <int DP, int KS>
 __device__ __forceinline__ void issue_sdp(float (&s)[kNS], float (&dp)[kNS], uint32_t base, int st,
                                           int wg) {
   using L = Layout<DP>;
@@ -243,11 +255,11 @@ __device__ __forceinline__ void issue_sdp(float (&s)[kNS], float (&dp)[kNS], uin
   };
   hw::wgmma_ss_m64n64_set(s, kv_desc(L::kK, 0), q_desc(L::kQ, 0));
 #pragma unroll
-  for (int kk = 1; kk < DP / 16; ++kk)
+  for (int kk = 1; kk < KS; ++kk)
     hw::wgmma_ss_m64n64(s, kv_desc(L::kK, kk), q_desc(L::kQ, kk), 1);
   hw::wgmma_ss_m64n64_set(dp, kv_desc(L::kV, 0), q_desc(L::kDO, 0));
 #pragma unroll
-  for (int kk = 1; kk < DP / 16; ++kk)
+  for (int kk = 1; kk < KS; ++kk)
     hw::wgmma_ss_m64n64(dp, kv_desc(L::kV, kk), q_desc(L::kDO, kk), 1);
 }
 
@@ -326,7 +338,7 @@ __device__ __forceinline__ void stage_out(uint32_t so, const float (&acc)[DP / 2
 }
 
 // A consumer warpgroup: 64 KV rows of every item this CTA takes.
-template <int DP>
+template <int DP, int KS>
 __device__ __forceinline__ void consumer(const CUtensorMap* tdk, const CUtensorMap* tdv,
                                          const Args& p, uint32_t base, const float* rows_smem,
                                          int wg) {
@@ -368,7 +380,7 @@ __device__ __forceinline__ void consumer(const CUtensorMap* tdk, const CUtensorM
         hw::mbar_wait(qd_full(bar, st), (c / kStages) & 1);
         turn();
         hw::wgmma_fence();
-        issue_sdp<DP>(s, dp, base, st, wg);
+        issue_sdp<DP, KS>(s, dp, base, st, wg);
         hw::wgmma_commit();
         pass();
         hw::wgmma_wait<0>();
@@ -437,7 +449,7 @@ __device__ __forceinline__ void consumer(const CUtensorMap* tdk, const CUtensorM
   if (tid == 0) hw::bulk_wait<0>();
 }
 
-template <int DP>
+template <int DP, int KS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -469,26 +481,29 @@ __global__ void __launch_bounds__(kThreads, 1)
     else if (ptid >= 32 && ptid < 64) producer<DP, true>(&tq, &tk, &tv, &tdo, p, base, ptid - 32);
   } else {
     hw::setmaxnreg_inc<kConsumerRegs>();
-    consumer<DP>(&tdk, &tdv, p, base, rows_smem, wg);
+    consumer<DP, KS>(&tdk, &tdv, p, base, rows_smem, wg);
   }
 }
 
-template <int DP>
+// The instantiation for padded head dim DP and KS k-steps over head dim D
+// (the tensors' own, which the tensor maps take as their innermost extent).
+template <int DP, int KS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, void* dk,
-                   void* dv, const Args& a, int B, cudaStream_t stream) {
+                   void* dv, const Args& a, int B, int D, cudaStream_t stream) {
   using L = Layout<DP>;
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
-  if (!hw::tensor_map_bshd(&tq, q, B, a.Sq, a.Hq, DP, kBM) ||
-      !hw::tensor_map_bshd(&tdo, dO, B, a.Sq, a.Hq, DP, kBM) ||
-      !hw::tensor_map_bshd(&tk, k, B, a.Skv, a.Hkv, DP, kBN) ||
-      !hw::tensor_map_bshd(&tv, v, B, a.Skv, a.Hkv, DP, kBN) ||
-      !hw::tensor_map_bshd(&tdk, dk, B, a.Skv, a.Hkv, DP, 64) ||
-      !hw::tensor_map_bshd(&tdv, dv, B, a.Skv, a.Hkv, DP, 64))
+  if (!hw::tensor_map_bshd(&tq, q, B, a.Sq, a.Hq, D, kBM) ||
+      !hw::tensor_map_bshd(&tdo, dO, B, a.Sq, a.Hq, D, kBM) ||
+      !hw::tensor_map_bshd(&tk, k, B, a.Skv, a.Hkv, D, kBN) ||
+      !hw::tensor_map_bshd(&tv, v, B, a.Skv, a.Hkv, D, kBN) ||
+      !hw::tensor_map_bshd(&tdk, dk, B, a.Skv, a.Hkv, D, 64) ||
+      !hw::tensor_map_bshd(&tdv, dv, B, a.Skv, a.Hkv, D, 64))
     return cudaErrorInvalidValue;
   int sms = 0;
-  const cudaError_t err = hw::persistent_setup<flash_bwd_dkv_kernel<DP>>((int)L::kAlloc, &sms);
+  const cudaError_t err =
+      hw::persistent_setup<flash_bwd_dkv_kernel<DP, KS>>((int)L::kAlloc, &sms);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<DP><<<min(sms, a.n_units), kThreads, L::kAlloc, stream>>>
+  flash_bwd_dkv_kernel<DP, KS><<<min(sms, a.n_units), kThreads, L::kAlloc, stream>>>
       (tq, tk, tv, tdo, tdk, tdv, a);
   return cudaGetLastError();
 }
@@ -526,8 +541,9 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
   a.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.n_units <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 128) return static_cast<int>(launch<128>(q, k, v, dO, dk, dv, a, B, st));
-  if (D == 64) return static_cast<int>(launch<64>(q, k, v, dO, dk, dv, a, B, st));
+  if (D == 128) return static_cast<int>(launch<128, 8>(q, k, v, dO, dk, dv, a, B, D, st));
+  if (D == 80) return static_cast<int>(launch<128, 5>(q, k, v, dO, dk, dv, a, B, D, st));
+  if (D == 64) return static_cast<int>(launch<64, 4>(q, k, v, dO, dk, dv, a, B, D, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -539,11 +555,12 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
 extern "C" int flash_bwd_dkv_attr(int D, int* out) {
   cudaFuncAttributes fa;
   cudaError_t err;
-  if (D == 128) {
-    err = cudaFuncGetAttributes(&fa, flash_bwd_dkv_kernel<128>);
+  if (D == 128 || D == 80) {
+    err = cudaFuncGetAttributes(&fa, D == 128 ? flash_bwd_dkv_kernel<128, 8>
+                                              : flash_bwd_dkv_kernel<128, 5>);
     out[1] = (int)Layout<128>::kAlloc;
   } else if (D == 64) {
-    err = cudaFuncGetAttributes(&fa, flash_bwd_dkv_kernel<64>);
+    err = cudaFuncGetAttributes(&fa, flash_bwd_dkv_kernel<64, 4>);
     out[1] = (int)Layout<64>::kAlloc;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

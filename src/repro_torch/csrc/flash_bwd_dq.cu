@@ -48,6 +48,17 @@
 // into shared memory and stores it by TMA (rows past Sq left out), which runs
 // on while the next item starts.
 //
+// Head dims: 64 (one 128-byte panel a row) and 128 (two panels). D 80
+// (zamba2's shared attention) runs the D 128 layout, as the forward (B2)
+// does: the tensor maps' innermost extent is 80, so TMA writes zeros into
+// columns 80-127 of every Q, dO, K and V tile; S = Q K^T and dP = dO V^T
+// take only the 5 k-steps that hold data (their own instantiation: the
+// k-step count is a template parameter, since a wgmma issued under a
+// runtime condition makes ptxas serialise every product); dQ = dS K
+// computes 128 columns, of which the TMA store writes 80. Its cost: 3/8 of
+// the dQ product is spent on zeros, and each tile takes the shared memory
+// of D 128.
+//
 // What bounds it on this card: at the training shape (B 4, S 1024, 32 heads
 // of 128, causal) the three products over the visible (query, key) pairs
 // take 51.6 GFLOP, 0.052 ms at the bf16 peak, and the bytes (q, k, v, dO, dq
@@ -195,9 +206,10 @@ __device__ __forceinline__ void producer(const CUtensorMap* tq, const CUtensorMa
 constexpr int kBarTurn = 1, kBarEpilogue = 3;
 
 // S = Q K^T and dP = dO V^T for this warpgroup's 64 rows against the K and V
-// tiles of stage st. The first k-step writes the accumulators without
-// reading them, so they hold no live values between products.
-template <int DP>
+// tiles of stage st, over the KS k-steps of 16 columns that hold data. The
+// first k-step writes the accumulators without reading them, so they hold
+// no live values between products.
+template <int DP, int KS>
 __device__ __forceinline__ void issue_sdp(float (&s)[kNS], float (&dp)[kNS], uint32_t base, int st,
                                           int wg) {
   using L = Layout<DP>;
@@ -213,12 +225,12 @@ __device__ __forceinline__ void issue_sdp(float (&s)[kNS], float (&dp)[kNS], uin
     if constexpr (kBN == 128) {
       hw::wgmma_ss_m64n128_set(acc, q_desc(a, 0), kv_desc(b, 0));
 #pragma unroll
-      for (int kk = 1; kk < DP / 16; ++kk)
+      for (int kk = 1; kk < KS; ++kk)
         hw::wgmma_ss_m64n128(acc, q_desc(a, kk), kv_desc(b, kk), 1);
     } else {
       hw::wgmma_ss_m64n64_set(acc, q_desc(a, 0), kv_desc(b, 0));
 #pragma unroll
-      for (int kk = 1; kk < DP / 16; ++kk)
+      for (int kk = 1; kk < KS; ++kk)
         hw::wgmma_ss_m64n64(acc, q_desc(a, kk), kv_desc(b, kk), 1);
     }
   };
@@ -272,7 +284,7 @@ __device__ __forceinline__ void ds_tile(const float (&s)[kNS], const float (&dp)
 }
 
 // A consumer warpgroup: 64 rows of every item this CTA takes.
-template <int DP>
+template <int DP, int KS>
 __device__ __forceinline__ void consumer(const CUtensorMap* tdq, const Args& p, uint32_t base,
                                          int wg) {
   using L = Layout<DP>;
@@ -326,7 +338,7 @@ __device__ __forceinline__ void consumer(const CUtensorMap* tdq, const Args& p, 
         hw::mbar_wait(kv_full(bar, st), (c / kStages) & 1);
         turn();
         hw::wgmma_fence();
-        issue_sdp<DP>(s, dp, base, st, wg);
+        issue_sdp<DP, KS>(s, dp, base, st, wg);
         hw::wgmma_commit();
         pass();
         hw::wgmma_wait<0>();
@@ -390,7 +402,7 @@ __device__ __forceinline__ void consumer(const CUtensorMap* tdq, const Args& p, 
   if (tid == 0) hw::bulk_wait<0>();
 }
 
-template <int DP>
+template <int DP, int KS>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tdo,
@@ -417,25 +429,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x % 128 == 0) producer<DP>(&tq, &tdo, &tk, &tv, p, base);
   } else {
     hw::setmaxnreg_inc<kConsumerRegs>();
-    consumer<DP>(&tdq, p, base, wg);
+    consumer<DP, KS>(&tdq, p, base, wg);
   }
 }
 
-template <int DP>
+// The instantiation for padded head dim DP and KS k-steps over head dim D
+// (the tensors' own, which the tensor maps take as their innermost extent).
+template <int DP, int KS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, void* dq,
-                   const Args& a, int B, cudaStream_t stream) {
+                   const Args& a, int B, int D, cudaStream_t stream) {
   using L = Layout<DP>;
   CUtensorMap tq, tdo, tk, tv, tdq;
-  if (!hw::tensor_map_bshd(&tq, q, B, a.Sq, a.Hq, DP, kBM) ||
-      !hw::tensor_map_bshd(&tdo, dO, B, a.Sq, a.Hq, DP, kBM) ||
-      !hw::tensor_map_bshd(&tk, k, B, a.Skv, a.Hkv, DP, kBN) ||
-      !hw::tensor_map_bshd(&tv, v, B, a.Skv, a.Hkv, DP, kBN) ||
-      !hw::tensor_map_bshd(&tdq, dq, B, a.Sq, a.Hq, DP, 64))
+  if (!hw::tensor_map_bshd(&tq, q, B, a.Sq, a.Hq, D, kBM) ||
+      !hw::tensor_map_bshd(&tdo, dO, B, a.Sq, a.Hq, D, kBM) ||
+      !hw::tensor_map_bshd(&tk, k, B, a.Skv, a.Hkv, D, kBN) ||
+      !hw::tensor_map_bshd(&tv, v, B, a.Skv, a.Hkv, D, kBN) ||
+      !hw::tensor_map_bshd(&tdq, dq, B, a.Sq, a.Hq, D, 64))
     return cudaErrorInvalidValue;
   int sms = 0;
-  const cudaError_t err = hw::persistent_setup<flash_bwd_dq_kernel<DP>>((int)L::kAlloc, &sms);
+  const cudaError_t err =
+      hw::persistent_setup<flash_bwd_dq_kernel<DP, KS>>((int)L::kAlloc, &sms);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<DP><<<min(sms, a.n_units), kThreads, L::kAlloc, stream>>>
+  flash_bwd_dq_kernel<DP, KS><<<min(sms, a.n_units), kThreads, L::kAlloc, stream>>>
       (tq, tdo, tk, tv, tdq, a);
   return cudaGetLastError();
 }
@@ -473,8 +488,9 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
   a.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (a.n_units <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 128) return static_cast<int>(launch<128>(q, k, v, dO, dq, a, B, st));
-  if (D == 64) return static_cast<int>(launch<64>(q, k, v, dO, dq, a, B, st));
+  if (D == 128) return static_cast<int>(launch<128, 8>(q, k, v, dO, dq, a, B, D, st));
+  if (D == 80) return static_cast<int>(launch<128, 5>(q, k, v, dO, dq, a, B, D, st));
+  if (D == 64) return static_cast<int>(launch<64, 4>(q, k, v, dO, dq, a, B, D, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -485,11 +501,12 @@ extern "C" int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, co
 extern "C" int flash_bwd_dq_attr(int D, int* out) {
   cudaFuncAttributes fa;
   cudaError_t err;
-  if (D == 128) {
-    err = cudaFuncGetAttributes(&fa, flash_bwd_dq_kernel<128>);
+  if (D == 128 || D == 80) {
+    err = cudaFuncGetAttributes(&fa, D == 128 ? flash_bwd_dq_kernel<128, 8>
+                                              : flash_bwd_dq_kernel<128, 5>);
     out[1] = (int)Layout<128>::kAlloc;
   } else if (D == 64) {
-    err = cudaFuncGetAttributes(&fa, flash_bwd_dq_kernel<64>);
+    err = cudaFuncGetAttributes(&fa, flash_bwd_dq_kernel<64, 4>);
     out[1] = (int)Layout<64>::kAlloc;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -9,7 +9,11 @@ and ragged paged chunks) and ``ssd`` (the Mamba-2 chunked scan). ``impl``:
   * ``"cuda"``      — the hand-written kernel (CUDA tensors only);
   * ``"torch"``     — the plain PyTorch version (blockwise, traversal
     order kept) on any device;
-  * ``"reference"`` — the full-materialization oracle (small shapes).
+  * ``"reference"`` — the full-materialization oracle (small shapes);
+  * ``"recompute"`` — ``attention`` only: the plain blockwise forward, and a
+    backward that differentiates through that same forward run again (the
+    counterpart of the reference's ``impl="jnp"``). It runs no kernel on any
+    device, and ``auto`` never picks it; decode treats it as ``torch``.
 
 The JAX package's backend names (``pallas``, ``pallas_interpret``, ``xla``,
 ``jnp``) are not impls of the port and raise.
@@ -20,8 +24,10 @@ per-row log-sum-exp and saves ``(q, k, v, o, lse)``, and the backward is the
 fused flash backward from those residuals, without re-running the forward:
 the three CUDA kernels (delta, dQ, dK/dV) for ``cuda``, the plain blockwise
 backward at ``bwd_q_block``/``bwd_kv_block`` for ``torch``. ``reference``
-recomputes through the full-materialization oracle under autograd. Serving
-runs under ``torch.no_grad`` and saves nothing.
+recomputes through the full-materialization oracle under autograd, and
+``recompute`` through the plain blockwise forward: both save only ``(q, k,
+v)``, at the cost of one more attention pass a backward. Serving runs under
+``torch.no_grad`` and saves nothing.
 
 ``ssd`` is a ``torch.autograd.Function`` too (the reference's
 ``custom_vjp``): ``cuda`` runs kernel B7 (``kernels.ssd``), ``torch`` the
@@ -48,22 +54,35 @@ from repro_torch.kernels.ssd import ssd_fwd
 __all__ = ["attention", "attention_decode", "ssd"]
 
 _IMPLS = ("auto", "cuda", "torch", "reference")
+_ATTN_IMPLS = _IMPLS + ("recompute",)
 _JAX_IMPLS = ("pallas", "pallas_interpret", "xla", "jnp")
 
 
 def _resolve(impl: str, q: torch.Tensor, what: str) -> str:
+    valid = _ATTN_IMPLS if what == "attention" else _IMPLS
     if impl in _JAX_IMPLS:
         raise ValueError(
             f"unknown {what} impl {impl!r}: that is a backend of the JAX package; "
-            f"the port's impls are {_IMPLS}"
+            f"the port's impls are {valid}"
         )
-    if impl not in _IMPLS:
-        raise ValueError(f"unknown {what} impl {impl!r}; valid: {_IMPLS}")
+    if impl not in valid:
+        raise ValueError(f"unknown {what} impl {impl!r}; valid: {valid}")
     if impl == "auto":
         return "cuda" if q.is_cuda else "torch"
     if impl == "cuda" and not q.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors")
     return impl
+
+
+def _recompute_fn(cfg, kw):
+    """The forward that impls ``reference`` and ``recompute`` differentiate
+    in their backward (and run as their forward)."""
+    if cfg["impl"] == "reference":
+        return lambda q, k, v: flash_attention_ref(q, k, v, causal=kw["causal"],
+                                                   window=kw["window"], scale=kw["scale"])
+    return lambda q, k, v: flash_attention(q, k, v, q_block=cfg["q_block"],
+                                           kv_block=cfg["kv_block"],
+                                           score_dtype=cfg["score_dtype"], **kw)
 
 
 class _Attention(torch.autograd.Function):
@@ -73,11 +92,10 @@ class _Attention(torch.autograd.Function):
         kw = dict(order=cfg["order"], causal=cfg["causal"], window=cfg["window"],
                   scale=cfg["scale"], snake_group=cfg["snake_group"])
         ctx.cfg, ctx.kw = cfg, kw
-        if impl == "reference":
+        if impl in ("reference", "recompute"):
             if grad:
                 ctx.save_for_backward(q, k, v)
-            return flash_attention_ref(q, k, v, causal=kw["causal"], window=kw["window"],
-                                       scale=kw["scale"])
+            return _recompute_fn(cfg, kw)(q, k, v)
         if impl == "cuda":
             out = kflash.flash_attention_fwd(q, k, v, return_lse=grad, **kw)
         else:
@@ -92,11 +110,10 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         cfg, kw = ctx.cfg, ctx.kw
-        if cfg["impl"] == "reference":
+        if cfg["impl"] in ("reference", "recompute"):
             q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
             with torch.enable_grad():
-                out = flash_attention_ref(q, k, v, causal=kw["causal"], window=kw["window"],
-                                          scale=kw["scale"])
+                out = _recompute_fn(cfg, kw)(q, k, v)
                 dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
             return dq, dk, dv, None
         q, k, v, o, lse = ctx.saved_tensors
@@ -165,8 +182,9 @@ def attention_decode(
     schedule order (``order_group`` overrides ``order``; ``fold``, the
     walk folded once for a step, overrides both). ``reference``
     computes what ``torch`` does (the reference's decode oracle is the
-    same function)."""
-    impl = _resolve(impl, q, "decode")
+    same function), and so does ``recompute``, whose only difference from
+    ``torch`` is its backward."""
+    impl = _resolve("torch" if impl == "recompute" else impl, q, "decode")
     kw = dict(
         window=window, scale=scale, block_table=block_table, q_lens=q_lens, order=order,
         snake_group=snake_group, order_group=order_group, fold=fold,

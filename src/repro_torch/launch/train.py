@@ -5,6 +5,11 @@ through the port's fault-tolerant loop.
       --reduced --device cpu --steps 4 --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --optimizer adamw_factored --layers 2 --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2_7b \\
+      --optimizer adamw_factored --batch 4 --seq 1024 --steps 4 --ckpt-dir /tmp/ck
+
+Every family trains: dense, SSM (mamba2-130m) and hybrid (zamba2-2_7b),
+with the config's ``remat`` (``none``, ``full`` or ``dots``).
 
 The flags are the JAX launcher's (``repro.launch.train``) plus ``--device``
 (default ``cuda``; with no GPU the launcher raises unless ``--device cpu``
@@ -46,9 +51,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="KV traversal order (core/schedule.py Traversal)")
     ap.add_argument("--snake-group", type=int, default=None,
                     help="block_snake reversal window in KV tiles")
-    ap.add_argument("--attn-impl", default=None, choices=["auto", "cuda", "torch", "reference"],
+    ap.add_argument("--attn-impl", default=None,
+                    choices=["auto", "cuda", "torch", "reference", "recompute"],
                     help="attention impl: the CUDA kernels (forward and fused backward), "
-                         "the plain PyTorch versions, or the full-materialization oracle")
+                         "the plain PyTorch versions, the full-materialization oracle, or "
+                         "'recompute' (the plain forward, differentiated again in the "
+                         "backward: the JAX launcher's 'jnp')")
     ap.add_argument("--bwd-q-block", type=int, default=None,
                     help="plain fused-backward q tile (default: q_block)")
     ap.add_argument("--bwd-kv-block", type=int, default=None,

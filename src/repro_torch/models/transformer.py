@@ -425,26 +425,45 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> list[di
     return [layer_init(gen, cfg) for _ in range(n_layers)]
 
 
+# The products ``remat="dots"`` keeps: a 2-D matrix product, which is what
+# a projection of a (B, S, d) activation by a weight (``L.dense``,
+# ``torch.matmul``) reaches. Batched products (``bmm``, the plain
+# attention's einsums) and everything else are recomputed, as JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps only dots without batch dims.
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    # Only these two: a hand-written kernel writes through ctypes into a
+    # ``torch.empty`` that is all the dispatcher sees of it, so a policy
+    # that saved more than the products could cache that buffer unwritten.
+    if op in _DOTS_SAVED:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(_dots_policy)
+
+
 def remat_wrap(fn, cfg: ModelConfig):
-    """``fn`` under the config's rematerialization policy: ``"none"`` keeps
-    every activation for the backward; ``"full"`` keeps only the inputs and
-    runs ``fn`` again in the backward (non-reentrant activation
-    checkpointing, the reference's ``jax.checkpoint``). ``"dots"`` (keep the
-    matmul outputs) is not ported (ROADMAP A12)."""
+    """``fn`` under the config's rematerialization policy (non-reentrant
+    activation checkpointing, the reference's ``jax.checkpoint``):
+    ``"none"`` keeps every activation for the backward; ``"full"`` keeps
+    only the inputs and runs ``fn`` again in the backward; ``"dots"`` also
+    keeps the outputs of the 2-D matrix products (the projections) and
+    recomputes the rest around them (selective checkpointing, the
+    reference's ``dots_with_no_batch_dims_saveable`` policy)."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) is not ported "
-            "yet: ROADMAP A12; use 'full' or 'none'"
-        )
-    if cfg.remat != "full":
+    if cfg.remat not in ("full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}; valid: 'none', 'full', 'dots'")
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return wrapped
 

@@ -9,9 +9,10 @@ checkpoint the JAX package wrote restores into the port:
 
 Key paths join dict keys and NamedTuple field names with ``/``
 (``params/layers/attn/wq/w``, ``opt/m/embed/table``, ``opt/step``). The
-reference stacks layer params on a leading axis; the port keeps them as a
-list of per-layer dicts, so a list is stacked at save and unstacked at
-restore under the same key paths.
+reference stacks layer params on leading axes; the port keeps them as a
+list of per-layer dicts (the hybrid's Mamba layers as a list of groups of
+layers), so a list is stacked at save and unstacked at restore under the
+same key paths, a list of lists on two axes.
 
 Writes are atomic (tmp dir + rename) and asynchronous (a background thread,
 after a synchronous copy to the host); ``latest_step`` only ever sees fully
@@ -31,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.train.optimizer import named_leaves
+from repro_torch.train.optimizer import named_leaves, stack_members
 
 __all__ = ["CheckpointManager", "save_pytree", "restore_pytree", "latest_step"]
 
@@ -59,9 +60,11 @@ def _host_flat(tree, prefix: tuple = ()):
         for k, v in tree.items():
             yield from _host_flat(v, prefix + (k,))
     elif isinstance(tree, list):
-        for path, _ in named_leaves(tree[0]):
-            parts = [_to_host(_leaf(item, path)) for item in tree]
-            yield prefix + path, np.stack([a for a, _ in parts]), parts[0][1]
+        lead, members = stack_members(tree)
+        for path, _ in named_leaves(members[0]):
+            parts = [_to_host(_leaf(item, path)) for item in members]
+            stacked = np.stack([a for a, _ in parts])
+            yield prefix + path, stacked.reshape(lead + stacked.shape[1:]), parts[0][1]
     else:
         arr, dt = _to_host(tree)
         yield prefix, arr, dt
@@ -125,14 +128,18 @@ def _fill(template, data, keys: dict, prefix: tuple):
     if isinstance(template, dict):
         return {k: _fill(v, data, keys, prefix + (k,)) for k, v in template.items()}
     if isinstance(template, list):
-        out = [{} for _ in template]
-        for path, leaf in named_leaves(template[0]):
+        lead, members = stack_members(template)
+        out = [{} for _ in members]
+        for path, leaf in named_leaves(members[0]):
             stacked = _load(data, keys, prefix + path)
+            stacked = stacked.reshape((len(members),) + stacked.shape[len(lead):])
             for i, item in enumerate(out):
                 for k in path[:-1]:
                     item = item.setdefault(k, {})
                 item[path[-1]] = _from_host(stacked[i], keys[_key(prefix + path)]["dtype"],
                                             leaf.device)
+        for n in reversed(lead[1:]):  # regroup: (groups, layers a group)
+            out = [out[i:i + n] for i in range(0, len(out), n)]
         return out
     arr = _load(data, keys, prefix)
     if isinstance(template, torch.Tensor):

@@ -12,12 +12,14 @@ Two differences from the reference, neither visible in the results:
   instead of returned as new trees, so a step holds one copy of them (the
   functional form would need 27.6 GB more at full width) and float32
   temporaries of one leaf at a time.
-* The params keep their layers as a list of per-layer dicts, but the
-  moments keep them stacked on a leading layer axis, as the reference's
-  scanned params do. That keeps the reference's checkpoint layout and its
+* The params keep their layers as a list of per-layer dicts (the hybrid's
+  Mamba layers as a list of groups, each a list of layers), but the
+  moments keep them stacked on leading axes, as the reference's scanned
+  params do: (L, ...) for a stack of layers, (groups, layers a group, ...)
+  for the hybrid's. That keeps the reference's checkpoint layout and its
   factoring: a stacked rank-1 leaf (a norm scale, (L, d)) is factored there,
-  with a column statistic shared by the layers, and so it is here. Each
-  layer updates through views of the stacked moments.
+  with a column statistic shared by the layers of its innermost stack, and
+  so it is here. Each layer updates through views of the stacked moments.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 
-__all__ = ["OptState", "make_optimizer", "cosine_schedule", "global_norm", "named_leaves"]
+__all__ = ["OptState", "make_optimizer", "cosine_schedule", "global_norm", "named_leaves",
+           "stack_members"]
 
 
 class OptState(NamedTuple):
@@ -61,6 +64,30 @@ def named_leaves(tree, prefix: tuple = ()):
         return
     for k, v in items:
         yield from named_leaves(v, prefix + (k,))
+
+
+def stack_members(stack: list) -> tuple[tuple, list]:
+    """(lead shape, member dicts in row-major order) of a stack of layers:
+    a list of per-layer dicts, or a list of such lists (the hybrid's groups
+    of Mamba layers), which the reference stacks on leading axes."""
+    if not isinstance(stack[0], list):
+        return (len(stack),), list(stack)
+    inner = [stack_members(s) for s in stack]
+    return (len(stack),) + inner[0][0], [m for _, ms in inner for m in ms]
+
+
+def _stacks_and_leaves(tree, prefix: tuple = ()):
+    """Walk a params tree: ``("stack", path, lead, members)`` for every
+    non-empty stack of layers (see :func:`stack_members`), ``("leaf",
+    path, tensor)`` for every leaf outside one."""
+    if isinstance(tree, list):
+        if tree:
+            yield ("stack", prefix, *stack_members(tree))
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _stacks_and_leaves(v, prefix + (k,))
+    else:
+        yield "leaf", prefix, tree
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -113,15 +140,16 @@ def make_optimizer(cfg: TrainConfig):
 
     def init(params: dict) -> OptState:
         m, v = {}, {}
-        for path, p in named_leaves({k: t for k, t in params.items() if k != "layers"}):
-            mm, vv = moments(tuple(p.shape), p.device)
-            _put(m, path, mm)
-            _put(v, path, vv)
-        layers = params.get("layers", [])
-        for path, p in named_leaves(layers[0] if layers else {}):
-            mm, vv = moments((len(layers),) + tuple(p.shape), p.device)
-            _put(m, ("layers",) + path, mm)
-            _put(v, ("layers",) + path, vv)
+        for kind, prefix, *rest in _stacks_and_leaves(params):
+            if kind == "leaf":
+                leaves, lead = [(prefix, rest[0])], ()
+            else:
+                lead, members = rest
+                leaves = [(prefix + path, p) for path, p in named_leaves(members[0])]
+            for path, p in leaves:
+                mm, vv = moments(lead + tuple(p.shape), p.device)
+                _put(m, path, mm)
+                _put(v, path, vv)
         return OptState(step=0, m=m, v=v)
 
     def leaf_update(name, p, g, m, v, *, lr, clip, bc1, bc2) -> None:
@@ -156,26 +184,35 @@ def make_optimizer(cfg: TrainConfig):
         gnorm = global_norm(grads)
         clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
         kw = dict(lr=lr, clip=clip, bc1=1.0 - b1 ** step, bc2=1.0 - b2 ** step)
-        top = {k: t for k, t in params.items() if k != "layers"}
-        for path, p in named_leaves(top):
-            leaf_update(path[-1], p, _get(grads, path), _get(state.m, path),
-                        _get(state.v, path), **kw)
-        layers, glayers = params.get("layers", []), grads.get("layers", [])
-        for path, p0 in named_leaves(layers[0] if layers else {}):
-            m = _get(state.m, ("layers",) + path)
-            v = _get(state.v, ("layers",) + path)
-            ps = [_get(lp, path) for lp in layers]
-            gs = [_get(gp, path) for gp in glayers]
-            if isinstance(v, dict) and p0.dim() == 1:
-                # Stacked (L, d): the column statistic spans the layers.
-                stacked = torch.stack(ps)
-                leaf_update(path[-1], stacked, torch.stack(gs), m, v, **kw)
-                for i, p in enumerate(ps):
-                    p.copy_(stacked[i])
+        for kind, prefix, *rest in _stacks_and_leaves(params):
+            if kind == "leaf":
+                leaf_update(prefix[-1], rest[0], _get(grads, prefix), _get(state.m, prefix),
+                            _get(state.v, prefix), **kw)
                 continue
-            for i, (p, g) in enumerate(zip(ps, gs)):
-                vi = {k: t[i] for k, t in v.items()} if isinstance(v, dict) else v[i]
-                leaf_update(path[-1], p, g, m[i], vi, **kw)
+            lead, layers = rest
+            _, glayers = stack_members(_get(grads, prefix))
+            # A stacked moment seen one layer at a time: (layers, *leaf shape).
+            flat = lambda t: t.reshape((-1,) + tuple(t.shape[len(lead):]))  # noqa: E731
+            for path, p0 in named_leaves(layers[0]):
+                m = _get(state.m, prefix + path)
+                v = _get(state.v, prefix + path)
+                ps = [_get(lp, path) for lp in layers]
+                gs = [_get(gp, path) for gp in glayers]
+                if isinstance(v, dict) and p0.dim() == 1:
+                    # Stacked (*lead, d): the column statistic spans the
+                    # layers of the innermost stack.
+                    stacked = torch.stack(ps).reshape(lead + tuple(p0.shape))
+                    leaf_update(path[-1], stacked, torch.stack(gs).reshape(stacked.shape),
+                                m, v, **kw)
+                    for p, row in zip(ps, stacked.reshape(len(ps), -1)):
+                        p.copy_(row)
+                    continue
+                # One layer at a time, through views of the stacked moments.
+                mf = flat(m)
+                vf = {k: flat(t) for k, t in v.items()} if isinstance(v, dict) else flat(v)
+                for i, (p, g) in enumerate(zip(ps, gs)):
+                    vi = {k: t[i] for k, t in vf.items()} if isinstance(vf, dict) else vf[i]
+                    leaf_update(path[-1], p, g, mf[i], vi, **kw)
         stats = {"lr": torch.tensor(lr, dtype=torch.float32), "grad_norm": gnorm, "clip": clip}
         return params, OptState(step=step, m=state.m, v=state.v), stats
 

@@ -398,7 +398,7 @@ def _rel(got, want) -> float:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("causal,window,sq,skv", [
     (True, None, 200, 200), (True, 50, 130, 130), (False, None, 130, 70), (True, None, 70, 200),

@@ -13,7 +13,10 @@ package.
   tensors (the plain version at its one tiling, 64 x 64) equals the
   reference's Pallas backward kernels in interpret mode on a few cases.
 * ``ops.attention``'s gradients for the port's impls equal ``jax.grad``
-  through the reference's ``ops.attention``.
+  through the reference's ``ops.attention`` (``recompute`` against the
+  reference's ``jnp``, which differentiates the same blockwise forward).
+* Head dim 80 (zamba2's shared attention) in both sweeps; the CUDA
+  backward's operand check takes 64, 80 and 128 and refuses 96.
 
 Inputs come from numpy. Tolerance: f32, atol = rtol = 1e-4, the reference's
 own bar for its backward (the sums run in other orders).
@@ -35,6 +38,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core import attention as port_attn
 from repro_torch.core import schedule as port_sched
 from repro_torch.kernels import cuda_lib, ops
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels.flash_attention import dkv_walks, flash_attention_bwd, kernel_traversal
 
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -120,6 +124,8 @@ SWEEP = [
     (1, 100, 100, 2, 2, 16, True, None, 32, 32),     # non-multiple seq
     (1, 70, 130, 2, 2, 16, False, 50, 32, 64),       # Sq < Skv, window, rectangular
     (1, 130, 70, 2, 2, 16, True, None, 64, 32),      # Sq > Skv
+    (2, 96, 96, 4, 2, 80, True, None, 32, 32),       # zamba2's head dim, GQA
+    (1, 100, 70, 2, 2, 80, False, 40, 32, 64),       # head dim 80, window, Sq > Skv
 ]
 
 
@@ -157,10 +163,13 @@ INTERPRET = [
     (1, 128, 128, 4, 2, 32, True, None, 64, 64),
     (1, 100, 100, 2, 2, 32, True, 40, 64, 64),
     (1, 64, 128, 2, 1, 32, False, None, 64, 64),
+    (1, 128, 128, 2, 2, 80, True, None, 64, 64),     # head dim 80: D padded to 128 there
+    (1, 100, 100, 4, 2, 80, True, 40, 64, 64),
 ]
 
 
-@pytest.mark.parametrize("case,order", list(zip(INTERPRET, ORDERS)))
+@pytest.mark.parametrize("case,order",
+                         [(c, ORDERS[i % len(ORDERS)]) for i, c in enumerate(INTERPRET)])
 def test_wrapper_on_cpu_equals_reference_kernels(case, order):
     """The backward wrapper's CPU path (the plain version at its one
     tiling, BLOCK_M x BLOCK_N = 64 x 64) against the Pallas backward kernels
@@ -185,22 +194,67 @@ def test_wrapper_on_cpu_equals_reference_kernels(case, order):
                             visit_dq_out=torch.zeros(1, dtype=torch.int32), **kw)
 
 
+@pytest.mark.parametrize("impl", ["auto", "torch", "reference", "recompute"])
 @pytest.mark.parametrize("window", [None, 20])
-def test_ops_attention_grads_equal_reference(window):
-    """Gradients of a weighted sum of ops.attention for impl auto, torch and
-    reference against jax.grad of the reference's ops.attention (impl auto,
-    the fused blockwise backward on the CPU)."""
+def test_ops_attention_grads_equal_reference(window, impl):
+    """Gradients of a weighted sum of ops.attention for each of the port's
+    impls on the CPU against jax.grad of the reference's ops.attention: impl
+    auto (the fused blockwise backward on the CPU), and for ``recompute``
+    impl jnp (the blockwise forward differentiated again); the outputs
+    too."""
     case = (2, 50, 50, 4, 2, 16)
     q, k, v, w = _inputs(case + (True, window, 16, 16), seed=5)
     kw = dict(order="sawtooth", causal=True, window=window, q_block=16, kv_block=16,
               bwd_q_block=32, bwd_kv_block=16)
+    ref_impl = "jnp" if impl == "recompute" else "auto"
 
     def jloss(q_, k_, v_):
-        return jnp.sum(ref_ops.attention(q_, k_, v_, **kw) * jnp.asarray(w))
+        return jnp.sum(ref_ops.attention(q_, k_, v_, impl=ref_impl, **kw) * jnp.asarray(w))
 
-    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    for impl in ("auto", "torch", "reference"):
-        tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
-        (ops.attention(tq, tk, tv, impl=impl, **kw) * torch.from_numpy(w)).sum().backward()
-        for g, ww, name in zip((tq.grad, tk.grad, tv.grad), want, ("dq", "dk", "dv")):
-            np.testing.assert_allclose(g.numpy(), np.asarray(ww), err_msg=f"{impl} {name}", **TOL)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    before = dict(cuda_lib.launch_counts)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = ops.attention(tq, tk, tv, impl=impl, **kw)
+    (out * torch.from_numpy(w)).sum().backward()
+    assert cuda_lib.launch_counts == before
+    np.testing.assert_allclose(out.detach().numpy(),
+                               np.asarray(ref_ops.attention(jq, jk, jv, impl=ref_impl, **kw)),
+                               err_msg=f"{impl} out", **TOL)
+    for g, ww, name in zip((tq.grad, tk.grad, tv.grad), want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ww), err_msg=f"{impl} {name}", **TOL)
+
+
+def test_recompute_impl_saves_only_its_inputs():
+    """impl recompute keeps q, k and v for the backward and nothing else
+    (impl torch also keeps o and lse); the JAX names stay refused."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 40, 2, 16)).astype(np.float32))
+               .requires_grad_(True) for _ in range(3))
+    kw = dict(causal=True, q_block=16, kv_block=16)
+    saved = {}
+    for impl in ("recompute", "torch"):
+        shapes = []
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: shapes.append(t.shape) or t,
+                                                      lambda t: t):
+            ops.attention(q, k, v, impl=impl, **kw)
+        saved[impl] = shapes
+    assert saved["recompute"] == [q.shape, k.shape, v.shape]
+    assert len(saved["torch"]) == 5
+    with pytest.raises(ValueError, match="JAX package"):
+        ops.attention(q, k, v, impl="jnp", **kw)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 96])
+def test_bwd_operand_check_takes_head_dims_64_80_128(d):
+    """The CUDA backward's operand check (run before any launch) takes
+    zamba2's head dim 80 beside 64 and 128, and still refuses 96."""
+    bf = torch.bfloat16
+    q = torch.zeros((1, 8, 4, d), dtype=bf)
+    k = torch.zeros((1, 8, 2, d), dtype=bf)
+    operands = (q, k, k, ("o", q), ("do", q))
+    if d == 96:
+        with pytest.raises(ValueError, match="head dim"):
+            kflash._check_cuda_operands(*operands, kernel="flash_bwd")
+    else:
+        kflash._check_cuda_operands(*operands, kernel="flash_bwd")

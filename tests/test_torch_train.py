@@ -8,9 +8,10 @@ packages generate bit for bit alike.
 * Configs: ``TrainConfig`` and ``ParallelConfig`` field by field.
 * ``cross_entropy`` and ``LM.loss``: within 1e-5 relative; step-0
   gradients of every leaf within 1e-4 (``jax.grad`` of the reference's
-  loss), also under ``remat="full"``, for a GQA (1 kv head) and a
-  sliding-window (32) variant, and for the other dense configs (qwen2-72b,
-  codeqwen1_5-7b, llama3-405b, paper-gb10).
+  loss), also under ``remat="full"`` and ``remat="dots"``, with
+  ``attn_impl="recompute"`` (the reference's ``"jnp"``), for a GQA (1 kv
+  head) and a sliding-window (32) variant, and for the other dense configs
+  (qwen2-72b, codeqwen1_5-7b, llama3-405b, paper-gb10).
 * The optimizers, ``adamw`` and ``adamw_factored``, fed the same numpy
   gradients: params and moments after two steps equal the reference's to
   float32 rounding (Adam's first step is about lr * sign(g), so the two are
@@ -145,17 +146,22 @@ def test_cross_entropy_equals_reference():
                 np.testing.assert_allclose(got_m[k].item(), float(want_m[k]), rtol=1e-5)
 
 
-@pytest.mark.parametrize("variant", ["dense", "gqa", "swa", "remat", "qwen2-72b",
-                                     "codeqwen1_5-7b", "llama3-405b", "paper-gb10"])
+@pytest.mark.parametrize("variant", ["dense", "gqa", "swa", "remat", "dots", "recompute",
+                                     "qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10"])
 def test_loss_and_step0_grads_equal_reference(dense, variant):
     """LM.loss within 1e-5 relative and d loss / d params within 1e-4; the
-    variants of deepseek-7b, then the other dense configs."""
+    variants of deepseek-7b (``dots``: remat "dots" in both packages;
+    ``recompute``: the port's attention impl against the reference's
+    "jnp"), then the other dense configs."""
     if variant == "dense":
         jlm, jparams, lm, batches = dense
     else:
         kw = {"gqa": dict(n_kv_heads=1), "swa": dict(window=32),
-              "remat": dict(remat="full")}.get(variant, dict(arch=variant))
+              "remat": dict(remat="full"), "dots": dict(remat="dots"),
+              "recompute": dict(remat="full")}.get(variant, dict(arch=variant))
         jcfg, cfg = _cfgs(**kw)
+        if variant == "recompute":
+            jcfg, cfg = jcfg.with_(attn_impl="jnp"), cfg.with_(attn_impl="recompute")
         jlm = ref_build_model(jcfg)
         jparams = jlm.init(jax.random.PRNGKey(1))
         lm = build_model(cfg, device="cpu")
@@ -175,14 +181,6 @@ def test_loss_and_step0_grads_equal_reference(dense, variant):
     for path, g in gtree:
         np.testing.assert_allclose(g.numpy(), _ref_leaf(want_g, path),
                                    err_msg="/".join(map(str, path)), **GRAD_TOL)
-
-
-def test_remat_dots_is_refused(dense):
-    _, cfg = _cfgs(remat="dots")
-    lm = build_model(cfg, device="cpu")
-    jparams = dense[1]
-    with pytest.raises(NotImplementedError, match="A12"):
-        lm.loss(_port_params(jparams), dense[3][0])
 
 
 def test_cosine_schedule_equals_reference():
