@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 2. kernel matrices, each CUDA kernel against its plain PyTorch version on
    the card: the paged kernel (B1) over orders x GQA x chunk widths x page
    sizes x windows, with ragged q_lens, a free row and a shuffled block
-   table, each case launched again recording its walk, which must equal
+   table, and launches of the wide width whose rows are verification
+   chunks (q_len 2-8) beside q_len 1 and 0 rows, each case launched again recording its walk, which must equal
    the host model (``paged_decode_walks``) with the first launch's bits; the flash forward (B2) over orders x causal x windows x GQA x
    head dims (64, 80, 128) x lengths, o and lse, a bitwise repeat, and the
    KV-tile walk each work item recorded held to the host model of the
@@ -61,7 +62,18 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    injected faults (a step failure retried once, equal to the main path
    to the bit; one failing twice, its rows failed; a pool exhaustion and a
    cancel); no run without an injected fault may show a step retry or a
-   failed request; then, with the serving weights released,
+   failed request; then the host KV tier (A10): the same requests on the
+   optimistic 30-page pool over a host tier, bf16 and int8 pages, each
+   twice: spills and resumes, each resumed slot's pages equal to the bit
+   to what it held before its spill, fetches == hits + wasted, the bytes
+   moved == pages x a page row's bytes, the rerun equal to the bit, flips
+   tied; dropped fetches (a late resume) and stalled spills (preemption
+   instead); then speculative decoding (A11), greedy, K 4, with the
+   n-gram drafter and the target drafting for itself (its own pool and
+   two graphs), each twice: drafts accepted + rolled back == drafted, the
+   target's two graphs, B1 layers x (target + drafter) steps, the rerun
+   equal to the bit, flips tied, and a ladder shifted by one position
+   caught by the tie rule; then, with the serving weights released,
    trained for 4 adamw_factored steps (batch 4 x 1024, remat full), with
    ``flash_fwd`` launches == 2 x layers x steps (forward and remat
    recompute) and 120 of each backward kernel, a falling loss, and step 0
@@ -256,6 +268,20 @@ ADAPT_SHIFT_LIMIT = 0.5
 # vector: 0.516).
 INT8_REL_LIMIT = 0.1
 INT8_BYTES_LIMIT = 0.75
+# TWO_STEP_TIE: the tie rule at two rounding steps a run (the smaller top-2
+# margin at most 2 ulps, the larger below 3), for three cases where a run
+# carries two (my chip runs, PR 24: flips read margins of 0 and 2 ulps where
+# the tiered bf16 runs held to the main path read 0 and 1). On int8 pages a
+# run whose rows move to other steps' widths writes K/V values a bf16 step
+# apart, and a value near an int8 rounding boundary then moves its code a
+# whole int8 step (the vector's absmax / 127). A run held to another run
+# that is itself a step from the main path (the fetch-fault run to the
+# un-faulted tiered run) carries both runs' steps. And a speculative run
+# computes every verified token in the wide step, both its K/V and its
+# logits, where the main path computes them in narrow ones. The logits stay
+# within ADAPT_SHIFT_LIMIT until the flip, as every run's; the verification
+# ladder shifted by one position must still fail the rule.
+TWO_STEP_TIE = 2
 # Optimistic admission under real pool pressure (phase_optimistic_path): an
 # allocatable pool of OPT_POOL_PAGES pages of 64 positions (every slot's
 # worst case is 128) on the main requests: decode growth runs out, and
@@ -277,6 +303,28 @@ OPT_MAX_PREEMPTIONS = 8
 FAULT_STEP = 10
 FAULT_EXHAUST_STEP = 20
 FAULT_CANCEL_STEP, FAULT_CANCEL_RID = 30, 5
+# The host KV tier (phase_tiered_path, phase_tier_fault_path): the optimistic
+# pool of OPT_POOL_PAGES pages over a host tier of TIER_HOST_PAGES pages (every
+# slot's worst case, so a spill never finds the host full), pages fetched back
+# TIER_PREFETCH_DEPTH a step boundary. The schedule does not depend on the
+# weights (EOS is never matched): on the CPU the same geometry spills 9 times
+# and resumes every slot without a preemption. Spilled rows come back to the
+# bit, but the batch's rows move to other steps and widths, so the runs are
+# held exactly to their reruns and by the tie rule to the main path (bf16) or
+# the int8 continuous run (int8 pages). TIER_FETCH_FAILS fetches are dropped in
+# the fault run; a spill stall refuses every spill, and the engine preempts.
+TIER_HOST_PAGES = 128
+TIER_PREFETCH_DEPTH = 2
+TIER_FETCH_FAILS = 3
+TIER_COUNTERS = ("tier.spills", "tier.fetches", "tier.prefetch_hits", "tier.prefetch_wasted",
+                 "tier.fetch_failures", "tier.spill_bytes", "tier.fetch_bytes")
+# Speculative decoding (phase_spec_path): K = SPEC_DRAFT_LEN drafts a decode
+# row, greedy, from the n-gram drafter and from the target drafting for
+# itself. Verification rows run in the wide step, so a bf16 logit may round
+# one step apart from the main path's narrow steps: each run is held exactly
+# to its rerun and by the tie rule to the main path. Verifying against the
+# target ladder shifted by one position must fail that rule.
+SPEC_DRAFT_LEN = 4
 
 # Data-sheet peaks by card name: (bytes/s, dense bf16 flop/s, float32 flop/s
 # outside the tensor cores).
@@ -491,6 +539,34 @@ def phase_kernel_matrix() -> float:
                                 f"{err:.3e} > {KERNEL_TOL}"
                             )
                         worst = max(worst, err)
+    # Verification-shaped launches (speculative decoding): rows of q_len 2-8
+    # beside q_len 1 and 0 rows inside a launch of the wide width, the tiles
+    # B1 takes on its CUDA-core path (n_valid <= 8).
+    c = 256
+    b_lens = [1024, 613, 37, 200, 300, 5, 64, 0]
+    q_lens = [2, 5, 8, 1, 0, 3, 7, 0]
+    for page in (64, 512):
+        nb = max_len // page
+        for g in (1, 4):
+            q, k, v, bt, lens, qls = _case(
+                gen, b_lens=b_lens, q_lens=q_lens, c=c, hq=hkv * g, hkv=hkv, d=d, page=page,
+                max_len=max_len,
+            )
+            for order in Order:
+                group = resolve_order_group(order, 3, nb)
+                for window in (None, 100):
+                    err = _check_kernel(q, k, v, bt, lens, qls, window, group)
+                    n += 1
+                    ok = err <= KERNEL_TOL
+                    print(f"[kernel] verification rows q_lens={q_lens} page={page} G={g} C={c} "
+                          f"order={order.value} window={window}: max_abs_err={err:.3e}, walk "
+                          f"and repeat {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"paged_decode disagrees with its plain version on verification "
+                            f"rows: {err:.3e} > {KERNEL_TOL}"
+                        )
+                    worst = max(worst, err)
     print(f"[kernel] {n} cases, worst max_abs_err={worst:.3e} (tol {KERNEL_TOL}); every "
           f"recorded walk equals paged_decode_walks, every repeat the first launch's bits")
     return worst
@@ -1082,7 +1158,9 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
     ``audit`` checks the pool's invariants before every step. With
     ``expect_ok`` every request must end ``ok`` with 32 tokens. Each run
     checks its logits finite, its two step graphs, and B1 launched layers x
-    mixed steps."""
+    mixed steps (plus a model drafter's steps). A verification row records
+    each position under the token it makes if the drafts before it are
+    accepted; a later step's logits replace the positions it rejected."""
     from repro_torch.kernels import cuda_lib
 
     ctl = eng.order_ctl
@@ -1098,6 +1176,7 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
     eng.llc.sample = timed_sample
 
     logits_at: dict = {}   # (rid, token index) -> (step, logits row on the card)
+    speculative: set = set()  # keys last recorded at a verification position
     staged: list = []
     first: dict = {}
     sched_of: dict = {}
@@ -1108,6 +1187,7 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
         return admit(req, slot, sched, *rest, **kw)
 
     def run_rec(step, tokens, pool, qlens, order_group, *rest):
+        ladder = rest[4]  # (temps, seeds, counts, lens, ladder, overlap)
         idx = len(staged)
         staged.append(int(order_group))
         if audit:
@@ -1132,18 +1212,26 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
             st, q = sched.slots[b], int(qlens[b])
             if st.prefilling and st.prompt_pos + q < len(st.prompt):
                 continue  # a prompt chunk that samples nothing
-            rows.append(int(b))
-            pos.append(q - 1)
-            keys.append((st.request.rid, len(st.generated)))
+            # A verification row: position p makes token len(generated) + p
+            # if the drafts before it are accepted.
+            for p in (range(q) if ladder[b] else (q - 1,)):
+                rows.append(int(b))
+                pos.append(p)
+                keys.append((st.request.rid, len(st.generated) + (p if ladder[b] else 0)))
         last = step.outputs[0][rows, pos].clone()
         for j, key in enumerate(keys):
-            assert key not in logits_at, (label, key)
+            # Positions a verification row did not accept are made again by
+            # a later step, whose logits replace theirs.
+            assert key not in logits_at or key in speculative, (label, key)
             logits_at[key] = (idx, last[j])
+            (speculative.add if ladder[rows[j]] else speculative.discard)(key)
         return toks
 
     eng._admit, eng._run_mixed = admit_rec, run_rec
     reqs = _main_requests(cfg.vocab)
     before = {name: eng.obs.value(name) for name in _RUN_COUNTERS}
+    drafter = getattr(eng, "drafter", None)
+    drafter_steps = getattr(drafter, "steps", 0)
     bad.zero_()
     eng.tracer.clear()
     cuda_lib.reset_launch_counts()
@@ -1156,22 +1244,32 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     stats = eng.last_stats
+    drafter_steps = getattr(drafter, "steps", 0) - drafter_steps
     if expect_ok:
         assert all(r.status == "ok" and r.steps == 32 for r in results), \
             (label, [(r.status, r.steps) for r in results])
         assert len(logits_at) == 12 * 32, label
     assert int(bad.item()) == 0, f"{label}: {int(bad.item())} non-finite logits"
     assert eng.compiled_step_count() == 2, (label, eng.step_graphs())
-    assert launches["paged_decode"] == cfg.n_layers * stats.mixed_steps, (label, launches)
+    # A model drafter's steps run B1 too, one launch a layer each.
+    assert launches["paged_decode"] == cfg.n_layers * (stats.mixed_steps + drafter_steps), \
+        (label, launches, drafter_steps)
     assert len(staged) == stats.mixed_steps, label
     walls: dict[str, list] = {"narrow": [], "wide": []}
     switches, events = [], []
+    spans: dict[str, list] = {"serve.draft": [], "serve.prefetch": []}
+    first_resume = None
     for ev in eng.tracer.events():
         if ev.name == "serve.device_step":
             walls["narrow" if ev.args["width"] == 1 else "wide"].append(ev.dur_ns / 1e6)
         elif ev.name == "serve.order_switch":
             switches.append((ev.args["step"], ev.args["order"]))
-        elif ev.name in ("serve.preempt", "serve.step_retry", "serve.preempt_restore"):
+        elif ev.name in spans:
+            spans[ev.name].append(ev.dur_ns / 1e6)
+        if ev.name == "serve.tier_resume" and first_resume is None:
+            first_resume = sum(len(w) for w in walls.values())  # steps before it
+        if ev.name in ("serve.preempt", "serve.step_retry", "serve.preempt_restore",
+                       "serve.spill", "serve.tier_resume"):
             events.append({"name": ev.name, **(ev.args or {}),
                            **({"ms": ev.dur_ns / 1e6} if ev.dur_ns >= 0 else {})})
     return {
@@ -1202,6 +1300,10 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
         "step_ms_wide_mean": float(np.mean(walls["wide"])) if walls["wide"] else None,
         "launches": launches,
         "compiled_steps": eng.compiled_step_count(),
+        "drafter_steps": drafter_steps,
+        "draft_ms": spans["serve.draft"],
+        "prefetch_ms": spans["serve.prefetch"],
+        "first_resume_step": first_resume,
     }
 
 
@@ -1241,10 +1343,12 @@ def _first_differences(x: dict, c: dict) -> list:
         if k is None:
             continue
         step, row = x["logits_at"][(rid, k)]
+        row_c = c["logits_at"][(rid, k)][1]
         top_x, m_x = top2_margin(row)
-        top_c, m_c = top2_margin(c["logits_at"][(rid, k)][1])
+        top_c, m_c = top2_margin(row_c)
         out.append({"rid": rid, "token": k, "step": step, "tokens": [toks[k], other[k]],
-                    "top": [top_x, top_c], "top2_margin": [m_x, m_c]})
+                    "top": [top_x, top_c], "top2_margin": [m_x, m_c],
+                    "shift": float((row.float() - row_c.float()).abs().max())})
     return out
 
 
@@ -1463,6 +1567,7 @@ def phase_int8_continuous(cfg, params, fixed: dict, main: dict) -> dict:
     print(f"[int8] continuous checks: pool {ratio:.4f} of bf16's bytes; first mixed step "
           f"{rel:.4f} from bf16's (limit {INT8_REL_LIMIT}), scales dropped {rel_control:.4f}; "
           f"B1 {run['launches']['paged_decode']} launches over {run['mixed_steps']} steps")
+    out["run"] = run  # the run phase_tiered_path holds its int8 runs to
     del eng
     torch.cuda.empty_cache()
     return out
@@ -1545,17 +1650,18 @@ def _same_runs(x: dict, y: dict) -> list:
     return bad + ([f"logits at {len(unequal)} tokens"] if unequal else [])
 
 
-def _tie_check(x: dict, fixed: dict, tag: str) -> dict:
-    """``x`` against the main path's run (c) of phase_adapt_path: the tie
-    rule at each stream's first difference, and the logit shift until then
-    within ADAPT_SHIFT_LIMIT."""
+def _tie_check(x: dict, fixed: dict, tag: str, steps: int = 1) -> dict:
+    """``x`` against the main path's run (c) of phase_adapt_path (or another
+    run ``fixed``): the tie rule at each stream's first difference, and the
+    logit shift until then within ADAPT_SHIFT_LIMIT. ``steps``: the rule's
+    rounding steps a run (TWO_STEP_TIE)."""
     from repro_torch.testing import bf16_ulp, within_tie_rule
 
     diffs = _first_differences(x, fixed)
     for rec in diffs:
         top = max(abs(t) for t in rec["top"])
         rec["ulp"] = bf16_ulp(top)
-        rec["tie"] = within_tie_rule(rec["top2_margin"], top)
+        rec["tie"] = within_tie_rule(rec["top2_margin"], top, steps=steps)
         print(f"[{tag}] stream {rec['rid']} differs from the main path at token "
               f"{rec['token']} (step {rec['step']}): " + json.dumps(rec))
     shift = _logit_shift(x, fixed, 0)
@@ -1681,6 +1787,314 @@ def phase_fault_path(cfg, lm, params, fixed: dict) -> dict:
           f"{FAULT_CANCEL_RID} cancelled, {three['stats']['preemptions']} preemption(s)")
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+def _watch_tier(pool) -> dict:
+    """Wraps a tiered pool's spill and resume: a slot's device pages (every
+    leaf) are kept on the card before its spill and compared to the bit
+    with the pages its resume writes back. A host copy read while the next
+    step overwrites its source, or a splice before its fetch landed, shows
+    as an unequal resume."""
+    seen = {"spills": 0, "pages_spilled": 0, "resumes": 0, "unequal": 0}
+    kept: dict = {}
+    spill, resume = pool.spill_slot, pool.complete_resume
+
+    def spill_rec(slot):
+        idx = torch.as_tensor(pool._slot_pages[slot], dtype=torch.long, device="cuda")
+        before = {name: t.index_select(1, idx) for name, t in pool.pages.items()}
+        ok = spill(slot)
+        if ok:
+            kept[slot] = before
+            seen["spills"] += 1
+            seen["pages_spilled"] += len(idx)
+        return ok
+
+    def resume_rec(slot):
+        ok = resume(slot)
+        if ok:
+            idx = torch.as_tensor(pool._slot_pages[slot], dtype=torch.long, device="cuda")
+            before = kept.pop(slot)
+            seen["resumes"] += 1
+            if not all(torch.equal(t.index_select(1, idx), before[name])
+                       for name, t in pool.pages.items()):
+                seen["unequal"] += 1
+        return ok
+
+    pool.spill_slot, pool.complete_resume = spill_rec, resume_rec
+    return seen
+
+
+def _tiered_engine(cfg, lm, params, **engine_kw):
+    """A warmed continuous engine over a tiered pool (``_warm_engine``), its
+    spills and resumes watched (``_watch_tier``)."""
+    eng, bad = _warm_engine(cfg, lm, params, admission="optimistic", pool_pages=OPT_POOL_PAGES,
+                            max_preemptions=OPT_MAX_PREEMPTIONS, host_pages=TIER_HOST_PAGES,
+                            prefetch_depth=TIER_PREFETCH_DEPTH, **engine_kw)
+    return eng, bad, _watch_tier(eng.last_pool)
+
+
+def _tiered_run(eng, bad, cfg, watch: dict, label: str, *, expect_spill: bool = True) -> dict:
+    """One recorded run (``_recorded_run``, the pool audited before every
+    step) with the tier's readings: counters, the watch, the overlap share,
+    the transfers' rates from their CUDA events. Checks the accounting:
+    hits + wasted == fetches, the bytes moved == pages x a page row's bytes,
+    every resume back to the bit; with ``expect_spill`` at least one spill
+    and one resume."""
+    before = {k: eng.obs.value(k) for k in TIER_COUNTERS}
+    seen0 = dict(watch)
+    run = _recorded_run(eng, bad, cfg, label, audit=True)
+    pool = eng.last_pool
+    pool.check_invariants()
+    tier = {k: eng.obs.value(k) - before[k] for k in TIER_COUNTERS}
+    seen = {k: watch[k] - seen0[k] for k in watch}
+    st = run["stats"]
+    row_bytes = sum(t[:, 0].numel() * t.element_size() for t in pool.pages.values())
+    assert st["prefetch_hits"] + st["prefetch_wasted"] == st["tier_fetches"], (label, st)
+    assert tier["tier.fetches"] == st["tier_fetches"] and tier["tier.spills"] == st["spills"], \
+        (label, tier, st)
+    assert tier["tier.spill_bytes"] == seen["pages_spilled"] * row_bytes, (label, tier, seen)
+    assert tier["tier.fetch_bytes"] == st["tier_fetches"] * row_bytes, (label, tier)
+    assert seen["spills"] == st["spills"] and seen["unequal"] == 0, (label, seen)
+    if expect_spill:
+        assert st["spills"] >= 1 and seen["resumes"] >= 1, (label, st, seen)
+    run["tier"] = {**tier, **seen, "row_bytes": row_bytes,
+                   "overlap_frac": eng.obs.value("tier.overlap_frac"),
+                   "fetch_failures": pool.fetch_failures,
+                   "transfers": pool.transfer_stats()}
+    return run
+
+
+def _tier_record(run: dict, ref: dict) -> dict:
+    return {"tokens_per_s": run["tokens_per_s"], "mixed_steps": run["mixed_steps"],
+            "wide_steps": run["wide_steps"], "step_ms_narrow_mean": run["step_ms_narrow_mean"],
+            "step_ms_wide_mean": run["step_ms_wide_mean"],
+            "against": {k: ref[k] for k in ("label", "tokens_per_s", "mixed_steps", "wide_steps",
+                                            "step_ms_narrow_mean", "step_ms_wide_mean")},
+            "spills": run["stats"]["spills"], "preemptions": run["stats"]["preemptions"],
+            "first_resume_step": run["first_resume_step"],
+            "prefetch_ms_mean": float(np.mean(run["prefetch_ms"])) if run["prefetch_ms"] else None,
+            "prefetch_ms_median": (float(np.median(run["prefetch_ms"])) if run["prefetch_ms"]
+                                   else None),
+            "prefetch_spans": len(run["prefetch_ms"]),
+            **run["tier"]}
+
+
+def phase_tiered_path(cfg, lm, params, fixed: dict, int8_run: dict) -> tuple[dict, dict]:
+    """The host KV tier (A10) under real pressure: the main requests on an
+    optimistic pool of OPT_POOL_PAGES pages over TIER_HOST_PAGES host pages,
+    twice on one engine, then twice on int8 pages. Checks (each run): every
+    request ok; at least one spill and one completed resume, each resumed
+    slot's pages equal to the bit to what it held before its spill; hits +
+    wasted == fetches; the spill and fetch bytes == pages x a page row's
+    bytes (int8: payloads and scale planes); two step graphs; the pool's
+    invariants before every step; B1 layers x mixed steps; no retry and no
+    failure. The rerun equal to the first run to the bit; against the main
+    path (bf16) or the int8 continuous run (at TWO_STEP_TIE), the tie rule
+    and the logit shift. Records the transfers' GB/s (CUDA events), ``tier.overlap_frac``
+    and the step walls beside the run held to. Returns the summary and the
+    bf16 run, which phase_tier_fault_path holds its runs to."""
+    from repro_torch.models import build_model
+
+    out, first = {}, None
+    for tag, model, against in (("bf16", lm, fixed),
+                                ("int8", build_model(cfg.with_(kv_cache_dtype="int8"),
+                                                     device="cuda"), int8_run)):
+        eng, bad, watch = _tiered_engine(cfg, model, params)
+        x = _tiered_run(eng, bad, cfg, watch, f"tiered {tag}")
+        y = _tiered_run(eng, bad, cfg, watch, f"tiered {tag} rerun")
+        for run in (x, y):
+            _no_retry_or_failure(run)
+        differ = _same_runs(x, y)
+        if differ:
+            raise AssertionError(f"phase_tiered_path ({tag}): the rerun differs in {differ}")
+        ties = _tie_check(x, against, f"tiered {tag}",
+                          steps=TWO_STEP_TIE if tag == "int8" else 1)
+        out[tag] = {**_tier_record(x, against), "rerun_tokens_per_s": y["tokens_per_s"],
+                    "rerun_transfers": y["tier"]["transfers"], "rerun_equal": True,
+                    "events": x["events"], **ties,
+                    "streams_equal": sum(x["tokens"][rid] == against["tokens"][rid]
+                                         for rid in x["tokens"]),
+                    "launches": _sum_launches(x, y)}
+        print(f"[tier] {tag}: " + json.dumps(out[tag]))
+        print(f"[tier] {tag} checks: {x['stats']['spills']} spills, {x['tier']['resumes']} "
+              f"resumes equal to the bit, fetches {x['stats']['tier_fetches']} == hits + wasted, "
+              f"bytes == pages x {x['tier']['row_bytes']}; the rerun equal to the bit over "
+              f"{len(x['logits_at'])} tokens; tie rule held at "
+              f"{len(ties['first_differences'])} flipped streams; logit shift "
+              f"{ties['logit_shift']['max']:.4f} <= {ADAPT_SHIFT_LIMIT}")
+        if tag == "bf16":
+            first = x
+        else:
+            x.pop("logits_at")
+        y.pop("logits_at")
+        del eng, model
+        torch.cuda.empty_cache()
+    out["launches"] = _sum_launches(out["bf16"], out["int8"])
+    return out, first
+
+
+def phase_tier_fault_path(cfg, lm, params, fixed: dict, tiered: dict) -> dict:
+    """The tier's faults on the engine of phase_tiered_path: (i)
+    TIER_FETCH_FAILS dropped fetches: at least one counted, the first resume
+    no earlier than without them, every request ok, and the streams held to
+    the un-faulted tiered run by the tie rule at TWO_STEP_TIE; (ii) every
+    spill stalled: no
+    spill, at least one preemption instead, every request ok, held to the
+    main path by the tie rule. No retry and no failure in either."""
+    from repro_torch.serve import FaultPlan
+
+    eng, bad, watch = _tiered_engine(cfg, lm, params)
+    eng.faults = FaultPlan().fetch_fail(0, times=TIER_FETCH_FAILS)
+    late = _tiered_run(eng, bad, cfg, watch, "tier fetch faults")
+    eng.faults = FaultPlan().spill_stall(0, times=10_000)
+    stall = _tiered_run(eng, bad, cfg, watch, "tier spill stall", expect_spill=False)
+    eng.faults = None
+    for run in (late, stall):
+        _no_retry_or_failure(run)
+    assert late["tier"]["fetch_failures"] >= 1, late["tier"]
+    assert late["first_resume_step"] >= tiered["first_resume_step"], \
+        (late["first_resume_step"], tiered["first_resume_step"])
+    late_ties = _tie_check(late, tiered, "tier fetch faults", steps=TWO_STEP_TIE)
+    st = stall["stats"]
+    assert st["spills"] == 0 and st["preemptions"] >= 1, st
+    stall_ties = _tie_check(stall, fixed, "tier spill stall")
+    out = {"fetch_faults": {**_tier_record(late, tiered), **late_ties,
+                            "first_resume_step_unfaulted": tiered["first_resume_step"]},
+           "spill_stall": {**_tier_record(stall, fixed), **stall_ties,
+                           "n_preemptions": stall["n_preemptions"]},
+           "launches": _sum_launches(late, stall)}
+    print("[tier faults] " + json.dumps(out))
+    print(f"[tier faults] checks: {late['tier']['fetch_failures']} fetches dropped, first resume "
+          f"after step {late['first_resume_step']} (un-faulted {tiered['first_resume_step']}), "
+          f"tie rule held; spill stall: {st['preemptions']} preemptions, no spill, tie rule held")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+class _TimedReplay:
+    """A captured graph whose every replay is bracketed by CUDA events."""
+
+    def __init__(self, graph, times: list):
+        self.graph, self.times = graph, times
+
+    def replay(self):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        self.times.append((start, end))
+
+
+def phase_spec_path(cfg, lm, params, fixed: dict) -> dict:
+    """Speculative decoding (A11), greedy, K = SPEC_DRAFT_LEN: the main
+    requests through the n-gram drafter and through the target drafting for
+    itself (its own pool and two step graphs, the target's weights), each
+    twice on one engine. Checks (each): every request ok; the target keeps 2
+    step graphs; drafts > 0 and accepted + rolled back == drafted; B1 layers
+    x (target + drafter) steps; the pool's invariants before every step;
+    the rerun equal to the bit; against the main path the tie rule at
+    TWO_STEP_TIE and the logit shift; no retry and no failure. Then the
+    n-gram engine verifying against the target ladder shifted by one
+    position must fail that rule. Records acceptance, target and drafter steps, wide steps,
+    tokens/s, step walls, the drafting wall and the drafter's device time a
+    round beside the main path's figures."""
+    from repro_torch.serve import ModelDrafter, NgramDrafter, Request
+
+    out = {}
+    for kind in ("ngram", "model"):
+        drafter = (NgramDrafter() if kind == "ngram" else
+                   ModelDrafter(lm, params, n_slots=8, max_len=1024, page_size=64))
+        eng, bad = _warm_engine(cfg, lm, params, drafter=drafter, draft_len=SPEC_DRAFT_LEN)
+        # A warm-up that drafts (the first one's limit of 2 leaves no room):
+        # the model drafter captures its two widths here.
+        rng = np.random.default_rng(98)
+        eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                              max_new_tokens=8, eos_id=-1) for n in (300, 20)])
+        times: list = []
+        if kind == "model":
+            assert drafter.compiled_step_count() == 2, drafter.step_graphs()
+            for g in drafter._steps.values():
+                g.graph = _TimedReplay(g.graph, times)
+        x = _recorded_run(eng, bad, cfg, f"spec {kind}", audit=True)
+        replays = len(times)
+        device_ms = sum(s.elapsed_time(e) for s, e in times)
+        y = _recorded_run(eng, bad, cfg, f"spec {kind} rerun", audit=True)
+        eng.last_pool.check_invariants()
+        for run in (x, y):
+            _no_retry_or_failure(run)
+            st = run["stats"]
+            assert st["draft_tokens"] > 0, (run["label"], st)
+            assert st["accepted_tokens"] + st["rollback_tokens"] == st["draft_tokens"], st
+        differ = _same_runs(x, y)
+        if differ:
+            raise AssertionError(f"phase_spec_path ({kind}): the rerun differs in {differ}")
+        ties = _tie_check(x, fixed, f"spec {kind}", steps=TWO_STEP_TIE)
+        st = x["stats"]
+        rounds = len(x["draft_ms"])
+        out[kind] = {
+            "draft_len": SPEC_DRAFT_LEN,
+            "acceptance_rate": st["accepted_tokens"] / st["draft_tokens"],
+            **{k: st[k] for k in ("draft_tokens", "accepted_tokens", "rollback_tokens")},
+            "target_steps": x["mixed_steps"], "wide_steps": x["wide_steps"],
+            "drafter_steps": x["drafter_steps"], "draft_rounds": rounds,
+            "draft_wall_ms_per_round": sum(x["draft_ms"]) / max(rounds, 1),
+            "drafter_device_ms_per_round": device_ms / max(rounds, 1) if replays else None,
+            "drafter_replays": replays,
+            "tokens_per_s": [x["tokens_per_s"], y["tokens_per_s"]],
+            "step_ms_narrow_mean": x["step_ms_narrow_mean"],
+            "step_ms_wide_mean": x["step_ms_wide_mean"],
+            "main_path": {k: fixed[k] for k in ("tokens_per_s", "mixed_steps", "wide_steps",
+                                                "step_ms_narrow_mean", "step_ms_wide_mean")},
+            "rerun_equal": True,
+            "streams_equal_to_main_path": sum(x["tokens"][rid] == fixed["tokens"][rid]
+                                              for rid in x["tokens"]),
+            **ties,
+            "launches": _sum_launches(x, y),
+        }
+        if kind == "model":
+            out[kind]["drafter_graphs"] = phase_graphs(drafter, "model drafter")
+        print(f"[spec] {kind}: " + json.dumps(out[kind]))
+        print(f"[spec] {kind} checks: {st['draft_tokens']} drafts, {st['accepted_tokens']} "
+              f"accepted; 2 target step graphs; the rerun equal to the bit over "
+              f"{len(x['logits_at'])} tokens; tie rule held at "
+              f"{len(ties['first_differences'])} flipped streams; logit shift "
+              f"{ties['logit_shift']['max']:.4f} <= {ADAPT_SHIFT_LIMIT}")
+        if kind == "ngram":
+            # The wrong variant: each verification row's targets read one
+            # position late.
+            inner = eng._run_mixed
+
+            def shifted(step, tokens, pool, qlens, order_group, temps, seeds, counts, lens,
+                        ladder, overlap=None):
+                toks = inner(step, tokens, pool, qlens, order_group, temps, seeds, counts, lens,
+                             ladder, overlap).copy()
+                for b in np.flatnonzero(ladder):
+                    q = int(qlens[b])
+                    toks[b, : q - 1] = toks[b, 1:q]
+                return toks
+
+            eng._run_mixed = shifted
+            try:
+                wrong = _recorded_run(eng, bad, cfg, "spec wrong ladder", expect_ok=False)
+            finally:
+                eng._run_mixed = inner
+            assert wrong["stats"]["draft_tokens"] > 0, wrong["stats"]
+            try:
+                _tie_check(wrong, fixed, "spec wrong ladder", steps=TWO_STEP_TIE)
+            except AssertionError as err:
+                out[kind]["wrong_ladder_caught"] = str(err)[:300]
+            else:
+                raise AssertionError("phase_spec_path: verifying against the shifted ladder "
+                                     "passed the tie check")
+            out[kind]["launches"] = _sum_launches(x, y, wrong)
+            print(f"[spec] wrong ladder caught: {out[kind]['wrong_ladder_caught']}")
+        for run in (x, y):
+            run.pop("logits_at")
+        del eng, drafter
+        torch.cuda.empty_cache()
+    out["launches"] = _sum_launches(out["ngram"], out["model"])
     return out
 
 
@@ -3382,10 +3796,14 @@ def main(argv=None) -> int:
     adapt, fixed = phase_adapt_path(cfg, lm, params, main_path)
     static = phase_static_path(cfg, lm, params, profile=args.profile)
     int8_cont = phase_int8_continuous(cfg, params, fixed, main_path)
+    int8_run = int8_cont.pop("run")
     int8_static = phase_int8_static(cfg, params, static)
     optimistic = phase_optimistic_path(cfg, lm, params, fixed)
     faults = phase_fault_path(cfg, lm, params, fixed)
-    del lm, params, fixed
+    tiered, tiered_run = phase_tiered_path(cfg, lm, params, fixed, int8_run)
+    tier_faults = phase_tier_fault_path(cfg, lm, params, fixed, tiered_run)
+    spec = phase_spec_path(cfg, lm, params, fixed)
+    del lm, params, fixed, int8_run, tiered_run
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = phase_train_main(profile=args.profile)
@@ -3411,9 +3829,10 @@ def main(argv=None) -> int:
 
     paths = {"continuous": main_path, "adapt": adapt, "static": static,
              "int8_continuous": int8_cont, "int8_static": int8_static, "optimistic": optimistic,
-             "faults": faults, "train": train, "mamba2": mamba, "zamba2": zamba,
+             "faults": faults, "tiered": tiered, "tier_faults": tier_faults, "spec": spec,
+             "train": train, "mamba2": mamba, "zamba2": zamba,
              "train_mamba2": train_mamba, "train_zamba2": train_zamba}
-    by_path = {name: {path: rec["launches"][name] for path, rec in paths.items()}
+    by_path = {name: {path: rec["launches"].get(name, 0) for path, rec in paths.items()}
                for name in main_path["launches"]}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
     narrow, wide = times["narrow"], times["wide"]
@@ -3519,7 +3938,13 @@ def main(argv=None) -> int:
           f"{int8_cont['tokens_per_s']:.1f} and static {int8_static['tokens_per_s']:.1f} "
           f"tokens/s (bf16 {main_path['tokens_per_s']:.1f}, {static['tokens_per_s']:.1f}); "
           f"optimistic {optimistic['preemptions']} preemptions, "
-          f"{optimistic['tokens_per_s'][0]:.1f} tokens/s; training mamba2 "
+          f"{optimistic['tokens_per_s'][0]:.1f} tokens/s; tiered {tiered['bf16']['spills']} "
+          f"spills, {tiered['bf16']['tokens_per_s']:.1f} tokens/s (int8 "
+          f"{tiered['int8']['tokens_per_s']:.1f}); speculative n-gram "
+          f"{spec['ngram']['tokens_per_s'][0]:.1f} and self-drafting "
+          f"{spec['model']['tokens_per_s'][0]:.1f} tokens/s, acceptance "
+          f"{spec['ngram']['acceptance_rate']:.3f} and {spec['model']['acceptance_rate']:.3f}; "
+          f"training mamba2 "
           f"{train_mamba['tokens_per_s'][-1]:.0f} and zamba2 {train_zamba['tokens_per_s'][-1]:.0f} "
           f"tokens/s, peak {train_mamba['peak_mem_gb']:.2f} and {train_zamba['peak_mem_gb']:.2f} GB")
     print(dev_info["smi"])

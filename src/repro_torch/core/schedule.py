@@ -42,6 +42,7 @@ __all__ = [
     "page_visit_order_dynamic",
     "kv_index",
     "kv_index_host",
+    "future_visit_window",
     "num_kv_tiles_for",
     "q_tile_bounds_for",
     "step_page_visits",
@@ -169,6 +170,23 @@ def kv_index_host(
     if order is Order.CYCLIC:
         return j
     return _snake_pos_host(i, j, n_kv, _resolve_group(order, snake_group, n_kv))
+
+
+def future_visit_window(parity, n_kv: int, depth: int, group: int) -> list[int]:
+    """The first ``depth`` logical pages of the next step's visit order.
+
+    ``parity`` is the current step's parity driver (the visited length), so
+    ``parity + 1`` drives the step about to run; ``group`` is the effective
+    reversal group (:func:`resolve_order_group`: 1 cyclic, ``n_kv``
+    sawtooth, g block_snake). The tiered pool fetches a suspended row's
+    host pages in this order, so the pages its next step reads first come
+    back first; ``depth >= n_kv`` gives the whole walk."""
+    n = int(n_kv)
+    if n <= 0:
+        return []
+    g = max(1, min(int(group), n))
+    p = int(parity) + 1
+    return [_snake_pos_host(p, j, n, g) for j in range(min(int(depth), n))]
 
 
 def step_page_visits(

@@ -20,6 +20,14 @@ from the modeled-LLC gauges that ``--llc-every`` also samples.
 (``--pool-pages`` below the worst case makes the pressure real) and
 preempts up to ``--max-preemptions`` times a request; ``--chaos-step-fail
 N`` injects one device-step failure at mixed step N (retried once).
+``--host-pages N`` backs the pool with an N-page host tier: at
+``--spill-watermark`` occupancy the coldest slot spills to pinned host
+memory instead of being preempted, and comes back ``--prefetch-depth``
+pages a step boundary; ``--chaos-fetch-fail N`` drops N page fetches and
+``--chaos-spill-stall N`` refuses N spills (the engine then preempts).
+``--draft ngram|model`` turns on speculative decoding with ``--draft-len``
+drafts a row (``model``: ``--draft-model ARCH``, by default the serving
+model itself, self-speculation).
 """
 
 from __future__ import annotations
@@ -32,7 +40,13 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.core.schedule import Order
 from repro_torch.models import build_model
-from repro_torch.serve import FaultPlan, Request, ServeEngine, supports_continuous
+from repro_torch.serve import (
+    FaultPlan,
+    Request,
+    ServeEngine,
+    make_drafter,
+    supports_continuous,
+)
 
 _AUTOTUNE_CACHE = "artifacts/hillclimb/autotune_cache.jsonl"
 
@@ -53,13 +67,6 @@ def pick_scheduler(choice: str, cfg) -> str:
 def _unported(args) -> list[str]:
     """Flags set to a feature the port does not have yet."""
     checks = [
-        (args.chaos_fetch_fail > 0, "--chaos-fetch-fail", "A10 tiered KV memory (fetch faults)"),
-        (args.host_pages is not None, "--host-pages", "A10 tiered KV memory"),
-        (args.spill_watermark is not None, "--spill-watermark", "A10 tiered KV memory"),
-        (args.prefetch_depth != 2, "--prefetch-depth", "A10 tiered KV memory"),
-        (args.draft != "none", "--draft", "A11 speculative decoding"),
-        (args.draft_model is not None, "--draft-model", "A11 speculative decoding"),
-        (args.draft_len != 4, "--draft-len", "A11 speculative decoding"),
         (args.ckpt_dir is not None, "--ckpt-dir", "A12 checkpoints"),
     ]
     return [f"{flag} is not ported yet: ROADMAP §{item}" for bad, flag, item in checks if bad]
@@ -106,16 +113,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-preemptions", type=int, default=2)
     ap.add_argument("--pool-pages", type=int, default=None,
                     help="allocatable KV pool pages (default: every slot's worst case)")
-    ap.add_argument("--host-pages", type=int, default=None)
-    ap.add_argument("--spill-watermark", type=float, default=None)
-    ap.add_argument("--prefetch-depth", type=int, default=2)
-    ap.add_argument("--draft", default="none", choices=["none", "ngram", "model"])
-    ap.add_argument("--draft-len", type=int, default=4, metavar="K")
-    ap.add_argument("--draft-model", default=None, metavar="ARCH")
+    ap.add_argument("--host-pages", type=int, default=None,
+                    help="host page tier capacity in pages (default: no tier); cold "
+                         "slots spill there instead of being preempted")
+    ap.add_argument("--spill-watermark", type=float, default=None,
+                    help="pool occupancy at which the coldest slot spills (default: "
+                         "min(0.85, admit watermark); needs --host-pages)")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="host pages fetched back a step boundary while a spilled slot "
+                         "resumes, in the next step's visit order")
+    ap.add_argument("--draft", default="none", choices=["none", "ngram", "model"],
+                    help="speculative decoding drafter (continuous scheduler): 'ngram' "
+                         "looks up the row's own stream, 'model' runs a draft model")
+    ap.add_argument("--draft-len", type=int, default=4, metavar="K",
+                    help="draft tokens a decode row a step, verified as one q_len K+1 "
+                         "chunk")
+    ap.add_argument("--draft-model", default=None, metavar="ARCH",
+                    help="arch of --draft model (reduced like the target, weights from "
+                         "seed 1; default: the serving model itself)")
     ap.add_argument("--chaos-step-fail", type=int, default=0, metavar="N",
                     help="inject one transient device-step failure at mixed step N "
                          "(retried once)")
-    ap.add_argument("--chaos-fetch-fail", type=int, default=0, metavar="N")
+    ap.add_argument("--chaos-fetch-fail", type=int, default=0, metavar="N",
+                    help="drop N host-to-device page fetches (requeued and retried; "
+                         "needs --host-pages)")
+    ap.add_argument("--chaos-spill-stall", type=int, default=0, metavar="N",
+                    help="refuse N slot spills (the engine preempts instead; needs "
+                         "--host-pages)")
     ap.add_argument("--metrics-out", default=None, metavar="PATH",
                     help="dump the obs metrics registry as JSONL here")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
@@ -153,9 +177,27 @@ def main(argv=None):
     cfg = cfg.with_(snake_group=args.snake_group)
     lm = build_model(cfg, device=args.device)
     params = lm.init(0)
+    drafter = None
+    if args.draft != "none":
+        draft_lm, draft_params = lm, params
+        if args.draft == "model" and args.draft_model:
+            draft_cfg = get_config(args.draft_model)
+            if args.reduced:
+                draft_cfg = draft_cfg.reduced()
+            draft_lm = build_model(draft_cfg, device=args.device)
+            draft_params = draft_lm.init(1)
+        drafter = make_drafter(args.draft, lm=draft_lm, params=draft_params,
+                               n_slots=args.batch_size, max_len=args.max_len,
+                               page_size=args.page_size, prefill_chunk=args.prefill_chunk)
     faults = None
-    if args.chaos_step_fail > 0:
-        faults = FaultPlan().fail_device_step(args.chaos_step_fail)
+    if args.chaos_fetch_fail > 0 or args.chaos_spill_stall > 0 or args.chaos_step_fail > 0:
+        faults = FaultPlan()
+        if args.chaos_fetch_fail > 0:
+            faults.fetch_fail(0, times=args.chaos_fetch_fail)
+        if args.chaos_spill_stall > 0:
+            faults.spill_stall(0, times=args.chaos_spill_stall)
+        if args.chaos_step_fail > 0:
+            faults.fail_device_step(args.chaos_step_fail)
 
     eng = ServeEngine(
         lm,
@@ -180,6 +222,11 @@ def main(argv=None):
         admit_watermark=args.admit_watermark,
         max_preemptions=args.max_preemptions,
         pool_pages=args.pool_pages,
+        host_pages=args.host_pages,
+        spill_watermark=args.spill_watermark,
+        prefetch_depth=args.prefetch_depth,
+        drafter=drafter,
+        draft_len=args.draft_len,
         faults=faults,
         device=args.device,
     )
@@ -225,6 +272,18 @@ def main(argv=None):
                 f"({stats.restore_tokens} tokens re-prefilled), "
                 f"{stats.shed} shed, {stats.deadline_miss} deadline, "
                 f"{stats.cancelled} cancelled, {stats.failed} failed"
+            )
+        if stats.draft_tokens:
+            print(
+                f"  speculative: {stats.draft_tokens} drafted, "
+                f"{stats.accepted_tokens} accepted ({stats.acceptance_rate:.0%}), "
+                f"{stats.rollback_tokens} rolled back"
+            )
+        if stats.spills or stats.tier_fetches:
+            hit_rate = stats.prefetch_hits / max(stats.tier_fetches, 1)
+            print(
+                f"  tiering: {stats.spills} spills, {stats.tier_fetches} fetches "
+                f"(hit rate {hit_rate:.0%}, {stats.prefetch_wasted} wasted)"
             )
     for r in results[:4]:
         print(f"  rid={r.rid} -> {r.tokens.tolist()}")

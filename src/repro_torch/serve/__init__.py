@@ -19,6 +19,8 @@ from repro_torch.serve.kv_pool import (
     assemble_cache_view,
 )
 from repro_torch.serve.scheduler import ContinuousScheduler, Slot, StepItem
+from repro_torch.serve.spec import Drafter, ModelDrafter, NgramDrafter, make_drafter
+from repro_torch.serve.tiering import HostPageStore, TieredPagePool, select_spill_victim
 
 __all__ = [
     "ORDER_INDEX",
@@ -44,4 +46,11 @@ __all__ = [
     "ContinuousScheduler",
     "Slot",
     "StepItem",
+    "Drafter",
+    "ModelDrafter",
+    "NgramDrafter",
+    "make_drafter",
+    "HostPageStore",
+    "TieredPagePool",
+    "select_spill_victim",
 ]

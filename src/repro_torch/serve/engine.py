@@ -70,9 +70,29 @@ raises (a CUDA error is sticky; no retry could succeed). ``faults`` (a
 ``serve.faults.FaultPlan``) injects pool exhaustion, admission refusals,
 step failures and cancels at planned steps.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the host KV tier (A10), speculative drafters (A11) and sharded
-serving (A14).
+Tiered KV memory, continuous path, as in the reference: ``host_pages``
+puts a ``serve.tiering.TieredPagePool`` host tier under the device pool.
+At ``spill_watermark`` occupancy, and before a preemption, the coldest
+slot (largest modeled reuse distance, ``core.cache_sim.slot_reuse_stats``)
+is spilled to pinned host memory and suspended; a suspended slot resumes
+when the pool is calm, its pages fetched ``prefetch_depth`` a boundary in
+the next step's visit order (``core.schedule.future_visit_window``), the
+copies issued on a side stream after the step's replay is launched and
+before the host waits for its tokens, and it rejoins the plans only once
+every page is back, written into the pool's own tensors: the captured
+steps never see a new one.
+
+Speculative decoding, continuous path, as in the reference: ``drafter`` (a
+``serve.spec.Drafter``) proposes up to ``draft_len`` tokens a decode row
+once a step boundary; the row runs as a ``q_len = K+1`` verification chunk
+in the same two captured widths, the target token at each chunk position
+is read from the one step (a sampling row draws at position p with sample
+index ``count + p``, the index sequential steps would use), the longest
+matching draft prefix and one token more are committed, and the rest is
+rolled back out of the pool (``PagedKVPool.rollback``).
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+sharded serving (A14).
 """
 
 from __future__ import annotations
@@ -87,6 +107,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cache_sim import slot_reuse_stats
+from repro_torch.core.schedule import future_visit_window
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LM, build_model
 from repro_torch.obs.llc import DEFAULT_CAPACITY_BYTES, LLCSampler
@@ -102,6 +124,7 @@ from repro_torch.serve.kv_pool import (
 )
 from repro_torch.serve.scheduler import ContinuousScheduler
 from repro_torch.serve.step_graph import StepCaptureError, StepGraph
+from repro_torch.serve.tiering import TieredPagePool, select_spill_victim
 
 __all__ = [
     "Request",
@@ -119,17 +142,11 @@ __all__ = [
 CONTINUOUS_FAMILIES = ("dense",)
 REQUEST_STATUSES = ("ok", "deadline", "cancelled", "shed", "failed")
 
-# Engine arguments of features that later slices port (A10, A11, A14), with
-# the value that means "off". Any other value raises NotImplementedError
-# naming the item.
+# Engine arguments of a feature a later slice ports (A14), with the value
+# that means "off". Any other value raises NotImplementedError naming it.
 _UNPORTED = {
     "mesh": (None, "A14 sharded serving"),
     "pcfg": (None, "A14 sharded serving"),
-    "host_pages": (None, "A10 tiered KV memory"),
-    "spill_watermark": (None, "A10 tiered KV memory"),
-    "prefetch_depth": (2, "A10 tiered KV memory"),
-    "drafter": (None, "A11 speculative decoding"),
-    "draft_len": (4, "A11 speculative decoding"),
 }
 
 
@@ -187,6 +204,19 @@ class StepStats:
     deadline_miss: int = 0
     cancelled: int = 0
     failed: int = 0               # past the preemption bound, or a failed step
+    spills: int = 0               # slots spilled to the host tier
+    tier_fetches: int = 0         # host pages staged back on the device
+    prefetch_hits: int = 0        # fetched pages the resumed row attended
+    prefetch_wasted: int = 0      # fetched pages released before use
+    draft_tokens: int = 0         # draft tokens verified
+    accepted_tokens: int = 0      # drafts accepted (committed)
+    rollback_tokens: int = 0      # drafts rejected and rolled back;
+                                  # accepted + rollback == draft
+
+    @property
+    def acceptance_rate(self) -> float:
+        """Accepted over verified draft tokens (NaN with no drafts)."""
+        return self.accepted_tokens / self.draft_tokens if self.draft_tokens else math.nan
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -264,6 +294,11 @@ class ServeEngine:
         adapt_confirm: int = 2,
         adapt_shared_threshold: float = 0.25,
         autotune_cache: Optional[str] = None,
+        host_pages: Optional[int] = None,
+        spill_watermark: Optional[float] = None,
+        prefetch_depth: int = 2,
+        drafter=None,
+        draft_len: int = 4,
         device="cuda",
         **unported,
     ):
@@ -303,7 +338,15 @@ class ServeEngine:
         ``adapt_confirm`` consecutive samples, the shared-prefix model is
         blended in above a shared-page fraction of
         ``adapt_shared_threshold``, and ``autotune_cache`` (an
-        ``autotune_cache.jsonl`` path) seeds the first order."""
+        ``autotune_cache.jsonl`` path) seeds the first order.
+
+        Continuous only: ``host_pages > 0`` backs the pool with a host tier
+        of that many pages (``serve.tiering``); at ``spill_watermark``
+        occupancy (default ``min(0.85, admit_watermark)``) the coldest slot
+        is spilled, and a resuming slot's pages come back
+        ``prefetch_depth`` a boundary. ``drafter`` (a ``serve.spec.Drafter``)
+        turns on speculative decoding with up to ``draft_len`` drafts a
+        row."""
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"ServeEngine() got an unexpected keyword argument {name!r}")
@@ -314,6 +357,10 @@ class ServeEngine:
                 )
         if scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
+        if drafter is not None and scheduler != "continuous":
+            raise ValueError("speculative decoding requires scheduler='continuous'")
+        if draft_len < 1:
+            raise ValueError(f"draft_len must be >= 1, got {draft_len}")
         if admission not in ("reserve", "optimistic"):
             raise AdmissionError(f"unknown admission discipline {admission!r}")
         self.device = resolve_device(device)
@@ -356,6 +403,14 @@ class ServeEngine:
         if admit_watermark is None:
             admit_watermark = 0.9 if admission == "optimistic" else 1.0
         self._watermark = admit_watermark
+        if spill_watermark is not None and not 0.0 < spill_watermark <= 1.0:
+            raise ValueError(f"spill_watermark must be in (0, 1], got {spill_watermark}")
+        self.host_pages = host_pages
+        self.prefetch_depth = max(1, int(prefetch_depth))
+        self._spill_wm = (spill_watermark if spill_watermark is not None
+                          else min(0.85, self._watermark))
+        self.drafter = drafter
+        self.draft_len = int(draft_len)
         self._cap = max_len if bounded else None
         self._cancelled: set[int] = set()
         self.batch_size = batch_size
@@ -398,6 +453,18 @@ class ServeEngine:
         self._m_cancel = r.counter("serve.cancelled")
         self._m_failed = r.counter("serve.failed")
         self._m_admit_paused = r.gauge("serve.admission_paused")
+        # The speculative and tier series exist on every engine, at zero
+        # where nothing drafts or spills (the tiered pool increments the
+        # tier.* counters).
+        self._m_draft_tok = r.counter("serve.spec.draft_tokens")
+        self._m_accept_tok = r.counter("serve.spec.accepted_tokens")
+        self._m_rollback_tok = r.counter("serve.spec.rollback_tokens")
+        for name in ("tier.spills", "tier.fetches", "tier.prefetch_hits", "tier.prefetch_wasted",
+                     "tier.fetch_failures", "tier.spill_bytes", "tier.fetch_bytes"):
+            r.counter(name)
+        for name in ("tier.host_pages", "tier.device_pages", "tier.suspended_slots",
+                     "tier.overlap_frac"):
+            r.gauge(name)
         self.llc: Optional[LLCSampler] = None
         self.order_ctl: Optional[OrderAdaptController] = None
         if scheduler == "continuous":
@@ -652,52 +719,65 @@ class ServeEngine:
 
     @torch.no_grad()
     def _run_mixed(self, step: StepGraph, tokens, pool, qlens, order_group, temps, seeds,
-                   counts) -> np.ndarray:
-        """One ragged step: (n_slots, width) tokens -> the sampled token at
-        every chunk position, as a host array (greedy everywhere; a
-        sampling row draws at its last valid position, the only one the
-        host reads, with sample index ``counts[row]``)."""
-        step.stage(tokens=tokens, block_table=pool.block_tables, lens=pool.lens, q_lens=qlens,
+                   counts, lens, ladder, overlap=None) -> np.ndarray:
+        """One ragged step: (n_slots, width) tokens over ``pool``'s block
+        table and the staged lengths ``lens`` -> the sampled token at every
+        chunk position, as a host array. Greedy everywhere; a sampling row
+        draws at its last valid position with sample index ``counts[row]``,
+        a verification row (``ladder[row]``) at every position p with index
+        ``counts[row] + p``. ``overlap`` is host work issued once the
+        replay is launched, before the host waits for its tokens."""
+        step.stage(tokens=tokens, block_table=pool.block_tables, lens=lens, q_lens=qlens,
                    order_group=order_group)
         logits, greedy = step()
-        return self._pick(logits, greedy, [
-            ((int(b), int(qlens[b]) - 1), float(temps[b]),
-             sample_seed(self.seed, seeds[b], counts[b]))
-            for b in np.flatnonzero((temps > 0.0) & (qlens > 0))
-        ])
+        if overlap is not None:
+            overlap()
+        draws = []
+        for b in np.flatnonzero((temps > 0.0) & (qlens > 0)):
+            q = int(qlens[b])
+            for p in (range(q) if ladder[b] else (q - 1,)):
+                idx = int(counts[b]) + (p if ladder[b] else 0)
+                draws.append(((int(b), p), float(temps[b]),
+                              sample_seed(self.seed, seeds[b], idx)))
+        return self._pick(logits, greedy, draws)
 
     # ---- continuous path -----------------------------------------------------
 
     def _generate_continuous(self, requests: Sequence[Request]) -> list[GenerationResult]:
         cfg = self.lm.cfg
         n_slots = self.batch_size
+        cap = self._cap
         sched = ContinuousScheduler(
             n_slots, token_budget=self._budget, prefill_chunk=self._chunk
         )
         sched.submit(list(requests))
         idx_of = {id(r): i for i, r in enumerate(requests)}  # default seeds
+        tiered = self.host_pages is not None and self.host_pages > 0
         pool = self.last_pool
         if pool is None:
-            pool = self.last_pool = PagedKVPool(
-                cfg, cfg.n_layers, n_slots, self._cap,
-                device=self.device,
-                prefix_sharing=self.prefix_sharing,
-                registry=self.obs,
-                admission=self.admission,
-                n_pages=self.pool_pages,
-                faults=self.faults,
-            )
+            pool_kw = dict(device=self.device, prefix_sharing=self.prefix_sharing,
+                           registry=self.obs, admission=self.admission,
+                           n_pages=self.pool_pages, faults=self.faults)
+            if tiered:
+                pool = TieredPagePool(cfg, cfg.n_layers, n_slots, cap,
+                                      host_pages=self.host_pages, **pool_kw)
+            else:
+                pool = PagedKVPool(cfg, cfg.n_layers, n_slots, cap, **pool_kw)
+            self.last_pool = pool
         else:
             pool.faults = self.faults
             pool.reset()
             pool.emit_gauges()
         ctl = self.order_ctl
         faults = self.faults
+        drafter = self.drafter
+        if drafter is not None:
+            drafter.reset()
 
         results: dict[int, GenerationResult] = {}
         resume: dict[int, list] = {}       # preempted: id(request) -> generated
         n_preempts: dict[int, int] = {}    # id(request) -> times preempted
-        n_preempt = n_restore = 0
+        tally = {"preempt": 0, "restore": 0, "draft": 0, "accept": 0, "roll": 0}
         cur = np.full((n_slots,), self.eos, np.int32)  # last sampled token
         temps = np.zeros((n_slots,), np.float32)
         seeds = np.zeros((n_slots,), np.int64)
@@ -723,22 +803,24 @@ class ServeEngine:
             self._cancelled.discard(r.rid)
             self._record_result(res)
 
-        def finish(slot: int, status: str = "ok") -> None:
+        def retire(slot: int):
             st = sched.retire(slot)
             pool.release(slot)
+            if drafter is not None:
+                drafter.release(slot)
             cur[slot] = self.eos
             temps[slot] = 0.0
+            return st
+
+        def finish(slot: int, status: str = "ok") -> None:
+            st = retire(slot)
             resolve(st.request, list(st.generated), status)
 
         def preempt(slot: int) -> None:
             # Evict a live slot under pool pressure: release its pages and
             # requeue it at the queue head (restored by a chunked re-prefill
             # of prompt + generated-so-far), or fail it past its bound.
-            nonlocal n_preempt
-            st = sched.retire(slot)
-            pool.release(slot)
-            cur[slot] = self.eos
-            temps[slot] = 0.0
+            st = retire(slot)
             r = st.request
             n_pre = n_preempts[id(r)] = n_preempts.get(id(r), 0) + 1
             limit = self.max_preemptions if r.max_preemptions is None else r.max_preemptions
@@ -747,12 +829,13 @@ class ServeEngine:
                 return
             resume[id(r)] = list(st.generated)
             sched.requeue(r)
-            n_preempt += 1
+            tally["preempt"] += 1
             self._m_preempt.inc()
             self._m_req_requeued.inc()
             tr.instant("serve.preempt", rid=r.rid, slot=slot, generated=len(st.generated))
 
         def preempt_victim() -> bool:
+            # Suspended slots are no candidates: they hold no device page.
             cands = [
                 (i, sched.slots[i].request.priority, len(sched.slots[i].generated),
                  pool.shared_donor(i))
@@ -763,6 +846,68 @@ class ServeEngine:
                 return False
             preempt(select_victim(cands))
             return True
+
+        def spill_one(keep: int) -> bool:
+            # Spill the coldest runnable slot, keeping at least ``keep``
+            # runnable (the watermark pass keeps one so the stream advances;
+            # under pressure it may go to zero: the freed pages are what
+            # lets a resume complete). A slot resumed and not yet stepped is
+            # no candidate: its fetches would be wasted.
+            run = [i for i in sched.runnable_slots() if not sched.slots[i].done]
+            cands = [i for i in run if pool.can_spill(i) and not pool.shielded(i)]
+            if not cands or len(run) <= keep:
+                return False
+            stats = slot_reuse_stats(ctl.order.value, [int(n) for n in pool.lens], pool.page,
+                                     snake_group=ctl.snake_group)
+            victim = select_spill_victim([
+                (i, sched.slots[i].request.priority, pool.shared_donor(i), stats[i]["mean"])
+                for i in cands
+            ])
+            if victim is None or not pool.spill_slot(victim):
+                return False  # host full, or an injected tier.spill stall
+            sched.suspend(victim)
+            tr.instant("serve.spill", slot=victim, pages=pool._offslot_pages(victim))
+            return True
+
+        def tier_boundary() -> None:
+            # In resolution order: splice finished resumes back in, spill
+            # down to the watermark, then open the fetch queue of at most
+            # one suspended slot, in the next step's visit order.
+            for i in pool.suspended_slots():
+                if pool.resume_ready(i) and pool.complete_resume(i):
+                    sched.resume(i)
+                    tr.instant("serve.tier_resume", slot=i)
+            while pool.occupancy() >= self._spill_wm and spill_one(keep=1):
+                pass
+            suspended = pool.suspended_slots()
+            if not suspended or any(pool._suspended[i].started for i in suspended):
+                return
+            runnable = [i for i in sched.runnable_slots() if not sched.slots[i].done]
+            n_alloc = pool.alloc.n_pages - 1
+            held = n_alloc - pool.alloc.free_count
+            for i in suspended:
+                n_pgs = pool._offslot_pages(i)
+                # Resume only into calm (one that pushes occupancy back over
+                # the spill watermark just moves the pressure to another
+                # victim), unless nothing is runnable.
+                calm = (held + n_pgs) / max(n_alloc, 1) < self._spill_wm
+                if pool.alloc.available >= pool.resume_need(i) and (calm or not runnable):
+                    group = ctl.effective_group(max(n_pgs, 1))
+                    pool.start_resume(i, order=future_visit_window(
+                        int(pool.lens[i]) // pool.page, n_pgs, n_pgs, group))
+                    break
+
+        def prefetch(overlapped: bool) -> None:
+            with tr.span("serve.prefetch", overlapped=overlapped):
+                for i in pool.suspended_slots():
+                    pool.issue_fetches(i, self.prefetch_depth, overlapped=overlapped)
+
+        def overlap() -> None:
+            # Issued after the replay is launched: the copies run on the
+            # pool's side stream beside the step, into staged rows that are
+            # spliced at a later boundary, never into the pages it reads.
+            if pool.fetch_backlog():
+                prefetch(True)
 
         step = 0
         n_steps = n_wide = 0
@@ -790,6 +935,11 @@ class ServeEngine:
                     if r.deadline_s is not None and now_s > r.deadline_s:
                         finish(i, "deadline")
 
+                # The tier's boundary work comes before admission: spilling
+                # down to the spill watermark is what un-pauses admission.
+                if tiered:
+                    tier_boundary()
+
                 # Admission: fill free slots with arrived requests while the
                 # pool can reserve what the discipline guarantees; the
                 # watermark pauses it under pressure (never with no slot
@@ -813,7 +963,7 @@ class ServeEngine:
                     self._m_req_admitted.inc()
                     if restored and st.prompt is not None:
                         n_re = int(len(st.prompt) - st.prompt_pos)
-                        n_restore += n_re
+                        tally["restore"] += n_re
                         self._m_restore_tok.inc(n_re)
                     if st.done:  # zero-limit request: emits nothing
                         finish(slot)
@@ -822,20 +972,51 @@ class ServeEngine:
                     for r in sched.shed_over(step, self.max_queue):
                         resolve(r, resume.pop(id(r), []), "shed")
 
+                # Drafting, once a boundary and before the plan loop (a
+                # model drafter runs steps of its own, so a re-plan must not
+                # call it again). K is clamped so the verification chunk
+                # stays inside the row's limit and capacity (its writes
+                # stay inside the reservation) and the wide width.
+                drafts: dict[int, list[int]] = {}
+                if drafter is not None:
+                    want = []
+                    for i in sched.runnable_slots():
+                        st = sched.slots[i]
+                        if st.done or st.prefilling:
+                            continue
+                        kmax = min(self.draft_len, st.new_limit - len(st.generated) - 1,
+                                   cap - int(pool.lens[i]) - 1, self._chunk - 1)
+                        if kmax < 1:
+                            continue
+                        ctx = np.concatenate(
+                            [st.prompt, np.asarray(st.generated[st.n_prior:], np.int32)])
+                        want.append((i, ctx, kmax))
+                    if want:
+                        with tr.span("serve.draft", rows=len(want)):
+                            out = drafter.draft_batch(want)
+                        for i, _, kmax in want:
+                            d = [int(t) for t in out.get(i, [])][:kmax]
+                            if d:
+                                drafts[i] = d
+
                 # Plan under pressure: make every planned row writable; a
                 # PoolExhausted (optimistic growth or an injected fault)
-                # preempts a victim, possibly the failing slot, and plans
-                # again. Each round removes a slot, so this ends;
+                # spills a victim to the host tier when there is one, else
+                # preempts one, possibly the failing slot, and plans again.
+                # Each round removes a runnable slot, so this ends;
                 # ensure_writable is idempotent for the rows it already did.
+                draft_lens = {i: len(d) for i, d in drafts.items()} or None
                 while True:
                     with tr.span("serve.plan_step"):
-                        plan = sched.plan_step()
+                        plan = sched.plan_step(draft_lens)
                     if not plan:
                         break
                     try:
                         for it in plan:
                             pool.ensure_writable(it.slot, it.q_len)
                     except PoolExhausted:
+                        if tiered and spill_one(keep=0):
+                            continue
                         if not preempt_victim():
                             raise
                         continue
@@ -843,6 +1024,13 @@ class ServeEngine:
                 self._m_queue.set(len(sched.waiting))
                 self._m_active.set(len(sched.active_slots()))
                 if not plan:
+                    if tiered and pool.suspended_slots():
+                        # Nothing runnable but suspended work: spend the
+                        # boundary streaming pages back (nothing to overlap
+                        # with) and splice at the next one.
+                        prefetch(False)
+                        step += 1
+                        continue
                     if sched.waiting:
                         nxt = sched.next_arrival()
                         step = max(step + 1, nxt if nxt is not None else step + 1)
@@ -855,6 +1043,7 @@ class ServeEngine:
                 mixed = self._mixed_step(width, pool)
                 tokens = np.full((n_slots, width), self.eos, np.int32)
                 qlens = np.zeros((n_slots,), np.int32)
+                ladder = np.zeros((n_slots,), bool)
                 n_decode = n_prefill = 0
                 for it in plan:
                     st = sched.slots[it.slot]
@@ -863,15 +1052,17 @@ class ServeEngine:
                         tokens[it.slot, : len(seg)] = seg
                         n_prefill += it.q_len
                     else:
-                        tokens[it.slot, 0] = cur[it.slot]
-                        n_decode += 1
+                        row = [int(cur[it.slot])] + drafts.get(it.slot, [])[: it.n_draft]
+                        tokens[it.slot, : len(row)] = row
+                        ladder[it.slot] = it.n_draft > 0
+                        n_decode += it.q_len
                     qlens[it.slot] = it.q_len
 
-                # The device span closes once the sampled tokens are on the
-                # host, so it brackets the step's device time.
                 # The order in effect now (a switch after the last step
                 # takes effect here): one staged int32, nothing captured.
+                # A suspended row stages length 0 over its dummied table.
                 order_group = ctl.effective_group(pool.blocks_per_seq)
+                lens_op = pool.step_lens() if tiered else pool.lens
 
                 def dispatch():
                     # An injected device fault fires before anything is
@@ -880,8 +1071,11 @@ class ServeEngine:
                     if faults is not None:
                         faults.raise_if("device.step")
                     return self._run_mixed(mixed, tokens, pool, qlens, order_group, temps,
-                                           seeds, counts)
+                                           seeds, counts, lens_op, ladder,
+                                           overlap if tiered else None)
 
+                # The device span closes once the sampled tokens are on the
+                # host, so it brackets the step's device time.
                 with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned):
                     try:
                         toks = dispatch()
@@ -919,26 +1113,65 @@ class ServeEngine:
                         # Prompt complete: publish its frozen pages for later
                         # admissions to adopt, then take the first sample.
                         pool.register_prompt(it.slot, st.prompt)
-                    tok = int(toks[it.slot, it.q_len - 1])
-                    if id(st.request) not in first_t:
-                        first_t[id(st.request)] = time.perf_counter()
-                    counts[it.slot] += 1
-                    cur[it.slot] = tok
-                    if st.record(tok):
+                    if it.n_draft == 0:
+                        tok = int(toks[it.slot, it.q_len - 1])
+                        if id(st.request) not in first_t:
+                            first_t[id(st.request)] = time.perf_counter()
+                        counts[it.slot] += 1
+                        cur[it.slot] = tok
+                        if st.record(tok):
+                            finish(it.slot)
+                        continue
+                    # A verification row [cur, d_1..d_K]: target t_i =
+                    # toks[slot, i] is what the sequential stream samples
+                    # after the first i drafts. Accept the longest prefix
+                    # with d_{i+1} == t_i, emit t_0..t_a (stopping at EOS or
+                    # the limit as a sequential stream would), roll the rest
+                    # of the chunk back; the sample count advances by the
+                    # tokens emitted.
+                    d = drafts.get(it.slot, [])[: it.n_draft]
+                    k = len(d)
+                    a = 0
+                    while a < k and d[a] == int(toks[it.slot, a]):
+                        a += 1
+                    emitted = 0
+                    finished = False
+                    for p in range(a + 1):
+                        tok = int(toks[it.slot, p])
+                        if id(st.request) not in first_t:
+                            first_t[id(st.request)] = time.perf_counter()
+                        emitted += 1
+                        cur[it.slot] = tok
+                        if st.record(tok):
+                            finished = True
+                            break
+                    counts[it.slot] += emitted
+                    n_roll = it.q_len - emitted
+                    if n_roll and not finished:
+                        pool.rollback(it.slot, n_roll)
+                    accepted = emitted - 1
+                    tally["draft"] += k
+                    tally["accept"] += accepted
+                    tally["roll"] += k - accepted
+                    self._m_draft_tok.inc(k)
+                    self._m_accept_tok.inc(accepted)
+                    self._m_rollback_tok.inc(k - accepted)
+                    if finished:
                         finish(it.slot)
                 if faults is not None and faults.fired_this_step:
                     # A step that absorbed a fault is followed by a pool audit.
                     pool.check_invariants()
                 pool.emit_gauges()
-                # step_q, the widest decode chunk (the query width a KV sweep
-                # is amortized over), is 1: no speculative rows (A11).
+                # The widest decode or verification chunk (K+1 under
+                # speculation): the query width a KV sweep is amortized over.
+                step_q = max((it.q_len for it in plan if not it.is_prefill), default=1)
                 if ctl.enabled:
                     # Adaptation samples on its own cadence: the decision
                     # needs a fresh reading, not the last gauge.
-                    if ctl.maybe_adapt(n_steps, pool, self.llc, step_q=1):
+                    if ctl.maybe_adapt(n_steps, pool, self.llc, step_q=step_q):
                         tr.instant("serve.order_switch", order=ctl.order.value, step=n_steps)
                 else:
-                    self.llc.maybe_sample(n_steps, pool, step_q=1)
+                    self.llc.maybe_sample(n_steps, pool, step_q=step_q)
             self._m_step_time.observe(time.perf_counter() - t_iter)
             if self._log_every and n_steps and n_steps % self._log_every == 0:
                 self._log_stats_line(n_steps, pool, sched)
@@ -953,17 +1186,30 @@ class ServeEngine:
             pages_adopted=pool.shared_hits,
             prompt_tokens_adopted=pool.shared_tokens,
             cow_forks=pool.cow_forks,
-            preemptions=n_preempt,
-            restore_tokens=n_restore,
+            preemptions=tally["preempt"],
+            restore_tokens=tally["restore"],
             shed=by_status.get("shed", 0),
             deadline_miss=by_status.get("deadline", 0),
             cancelled=by_status.get("cancelled", 0),
             failed=by_status.get("failed", 0),
+            spills=getattr(pool, "spills", 0),
+            tier_fetches=getattr(pool, "fetches", 0),
+            prefetch_hits=getattr(pool, "prefetch_hits", 0),
+            prefetch_wasted=getattr(pool, "prefetch_wasted", 0),
+            draft_tokens=tally["draft"],
+            accepted_tokens=tally["accept"],
+            rollback_tokens=tally["roll"],
         )
         return [results[id(r)] for r in requests]
 
     def _log_stats_line(self, n_steps: int, pool, sched) -> None:
         v = self.obs.value
+        spec = ""
+        if self.drafter is not None:
+            drafted = v("serve.spec.draft_tokens")
+            acc = v("serve.spec.accepted_tokens")
+            spec = (f" draft={drafted:.0f} accept={acc:.0f} ({acc / drafted:.0%})" if drafted
+                    else " draft=0")
         print(
             f"[serve] step {n_steps}: "
             f"queue={len(sched.waiting)} active={len(sched.active_slots())} "
@@ -973,6 +1219,7 @@ class ServeEngine:
             f"pool free={pool.alloc.free_count} "
             f"occ={v('pool.occupancy_frac'):.0%} "
             f"adopted={pool.shared_hits} cow={pool.cow_forks}"
+            f"{spec}"
         )
 
     def _admit(self, req: Request, slot: int, sched, pool, temps, seeds, counts, idx: int,
@@ -1009,6 +1256,7 @@ class ServeEngine:
             prompt=full, prompt_pos=shared,
         )
         st.generated = prior
+        st.n_prior = len(prior)  # the prompt carries them already
         temps[slot] = req.temperature
         seeds[slot] = idx if req.seed is None else req.seed
         counts[slot] = len(prior)

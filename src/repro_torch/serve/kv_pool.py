@@ -16,7 +16,8 @@ step point their writes at it. Full prompt pages are registered in a
 content-hash registry (a rolling CRC over the chain of page tokens, with an
 exact token comparison on every hit); ``admit`` adopts a matching prefix
 (refcount bump, no compute) and the first write into a shared page forks it
-(``ensure_writable``). Two admission disciplines:
+(``ensure_writable``); ``rollback`` disowns a slot's rejected draft tokens
+(speculative decoding). Two admission disciplines:
 
 * ``admission="reserve"`` (default): each request's worst case is
   reserved, so lazy growth and forks never fail mid-flight;
@@ -354,6 +355,52 @@ class PagedKVPool:
         """Record ``n`` written tokens (host mirror of the device len+q_len)."""
         self.lens[slot] = min(self.lens[slot] + n, self.capacity)
 
+    def rollback(self, slot: int, n: int) -> int:
+        """Disown the last ``n`` tokens of ``slot`` (rejected drafts of
+        speculative decoding): ``lens`` goes down and the tail pages that
+        back no live token are released, on the host only; the device pages
+        keep their stale rows behind the shorter length. Returns the pages
+        freed.
+
+        Only tokens the slot wrote itself may be rolled back; those went
+        through :meth:`ensure_writable`, whose fork made their pages the
+        slot's own. A page held by another slot (refcount > 1) among those
+        to drop raises :class:`PoolError` before anything changes. Under
+        ``"reserve"`` each freed page goes back to the slot's reservation,
+        so growth over the same positions still cannot fail. A held page
+        still registered whose content reaches past the new length into
+        positions the slot wrote is unregistered: no later ``admit`` may
+        adopt rejected-draft K/V."""
+        n = min(int(n), int(self.lens[slot]))
+        if n <= 0:
+            return 0
+        new_len = int(self.lens[slot]) - n
+        keep = self.pages_for(new_len)
+        held = self._slot_pages[slot]
+        dropped = held[keep:]
+        for pid in dropped:
+            if self._ref[pid] > 1:
+                raise PoolError(
+                    f"rollback({slot}, {n}) would drop shared page {pid} "
+                    f"(ref {int(self._ref[pid])}): only self-written tokens "
+                    "may be rolled back"
+                )
+        for pid in dropped:
+            self._ref[pid] -= 1
+            self._unregister(pid)
+            self.alloc.free([pid])
+        del held[keep:]
+        self.block_tables[slot, keep:] = 0
+        self.lens[slot] = new_len
+        if dropped and self.admission == "reserve":
+            self._slot_reserved[slot] += len(dropped)
+            self.alloc.reserved += len(dropped)
+        for pg, pid in enumerate(held):
+            end = (pg + 1) * self.page
+            if pid in self._page_parent and new_len < end <= int(self._written[slot]):
+                self._unregister(pid)
+        return len(dropped)
+
     def register_prompt(self, slot: int, prompt: np.ndarray) -> None:
         """Publish ``slot``'s full prompt pages in the prefix registry (once,
         when the prompt is fully cached). A link already registered with the
@@ -412,6 +459,12 @@ class PagedKVPool:
 
     # ---- invariants ----------------------------------------------------------
 
+    def _offslot_pages(self, slot: int) -> int:
+        """Logical pages of ``slot`` held outside its block table: 0 here;
+        the tiered pool counts a suspended slot's host pages, so the
+        coverage invariant below holds across both tiers."""
+        return 0
+
     def check_invariants(self) -> None:
         """Assert conservation and consistency: free + distinct-held ==
         allocatable pages, refcounts equal the number of holders,
@@ -438,8 +491,8 @@ class PagedKVPool:
         assert self.alloc.reserved == sum(self._slot_reserved) >= 0
         for slot in range(self.n_slots):
             n_logical = -(-int(self.lens[slot]) // self.page)
-            assert len(self._slot_pages[slot]) >= n_logical, (
-                slot, len(self._slot_pages[slot]), n_logical
+            assert len(self._slot_pages[slot]) + self._offslot_pages(slot) >= n_logical, (
+                slot, len(self._slot_pages[slot]), self._offslot_pages(slot), n_logical
             )
             for pg, pid in enumerate(self._slot_pages[slot]):
                 assert self.block_tables[slot, pg] == pid

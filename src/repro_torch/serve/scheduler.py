@@ -33,6 +33,9 @@ class Slot:
     prompt_pos: int = 0               # prompt tokens already in cache
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
+    n_prior: int = 0                  # generated tokens a restore put into
+                                      # ``prompt``: a drafter's context is
+                                      # prompt + generated[n_prior:]
 
     @property
     def prefilling(self) -> bool:
@@ -56,6 +59,8 @@ class StepItem:
     is_prefill: bool
     finishes_prompt: bool = False     # the chunk covers the prompt's last
                                       # token -> the row samples this step
+    n_draft: int = 0                  # draft tokens verified in this decode
+                                      # row: q_len == 1 + n_draft
 
 
 class ContinuousScheduler:
@@ -141,7 +146,7 @@ class ContinuousScheduler:
 
     # ---- step planning -------------------------------------------------------
 
-    def plan_step(self) -> list[StepItem]:
+    def plan_step(self, draft_lens: Optional[dict] = None) -> list[StepItem]:
         """Plan one ragged mixed step under the token budget.
 
         Decode rows come first (one token each); the leftover budget is
@@ -149,6 +154,11 @@ class ContinuousScheduler:
         ``prefill_chunk`` tokens. When decode rows alone exhaust the budget,
         prefill waits — decode slots retire in bounded time and hand their
         budget back. If only prefill slots are active the budget is theirs.
+
+        ``draft_lens`` (slot -> K draft tokens) makes decode rows ``q_len =
+        1 + K`` verification chunks, K clamped to ``prefill_chunk - 1`` (the
+        row fits the wide width) and to the budget left after every decode
+        row's one token, so a draft never pushes a decode row out.
         """
         decode_rows: list[int] = []
         prefill_rows: list[int] = []
@@ -156,8 +166,16 @@ class ContinuousScheduler:
             if st is None or st.done or i in self.suspended:
                 continue
             (prefill_rows if st.prefilling else decode_rows).append(i)
-        items = [StepItem(i, 1, False) for i in decode_rows]
-        left = self.token_budget - len(items)
+        items = []
+        spare = self.token_budget - len(decode_rows)
+        for i in decode_rows:
+            k = 0
+            if draft_lens:
+                k = min(max(int(draft_lens.get(i, 0)), 0), self.prefill_chunk - 1,
+                        max(spare, 0))
+                spare -= k
+            items.append(StepItem(i, 1 + k, False, n_draft=k))
+        left = self.token_budget - sum(it.q_len for it in items)
         if not prefill_rows or left <= 0:
             return items
         # Rotate so successive steps serve prefilling slots fairly.

@@ -101,7 +101,7 @@ def top2_margin(logits: torch.Tensor) -> tuple[float, float]:
     return float(top2[0]), float(top2[0] - top2[1])
 
 
-def within_tie_rule(margins, top: float) -> bool:
+def within_tie_rule(margins, top: float, steps: int = 1) -> bool:
     """Whether two greedy runs that differ at a token were tied there, to
     bf16's resolution. ``margins`` are the two runs' top-2 logit margins at
     the first differing token, ``top`` the top logit there. Two runs of one
@@ -109,7 +109,8 @@ def within_tie_rule(margins, top: float) -> bool:
     (another KV visit order) can round a logit one bf16 step apart, so a
     flip is allowed where the smaller margin is at most one ulp of ``top``
     (:func:`bf16_ulp`) and the larger is below two: one step of rounding
-    in each run, and no more."""
+    in each run, and no more. ``steps`` rounding steps a run (int8 caches
+    add one, a K/V value's int8 code) allow ``steps`` and ``steps + 1``."""
     u = bf16_ulp(top)
     lo, hi = sorted(float(m) for m in margins)
-    return lo <= u and hi < 2 * u
+    return lo <= steps * u and hi < (steps + 1) * u

@@ -98,20 +98,38 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--draft", "ngram"], "A11"),
-    (["--host-pages", "4"], "A10"),
-    (["--chaos-fetch-fail", "1"], "A10"),
-    (["--spill-watermark", "0.5"], "A10"),
-    (["--draft-len", "2"], "A11"),
-    (["--draft-model", "deepseek-7b"], "A11"),
     (["--ckpt-dir", "checkpoints"], "A12"),
-    (["--prefetch-depth", "4"], "A10"),
 ])
 def test_launcher_refuses_unported_flags(flag, item, capsys):
     with pytest.raises(SystemExit) as exc:
         launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu", *flag])
     assert exc.value.code == 2
     assert item in capsys.readouterr().err
+
+
+TIER = ["--admission", "optimistic", "--pool-pages", "4", "--max-preemptions", "50",
+        "--host-pages", "24"]
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--draft", "ngram"], "speculative: "),
+    (["--draft", "model", "--draft-len", "2"], "speculative: "),
+    (["--draft", "model", "--draft-model", "deepseek-7b"], "speculative: "),
+    (TIER, "tiering: "),
+    (TIER + ["--spill-watermark", "0.5", "--prefetch-depth", "4"], "tiering: "),
+    (TIER + ["--chaos-fetch-fail", "1"], "tiering: "),
+    (TIER + ["--chaos-spill-stall", "100"], "resilience: "),
+], ids=["ngram", "model_draft_len", "draft_model", "host_pages", "watermark_depth",
+        "chaos_fetch_fail", "chaos_spill_stall"])
+def test_launcher_serves_with_tier_and_speculation(flags, want, capsys):
+    """The A10 and A11 flags serve on the CPU: the drafters report their
+    drafts, the host tier its spills and fetches, and a stalled spill falls
+    back to preemption."""
+    launch_serve.main(["--arch", "deepseek-7b", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--batch-size", "2", "--max-new", "8",
+                       "--max-len", "64", "--page-size", "16", "--prefill-chunk", "16", *flags])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 24 tokens" in out and want in out, out
 
 
 @pytest.mark.parametrize("flags,want", [

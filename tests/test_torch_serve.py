@@ -135,14 +135,25 @@ def test_sample_token_follows_softmax():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(drafter=object()), "A11"),
-    (dict(host_pages=4), "A10"),
-    (dict(spill_watermark=0.5), "A10"),
     (dict(mesh=object()), "A14"),
+    (dict(pcfg=object()), "A14"),
 ])
 def test_unported_engine_arguments_raise(models, kwargs, item):
     _, _, lm, params = models
     with pytest.raises(NotImplementedError, match=item):
+        ServeEngine(lm, params, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(drafter=object()), "scheduler='continuous'"),
+    (dict(scheduler="continuous", draft_len=0), "draft_len"),
+    (dict(scheduler="continuous", host_pages=4, spill_watermark=0.0), "spill_watermark"),
+    (dict(scheduler="continuous", host_pages=4, spill_watermark=1.5), "spill_watermark"),
+], ids=["drafter_static", "draft_len", "watermark_zero", "watermark_above_one"])
+def test_tier_and_speculation_argument_checks(models, kwargs, match):
+    """The reference's checks of the A10 and A11 arguments."""
+    _, _, lm, params = models
+    with pytest.raises(ValueError, match=match):
         ServeEngine(lm, params, device="cpu", **kwargs)
 
 
