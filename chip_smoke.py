@@ -73,7 +73,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    two graphs), each twice: drafts accepted + rolled back == drafted, the
    target's two graphs, B1 layers x (target + drafter) steps, the rerun
    equal to the bit, flips tied, and a ladder shifted by one position
-   caught by the tie rule; then, with the serving weights released,
+   caught by the tie rule; then, with the serving weights released, the
+   MoE family (A13): ``ops.ragged_dot`` (one ``grouped_mm``, the
+   counterpart of XLA's ``ragged_dot``; a library call, not a kernel of
+   this repository) against its plain masked products at olmoe-1b-7b's
+   and mixtral-8x7b's expert shapes (a narrow step's, a wide step's and a
+   prefill group's rows), empty groups included, within MOE_MATRIX_TOL and
+   a control with every group boundary moved one row beyond it, each
+   shape's time beside its bound; then full-width olmoe-1b-7b (random
+   weights from seed 0) serving the same requests continuously (B1 and
+   the grouped products in both captured mixed-step graphs) and statically
+   (B2 prefill, B3 decode): every request ok, B1/B2/B3 16 x steps,
+   ``ragged_dot`` 3 x 16 x forward steps, replays equal to eager, a second
+   continuous run equal to the first, and the first mixed step's and the
+   first prefill's logits within MOE_LOGITS_TOL of the plain versions with
+   a router moved past its top k beyond it; then
    trained for 4 adamw_factored steps (batch 4 x 1024, remat full), with
    ``flash_fwd`` launches == 2 x layers x steps (forward and remat
    recompute) and 120 of each backward kernel, a falling loss, and step 0
@@ -123,7 +137,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    then the walks B2 and B6 take, played through an LRU model of the
    card's L2 (and of half of it) in the sawtooth and the cyclic order,
    modeled miss, cold and non-compulsory bytes beside each one's time;
-5. the JSON line of kernels, then the last line
+5. a JSON line of the library calls the main paths count (the grouped
+   product), the JSON line of kernels, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs a GPU (``torch.cuda.is_available()``) and the repository's ``src``
@@ -135,6 +150,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -237,6 +253,28 @@ SSD_STATE_TOL = 1e-4
 # only the B7 matrix's limits tell them apart (PERF.md, §6).
 SSM_LOGITS_TOL = 1e-1
 _SSM_CONTROLS_CAUGHT = ("decay_dropped",)
+
+# The MoE's grouped product (``ops.ragged_dot``: ``grouped_mm`` on the
+# card, the counterpart of the reference's ``jax.lax.ragged_dot``, which XLA
+# compiles outside any Pallas kernel) against its plain masked products on
+# the same bf16 inputs, as max |diff| over max |plain|: both accumulate in
+# float32 and round the output once to bf16 (2^-8 relative), so the limit
+# is about two roundings. The same call with every group boundary moved one
+# row must exceed it.
+MOE_MATRIX_TOL = 1e-2
+# Full-width olmoe-1b-7b, the first prefill's and the first mixed step's
+# logits with the kernels (B2 or B1, grouped_mm) against the plain versions
+# (attn_impl "torch", the masked grouped product) on the same weights and
+# inputs, as max |diff| over max |plain|. The grouped products agree to the
+# bit or one bf16 rounding; the attention kernels round where the plain
+# versions do not, and through 16 layers a token whose k-th and (k+1)-th
+# router logits lie that close picks another expert. They read 4.8e-2
+# (the prefill's last positions) and 8.7e-2 (all 2,048 positions of the
+# wide first step) on the H100 (PERF.md §6); the limit is about
+# twice the larger. Each token routed to the k experts after its top k
+# reads 0.52 and 0.59 there, and must exceed it.
+MOE_LOGITS_TOL = 2e-1
+MOE_ARCH = "olmoe-1b-7b"
 
 # The adaptive continuous path (phase_adapt_path): full-width deepseek-7b
 # through the continuous engine with online order adaptation, on the main
@@ -1010,7 +1048,7 @@ def build_main_model():
     return cfg, lm, params
 
 
-def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
+def phase_main_path(cfg, lm, params, profile: bool = False, label: str = "continuous") -> dict:
     from repro_torch.kernels import cuda_lib
     from repro_torch.serve import Request, ServeEngine
 
@@ -1047,6 +1085,7 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
+    library = dict(cuda_lib.library_counts)
     stats = eng.last_stats
     graphs = eng.step_graphs()
     replayed = {name: g.replays - replays[name] for name, g in graphs.items()}
@@ -1085,20 +1124,23 @@ def phase_main_path(cfg, lm, params, profile: bool = False) -> dict:
         "step_ms_narrow_mean": float(np.mean(steps_by_width["narrow"])) if steps_by_width["narrow"] else None,
         "step_ms_wide_mean": float(np.mean(steps_by_width["wide"])) if steps_by_width["wide"] else None,
         "launches": launches,
+        "library": library,
         "launches_per_step": launches["paged_decode"] / max(stats.mixed_steps, 1),
         "graph_replays": replayed,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("[serve] " + json.dumps(out))
+    prefix = "serve" if label == "continuous" else label
+    print(f"[{prefix}] " + json.dumps(out))
     out["streams"] = {r.rid: r.tokens.tolist() for r in results}
-    out["graphs"] = phase_graphs(eng, "continuous")
+    out["graphs"] = phase_graphs(eng, label)
     out["step_idle"] = {
         key: _step_idle(steps_by_width[key], out["graphs"][name]["replay_ms"])
         for key, name in zip(("narrow", "wide"), out["graphs"])  # mixed/1, mixed/<chunk>
     }
-    print("[serve] steps, wall against a replay's device time: " + json.dumps(out["step_idle"]))
+    print(f"[{prefix}] steps, wall against a replay's device time: "
+          + json.dumps(out["step_idle"]))
     if profile:
-        out["profile"] = phase_profile(eng, cfg, "continuous", ("serve.device_step",))
+        out["profile"] = phase_profile(eng, cfg, label, ("serve.device_step",))
     del eng
     torch.cuda.empty_cache()
     return out
@@ -1243,6 +1285,7 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
         eng._admit, eng._run_mixed, eng.llc.sample = admit, run, sample
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
+    library = dict(cuda_lib.library_counts)
     stats = eng.last_stats
     drafter_steps = getattr(drafter, "steps", 0) - drafter_steps
     if expect_ok:
@@ -1299,6 +1342,7 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
         "step_ms_narrow_mean": float(np.mean(walls["narrow"])) if walls["narrow"] else None,
         "step_ms_wide_mean": float(np.mean(walls["wide"])) if walls["wide"] else None,
         "launches": launches,
+        "library": library,
         "compiled_steps": eng.compiled_step_count(),
         "drafter_steps": drafter_steps,
         "draft_ms": spans["serve.draft"],
@@ -2131,6 +2175,7 @@ def phase_static_path(cfg, lm, params, profile: bool = False, label: str = "stat
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
+    library = dict(cuda_lib.library_counts)
     spans, calls = _step_spans(eng)
     replayed = eng.step_graphs()["decode"].replays - replays
 
@@ -2158,6 +2203,7 @@ def phase_static_path(cfg, lm, params, profile: bool = False, label: str = "stat
         "decode_step_ms_range": [min(spans["serve.decode_step"]), max(spans["serve.decode_step"])],
         "graph_replays": replayed,
         "launches": launches,
+        "library": library,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print(f"[{label}] " + json.dumps(out))
@@ -2166,6 +2212,9 @@ def phase_static_path(cfg, lm, params, profile: bool = False, label: str = "stat
     print(f"[{label}] decode steps, wall against a replay's device time: "
           + json.dumps(out["step_idle"]))
     out["first_decode_logits"] = first_decode["logits"]
+    # The first group's prompts as its prefill took them (padded to its bucket).
+    out["first_prefill_tokens"] = torch.as_tensor(
+        eng._pad_batch([r.tokens for r in reqs[:8]], eng._cap), device="cuda")
     out["cache_bytes"] = sum(t.numel() * t.element_size()
                              for name, t in eng._decode_caches.items() if name != "len")
     if profile:
@@ -2309,6 +2358,250 @@ def phase_ssm_path(arch: str, profile: bool = False) -> dict:
     del eng, lm, plain_lm, params
     torch.cuda.empty_cache()
     return out
+
+
+# ---- the MoE family (A13) -----------------------------------------------------
+
+
+def _moe_groups(gen, e: int, m: int, skip: int) -> torch.Tensor:
+    """Group sizes (E,) int32 of ``m`` rows, each row's group drawn
+    uniformly from all but ``skip`` groups, which stay empty (the narrow
+    step's 64 rows leave about 22 of 64 empty on their own)."""
+    live = torch.randperm(e, generator=gen, device="cuda")[: e - skip]
+    ids = live[torch.randint(0, e - skip, (m,), generator=gen, device="cuda")]
+    sizes = torch.zeros(e, dtype=torch.int64, device="cuda")
+    return sizes.scatter_add_(0, ids, torch.ones_like(ids)).to(torch.int32)
+
+
+def phase_moe_matrix(dev_info: dict) -> dict:
+    """``ops.ragged_dot``'s ``cuda`` (one ``grouped_mm``) against its
+    ``torch`` version on the same bf16 inputs at the MoE shapes: olmoe's E
+    64, d 2048 -> ff 1024 and back, at a narrow step's 64 rows, a wide
+    step's 16,384 and a static prefill group's 44,800 (8 x 700 at top 8);
+    mixtral's E 8, d 4096 -> 14336 and back at 16 and 4,096 rows; every
+    shape with empty groups. Each within MOE_MATRIX_TOL of max |plain|, the
+    same call with every group boundary moved one row beyond it; each
+    shape's time beside its bound (the weights of the groups that have rows
+    plus the rows in and out over the card's bytes rate, or the products
+    over its bf16 peak), the wrapper's (with the offsets' cumsum) and the
+    plain version's."""
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    shapes = []
+    for arch, e, d, ff, rows, skip in (("olmoe-1b-7b", 64, 2048, 1024, (64, 16384, 44800), 3),
+                                       ("mixtral-8x7b", 8, 4096, 14336, (16, 4096), 2)):
+        for m in rows:
+            shapes += [(arch, e, d, ff, m, skip), (arch, e, ff, d, m, skip)]
+    out, worst, control_min = [], 0.0, math.inf
+    for arch, e, k, n, m, skip in shapes:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((e, k, n), generator=gen, device="cuda") / math.sqrt(k)).to(torch.bfloat16)
+        sizes = _moe_groups(gen, e, m, skip)
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        got = ops.ragged_dot(x, w, sizes, impl="cuda")
+        want = ops.ragged_dot(x, w, sizes, impl="torch")
+        err = _rel_err(got, want.float())
+        # every boundary one row earlier: the row before each lands in the next group
+        shifted = torch.clamp(offs - 1, min=0)
+        shifted[-1] = m
+        wrong = torch.diff(shifted, prepend=shifted.new_zeros(1))
+        control = _rel_err(ops.ragged_dot(x, w, wrong, impl="cuda"), want.float())
+        touched = int((sizes > 0).sum())
+        nbytes = 2 * (touched * k * n + m * k + m * n)
+        rec = _time_record({"kernel": lambda: torch.nn.functional.grouped_mm(x, w, offs=offs),
+                            "wrapper": lambda: ops.ragged_dot(x, w, sizes, impl="cuda"),
+                            "plain": lambda: ops.ragged_dot(x, w, sizes, impl="torch"),
+                            "library": None}, nbytes, 2.0 * m * k * n, dev_info)
+        row = {"arch": arch, "shape": [e, k, n, m], "empty_groups": e - touched,
+               "max_abs_err": err, "shifted_offsets_err": control, "median_ms": rec["kernel_ms"],
+               **{key: rec[key] for key in ("kernel_single_ms", "wrapper_ms", "wrapper_host_us",
+                                            "plain_ms", "bound_ms", "bound_by", "bytes", "flops")}}
+        row["bound_frac"] = rec["bound_ms"] / rec["kernel_ms"]
+        out.append(row)
+        print(f"[moe] ragged_dot {arch} E {e} {k} -> {n}, {m} rows ({e - touched} empty groups): "
+              f"err {err:.3e}, shifted offsets {control:.3e}; {rec['kernel_ms']:.4f} ms "
+              f"(bound {rec['bound_ms']:.4f}, {rec['bound_by']}; {row['bound_frac']:.2f} of it), "
+              f"wrapper {rec['wrapper_ms']:.4f}, plain {rec['plain_ms']:.3f}")
+        worst, control_min = max(worst, err), min(control_min, control)
+        del x, w, got, want
+    torch.cuda.empty_cache()
+    print(f"[moe] grouped products: worst {worst:.3e} (limit {MOE_MATRIX_TOL}), every shifted "
+          f"control at least {control_min:.3e}")
+    if worst > MOE_MATRIX_TOL:
+        raise AssertionError(f"ragged_dot cuda differs from its plain version: {worst}")
+    if control_min <= MOE_MATRIX_TOL:
+        raise AssertionError(f"a shifted-offsets control stayed within the limit: {control_min}")
+    return {"worst": worst, "shifted_min": control_min, "shapes": out}
+
+
+@contextlib.contextmanager
+def _moe_swapped(plain: bool = False, routed_past_top_k: bool = False):
+    """``plain``: every grouped product through the masked plain version;
+    ``routed_past_top_k``: each token routed to the k experts after its top
+    k (a deliberately wrong router)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as MOE
+
+    saved = ops.ragged_dot, MOE._route
+    if plain:
+        ops.ragged_dot = functools.partial(saved[0], impl="torch")
+    if routed_past_top_k:
+        def route(p, cfg, xf):
+            logits, _, _ = saved[1](p, cfg, xf)
+            k = cfg.moe.top_k
+            top, sel = torch.topk(logits, 2 * k, dim=-1)
+            return logits, top[:, k:], sel[:, k:]
+        MOE._route = route
+    try:
+        yield
+    finally:
+        ops.ragged_dot, MOE._route = saved
+
+
+def phase_moe_path(matrix: dict, profile: bool = False) -> tuple[dict, dict]:
+    """Full-width olmoe-1b-7b (16 layers, d 2048, 16 heads of 128, 64
+    experts, top 8; random weights from seed 0) serving the 12 main
+    requests, batch 8, max_len 1024: continuous (page 64: B1 and the
+    grouped products in both captured mixed-step graphs), then static (B2
+    prefill, B3 in the captured decode step). Each run: every request ok
+    with 32 tokens, no non-finite logit; B1 16 x mixed steps, B2 16 x
+    prefills, B3 16 x decode steps, ``ragged_dot`` 3 x 16 x forward steps;
+    each captured step equal to its eager run to the bit. A second
+    continuous run, recording its first mixed step, must give the same
+    streams; that step and the first prefill with the kernels within
+    MOE_LOGITS_TOL of the plain versions, each with the router's choices
+    moved past the top k beyond it. Returns the two paths' records."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = build_model(cfg, device="cuda")
+    params = lm.init(0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[olmoe] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.hd}, {m.num_experts} experts of d_ff {m.d_ff_expert}, top {m.top_k}, vocab "
+          f"{cfg.vocab}, {n_params / 1e9:.2f} B params ({cfg.param_dtype}), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    plain_lm = build_model(cfg.with_(attn_impl="torch"), device="cuda")
+    per_pass = 3 * cfg.n_layers
+
+    # ---- continuous ----
+    cont = phase_main_path(cfg, lm, params, profile=profile, label="olmoe continuous")
+    want = per_pass * cont["mixed_steps"]
+    if cont["library"]["ragged_dot"] != want:
+        raise AssertionError(f"olmoe continuous: ragged_dot {cont['library']}, want {want}")
+    for g in cont["graphs"].values():
+        assert g["launches_per_replay"]["ragged_dot"] == per_pass, g
+    eng, bad = _warm_engine(cfg, lm, params)
+    run = _recorded_run(eng, bad, cfg, "olmoe continuous, recorded")
+    _no_retry_or_failure(run)
+    if run["tokens"] != cont["streams"]:
+        raise AssertionError("olmoe continuous: a second run's streams differ from the first's")
+    f = run["first_step"]
+    step = eng.step_graphs()[f"mixed/{f['width']}"]
+    step.stage(tokens=f["tokens"], block_table=f["block_table"], lens=f["lens"],
+               q_lens=f["q_lens"], order_group=f["order_group"])
+    rows = np.flatnonzero(f["q_lens"] > 0)
+
+    def valid(logits):
+        return torch.cat([logits[b, :int(f["q_lens"][b])] for b in rows])
+
+    # Its rows' lengths were 0: the first step reads only what it writes.
+    again = valid(step.run_eager()[0])
+    kernels_lm = eng.lm
+    try:
+        eng.lm = plain_lm
+        with _moe_swapped(plain=True):
+            plain = valid(step.run_eager()[0])
+        eng.lm = kernels_lm
+        with _moe_swapped(routed_past_top_k=True):
+            rerouted = valid(step.run_eager()[0])
+    finally:
+        eng.lm = kernels_lm
+    cont.update(
+        first_step_width=f["width"],
+        first_step_rel_err=_rel_err(f["logits"], plain.float()),
+        first_step_argmax_agree=(f["logits"].argmax(-1) == plain.argmax(-1)).float().mean().item(),
+        first_step_eager_equals_replay=bool(torch.equal(again, f["logits"])),
+        first_step_rerouted_rel_err=_rel_err(rerouted, plain.float()),
+    )
+    del again, plain, rerouted, eng, run
+    torch.cuda.empty_cache()
+    graphs = cont["graphs"]
+    narrow_name, wide_name = list(graphs)   # mixed/1, mixed/<chunk>
+
+    # ---- static ----
+    static = phase_static_path(cfg, lm, params, profile=profile, label="olmoe static")
+    forward = static["prefill_calls"] + static["decode_calls"]
+    if static["library"]["ragged_dot"] != per_pass * forward:
+        raise AssertionError(f"olmoe static: ragged_dot {static['library']}, want "
+                             f"{per_pass * forward}")
+    first = static.pop("first_prefill_tokens")
+    got, _ = lm.prefill(params, {"tokens": first}, 1024)
+    with _moe_swapped(plain=True):
+        ref, _ = plain_lm.prefill(params, {"tokens": first}, 1024)
+    with _moe_swapped(routed_past_top_k=True):
+        bad_logits, _ = lm.prefill(params, {"tokens": first}, 1024)
+    static["first_prefill_rel_err"] = _rel_err(got, ref.float())
+    static["first_prefill_argmax_agree"] = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    static["first_prefill_rerouted_rel_err"] = _rel_err(bad_logits, ref.float())
+    static["bucket"] = int(first.shape[1])
+    del got, ref, bad_logits, first
+
+    # The grouped products' share of a replay's device time: 16 layers of
+    # two d -> ff and one ff -> d products, timed alone in phase_moe_matrix
+    # at the narrow (64 rows) and the wide (16,384 rows) step's rows.
+    def product_ms(rows):
+        t = {tuple(r["shape"][1:]): r["median_ms"] for r in matrix["shapes"]
+             if r["arch"] == MOE_ARCH and r["shape"][3] == rows}
+        d, ff = cfg.d_model, m.d_ff_expert
+        return cfg.n_layers * (2 * t[(d, ff, rows)] + t[(ff, d, rows)])
+
+    shares = {}
+    for key, name, rows in (("narrow", narrow_name, 8 * m.top_k),
+                            ("wide", wide_name, 8 * cont["first_step_width"] * m.top_k)):
+        ms = product_ms(rows)
+        shares[key] = {"grouped_ms": ms, "replay_ms": graphs[name]["replay_ms"],
+                       "share": ms / graphs[name]["replay_ms"]}
+    cont["grouped_share"] = shares
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cont["peak_mem_gb"] = peak
+    summary = {
+        "arch": cfg.name, "params_b": n_params / 1e9, "peak_mem_gb": peak,
+        "continuous": {k: cont[k] for k in ("tokens_per_s", "mixed_steps", "wide_steps",
+                                            "step_ms_narrow_mean", "step_ms_wide_mean",
+                                            "step_idle", "grouped_share", "first_step_rel_err",
+                                            "first_step_argmax_agree",
+                                            "first_step_rerouted_rel_err",
+                                            "first_step_eager_equals_replay", "launches",
+                                            "library")},
+        "static": {k: static[k] for k in ("tokens_per_s", "prefill_ms_mean",
+                                          "decode_step_ms_mean", "first_prefill_rel_err",
+                                          "first_prefill_argmax_agree",
+                                          "first_prefill_rerouted_rel_err", "bucket", "launches",
+                                          "library")},
+        "static_replay_ms": static["graphs"]["decode"]["replay_ms"],
+    }
+    print("[olmoe] " + json.dumps(summary))
+    for label, rel, control in (
+            ("first mixed step", cont["first_step_rel_err"], cont["first_step_rerouted_rel_err"]),
+            ("first prefill", static["first_prefill_rel_err"],
+             static["first_prefill_rerouted_rel_err"])):
+        print(f"[olmoe] {label}, kernels vs plain versions: logits max |diff| / max |plain| "
+              f"{rel:.3e} (tol {MOE_LOGITS_TOL}); routed past the top k {control:.3e}")
+        if rel > MOE_LOGITS_TOL:
+            raise AssertionError(f"olmoe {label}: kernels differ from the plain versions: {rel}")
+        if control <= MOE_LOGITS_TOL:
+            raise AssertionError(f"olmoe {label}: the logits check cannot tell a wrong router "
+                                 f"from the kernels: {control}")
+    del lm, plain_lm, params
+    torch.cuda.empty_cache()
+    return cont, static
 
 
 def _check_logits(eng, lm):
@@ -3805,6 +4098,9 @@ def main(argv=None) -> int:
     spec = phase_spec_path(cfg, lm, params, fixed)
     del lm, params, fixed, int8_run, tiered_run
     torch.cuda.empty_cache()
+    moe_matrix = phase_moe_matrix(dev_info)
+    moe_cont, moe_static = phase_moe_path(moe_matrix, profile=args.profile)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = phase_train_main(profile=args.profile)
     small = phase_small_model()
@@ -3830,7 +4126,8 @@ def main(argv=None) -> int:
     paths = {"continuous": main_path, "adapt": adapt, "static": static,
              "int8_continuous": int8_cont, "int8_static": int8_static, "optimistic": optimistic,
              "faults": faults, "tiered": tiered, "tier_faults": tier_faults, "spec": spec,
-             "train": train, "mamba2": mamba, "zamba2": zamba,
+             "olmoe_continuous": moe_cont, "olmoe_static": moe_static, "train": train,
+             "mamba2": mamba, "zamba2": zamba,
              "train_mamba2": train_mamba, "train_zamba2": train_zamba}
     by_path = {name: {path: rec["launches"].get(name, 0) for path, rec in paths.items()}
                for name in main_path["launches"]}
@@ -3946,7 +4243,21 @@ def main(argv=None) -> int:
           f"{spec['ngram']['acceptance_rate']:.3f} and {spec['model']['acceptance_rate']:.3f}; "
           f"training mamba2 "
           f"{train_mamba['tokens_per_s'][-1]:.0f} and zamba2 {train_zamba['tokens_per_s'][-1]:.0f} "
-          f"tokens/s, peak {train_mamba['peak_mem_gb']:.2f} and {train_zamba['peak_mem_gb']:.2f} GB")
+          f"tokens/s, peak {train_mamba['peak_mem_gb']:.2f} and "
+          f"{train_zamba['peak_mem_gb']:.2f} GB; "
+          f"olmoe-1b-7b continuous {moe_cont['tokens_per_s']:.1f} and static "
+          f"{moe_static['tokens_per_s']:.1f} tokens/s, peak {moe_cont['peak_mem_gb']:.2f} GB")
+    # The grouped product is a library call (grouped_mm), the counterpart of
+    # XLA's ragged_dot: not a kernel of this repository, so not in the list
+    # of kernels below.
+    print(json.dumps({"library_calls": [{
+        "name": "ragged_dot", "route": "torch.nn.functional.grouped_mm",
+        "replaces": "jax.lax.ragged_dot in src/repro/models/moe.py:_moe_dropless (XLA, no "
+                    "Pallas kernel)",
+        "launches_by_path": {"olmoe_continuous": moe_cont["library"]["ragged_dot"],
+                             "olmoe_static": moe_static["library"]["ragged_dot"]},
+        "max_abs_err": moe_matrix["worst"], "shifted_offsets_min_err": moe_matrix["shifted_min"],
+        "shapes": moe_matrix["shapes"]}]}))
     print(dev_info["smi"])
     print("checked kernels: " + json.dumps([k["name"] for k in kernels]))
     print(json.dumps({"kernels": kernels}))

@@ -14,10 +14,13 @@ module on machines without ``nvcc``.
 
 ``launch_counts`` holds one integer per kernel. A wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
-went through the kernel. A CUDA graph capture calls the wrappers without
-running their kernels: it takes what it issued back out of the counts
-(``recording``) and adds it again at each replay (``add_launches``), so the
-counts stay the launches the card ran.
+went through the kernel. ``library_counts`` counts, apart from those, the
+library calls that stand for a product the JAX package left to XLA (the
+MoE's grouped product, ``ops.ragged_dot``), one where each is issued. A
+CUDA graph capture calls the wrappers without running their kernels: it
+takes what it issued back out of both counts (``recording``) and adds it
+again at each replay (``add_launches``), so the counts stay the launches
+the card ran.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ __all__ = [
     "build_all",
     "load",
     "launch_counts",
+    "library_counts",
     "reset_launch_counts",
     "recording",
     "add_launches",
@@ -143,33 +147,40 @@ KERNELS = {
 ORDER_CODES = {"cyclic": 0, "sawtooth": 1, "block_snake": 2}
 
 launch_counts = {name: 0 for name in KERNELS}
+# Library calls on the card, counted like launches but not kernels of this
+# repository: ``ragged_dot`` is one ``torch.nn.functional.grouped_mm``.
+library_counts = {"ragged_dot": 0}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    """Zero ``launch_counts`` and ``library_counts``."""
+    for counts in (launch_counts, library_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 @contextlib.contextmanager
 def recording():
     """Yields a dict that receives, when the block ends, the launches each
     wrapper issued inside it; those are taken back out of
-    ``launch_counts`` (a graph capture issues launches the card does not
-    run until a replay)."""
-    before = dict(launch_counts)
+    ``launch_counts`` and ``library_counts`` (a graph capture issues
+    launches the card does not run until a replay)."""
+    before = [dict(counts) for counts in (launch_counts, library_counts)]
     issued: dict[str, int] = {}
     try:
         yield issued
     finally:
-        issued.update({name: launch_counts[name] - n for name, n in before.items()})
-        launch_counts.update(before)
+        for counts, was in zip((launch_counts, library_counts), before):
+            issued.update({name: counts[name] - n for name, n in was.items()})
+            counts.update(was)
 
 
 def add_launches(counts: dict) -> None:
-    """Count ``counts`` (kernel -> launches) as run: a replay's launches."""
+    """Count ``counts`` (kernel or library call -> launches) as run: a
+    replay's launches."""
     for name, n in counts.items():
-        launch_counts[name] += n
+        (library_counts if name in library_counts else launch_counts)[name] += n
 
 
 def _nvcc() -> str:

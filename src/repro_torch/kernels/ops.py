@@ -2,7 +2,10 @@
 
 A port of ``repro.kernels.ops``: ``attention`` (the full-sequence forward
 of ``LM.prefill``), ``attention_decode`` (contiguous single-token decode
-and ragged paged chunks) and ``ssd`` (the Mamba-2 chunked scan). ``impl``:
+and ragged paged chunks) and ``ssd`` (the Mamba-2 chunked scan); and
+``ragged_dot``, the MoE's grouped product (the reference's
+``jax.lax.ragged_dot``, which XLA compiles outside any Pallas kernel).
+``impl``:
 
   * ``"auto"``      — by the tensors' device: the CUDA kernel for CUDA
     tensors, the plain PyTorch version for CPU tensors;
@@ -36,6 +39,12 @@ sequential oracle (``kernels.ref.ssd_ref``). The JAX package has no backward
 kernel for the SSD, so neither has the port: whatever the forward impl, the
 backward re-runs ``ssd_chunked`` under autograd on the saved inputs, as the
 reference's does (``repro/kernels/ops.py:316-321``).
+
+``ragged_dot`` takes ``auto``, ``cuda`` and ``torch`` only: ``cuda`` is one
+``torch.nn.functional.grouped_mm`` (bf16, offsets on the device; a library
+call, counted in ``cuda_lib.library_counts`` apart from the hand-written
+kernels), ``torch`` a masked product per group that reads no value on the
+host, so a captured step could hold either.
 """
 
 from __future__ import annotations
@@ -43,23 +52,25 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.attention import decode_attention, flash_attention, flash_attention_bwd
 from repro_torch.core.schedule import Order
+from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels.flash_decode import flash_decode_fwd
 from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
 from repro_torch.kernels.ssd import ssd_fwd
 
-__all__ = ["attention", "attention_decode", "ssd"]
+__all__ = ["attention", "attention_decode", "ssd", "ragged_dot"]
 
 _IMPLS = ("auto", "cuda", "torch", "reference")
-_ATTN_IMPLS = _IMPLS + ("recompute",)
+_VALID = {"attention": _IMPLS + ("recompute",), "ragged_dot": ("auto", "cuda", "torch")}
 _JAX_IMPLS = ("pallas", "pallas_interpret", "xla", "jnp")
 
 
 def _resolve(impl: str, q: torch.Tensor, what: str) -> str:
-    valid = _ATTN_IMPLS if what == "attention" else _IMPLS
+    valid = _VALID.get(what, _IMPLS)
     if impl in _JAX_IMPLS:
         raise ValueError(
             f"unknown {what} impl {impl!r}: that is a backend of the JAX package; "
@@ -247,3 +258,34 @@ def ssd(
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, dt, a, b, c, init_state))
     return _SSD.apply(x, dt, a, b, c, init_state, impl, chunk, grad)
+
+
+def _ragged_dot_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """Each row's product with its group's matrix, one masked product a
+    group: the row-to-group map comes from the offsets on the device, so
+    nothing is read on the host. Rows past the last group stay zero."""
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int64)
+    group = torch.searchsorted(offs, torch.arange(x.shape[0], device=x.device), right=True)
+    out = x.new_zeros((x.shape[0], w.shape[2]))
+    for g in range(w.shape[0]):
+        out = torch.where((group == g)[:, None], x @ w[g], out)
+    return out
+
+
+def ragged_dot(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+               impl: str = "auto") -> torch.Tensor:
+    """Grouped product, as ``jax.lax.ragged_dot``: x (M, K) with its rows
+    sorted by group, w (G, K, N), group_sizes (G,) ints summing to at most
+    M -> (M, N) in x's dtype, rows of group g times ``w[g]``. ``cuda`` takes
+    bf16 CUDA tensors only and raises on anything else."""
+    impl = _resolve(impl, x, "ragged_dot")
+    if impl == "torch":
+        return _ragged_dot_plain(x, w, group_sizes)
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"ragged_dot impl='cuda' takes bfloat16 operands, got {x.dtype} and "
+                         f"{w.dtype}")
+    if not (w.is_cuda and group_sizes.is_cuda):
+        raise ValueError("ragged_dot impl='cuda' needs w and group_sizes on the card too")
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    cuda_lib.library_counts["ragged_dot"] += 1
+    return F.grouped_mm(x, w, offs=offs)

@@ -6,12 +6,17 @@
   logits, caches   = lm.prefill(params, {"tokens": tokens}, max_len)
   logits, caches   = lm.decode_step(params, tokens, caches)
 
-The port trains and serves the dense decoder-only family: ``loss`` is the
-next-token cross-entropy of the training step (differentiable, with the
-layers under the config's rematerialization); ``prefill`` (the static serve
-path) builds contiguous caches, or paged ones when ``cfg.kv_layout`` is
-``"paged"``; ``decode_step`` is the single-token step over contiguous caches
-or the ragged chunk step over a paged pool.
+The port trains and serves the dense and MoE decoder-only families:
+``loss`` is the next-token cross-entropy of the training step
+(differentiable, with the layers under the config's rematerialization);
+``prefill`` (the static serve path) builds contiguous caches, or paged ones
+when ``cfg.kv_layout`` is ``"paged"``; ``decode_step`` is the single-token
+step over contiguous caches or the ragged chunk step over a paged pool.
+The MoE family (``models.moe``) swaps the FFN, as the reference's
+``_ffn_fn_for``: ``loss`` runs the capacity path and adds its auxiliary
+losses; ``prefill`` and ``decode_step`` run the dropless grouped-product
+path where ``cfg.moe_serve_dropless`` is set (the default), the capacity
+path otherwise, and drop the aux.
 
 It serves the SSM (Mamba-2) and hybrid (Zamba2) families on the static
 path: ``prefill`` returns ``{"mamba": {"conv", "ssd"}, "len"}`` with the
@@ -20,8 +25,7 @@ plus the shared block's contiguous KV caches ``attn``, one per application
 site), and ``decode_step`` is the exact recurrent step, writing the states
 in place. Every ``len`` is a 0-d int32 tensor on the device, so no decode
 step reads a host value (the serve engine captures it as a CUDA graph).
-Their ``loss`` is the reference's; training them on the card is a later
-slice. MoE, enc-dec and VLM are later slices too.
+Their ``loss`` is the reference's. Enc-dec and VLM are later slices.
 """
 
 from __future__ import annotations
@@ -35,13 +39,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 
 __all__ = ["LM", "build_model"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-_PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,26 +107,46 @@ def _head_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _ffn_fn_for(cfg: ModelConfig, *, serve: bool = False):
+    """The FFN ``T.stack_*`` take: None (the dense SwiGLU) or the MoE's,
+    dropless when serving with ``cfg.moe_serve_dropless``."""
+    if cfg.moe is None:
+        return None
+    dropless = serve and cfg.moe_serve_dropless
+    return lambda p, c, h: MOE.moe_apply(p, c, h, dropless=dropless)
+
+
+def _ffn_init_for(cfg: ModelConfig):
+    if cfg.moe is None:
+        return None
+    return lambda gen: MOE.moe_init(gen, cfg)
+
+
 def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
+    ffn_fn = _ffn_fn_for(cfg)
+    ffn_fn_serve = _ffn_fn_for(cfg, serve=True)
+
     def init(seed=0) -> dict:
         """Random params on ``device`` at the reference's scales, drawn from
         ``seed`` (an int or a ``torch.Generator`` on ``device``)."""
         gen = _generator(seed, device)
         pd = cfg.parameter_dtype()
         p = _head_init(gen, cfg)
-        p["layers"] = T.stack_init(gen, cfg, cfg.n_layers)
+        p["layers"] = T.stack_init(gen, cfg, cfg.n_layers, ffn_init_fn=_ffn_init_for(cfg))
         p["ln_f"] = L.rmsnorm_init(cfg.d_model, pd, device)
         return p
 
     def loss(params, batch: dict):
         """batch ``{"tokens": (B, S)}`` (a tensor or a numpy array) -> (loss,
         metrics): the mean next-token cross-entropy with the reference's
-        z-loss, differentiable with respect to ``params``."""
+        z-loss, plus the MoE's auxiliary losses (metric ``aux_loss``),
+        differentiable with respect to ``params``."""
         tokens = torch.as_tensor(batch["tokens"], device=device)
         x = _embed_tokens(params, cfg, tokens)
         b, s = tokens.shape
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=device)
-        h, aux = T.stack_apply(params["layers"], cfg, x, _positions(b, s, device))
+        h, aux = T.stack_apply(params["layers"], cfg, x, _positions(b, s, device),
+                               ffn_apply_fn=ffn_fn)
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return _lm_loss(params, cfg, tokens, h, mask=mask, aux=aux)
 
@@ -133,7 +158,8 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
         tokens = batch["tokens"]
         x = _embed_tokens(params, cfg, tokens)
         b, s = tokens.shape
-        h, caches = T.stack_prefill(params["layers"], cfg, x, _positions(b, s, x.device), max_len)
+        h, caches = T.stack_prefill(params["layers"], cfg, x, _positions(b, s, x.device), max_len,
+                                    ffn_apply_fn=ffn_fn_serve)
         h = L.rmsnorm(params["ln_f"], h[:, -1:], cfg.norm_eps)
         return _logits(params, cfg, h), caches
 
@@ -143,7 +169,7 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
         place (see ``T.stack_decode``): C = 1 over contiguous caches, a
         ragged chunk over a paged pool."""
         x = _embed_tokens(params, cfg, tokens)
-        h, caches = T.stack_decode(params["layers"], cfg, x, caches)
+        h, caches = T.stack_decode(params["layers"], cfg, x, caches, ffn_apply_fn=ffn_fn_serve)
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return _logits(params, cfg, h), caches
 
@@ -236,7 +262,7 @@ def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
 def build_model(cfg: ModelConfig, device="cuda") -> LM:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; expected one of {FAMILIES}")
-    if cfg.family not in _PORTED_FAMILIES or cfg.moe is not None:
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP §A13); the port "
             f"serves {_PORTED_FAMILIES}"

@@ -1,4 +1,5 @@
-"""Dense decoder stack: GQA attention with RoPE and SWA, SwiGLU FFN, the
+"""Decoder stack: GQA attention with RoPE and SWA, SwiGLU FFN (or the
+caller's, ``ffn_apply_fn``/``ffn_init_fn``: the MoE family's), the
 training forward (``stack_apply``, with per-layer rematerialization), the
 full-sequence prefill that builds KV caches, and the decode steps over
 contiguous caches (the static serve path) and paged pools (the ragged chunk
@@ -411,18 +412,33 @@ def ffn_apply(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return L.dense(p["w_down"], torch.nn.functional.silu(g) * u, dtype=dt)
 
 
-def layer_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def layer_init(gen: torch.Generator, cfg: ModelConfig, *, ffn_init_fn=None) -> dict:
+    """One layer's params; ``ffn_init_fn(gen)`` makes its FFN (default the
+    dense SwiGLU's; the MoE family passes ``moe_init``)."""
     pd = cfg.parameter_dtype()
+    f_init = ffn_init_fn or (lambda g: ffn_init(g, cfg))
     return {
         "ln_attn": L.rmsnorm_init(cfg.d_model, pd, gen.device),
         "attn": attn_init(gen, cfg),
         "ln_ffn": L.rmsnorm_init(cfg.d_model, pd, gen.device),
-        "ffn": ffn_init(gen, cfg),
+        "ffn": f_init(gen),
     }
 
 
-def stack_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int) -> list[dict]:
-    return [layer_init(gen, cfg) for _ in range(n_layers)]
+def stack_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int, *,
+               ffn_init_fn=None) -> list[dict]:
+    return [layer_init(gen, cfg, ffn_init_fn=ffn_init_fn) for _ in range(n_layers)]
+
+
+def _ffn(ffn_apply_fn, lp: dict, cfg: ModelConfig, h: torch.Tensor):
+    """The layer's FFN on the normed h: (out, aux or None). The dense
+    default is ``ffn_apply``; an ``ffn_apply_fn`` that returns a tuple (the
+    MoE) gives ``(out, aux)``."""
+    xn = L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps)
+    if ffn_apply_fn is None:
+        return ffn_apply(lp["ffn"], cfg, xn), None
+    y = ffn_apply_fn(lp["ffn"], cfg, xn)
+    return y if isinstance(y, tuple) else (y, None)
 
 
 # The products ``remat="dots"`` keeps: a 2-D matrix product, which is what
@@ -468,21 +484,29 @@ def remat_wrap(fn, cfg: ModelConfig):
     return wrapped
 
 
-def _layer_fwd(lp: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _layer_fwd(lp: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+               ffn_apply_fn=None):
+    """(hidden, aux or None) of one layer."""
     h = x + attn_apply(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
                        positions=positions)
-    return h + ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
+    y, aux = _ffn(ffn_apply_fn, lp, cfg, h)
+    return h + y, aux
 
 
-def stack_apply(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+def stack_apply(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+                *, ffn_apply_fn=None):
     """The training forward through every layer, each under ``remat_wrap``.
-    Returns (hidden (B, S, d), aux) with aux 0 (the dense family has no
-    auxiliary loss)."""
+    Returns (hidden (B, S, d), aux): the sum of the layers' auxiliary
+    losses in float32 (the MoE's load-balance and router z terms), 0 for
+    the dense FFN, which has none."""
     h = x
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
-        body = remat_wrap(lambda h_, lp=lp: _layer_fwd(lp, cfg, h_, positions), cfg)
-        h = body(h)
-    return h, torch.zeros((), dtype=torch.float32, device=x.device)
+        body = remat_wrap(lambda h_, lp=lp: _layer_fwd(lp, cfg, h_, positions, ffn_apply_fn), cfg)
+        h, extra = body(h)
+        if extra is not None:
+            aux = aux + extra
+    return h, aux
 
 
 def _layer_cache(caches: dict, i: int) -> dict:
@@ -494,11 +518,13 @@ def _layer_cache(caches: dict, i: int) -> dict:
 
 
 def stack_prefill(
-    layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, max_len: int
+    layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor, max_len: int,
+    *, ffn_apply_fn=None,
 ):
     """Forward of every layer over the whole prompt x (B, S, d), filling
     the KV caches of ``max_len`` positions (allocated once for the stack,
-    see :func:`init_cache`). Returns (hidden (B, S, d), caches)."""
+    see :func:`init_cache`). Returns (hidden (B, S, d), caches); an FFN's
+    aux is dropped, as in the reference."""
     b = x.shape[0]
     caches = init_cache(cfg, b, max_len, device=x.device, n_layers=len(layers))
     h = x
@@ -506,13 +532,14 @@ def stack_prefill(
         xn = L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
         a, (k, v) = attn_apply(lp["attn"], cfg, xn, positions=positions, return_kv=True)
         h = h + a
-        h = h + ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
+        h = h + _ffn(ffn_apply_fn, lp, cfg, h)[0]
         filled = fill_cache(cfg, _layer_cache(caches, i), k, v)
     caches["len"] = filled["len"]
     return h, caches
 
 
-def stack_decode(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, caches: dict):
+def stack_decode(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, caches: dict, *,
+                 ffn_apply_fn=None):
     """One decode step through every layer, caches written in place.
     Paged: ``caches`` holds the pool tensors ``k_pages``/``v_pages`` (L,
     n_pages, page, Hkv, hd) and the per-step ``block_table``, ``len``,
@@ -520,7 +547,8 @@ def stack_decode(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, caches: 
     ``q_len``. Contiguous: ``k``/``v`` (L, B, S, Hkv, hd) and the shared
     ``len`` (0-d), which advances by one. What the layers share (the page
     walk folded once for the step, the write row) comes from one
-    :func:`decode_view`."""
+    :func:`decode_view`. ``ffn_apply_fn`` as in :func:`stack_apply`; an
+    aux is dropped."""
     h = x
     step = decode_view(cfg, caches, *x.shape[:2])
     out = caches
@@ -528,6 +556,6 @@ def stack_decode(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, caches: 
         a, lc = attn_decode(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps),
                             _layer_cache(step, i))
         h = h + a
-        h = h + ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
+        h = h + _ffn(ffn_apply_fn, lp, cfg, h)[0]
         out = dict(caches, len=lc["len"])
     return h, out

@@ -139,7 +139,7 @@ __all__ = [
     "sample_token",
 ]
 
-CONTINUOUS_FAMILIES = ("dense",)
+CONTINUOUS_FAMILIES = ("dense", "moe")
 REQUEST_STATUSES = ("ok", "deadline", "cancelled", "shed", "failed")
 
 # Engine arguments of a feature a later slice ports (A14), with the value
@@ -151,9 +151,10 @@ _UNPORTED = {
 
 
 def supports_continuous(cfg: ModelConfig) -> bool:
-    """Whether ``cfg`` can serve under the port's continuous scheduler: a
-    ported token-only full-attention family."""
-    return cfg.family in CONTINUOUS_FAMILIES and cfg.moe is None and cfg.window is None
+    """Whether ``cfg`` can serve under the continuous scheduler, the
+    reference's predicate: a token-only full-attention family (the paged
+    pool has no ring-buffer or recurrent-state layout)."""
+    return cfg.family in CONTINUOUS_FAMILIES and cfg.window is None
 
 
 @dataclasses.dataclass
@@ -369,10 +370,9 @@ class ServeEngine:
         cfg = lm.cfg
         if scheduler == "continuous" and not supports_continuous(cfg):
             raise NotImplementedError(
-                "continuous scheduling needs a ported token-only full-attention "
-                f"family {CONTINUOUS_FAMILIES} (got family={cfg.family!r}, "
-                f"window={cfg.window}); use scheduler='static' (other families: "
-                "ROADMAP §A13)"
+                "continuous scheduling needs a token-only full-attention family "
+                f"{CONTINUOUS_FAMILIES} with no window (got family={cfg.family!r}, "
+                f"window={cfg.window}); use scheduler='static'"
             )
         # Only full-attention caches are max_len-bounded, as in the
         # reference: sliding-window configs decode into a ring buffer and an

@@ -7,8 +7,9 @@ never imports jax). The reference stacks layer params on leading axes (its
 inits vmap the layer init); the port keeps lists of per-layer dicts, so
 ``"layers"`` is unstacked here, in one of two layouts:
 
-  * stacked (dense, SSM): every leaf (n_layers, ...) -> a list of n_layers
-    dicts;
+  * stacked (dense, MoE, SSM): every leaf (n_layers, ...) -> a list of
+    n_layers dicts (an MoE layer's router a float32 ``dense`` dict, its
+    expert weights (E, d, ff) and (E, ff, d));
   * hybrid, ``{"mamba": leaves (groups, every, ...), "shared": {...}}`` ->
     ``{"mamba": groups lists of every dicts, "shared": as it is}``.
 

@@ -672,3 +672,40 @@ def test_ops_ssd_cuda_matches_torch(cuda):
     assert _rel(out["cuda"][0], out["torch"][0].float()) <= 1e-2
     assert _rel(out["cuda"][1], out["torch"][1]) <= 1e-3
     assert _rel(out["cuda"][2], out["torch"][2].float()) <= 2e-2
+
+
+# ---- ragged_dot: the MoE's grouped product (a library call, not a kernel of ours) -------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,k,n,m", [(64, 2048, 1024, 64), (64, 1024, 2048, 512),
+                                     (8, 4096, 14336, 16), (4, 64, 32, 7)])
+def test_ragged_dot_grouped_mm_matches_plain(cuda, e, k, n, m):
+    """``impl="cuda"`` (``grouped_mm``, offsets on the card) against the
+    plain masked products on the same bf16 inputs, with empty groups;
+    counted once a call in ``library_counts``, never in ``launch_counts``."""
+    g = torch.Generator(device=cuda).manual_seed(e + m)
+    x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
+    w = (torch.randn(e, k, n, device=cuda, generator=g) / k ** 0.5).bfloat16()
+    ids = torch.randint(0, max(1, e // 2), (m,), device=cuda, generator=g)
+    sizes = torch.zeros(e, dtype=torch.int64, device=cuda).scatter_add_(
+        0, ids, torch.ones_like(ids)).to(torch.int32)
+    assert int((sizes == 0).sum()) > 0
+    cuda_lib.reset_launch_counts()
+    got = ops.ragged_dot(x, w, sizes, impl="cuda")
+    want = ops.ragged_dot(x, w, sizes, impl="torch")
+    assert cuda_lib.library_counts["ragged_dot"] == 1 and not any(cuda_lib.launch_counts.values())
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert err < 1e-2, err
+    assert torch.equal(ops.ragged_dot(x, w, sizes), got)   # auto picks cuda on the card
+
+
+@pytest.mark.gpu
+def test_ragged_dot_cuda_refuses_what_it_does_not_take(cuda):
+    x, w = torch.zeros(8, 64, device=cuda), torch.zeros(2, 64, 32, device=cuda)
+    sizes = torch.tensor([4, 4], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.ragged_dot(x, w, sizes, impl="cuda")
+    with pytest.raises(ValueError, match="on the card"):
+        ops.ragged_dot(x.bfloat16(), w.bfloat16(), sizes.cpu(), impl="cuda")

@@ -15,7 +15,8 @@ package's.
   reference's ``test_kv_cache.py`` limit), the caches under 0.75 of bf16's
   bytes.
 * Greedy streams of both engines with int8 caches equal to the
-  reference's, and a copy-on-write fork that copies the scale planes.
+  reference's (olmoe-1b-7b's continuous ones too), and a copy-on-write fork
+  that copies the scale planes.
 """
 
 import numpy as np
@@ -209,7 +210,8 @@ def _specs(vocab, n=6, new=6, seed=7):
 
 @pytest.mark.parametrize("scheduler,arch", [("continuous", "deepseek-7b"),
                                             ("static", "deepseek-7b"),
-                                            ("static", "zamba2-2_7b")])
+                                            ("static", "zamba2-2_7b"),
+                                            ("continuous", "olmoe-1b-7b")])
 def test_int8_greedy_streams_equal_reference(weights, scheduler, arch):
     jlm, jparams, lm, params = _models(weights, arch, **INT8)
     kw = dict(batch_size=2, max_len=96, page_size=8, prefill_chunk=16, scheduler=scheduler)

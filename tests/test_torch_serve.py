@@ -9,7 +9,8 @@ must be equal. Sampled streams cannot match ``jax.random``; the port's are
 held to its own invariants: the same seeds give the same stream whatever the
 neighbours, and draws follow ``softmax(logits / T)`` (a chi-square check).
 The other dense configs (qwen2-72b, codeqwen1_5-7b, llama3-405b, paper-gb10)
-are cases of the stream test.
+and olmoe-1b-7b (MoE, dropless grouped products in every mixed step) are
+cases of the stream test.
 """
 
 import numpy as np
@@ -33,6 +34,8 @@ from repro_torch.testing import params_from_jax
 KW = dict(batch_size=2, max_len=96, page_size=8, prefill_chunk=16)
 # The other dense configs, held to the reference as cases of the stream test.
 OTHER_DENSE = ["qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10"]
+# The MoE config the continuous engine serves (mixtral has a window).
+MOE = ["olmoe-1b-7b"]
 
 
 @pytest.fixture(autouse=True)
@@ -65,8 +68,8 @@ def _specs(vocab, n=6, new=6, seed=7):
 
 @pytest.mark.parametrize("order,arch", [
     ("sawtooth", "deepseek-7b"), ("cyclic", "deepseek-7b"),
-    *[("sawtooth", arch) for arch in OTHER_DENSE],
-], ids=["sawtooth", "cyclic", *OTHER_DENSE])
+    *[("sawtooth", arch) for arch in OTHER_DENSE + MOE],
+], ids=["sawtooth", "cyclic", *OTHER_DENSE, *MOE])
 def test_greedy_streams_and_counters_equal_reference(models, order, arch):
     jlm, jparams, lm, params = models
     if arch != "deepseek-7b":

@@ -15,8 +15,9 @@ port by ``params_from_jax``:
 * The launcher's ``--scheduler static`` and ``auto`` on the CPU.
 
 The other dense configs (qwen2-72b, codeqwen1_5-7b, llama3-405b, paper-gb10
-``.reduced()``, each with its own reference init) are cases of the prefill
-and the engine tests.
+``.reduced()``, each with its own reference init) and the MoE configs
+(olmoe-1b-7b, mixtral-8x7b, whose window makes a ring buffer) are cases of
+the prefill and the engine tests.
 """
 
 import numpy as np
@@ -42,6 +43,8 @@ TOL = dict(atol=2e-4, rtol=2e-4)
 B, S, MAX_LEN = 3, 45, 60
 # The other dense configs, held to the reference as cases of the tests below.
 OTHER_DENSE = ["qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10"]
+# The MoE configs (mixtral through its window's ring buffer), cases of the same.
+MOE = ["olmoe-1b-7b", "mixtral-8x7b"]
 
 
 @pytest.fixture(autouse=True)
@@ -79,8 +82,8 @@ def _close(got: torch.Tensor, want):
     dict(window=32),
     dict(attn_order="cyclic"),
     dict(attn_order="block_snake", snake_group=2, q_block=16, kv_block=16),
-    *[dict(arch=arch) for arch in OTHER_DENSE],
-], ids=["full", "swa", "cyclic", "block_snake", *OTHER_DENSE])
+    *[dict(arch=arch) for arch in OTHER_DENSE + MOE],
+], ids=["full", "swa", "cyclic", "block_snake", *OTHER_DENSE, *MOE])
 def test_prefill_and_decode_match_reference(weights, kw):
     jlm, jparams, lm, params = _models(weights, **kw)
     rng = np.random.default_rng(len(kw))
@@ -89,7 +92,7 @@ def test_prefill_and_decode_match_reference(weights, kw):
     pl, pc = lm.prefill(params, {"tokens": torch.from_numpy(toks)}, MAX_LEN)
     assert pl.shape == (B, 1, lm.cfg.vocab)
     _close(pl, jl)
-    size = 32 if "window" in kw else MAX_LEN
+    size = min(MAX_LEN, lm.cfg.window or MAX_LEN)   # a window's ring buffer
     assert pc["k"].shape == (lm.cfg.n_layers, B, size, lm.cfg.n_kv_heads, lm.cfg.hd)
     for name in ("k", "v"):
         _close(pc[name], jc[name])
@@ -110,7 +113,25 @@ def test_prefill_and_decode_match_reference(weights, kw):
 def test_paged_prefill_fills_pages_like_reference(weights):
     """``fill_cache`` into a paged cache (identity block table), then two
     decode steps through the paged chunk step."""
-    jlm, jparams, lm, params = _models(weights, kv_layout="paged", page_size=8)
+    _paged_prefill_and_decode(*_models(weights, kv_layout="paged", page_size=8))
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_paged_prefill_and_decode_like_reference(weights, arch):
+    """The same for the MoE configs: the prefill's dropless FFN over the
+    whole prompt, then the paged chunk steps. mixtral's window has no paged
+    layout: both packages refuse its paged prefill alike."""
+    models = _models(weights, arch, kv_layout="paged", page_size=8)
+    if models[2].cfg.window is None:
+        _paged_prefill_and_decode(*models)
+        return
+    for lm, p, toks in ((models[0], models[1], jnp.zeros((B, S), jnp.int32)),
+                        (models[2], models[3], torch.zeros((B, S), dtype=torch.int32))):
+        with pytest.raises(ValueError, match="paged KV layout requires full attention"):
+            lm.prefill(p, {"tokens": toks}, MAX_LEN)
+
+
+def _paged_prefill_and_decode(jlm, jparams, lm, params):
     rng = np.random.default_rng(5)
     toks = rng.integers(2, lm.cfg.vocab, size=(B, S)).astype(np.int32)
     jl, jc = jlm.prefill(jparams, {"tokens": jnp.asarray(toks)}, MAX_LEN)
@@ -137,8 +158,8 @@ def _specs(vocab, seed=3):
 
 @pytest.mark.parametrize("order,arch", [
     ("cyclic", "deepseek-7b"), ("sawtooth", "deepseek-7b"), ("block_snake", "deepseek-7b"),
-    *[("sawtooth", arch) for arch in OTHER_DENSE],
-], ids=["cyclic", "sawtooth", "block_snake", *OTHER_DENSE])
+    *[("sawtooth", arch) for arch in OTHER_DENSE + MOE],
+], ids=["cyclic", "sawtooth", "block_snake", *OTHER_DENSE, *MOE])
 def test_static_engine_greedy_streams_equal_reference(weights, order, arch):
     """Groups of 3 (the last one short); rid 2 asks for 0 tokens, rid 3's
     prompt is longer than max_len (its tail is kept and its limit clamped),

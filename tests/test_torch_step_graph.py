@@ -5,10 +5,13 @@ replays, so these tests hold the step functions to what a capture needs:
 
 * no host read inside a step: one step of each captured kind (the
   continuous mixed step at width 1 and at the chunk width; the static
-  decode step of the dense, SSM and hybrid families, and both mixed widths
-  after a traversal-order switch) runs under a dispatch mode that fails on
-  ``aten._local_scalar_dense`` (any ``.item()``, ``int(t)`` or
-  ``bool(t)``);
+  decode step of the dense, MoE, SSM and hybrid families, and both mixed
+  widths after a traversal-order switch and for the MoE family) runs under
+  a dispatch mode that fails on ``aten._local_scalar_dense`` (any
+  ``.item()``, ``int(t)`` or ``bool(t)``) and on the ops that size their
+  output from tensor values (``nonzero``, ``bincount``, ``unique``,
+  boolean-mask indexing, ``repeat_interleave`` with tensor repeats), each
+  of which waits for the device on the card;
 * buffers that outlive ``generate()``: two calls on one engine use the
   same step buffers, pool pages and decode caches (same ``data_ptr``), and
   ``compiled_step_count()`` stays at most 2 (continuous) and 1 (static);
@@ -46,7 +49,6 @@ from repro_torch.serve.step_graph import StepCaptureError, StepGraph
 TOL = dict(atol=2e-4, rtol=2e-4)
 CONT = dict(batch_size=2, max_len=96, page_size=8, prefill_chunk=16)
 STATIC = dict(batch_size=3, max_len=64)
-ARCHS = ["deepseek-7b", "mamba2-130m", "zamba2-2_7b"]
 
 
 @pytest.fixture(autouse=True)
@@ -54,12 +56,29 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+# Ops whose output shape depends on tensor values: on the card each waits
+# for the device to size its output, a host read the CPU's eager run does
+# not show as ``_local_scalar_dense``.
+_SIZED_BY_VALUES = {
+    torch.ops.aten.nonzero.default, torch.ops.aten.bincount.default,
+    torch.ops.aten.masked_select.default, torch.ops.aten._unique2.default,
+    torch.ops.aten.unique_dim.default, torch.ops.aten.unique_consecutive.default,
+    torch.ops.aten.repeat_interleave.Tensor,
+}
+
+
 class NoHostRead(TorchDispatchMode):
-    """Fails on any read of a tensor's value by the host."""
+    """Fails on any read of a tensor's value by the host: ``.item()`` and
+    its kin, an op whose output is sized by values (``nonzero``,
+    ``bincount``, ``unique``, ``repeat_interleave`` with tensor repeats) and
+    boolean-mask indexing."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten._local_scalar_dense.default:
-            raise AssertionError("host read inside a captured step")
+        if func is torch.ops.aten._local_scalar_dense.default or func in _SIZED_BY_VALUES:
+            raise AssertionError(f"host read inside a captured step ({func})")
+        if func is torch.ops.aten.index.Tensor and any(
+                i is not None and i.dtype == torch.bool for i in args[1]):
+            raise AssertionError("host read inside a captured step (boolean mask index)")
         return func(*args, **(kwargs or {}))
 
 
@@ -87,7 +106,10 @@ def test_guard_catches_host_reads():
     """The dispatch-mode guard sees every form of host read a step could
     hide (the contiguous step read ``int(cache["len"])`` before)."""
     t = torch.tensor(3, dtype=torch.int32)
-    for read in (lambda: t.item(), lambda: int(t), lambda: bool(t), lambda: torch.full((2,), t)):
+    v = torch.tensor([2, 0, 1])
+    for read in (lambda: t.item(), lambda: int(t), lambda: bool(t), lambda: torch.full((2,), t),
+                 lambda: torch.bincount(v, minlength=4), lambda: v.nonzero(),
+                 lambda: v[v > 0], lambda: torch.unique(v), lambda: v.repeat_interleave(v)):
         with pytest.raises(AssertionError, match="host read"):
             with NoHostRead():
                 read()
@@ -96,17 +118,25 @@ def test_guard_catches_host_reads():
 @pytest.mark.parametrize("kind", ["mixed/1", "mixed/16", "deepseek-7b", "mamba2-130m",
                                   "zamba2-2_7b", "mixed/1 after a switch",
                                   "mixed/16 after a switch", "mixed/1 int8", "mixed/16 int8",
-                                  "deepseek-7b int8", "zamba2-2_7b int8"])
+                                  "deepseek-7b int8", "zamba2-2_7b int8", "mixed/1 olmoe-1b-7b",
+                                  "mixed/16 olmoe-1b-7b", "olmoe-1b-7b", "mixtral-8x7b",
+                                  "olmoe-1b-7b capacity"])
 def test_captured_steps_read_no_host_value(kind):
     """One step of each kind, on the inputs and state its engine left, runs
     under the guard; it is the function the card captures. After an order
     switch (forced at the third mixed step, sawtooth to cyclic) both widths
     have run with the new reversal group staged, and still read nothing.
     With int8 KV caches the steps quantize what they write and dequantize
-    the caches they read, and still read nothing."""
+    the caches they read, and still read nothing. The MoE steps route,
+    sort and run the grouped products (olmoe's mixed steps, olmoe's and
+    mixtral's static decode; the capacity path too, served with
+    ``moe_serve_dropless`` off) and read nothing either."""
     cfg_kw = {"kv_cache_dtype": "int8"} if kind.endswith("int8") else None
+    if kind.endswith("capacity"):
+        cfg_kw = {"moe_serve_dropless": False}
     if kind.startswith("mixed"):
-        eng = _engine("deepseek-7b", "continuous", cfg_kw=cfg_kw)
+        arch = kind.split()[-1] if kind.endswith("olmoe-1b-7b") else "deepseek-7b"
+        eng = _engine(arch, "continuous", cfg_kw=cfg_kw)
     else:
         eng = _engine(kind.split()[0], "static", cfg_kw=cfg_kw)
     if kind.endswith("after a switch"):
@@ -114,7 +144,7 @@ def test_captured_steps_read_no_host_value(kind):
         ctl.enabled = True
         ctl.maybe_adapt = lambda n, *a, **k: n == 3 and ctl.switch_to("cyclic") is None
     eng.generate([Request(**s) for s in _specs(eng.lm.cfg.vocab)])
-    step = eng.step_graphs()["decode" if kind.split()[0] in ARCHS else kind.split()[0]]
+    step = eng.step_graphs()["decode" if not kind.startswith("mixed") else kind.split()[0]]
     if kind.endswith("after a switch"):
         assert eng.order_ctl.switches == 1 and eng.compiled_step_count() == 2
         assert int(step.inputs["order_group"]) == 1  # cyclic, staged after the switch
@@ -271,7 +301,9 @@ CARD_KW = dict(dtype="bfloat16", param_dtype="bfloat16", d_model=256, n_heads=4,
                                                ("static", "mamba2-130m", "bfloat16"),
                                                ("static", "zamba2-2_7b", "bfloat16"),
                                                ("continuous", "deepseek-7b", "int8"),
-                                               ("static", "deepseek-7b", "int8")])
+                                               ("static", "deepseek-7b", "int8"),
+                                               ("continuous", "olmoe-1b-7b", "bfloat16"),
+                                               ("static", "olmoe-1b-7b", "bfloat16")])
 def test_replay_equals_eager_on_card(cuda, scheduler, arch, kv):
     from repro_torch.kernels import cuda_lib
 
@@ -293,6 +325,12 @@ def test_replay_equals_eager_on_card(cuda, scheduler, arch, kv):
         assert {g.launches[key] for g in graphs.values()} == {sites}
         ran = sum(g.launches[key] * (g.replays - replays[name]) for name, g in graphs.items())
         assert cuda_lib.launch_counts[key] == ran > 0
+    if arch == "olmoe-1b-7b":   # three grouped products a layer, in every graph and prefill
+        per_pass = 3 * eng.lm.cfg.n_layers
+        assert {g.launches["ragged_dot"] for g in graphs.values()} == {per_pass}
+        ran = sum(per_pass * (g.replays - replays[name]) for name, g in graphs.items())
+        prefills = 0 if scheduler == "continuous" else -(-len(specs) // STATIC["batch_size"])
+        assert cuda_lib.library_counts["ragged_dot"] == ran + per_pass * prefills and ran > 0
     for name, g in graphs.items():
         diffs = g.replay_against_eager()
         assert all(d["equal"] for d in diffs.values()), (name, diffs)

@@ -35,6 +35,7 @@ from repro.core.schedule import future_visit_window as ref_future_visit_window
 from repro.models import build_model as ref_build_model
 from repro.serve import FaultPlan as RefFaultPlan
 from repro.serve import HostPageStore as RefHostPageStore
+from repro.serve import PoolExhausted as RefPoolExhausted
 from repro.serve import Request as RefRequest
 from repro.serve import ServeEngine as RefEngine
 from repro.serve import TieredPagePool as RefTiered
@@ -400,7 +401,7 @@ def test_cross_tier_lifecycle_lock_step_walk(seed):
                 try:
                     p.ensure_writable(slot, n)
                     raised.append(False)
-                except PoolExhausted:
+                except (PoolExhausted, RefPoolExhausted):   # each package its own
                     raised.append(True)
             assert raised[0] == raised[1]
             if raised[0]:

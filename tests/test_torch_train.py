@@ -11,7 +11,8 @@ packages generate bit for bit alike.
   loss), also under ``remat="full"`` and ``remat="dots"``, with
   ``attn_impl="recompute"`` (the reference's ``"jnp"``), for a GQA (1 kv
   head) and a sliding-window (32) variant, and for the other dense configs
-  (qwen2-72b, codeqwen1_5-7b, llama3-405b, paper-gb10).
+  (qwen2-72b, codeqwen1_5-7b, llama3-405b, paper-gb10) and the MoE configs
+  (olmoe-1b-7b, mixtral-8x7b: the capacity path and its aux losses).
 * The optimizers, ``adamw`` and ``adamw_factored``, fed the same numpy
   gradients: params and moments after two steps equal the reference's to
   float32 rounding (Adam's first step is about lr * sign(g), so the two are
@@ -147,12 +148,14 @@ def test_cross_entropy_equals_reference():
 
 
 @pytest.mark.parametrize("variant", ["dense", "gqa", "swa", "remat", "dots", "recompute",
-                                     "qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10"])
+                                     "qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10",
+                                     "olmoe-1b-7b", "mixtral-8x7b"])
 def test_loss_and_step0_grads_equal_reference(dense, variant):
     """LM.loss within 1e-5 relative and d loss / d params within 1e-4; the
     variants of deepseek-7b (``dots``: remat "dots" in both packages;
     ``recompute``: the port's attention impl against the reference's
-    "jnp"), then the other dense configs."""
+    "jnp"), then the other dense configs and the MoE configs (the capacity
+    path, its ``aux_loss`` metric added to the loss)."""
     if variant == "dense":
         jlm, jparams, lm, batches = dense
     else:
@@ -176,6 +179,7 @@ def test_loss_and_step0_grads_equal_reference(dense, variant):
     assert set(got_m) == set(want_m)
     for k in want_m:
         np.testing.assert_allclose(got_m[k].item(), float(want_m[k]), rtol=1e-5)
+    assert (got_m["aux_loss"].item() > 0) == (lm.cfg.moe is not None)
     grads = torch.autograd.grad(got, leaves)
     gtree = [(path, g) for (path, _), g in zip(named_leaves(params), grads)]
     for path, g in gtree:
