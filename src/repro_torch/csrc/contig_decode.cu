@@ -31,7 +31,7 @@
 // cp.async (zeros at and past the length), the next tile in flight while
 // the current one is computed on the CUDA cores, every warp on 16 of the
 // tile's positions for all R rows. Head dims 64, 80 (zamba2's shared
-// attention) and 128. With `visit`, each CTA records the first position of
+// attention), 96 (phi-3-vision) and 128. With `visit`, each CTA records the first position of
 // every tile it walked (-1 past its segment):
 // kernels/flash_decode.py::contig_decode_walks is the host model.
 
@@ -198,7 +198,7 @@ cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, cons
                       void* out, int* visit, int B, int S_max, int Hq, int Hkv, int D,
                       int window, int chunk, int order, int snake, float scale, int splits,
                       int* dev) {
-  if ((D != 64 && D != 80 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || S_max <= 0 ||
+  if ((D != 64 && D != 80 && D != 96 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || S_max <= 0 ||
       chunk <= 0)
     return cudaErrorInvalidValue;
   int sms = 0;
@@ -231,6 +231,7 @@ cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, cons
 cudaError_t run(const Args& a, int B, int D, int dev, cudaStream_t st) {
   if (D == 128) return launch_rows<128>(a, B, dev, st);
   if (D == 80) return launch_rows<80>(a, B, dev, st);
+  if (D == 96) return launch_rows<96>(a, B, dev, st);
   return launch_rows<64>(a, B, dev, st);
 }
 
@@ -297,6 +298,8 @@ extern "C" int contig_decode_attr(int B, int S_max, int Hq, int Hkv, int D, int 
     REPRO_ATTR(128)
   } else if (D == 80) {
     REPRO_ATTR(80)
+  } else if (D == 96) {
+    REPRO_ATTR(96)
   } else {
     REPRO_ATTR(64)
   }

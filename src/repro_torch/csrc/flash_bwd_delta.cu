@@ -15,9 +15,10 @@
 // bytes a row) for 2 * D flops, far below the 295 flops a byte at which the
 // tensor cores would be the limit. Design: D / 8 lanes a row load 16 bytes
 // of o and of dO each, inside a group of the next power of two of lanes (16
-// at D 80, zamba2's head dim: lanes 10-15 add zeros), and a shuffle sum runs
-// across the group; a warp covers 2 (D 128 and 80) or 4 (D 64) whole rows,
-// so every load is coalesced.
+// at D 80, zamba2's head dim, lanes 10-15 adding zeros; 16 at D 96,
+// phi-3-vision's, lanes 12-15 adding zeros), and a shuffle sum runs across
+// the group; a warp covers 2 (D 128, 96 and 80) or 4 (D 64) whole rows, so
+// every load is coalesced.
 
 #include "common.cuh"
 
@@ -83,6 +84,7 @@ extern "C" int flash_bwd_delta_bf16(const void* o, const void* dO, void* delta, 
   if (n_rows <= 0) return 0;
   if (D == 128) return static_cast<int>(launch<128>(o_, do_, d_, n_rows, st));
   if (D == 80) return static_cast<int>(launch<80>(o_, do_, d_, n_rows, st));
+  if (D == 96) return static_cast<int>(launch<96>(o_, do_, d_, n_rows, st));
   if (D == 64) return static_cast<int>(launch<64>(o_, do_, d_, n_rows, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -62,15 +62,16 @@
 // starts.
 //
 // Head dims: 64 (one 128-byte panel a row) and 128 (two panels). D 80
-// (zamba2's shared attention) runs the D 128 layout, as the forward (B2)
-// does, in the same shared memory: the tensor maps' innermost extent is
-// 80, so TMA writes zeros into columns 80-127 of every K, V, Q and dO
-// tile; S^T = K Q^T and dP^T = V dO^T take only the 5 k-steps that hold
-// data (their own instantiation: the k-step count is a template parameter,
-// since a wgmma issued under a runtime condition makes ptxas serialise
-// every product); dV = P^T dO and dK = dS^T Q compute 128 columns, of
-// which the TMA stores write 80. Its cost: 3/8 of those two products is
-// spent on zeros.
+// (zamba2's shared attention) and 96 (phi-3-vision's) run the D 128
+// layout, as the forward (B2) does, in the same shared memory: the tensor
+// maps' innermost extent is D, so TMA writes zeros into columns D-127 of
+// every K, V, Q and dO tile; S^T = K Q^T and dP^T = V dO^T take only the D
+// / 16 k-steps that hold data (5 and 6, each its own instantiation: the
+// k-step count is a template parameter, since a wgmma issued under a
+// runtime condition makes ptxas serialise every product); dV = P^T dO and
+// dK = dS^T Q compute 128 columns, of which the TMA stores write D. Its
+// cost: 3/8 (D 80) and 1/4 (D 96) of those two products is spent on
+// zeros.
 //
 // What bounds it on this card: at the training shape (B 4, S 1024, 32 heads
 // of 128, causal) the four products over the visible (query, key) pairs take
@@ -543,6 +544,7 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
   if (a.n_units <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 128) return static_cast<int>(launch<128, 8>(q, k, v, dO, dk, dv, a, B, D, st));
   if (D == 80) return static_cast<int>(launch<128, 5>(q, k, v, dO, dk, dv, a, B, D, st));
+  if (D == 96) return static_cast<int>(launch<128, 6>(q, k, v, dO, dk, dv, a, B, D, st));
   if (D == 64) return static_cast<int>(launch<64, 4>(q, k, v, dO, dk, dv, a, B, D, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -555,9 +557,10 @@ extern "C" int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, c
 extern "C" int flash_bwd_dkv_attr(int D, int* out) {
   cudaFuncAttributes fa;
   cudaError_t err;
-  if (D == 128 || D == 80) {
-    err = cudaFuncGetAttributes(&fa, D == 128 ? flash_bwd_dkv_kernel<128, 8>
-                                              : flash_bwd_dkv_kernel<128, 5>);
+  if (D == 128 || D == 80 || D == 96) {
+    err = cudaFuncGetAttributes(&fa, D == 128  ? flash_bwd_dkv_kernel<128, 8>
+                                     : D == 96 ? flash_bwd_dkv_kernel<128, 6>
+                                               : flash_bwd_dkv_kernel<128, 5>);
     out[1] = (int)Layout<128>::kAlloc;
   } else if (D == 64) {
     err = cudaFuncGetAttributes(&fa, flash_bwd_dkv_kernel<64, 4>);

@@ -52,14 +52,14 @@
 // while the next item starts; lse goes out by row.
 //
 // Head dims: 64 (one 128-byte panel a row) and 128 (two panels). D 80
-// (zamba2's shared attention) runs the D 128 layout: the tensor maps'
-// innermost extent is 80, so TMA writes zeros into columns 80-127; S takes
-// only the 5 k-steps that hold data (its own instantiation: the k-step
-// count is a template parameter, since a wgmma issued under a runtime
-// condition makes ptxas serialise every product), P V computes 128
-// columns of which the TMA store writes 80. Its cost: 3/8 of the P V
-// product is spent on zeros, and each tile takes the shared memory of D
-// 128.
+// (zamba2's shared attention) and 96 (phi-3-vision's) run the D 128
+// layout: the tensor maps' innermost extent is D, so TMA writes zeros into
+// columns D-127; S takes only the D / 16 k-steps that hold data (5 and 6;
+// each its own instantiation: the k-step count is a template parameter,
+// since a wgmma issued under a runtime condition makes ptxas serialise
+// every product), P V computes 128 columns of which the TMA store writes
+// D. Its cost: 3/8 (D 80) and 1/4 (D 96) of the P V product is spent on
+// zeros, and each tile takes the shared memory of D 128.
 //
 // What bounds it on this card: at the training shape (B 4, S 1024, 32
 // heads of 128, causal) the causal flops (34.4 GFLOP) at the bf16 peak take
@@ -609,6 +609,7 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
   if (a.n_units <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 128) return static_cast<int>(launch<128, 8>(q, k, v, o, a, B, st));
   if (D == 80) return static_cast<int>(launch<128, 5>(q, k, v, o, a, B, st));
+  if (D == 96) return static_cast<int>(launch<128, 6>(q, k, v, o, a, B, st));
   if (D == 64) return static_cast<int>(launch<64, 4>(q, k, v, o, a, B, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -620,9 +621,10 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v, void*
 extern "C" int flash_fwd_attr(int D, int* out) {
   cudaFuncAttributes fa;
   cudaError_t err;
-  if (D == 128 || D == 80) {
-    err = cudaFuncGetAttributes(&fa, D == 128 ? flash_fwd_kernel<128, 8>
-                                              : flash_fwd_kernel<128, 5>);
+  if (D == 128 || D == 80 || D == 96) {
+    err = cudaFuncGetAttributes(&fa, D == 128  ? flash_fwd_kernel<128, 8>
+                                     : D == 96 ? flash_fwd_kernel<128, 6>
+                                               : flash_fwd_kernel<128, 5>);
     out[1] = (int)Layout<128>::kAlloc;
   } else if (D == 64) {
     err = cudaFuncGetAttributes(&fa, flash_fwd_kernel<64, 4>);

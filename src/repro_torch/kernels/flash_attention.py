@@ -29,10 +29,11 @@ it returns the plain version,
 ``repro_torch.core.attention.flash_attention_bwd``, at one tiling,
 ``BLOCK_M`` x ``BLOCK_N``.
 
-Both directions take head dims 64, 80 and 128. At 80 (zamba2's shared
-attention) the persistent kernels run their 128 layout: TMA fills columns
-80-127 of every tile with zeros, the products that reduce over the head dim
-take the 5 k-steps that hold data, and the stores write 80 columns.
+Both directions take head dims 64, 80, 96 and 128. At 80 (zamba2's shared
+attention) and 96 (phi-3-vision's) the persistent kernels run their 128
+layout: TMA fills columns D-127 of every tile with zeros, the products that
+reduce over the head dim take the D / 16 k-steps that hold data (5, 6),
+and the stores write D columns.
 
 The tile sizes are the kernels', not the config's ``q_block``/``kv_block``
 (512 there, sized for a TPU's vector memory): a 512 x 128 bf16 K tile alone
@@ -94,10 +95,11 @@ KERNEL_TILES = {
     "flash_bwd_dq": (DQ_BLOCK_M, DQ_BLOCK_N),
     "flash_bwd_dkv": (DKV_BLOCK_M, DKV_BLOCK_N),
 }
-# Head dims the kernels take; 80 (zamba2's shared attention) runs the 128
-# layout with the tensor maps' columns 80-127 zero-filled (csrc/flash_fwd.cu).
-_HEAD_DIMS = (64, 80, 128)        # the forward (B2)
-_BWD_HEAD_DIMS = (64, 80, 128)    # the backward (B4-B6)
+# Head dims the kernels take; 80 (zamba2's shared attention) and 96
+# (phi-3-vision's) run the 128 layout with the tensor maps' columns D-127
+# zero-filled (csrc/flash_fwd.cu).
+_HEAD_DIMS = (64, 80, 96, 128)        # the forward (B2)
+_BWD_HEAD_DIMS = (64, 80, 96, 128)    # the backward (B4-B6)
 
 
 def kernel_traversal(

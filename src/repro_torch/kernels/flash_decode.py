@@ -67,7 +67,7 @@ __all__ = [
 ]
 
 _HEAD_DIMS = (64, 128)            # the paged kernel (B1)
-_CONTIG_HEAD_DIMS = (64, 80, 128)  # the contiguous decode (B3)
+_CONTIG_HEAD_DIMS = (64, 80, 96, 128)  # the contiguous decode (B3)
 # The kernels' tiles (csrc/decode_core.cuh): positions of a ring tile, and
 # folded query rows of one of B1's row tiles.
 DECODE_TILE = 64

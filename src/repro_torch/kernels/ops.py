@@ -44,7 +44,10 @@ reference's does (``repro/kernels/ops.py:316-321``).
 ``torch.nn.functional.grouped_mm`` (bf16, offsets on the device; a library
 call, counted in ``cuda_lib.library_counts`` apart from the hand-written
 kernels), ``torch`` a masked product per group that reads no value on the
-host, so a captured step could hold either.
+host, so a captured step could hold either. Both return zeros for the rows
+past the last group when the sizes sum to less than M, as
+``jax.lax.ragged_dot`` does (``grouped_mm`` leaves them unwritten; a
+device-side mask zeroes them).
 """
 
 from __future__ import annotations
@@ -288,4 +291,13 @@ def ragged_dot(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
         raise ValueError("ragged_dot impl='cuda' needs w and group_sizes on the card too")
     offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
     cuda_lib.library_counts["ragged_dot"] += 1
-    return F.grouped_mm(x, w, offs=offs)
+    return _zero_past_groups(F.grouped_mm(x, w, offs=offs), offs)
+
+
+def _zero_past_groups(out: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """``out`` with its rows at or past ``offs[-1]`` (past the last group,
+    which ``grouped_mm`` leaves unwritten) set to zero, as
+    ``jax.lax.ragged_dot`` returns them: a mask made on the device, so
+    nothing is read on the host."""
+    rows = torch.arange(out.shape[0], device=out.device)
+    return out.masked_fill((rows >= offs[-1])[:, None], 0)

@@ -2,11 +2,20 @@
 
   lm = build_model(cfg, device="cuda")
   params           = lm.init(seed)
-  loss, metrics    = lm.loss(params, {"tokens": tokens})
-  logits, caches   = lm.prefill(params, {"tokens": tokens}, max_len)
+  loss, metrics    = lm.loss(params, batch)
+  logits, caches   = lm.prefill(params, batch, max_len)
   logits, caches   = lm.decode_step(params, tokens, caches)
 
-The port trains and serves the dense and MoE decoder-only families:
+Batches, as the reference's (the port has no ``input_specs``: callers build
+them by its rules):
+
+  dense/moe/ssm/hybrid: ``{"tokens": (B, S) int}``
+  vlm:    ``{"tokens": (B, S - P) int, "prefix_embeds": (B, P, d)}``, P =
+          ``min(n_prefix_embeds, max(S // 4, 1))`` in training (the serve
+          engine feeds min(n_prefix_embeds, 8) zero embeddings)
+  encdec: ``{"src_embeds": (B, S_src, d), "tgt_tokens": (B, S) int}``
+
+The port trains and serves every family of the reference. Dense and MoE:
 ``loss`` is the next-token cross-entropy of the training step
 (differentiable, with the layers under the config's rematerialization);
 ``prefill`` (the static serve path) builds contiguous caches, or paged ones
@@ -16,16 +25,19 @@ The MoE family (``models.moe``) swaps the FFN, as the reference's
 ``_ffn_fn_for``: ``loss`` runs the capacity path and adds its auxiliary
 losses; ``prefill`` and ``decode_step`` run the dropless grouped-product
 path where ``cfg.moe_serve_dropless`` is set (the default), the capacity
-path otherwise, and drop the aux.
+path otherwise, and drop the aux. The VLM is the dense decoder with a
+``vision_proj`` of its prefix embeddings, which go before the tokens
+(their positions padded with token 0 and masked out of the loss).
 
-It serves the SSM (Mamba-2) and hybrid (Zamba2) families on the static
-path: ``prefill`` returns ``{"mamba": {"conv", "ssd"}, "len"}`` with the
-states of all layers stacked on a leading axis (hybrid: ``(groups, every)``,
-plus the shared block's contiguous KV caches ``attn``, one per application
-site), and ``decode_step`` is the exact recurrent step, writing the states
-in place. Every ``len`` is a 0-d int32 tensor on the device, so no decode
-step reads a host value (the serve engine captures it as a CUDA graph).
-Their ``loss`` is the reference's. Enc-dec and VLM are later slices.
+The SSM (Mamba-2) and hybrid (Zamba2) families: ``prefill`` returns
+``{"mamba": {"conv", "ssd"}, "len"}`` with the states of all layers stacked
+on a leading axis (hybrid: ``(groups, every)``, plus the shared block's
+contiguous KV caches ``attn``, one per application site), and
+``decode_step`` is the exact recurrent step, writing the states in place.
+The enc-dec family (``models.encdec``): ``prefill`` encodes the source and
+returns ``{"self", "cross"}`` caches, ``decode_step`` attends both. Every
+``len`` is a 0-d int32 tensor on the device, so no decode step reads a
+host value (the serve engine captures it as a CUDA graph).
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
@@ -46,7 +59,6 @@ from repro_torch.models import transformer as T
 __all__ = ["LM", "build_model"]
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +137,7 @@ def _ffn_init_for(cfg: ModelConfig):
 def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
     ffn_fn = _ffn_fn_for(cfg)
     ffn_fn_serve = _ffn_fn_for(cfg, serve=True)
+    is_vlm = cfg.family == "vlm"
 
     def init(seed=0) -> dict:
         """Random params on ``device`` at the reference's scales, drawn from
@@ -134,17 +147,33 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
         p = _head_init(gen, cfg)
         p["layers"] = T.stack_init(gen, cfg, cfg.n_layers, ffn_init_fn=_ffn_init_for(cfg))
         p["ln_f"] = L.rmsnorm_init(cfg.d_model, pd, device)
+        if is_vlm:
+            p["vision_proj"] = L.dense_init(gen, cfg.d_model, cfg.d_model, dtype=pd)
         return p
 
-    def loss(params, batch: dict):
-        """batch ``{"tokens": (B, S)}`` (a tensor or a numpy array) -> (loss,
-        metrics): the mean next-token cross-entropy with the reference's
-        z-loss, plus the MoE's auxiliary losses (metric ``aux_loss``),
-        differentiable with respect to ``params``."""
+    def _embed_batch(params, batch: dict):
+        """(x (B, S, d), tokens (B, S), loss mask (B, S)); the VLM's
+        projected prefix goes first, over pad tokens 0 and a zero mask."""
         tokens = torch.as_tensor(batch["tokens"], device=device)
         x = _embed_tokens(params, cfg, tokens)
-        b, s = tokens.shape
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=device)
+        if is_vlm:
+            pe = L.dense(params["vision_proj"],
+                         torch.as_tensor(batch["prefix_embeds"], device=device),
+                         dtype=cfg.activation_dtype())
+            b, p = pe.shape[:2]
+            x = torch.cat([pe, x], dim=1)
+            tokens = torch.cat([tokens.new_zeros((b, p)), tokens], dim=1)
+            mask = torch.cat([mask.new_zeros((b, p)), mask], dim=1)
+        return x, tokens, mask
+
+    def loss(params, batch: dict):
+        """batch (tensors or numpy arrays; see the module docstring) ->
+        (loss, metrics): the mean next-token cross-entropy with the
+        reference's z-loss, plus the MoE's auxiliary losses (metric
+        ``aux_loss``), differentiable with respect to ``params``."""
+        x, tokens, mask = _embed_batch(params, batch)
+        b, s = tokens.shape
         h, aux = T.stack_apply(params["layers"], cfg, x, _positions(b, s, device),
                                ffn_apply_fn=ffn_fn)
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
@@ -152,11 +181,11 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
 
     @torch.no_grad()
     def prefill(params, batch: dict, max_len: int):
-        """batch ``{"tokens": (B, S)}`` -> (logits (B, 1, vocab) of the last
-        position, caches of ``max_len`` positions holding the prompt; see
+        """batch ``{"tokens": (B, S)}`` (the VLM's with its prefix) ->
+        (logits (B, 1, vocab) of the last position, caches of ``max_len``
+        positions holding the prompt, the prefix first; see
         ``T.stack_prefill``). Every row's positions are ``0..S-1``."""
-        tokens = batch["tokens"]
-        x = _embed_tokens(params, cfg, tokens)
+        x, tokens, _ = _embed_batch(params, batch)
         b, s = tokens.shape
         h, caches = T.stack_prefill(params["layers"], cfg, x, _positions(b, s, x.device), max_len,
                                     ffn_apply_fn=ffn_fn_serve)
@@ -259,14 +288,56 @@ def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
     return LM(cfg, device, init, loss, prefill, decode_step)
 
 
+def _build_encdec(cfg: ModelConfig, device: torch.device) -> LM:
+    def init(seed=0) -> dict:
+        """Random params on ``device`` at the reference's scales, drawn from
+        ``seed`` (an int or a ``torch.Generator`` on ``device``)."""
+        gen = _generator(seed, device)
+        p = _head_init(gen, cfg)
+        p.update(ED.encdec_init(gen, cfg))
+        p["ln_f"] = L.rmsnorm_init(cfg.d_model, cfg.parameter_dtype(), device)
+        return p
+
+    def _encode(params, batch: dict):
+        src = torch.as_tensor(batch["src_embeds"], device=device).to(cfg.activation_dtype())
+        tgt = torch.as_tensor(batch["tgt_tokens"], device=device)
+        return ED.encode(params, cfg, src), tgt
+
+    def loss(params, batch: dict):
+        """batch ``{"src_embeds": (B, S_src, d), "tgt_tokens": (B, S)}`` ->
+        (loss, metrics): the decoder's next-token cross-entropy (no mask),
+        differentiable through the encoder too."""
+        enc_out, tgt = _encode(params, batch)
+        h = ED.decode_train(params, cfg, _embed_tokens(params, cfg, tgt), enc_out)
+        h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
+        return _lm_loss(params, cfg, tgt, h)
+
+    @torch.no_grad()
+    def prefill(params, batch: dict, max_len: int):
+        """batch as ``loss``'s -> (logits (B, 1, vocab) of the last target
+        position, ``{"self", "cross"}`` caches; see ``ED.encdec_prefill``)."""
+        enc_out, tgt = _encode(params, batch)
+        h, caches = ED.encdec_prefill(params, cfg, _embed_tokens(params, cfg, tgt), enc_out,
+                                      max_len)
+        h = L.rmsnorm(params["ln_f"], h[:, -1:], cfg.norm_eps)
+        return _logits(params, cfg, h), caches
+
+    @torch.no_grad()
+    def decode_step(params, tokens: torch.Tensor, caches: dict):
+        """tokens (B, 1) -> logits (B, 1, vocab); the self caches written in
+        place."""
+        h, caches = ED.encdec_decode(params, cfg, _embed_tokens(params, cfg, tokens), caches)
+        h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
+        return _logits(params, cfg, h), caches
+
+    return LM(cfg, device, init, loss, prefill, decode_step)
+
+
 def build_model(cfg: ModelConfig, device="cuda") -> LM:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}; expected one of {FAMILIES}")
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP §A13); the port "
-            f"serves {_PORTED_FAMILIES}"
-        )
     if cfg.family in ("ssm", "hybrid"):
         return _build_ssm(cfg, resolve_device(device))
+    if cfg.family == "encdec":
+        return _build_encdec(cfg, resolve_device(device))
     return _build_decoder_only(cfg, resolve_device(device))

@@ -83,18 +83,22 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, *, d_in: Optional[int] = N
     }
 
 
-def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
-    """Roped q (B, S, Hq, hd) and k, and v (B, S, Hkv, hd) of x (B, S, d).
-    (The reference's cross-attention arguments come with the enc-dec
-    family, ROADMAP §A13.)"""
+def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_src: torch.Tensor,
+         positions: torch.Tensor, kv_positions: torch.Tensor, *, use_rope: bool = True):
+    """q (B, S, Hq, hd) of x (B, S, d), and k, v (B, Skv, Hkv, hd) of
+    ``kv_src`` (B, Skv, d): x itself for self-attention, the encoder's
+    output for cross-attention. With ``use_rope`` q and k are roped at
+    ``positions`` and ``kv_positions``."""
     dt = cfg.activation_dtype()
     b, s, _ = x.shape
+    skv = kv_src.shape[1]
     hd = cfg.hd
     q = L.dense(p["wq"], x, dtype=dt).reshape(b, s, cfg.n_heads, hd)
-    k = L.dense(p["wk"], x, dtype=dt).reshape(b, s, cfg.n_kv_heads, hd)
-    v = L.dense(p["wv"], x, dtype=dt).reshape(b, s, cfg.n_kv_heads, hd)
-    q = L.rope(q, positions, theta=cfg.rope_theta)
-    k = L.rope(k, positions, theta=cfg.rope_theta)
+    k = L.dense(p["wk"], kv_src, dtype=dt).reshape(b, skv, cfg.n_kv_heads, hd)
+    v = L.dense(p["wv"], kv_src, dtype=dt).reshape(b, skv, cfg.n_kv_heads, hd)
+    if use_rope:
+        q = L.rope(q, positions, theta=cfg.rope_theta)
+        k = L.rope(k, kv_positions, theta=cfg.rope_theta)
     return q, k, v
 
 
@@ -104,20 +108,31 @@ def attn_apply(
     x: torch.Tensor,
     *,
     positions: torch.Tensor,
+    kv_src: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    use_rope: bool = True,
     return_kv: bool = False,
 ):
-    """Full-sequence causal self-attention (training and prefill), windowed
-    for SWA configs. With ``return_kv`` also returns the (roped) k, v (B, S,
-    Hkv, hd)."""
-    q, k, v = _qkv(p, cfg, x, positions)
+    """Full-sequence attention: training, prefill, the encoder
+    (``causal=False``) and cross-attention (``kv_src``, the encoder's output
+    (B, Skv, d), at ``kv_positions``). Causal self-attention is windowed
+    for SWA configs; cross-attention is neither causal nor windowed. With
+    ``return_kv`` also returns k, v (B, Skv, Hkv, hd), roped when
+    ``use_rope``."""
+    cross = kv_src is not None
+    kv_src = x if kv_src is None else kv_src
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _qkv(p, cfg, x, kv_src, positions, kv_positions, use_rope=use_rope)
+    masked = causal and not cross
     o = ops.attention(
         q,
         k,
         v,
         order=cfg.attn_order,
         snake_group=cfg.snake_group,
-        causal=True,
-        window=cfg.window,
+        causal=masked,
+        window=cfg.window if masked else None,
         q_block=cfg.q_block,
         kv_block=cfg.kv_block,
         impl=cfg.attn_impl,
@@ -132,8 +147,14 @@ def attn_apply(
     return out
 
 
-def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict):
+def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
+                cross: bool = False):
     """Decode step of one layer against its cache.
+
+    Cross (``cross=True``, the enc-dec decoder): ``cache`` holds the
+    encoder's static ``k``/``v`` (B, S, Hkv, hd) and ``kv_len``, the
+    positions of them attended (a 0-d int32 tensor); x (B, 1, d) attends
+    them unroped and writes nothing, and ``cache`` comes back as it is.
 
     Paged (``cache`` holds ``k_pages``/``v_pages`` (n_pages, page, Hkv, hd),
     the ``block_table`` (B, n_blocks), ``len`` (B,) tokens already cached,
@@ -148,9 +169,14 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict):
     dt = cfg.activation_dtype()
     b = x.shape[0]
     hd = cfg.hd
+    q = L.dense(p["wq"], x, dtype=dt).reshape(b, -1, cfg.n_heads, hd)
+    if cross:
+        if q.shape[1] != 1:
+            raise ValueError(f"cross decode takes a single query position, got {q.shape[1]}")
+        o = ops.attention_decode(q, cache["k"], cache["v"], cache["kv_len"], impl=cfg.attn_impl)
+        return L.dense(p["wo"], o.reshape(b, 1, -1), dtype=dt), cache
     if "valid" not in cache:
         cache = decode_view(cfg, cache, b, x.shape[1])
-    q = L.dense(p["wq"], x, dtype=dt).reshape(b, -1, cfg.n_heads, hd)
     k = L.dense(p["wk"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
     v = L.dense(p["wv"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
     if "k_pages" in cache:
@@ -485,24 +511,26 @@ def remat_wrap(fn, cfg: ModelConfig):
 
 
 def _layer_fwd(lp: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-               ffn_apply_fn=None):
+               ffn_apply_fn=None, causal: bool = True):
     """(hidden, aux or None) of one layer."""
     h = x + attn_apply(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
-                       positions=positions)
+                       positions=positions, causal=causal)
     y, aux = _ffn(ffn_apply_fn, lp, cfg, h)
     return h + y, aux
 
 
 def stack_apply(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
-                *, ffn_apply_fn=None):
-    """The training forward through every layer, each under ``remat_wrap``.
-    Returns (hidden (B, S, d), aux): the sum of the layers' auxiliary
-    losses in float32 (the MoE's load-balance and router z terms), 0 for
-    the dense FFN, which has none."""
+                *, causal: bool = True, ffn_apply_fn=None):
+    """The training forward through every layer, each under ``remat_wrap``
+    (``causal=False``: the enc-dec encoder). Returns (hidden (B, S, d),
+    aux): the sum of the layers' auxiliary losses in float32 (the MoE's
+    load-balance and router z terms), 0 for the dense FFN, which has
+    none."""
     h = x
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layers:
-        body = remat_wrap(lambda h_, lp=lp: _layer_fwd(lp, cfg, h_, positions, ffn_apply_fn), cfg)
+        body = remat_wrap(lambda h_, lp=lp: _layer_fwd(lp, cfg, h_, positions, ffn_apply_fn,
+                                                       causal), cfg)
         h, extra = body(h)
         if extra is not None:
             aux = aux + extra

@@ -12,7 +12,10 @@ row has hit its EOS or its token limit (``max_len - bucket + 1`` at most).
 As in the reference, SWA configs and the SSM family (whose decode state
 does not grow) are not bounded by ``max_len``: any prompt, any limit.
 As in the reference, every row's positions are ``0..bucket-1`` and the
-pads are attended; decode writes at one shared position. TTFT is measured
+pads are attended; decode writes at one shared position. The frontends are
+the reference's stubs: an enc-dec group gets zero source embeddings of its
+bucket, a VLM group 8 zero prefix embeddings before its tokens (``max_len``
+less those 8 bounds the bucket and the limits). TTFT is measured
 from engine start, so queueing behind earlier groups counts. The
 ``serve.prefill`` and ``serve.decode_step`` spans close once the sampled
 tokens are on the host, so they bracket the device time of the step.
@@ -374,14 +377,19 @@ class ServeEngine:
                 f"{CONTINUOUS_FAMILIES} with no window (got family={cfg.family!r}, "
                 f"window={cfg.window}); use scheduler='static'"
             )
-        # Only full-attention caches are max_len-bounded, as in the
-        # reference: sliding-window configs decode into a ring buffer and an
-        # SSM's decode state is O(1). (The hybrid has full-attention caches.)
+        # The cache capacity model, as in the reference: prefill writes the
+        # bucket and the VLM's prefix embeddings, which go before it. Only
+        # full-attention caches are max_len-bounded: sliding-window configs
+        # decode into a ring buffer and an SSM's decode state is O(1). (The
+        # hybrid has full-attention caches.)
+        self._prefix = min(cfg.n_prefix_embeds, 8) if cfg.family == "vlm" else 0
         bounded = scheduler == "continuous" or (cfg.window is None and cfg.family != "ssm")
-        if bounded and max_len <= 0:
+        if bounded and max_len <= self._prefix:
+            detail = (f"the {self._prefix} VLM prefix embeddings leave no room" if self._prefix
+                      else "it must be positive")
             raise ValueError(
-                f"max_len={max_len} gives a zero-capacity KV cache (it must be "
-                "positive); use max_len > 0"
+                f"max_len={max_len} gives a zero-capacity KV cache ({detail}); "
+                f"use max_len > {self._prefix}"
             )
         if scheduler == "continuous":
             page = min(page_size or cfg.page_size or cfg.kv_block, max_len)
@@ -411,7 +419,7 @@ class ServeEngine:
                           else min(0.85, self._watermark))
         self.drafter = drafter
         self.draft_len = int(draft_len)
-        self._cap = max_len if bounded else None
+        self._cap = max_len - self._prefix if bounded else None
         self._cancelled: set[int] = set()
         self.batch_size = batch_size
         self.max_len = max_len
@@ -586,6 +594,21 @@ class ServeEngine:
             for b in np.flatnonzero(temps > 0.0)
         ])
 
+    def _prefill_batch(self, tokens: np.ndarray) -> dict:
+        """``LM.prefill``'s batch for the padded prompts (B, bucket), with the
+        reference's stubs for the frontends: enc-dec gets zero
+        ``src_embeds`` (B, bucket, d) as its source, the VLM zero
+        ``prefix_embeds`` (B, prefix, d) before its tokens."""
+        cfg = self.lm.cfg
+        t = torch.as_tensor(tokens, device=self.device)
+        kw = dict(dtype=cfg.activation_dtype(), device=self.device)
+        if cfg.family == "encdec":
+            return {"src_embeds": torch.zeros(t.shape + (cfg.d_model,), **kw), "tgt_tokens": t}
+        if cfg.family == "vlm":
+            pe = torch.zeros((t.shape[0], self._prefix, cfg.d_model), **kw)
+            return {"tokens": t, "prefix_embeds": pe}
+        return {"tokens": t}
+
     def _decode_step(self, caches: dict) -> StepGraph:
         """The static decode step over the engine's own caches, holding
         ``caches`` (a group's prefill result) from now on. The first call
@@ -632,8 +655,8 @@ class ServeEngine:
 
         tr = self.tracer
         with tr.span("serve.prefill", rows=n, bucket=bucket):
-            batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
-            logits, caches = self.lm.prefill(self.params, batch, self.max_len)
+            logits, caches = self.lm.prefill(self.params, self._prefill_batch(tokens),
+                                             self.max_len)
             last = logits[:, -1]
             cur = self._sample(last, _argmax(last), temps, seeds, 0)
             step = self._decode_step(caches)

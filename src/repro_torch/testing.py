@@ -4,18 +4,21 @@ and the tie rule that holds two bf16 runs whose sums ran in another order.
 ``params_from_jax`` takes the reference's param pytree with every leaf
 already a numpy array (``jax.tree.map(np.asarray, params)``; this module
 never imports jax). The reference stacks layer params on leading axes (its
-inits vmap the layer init); the port keeps lists of per-layer dicts, so
-``"layers"`` is unstacked here, in one of two layouts:
+inits vmap the layer init); the port keeps lists of per-layer dicts, so the
+layer stacks are unstacked here: ``"layers"`` (every family but enc-dec)
+in one of two layouts, and enc-dec's ``"encoder"`` and ``"decoder"`` as
+the first:
 
-  * stacked (dense, MoE, SSM): every leaf (n_layers, ...) -> a list of
-    n_layers dicts (an MoE layer's router a float32 ``dense`` dict, its
-    expert weights (E, d, ff) and (E, ff, d));
+  * stacked (dense, MoE, SSM, VLM; the enc-dec stacks): every leaf
+    (n_layers, ...) -> a list of n_layers dicts (an MoE layer's router a
+    float32 ``dense`` dict, its expert weights (E, d, ff) and (E, ff, d));
   * hybrid, ``{"mamba": leaves (groups, every, ...), "shared": {...}}`` ->
     ``{"mamba": groups lists of every dicts, "shared": as it is}``.
 
-Any other layout (leaves that do not share their leading axes) raises.
-Dense weights keep their (in, out) layout: the port applies them as ``x @ w``
-too.
+Everything else (the embeddings, heads, norms, the VLM's ``vision_proj``)
+is converted as it is. Any other layout raises: params with no layer stack,
+or a stack whose leaves do not share their leading axes. Dense weights keep
+their (in, out) layout: the port applies them as ``x @ w`` too.
 """
 
 from __future__ import annotations
@@ -44,21 +47,30 @@ def _convert(tree, device):
 
 
 def params_from_jax(params: dict, *, device="cpu") -> dict:
-    """The port's params (nested dicts of tensors on ``device``, layers as a
-    list) from the reference's numpy param pytree."""
-    out = {k: _convert(v, device) for k, v in params.items() if k != "layers"}
-    layers = params["layers"]
-    if isinstance(layers, dict) and set(layers) == {"mamba", "shared"}:
-        g, e = _lead(layers["mamba"], 2)
-        out["layers"] = {
-            "mamba": [[_convert(_index(layers["mamba"], (i, j)), device) for j in range(e)]
-                      for i in range(g)],
-            "shared": _convert(layers["shared"], device),
-        }
-    else:
-        (n_layers,) = _lead(layers, 1)
-        out["layers"] = [_convert(_index(layers, i), device) for i in range(n_layers)]
+    """The port's params (nested dicts of tensors on ``device``, layer
+    stacks as lists) from the reference's numpy param pytree."""
+    stacks = [k for k in _STACKS if k in params]
+    if stacks not in (["layers"], ["encoder", "decoder"]):
+        raise ValueError(
+            f"params_from_jax: expected a 'layers' stack or the enc-dec 'encoder' and "
+            f"'decoder' stacks, found top-level keys {sorted(params)}")
+    out = {k: _convert(v, device) for k, v in params.items() if k not in _STACKS}
+    for name in stacks:
+        layers = params[name]
+        if name == "layers" and isinstance(layers, dict) and set(layers) == {"mamba", "shared"}:
+            g, e = _lead(layers["mamba"], 2)
+            out[name] = {
+                "mamba": [[_convert(_index(layers["mamba"], (i, j)), device) for j in range(e)]
+                          for i in range(g)],
+                "shared": _convert(layers["shared"], device),
+            }
+        else:
+            (n_layers,) = _lead(layers, 1)
+            out[name] = [_convert(_index(layers, i), device) for i in range(n_layers)]
     return out
+
+
+_STACKS = ("layers", "encoder", "decoder")
 
 
 def _lead(tree, k: int) -> tuple:

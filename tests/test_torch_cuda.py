@@ -183,8 +183,8 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         paged_flash_decode_fwd(q, k, k, 4, bt)
     qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        paged_flash_decode_fwd(qb[..., :96].contiguous(), kb[..., :96].contiguous(),
-                               kb[..., :96].contiguous(), 4, bt)
+        paged_flash_decode_fwd(qb[..., :112].contiguous(), kb[..., :112].contiguous(),
+                               kb[..., :112].contiguous(), 4, bt)
     with pytest.raises(ValueError, match="multiple"):
         paged_flash_decode_fwd(torch.zeros((1, 1, 3, 128), dtype=torch.bfloat16, device=cuda),
                                kb, kb, 4, bt)
@@ -256,14 +256,14 @@ def test_flash_fwd_kernel_matches_plain_and_walks_the_traversal(cuda, d, g, caus
     _check_flash_fwd(cuda, d, g, causal, window, sq, skv, seed=sq * 7 + g + d)
 
 
-# The forward matrix of chip_smoke.py: 17 shapes x D 64/80/128 x G 1/4, each
-# in three orders (306 cases).
+# The forward matrix of chip_smoke.py: 17 shapes x D 64/80/96/128 x G 1/4,
+# each in three orders (408 cases).
 _FWD_MATRIX = [(s, s, causal, window) for s in (1, 77, 300, 700) for causal in (True, False)
                for window in (None, 100)] + [(300, 131, False, None)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("sq,skv,causal,window", _FWD_MATRIX)
 def test_flash_fwd_kernel_matrix(cuda, d, g, sq, skv, causal, window):
@@ -325,7 +325,7 @@ def test_contig_decode_kernel_matches_plain(cuda, g, window, chunk):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("splits", [1, 2, 4, 8])
-@pytest.mark.parametrize("d,g", [(128, 1), (80, 1), (64, 4), (128, 8)])
+@pytest.mark.parametrize("d,g", [(128, 1), (80, 1), (96, 1), (64, 4), (128, 8)])
 def test_contig_decode_split_walks_bits_and_stale_tails(cuda, splits, d, g):
     """At every cluster size: within 2e-2 of the plain version, the recorded
     walk equal to the host model, two launches equal to the bit, and caches
@@ -362,8 +362,8 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention_fwd(q.float(), kv.float(), kv.float())
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_fwd(q[..., :96].contiguous(), kv[..., :96].contiguous(),
-                            kv[..., :96].contiguous())
+        flash_attention_fwd(q[..., :112].contiguous(), kv[..., :112].contiguous(),
+                            kv[..., :112].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_fwd(q.transpose(1, 2), kv, kv)
     with pytest.raises(ValueError, match="is on"):
@@ -378,8 +378,8 @@ def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="bfloat16"):
         flash_decode_fwd(q1.float(), kv.float(), kv.float(), lens)
     with pytest.raises(ValueError, match="head dim"):
-        flash_decode_fwd(q1[..., :96].contiguous(), kv[..., :96].contiguous(),
-                         kv[..., :96].contiguous(), lens)
+        flash_decode_fwd(q1[..., :112].contiguous(), kv[..., :112].contiguous(),
+                         kv[..., :112].contiguous(), lens)
     with pytest.raises(ValueError, match="one query position"):
         flash_decode_fwd(q, kv, kv, lens)
     with pytest.raises(ValueError, match="multiple"):
@@ -398,7 +398,7 @@ def _rel(got, want) -> float:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("causal,window,sq,skv", [
     (True, None, 200, 200), (True, 50, 130, 130), (False, None, 130, 70), (True, None, 70, 200),
@@ -470,8 +470,8 @@ def test_flash_bwd_wrapper_rejects_what_its_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, kv, kv, q, lse.to(bf), q)
     with pytest.raises(ValueError, match="head dim"):
-        sub = q[..., :96].contiguous()
-        flash_attention_bwd(sub, kv[..., :96].contiguous(), kv[..., :96].contiguous(), sub, lse,
+        sub = q[..., :112].contiguous()
+        flash_attention_bwd(sub, kv[..., :112].contiguous(), kv[..., :112].contiguous(), sub, lse,
                             sub)
     with pytest.raises(ValueError, match="visit_dkv_out"):
         flash_attention_bwd(q, kv, kv, q, lse, q,
@@ -503,16 +503,18 @@ def test_ops_attention_cuda_grads_match_torch(cuda, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [80, 96])
 @pytest.mark.parametrize("causal,window,sq,skv", [
     (True, None, 77, 77), (True, 50, 200, 200), (False, None, 130, 70),
 ])
-def test_flash_fwd_kernel_head_dim_80(cuda, causal, window, sq, skv):
-    """B2 at zamba2's head dim 80 (32 heads, no GQA, and GQA 4:2) against
-    the plain version, with the tolerances of the D 64 and 128 test."""
-    gen = torch.Generator(device=cuda).manual_seed(sq + 80)
+def test_flash_fwd_kernel_head_dim_80(cuda, causal, window, sq, skv, d):
+    """B2 at zamba2's head dim 80 and phi-3-vision's 96 (the 128 layout
+    with zero-filled columns; no GQA, and GQA 4:2) against the plain
+    version, with the tolerances of the D 64 and 128 test."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + d)
     for hq, hkv in ((4, 4), (4, 2)):
-        q = _bf16(gen, (2, sq, hq, 80), cuda)
-        k, v = _bf16(gen, (2, skv, hkv, 80), cuda), _bf16(gen, (2, skv, hkv, 80), cuda)
+        q = _bf16(gen, (2, sq, hq, d), cuda)
+        k, v = _bf16(gen, (2, skv, hkv, d), cuda), _bf16(gen, (2, skv, hkv, d), cuda)
         vis = _visible(sq, skv, causal, window, cuda)
         for order in Order:
             o, lse = flash_attention_fwd(q, k, v, order=order, causal=causal, window=window,
@@ -527,15 +529,17 @@ def test_flash_fwd_kernel_head_dim_80(cuda, causal, window, sq, skv):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [80, 96])
 @pytest.mark.parametrize("g", [1, 4])
 @pytest.mark.parametrize("window", [None, 100])
-def test_contig_decode_kernel_head_dim_80(cuda, g, window):
-    """B3 at head dim 80 (a lane pair splits the 80 dims 40 and 40 for the
-    scores; for P V lanes 0-7 own two bf16 pairs, the rest one) against the
-    plain version: 2e-2 abs on rows of positive length, exact zeros on a row
-    of length 0; the recorded walk equals the host model."""
-    gen = torch.Generator(device=cuda).manual_seed(g * 10 + (window or 0) + 80)
-    b, hkv, d, s_max = 4, 2, 80, 300
+def test_contig_decode_kernel_head_dim_80(cuda, g, window, d):
+    """B3 at head dims 80 and 96 (a lane pair splits the dims in halves for
+    the scores; for P V lanes 0-7 (D 80) or 0-15 (D 96) own two bf16 pairs,
+    the rest one) against the plain version: 2e-2 abs on rows of positive
+    length, exact zeros on a row of length 0; the recorded walk equals the
+    host model."""
+    gen = torch.Generator(device=cuda).manual_seed(g * 10 + (window or 0) + d)
+    b, hkv, s_max = 4, 2, 300
     q = _bf16(gen, (b, 1, hkv * g, d), cuda)
     k, v = _bf16(gen, (b, s_max, hkv, d), cuda), _bf16(gen, (b, s_max, hkv, d), cuda)
     lens = torch.tensor([300, 0, 129, 7], dtype=torch.int32, device=cuda)
@@ -678,19 +682,23 @@ def test_ops_ssd_cuda_matches_torch(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("short", [False, True], ids=["full", "short"])
 @pytest.mark.parametrize("e,k,n,m", [(64, 2048, 1024, 64), (64, 1024, 2048, 512),
                                      (8, 4096, 14336, 16), (4, 64, 32, 7)])
-def test_ragged_dot_grouped_mm_matches_plain(cuda, e, k, n, m):
+def test_ragged_dot_grouped_mm_matches_plain(cuda, e, k, n, m, short):
     """``impl="cuda"`` (``grouped_mm``, offsets on the card) against the
     plain masked products on the same bf16 inputs, with empty groups;
-    counted once a call in ``library_counts``, never in ``launch_counts``."""
+    counted once a call in ``library_counts``, never in ``launch_counts``.
+    ``short``: the sizes sum to less than M, and the rows past the last
+    group are exact zeros in both, as ``jax.lax.ragged_dot`` gives them."""
     g = torch.Generator(device=cuda).manual_seed(e + m)
     x = torch.randn(m, k, device=cuda, generator=g).bfloat16()
     w = (torch.randn(e, k, n, device=cuda, generator=g) / k ** 0.5).bfloat16()
-    ids = torch.randint(0, max(1, e // 2), (m,), device=cuda, generator=g)
+    used = m - max(1, m // 4) if short else m
+    ids = torch.randint(0, max(1, e // 2), (used,), device=cuda, generator=g)
     sizes = torch.zeros(e, dtype=torch.int64, device=cuda).scatter_add_(
         0, ids, torch.ones_like(ids)).to(torch.int32)
-    assert int((sizes == 0).sum()) > 0
+    assert int((sizes == 0).sum()) > 0 and int(sizes.sum()) == used
     cuda_lib.reset_launch_counts()
     got = ops.ragged_dot(x, w, sizes, impl="cuda")
     want = ops.ragged_dot(x, w, sizes, impl="torch")
@@ -698,6 +706,7 @@ def test_ragged_dot_grouped_mm_matches_plain(cuda, e, k, n, m):
     assert got.dtype == torch.bfloat16 and got.shape == (m, n)
     err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
     assert err < 1e-2, err
+    assert not got[used:].any() and not want[used:].any()
     assert torch.equal(ops.ragged_dot(x, w, sizes), got)   # auto picks cuda on the card
 
 

@@ -16,7 +16,7 @@ package.
   through the reference's ``ops.attention`` (``recompute`` against the
   reference's ``jnp``, which differentiates the same blockwise forward).
 * Head dim 80 (zamba2's shared attention) in both sweeps; the CUDA
-  backward's operand check takes 64, 80 and 128 and refuses 96.
+  backward's operand check takes 64, 80, 96 and 128 and refuses 112.
 
 Inputs come from numpy. Tolerance: f32, atol = rtol = 1e-4, the reference's
 own bar for its backward (the sums run in other orders).
@@ -245,15 +245,16 @@ def test_recompute_impl_saves_only_its_inputs():
         ops.attention(q, k, v, impl="jnp", **kw)
 
 
-@pytest.mark.parametrize("d", [64, 80, 128, 96])
+@pytest.mark.parametrize("d", [64, 80, 128, 96, 112])
 def test_bwd_operand_check_takes_head_dims_64_80_128(d):
     """The CUDA backward's operand check (run before any launch) takes
-    zamba2's head dim 80 beside 64 and 128, and still refuses 96."""
+    zamba2's head dim 80 and phi-3-vision's 96 beside 64 and 128, and
+    refuses 112."""
     bf = torch.bfloat16
     q = torch.zeros((1, 8, 4, d), dtype=bf)
     k = torch.zeros((1, 8, 2, d), dtype=bf)
     operands = (q, k, k, ("o", q), ("do", q))
-    if d == 96:
+    if d == 112:
         with pytest.raises(ValueError, match="head dim"):
             kflash._check_cuda_operands(*operands, kernel="flash_bwd")
     else:

@@ -174,16 +174,16 @@ def test_launcher_serves_with_order_adaptation(capsys, tmp_path):
 
 def test_launcher_auto_scheduler_needs_a_ported_family(capsys):
     """``auto`` picks as the reference does (continuous for olmoe-1b-7b,
-    static for mixtral-8x7b, whose window the paged pool cannot hold); both
-    MoE configs serve, and a family that is not ported (enc-dec) stops at
-    ``build_model``, naming its ROADMAP item."""
+    static for mixtral-8x7b, whose window the paged pool cannot hold, and
+    for the static-only enc-dec and VLM families); every one serves 3
+    requests."""
     assert launch_serve.pick_scheduler("auto", get_config("mixtral-8x7b")) == "static"
     assert launch_serve.pick_scheduler("auto", get_config("olmoe-1b-7b")) == "continuous"
     assert launch_serve.pick_scheduler("auto", get_config("deepseek-7b")) == "continuous"
-    for arch in ("mixtral-8x7b", "olmoe-1b-7b"):
+    for arch in ("seamless-m4t-medium", "phi-3-vision-4_2b"):
+        assert launch_serve.pick_scheduler("auto", get_config(arch)) == "static", arch
+    for arch in ("mixtral-8x7b", "olmoe-1b-7b", "seamless-m4t-medium", "phi-3-vision-4_2b"):
         launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
                            "--batch-size", "2", "--max-new", "4", "--max-len", "64",
                            "--page-size", "8"])
         assert "served 3 requests, 12 tokens" in capsys.readouterr().out, arch
-    with pytest.raises(NotImplementedError, match="A13"):
-        launch_serve.main(["--arch", "seamless-m4t-medium", "--reduced", "--device", "cpu"])

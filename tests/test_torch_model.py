@@ -177,10 +177,30 @@ def test_layers_match_reference():
 
 
 def test_unported_model_paths_raise():
-    with pytest.raises(NotImplementedError, match="encdec.*A13"):
-        build_model(get_config("seamless-m4t-medium").reduced(), device="cpu")
-    with pytest.raises(NotImplementedError, match="vlm.*A13"):
-        build_model(get_config("phi-3-vision-4_2b").reduced(), device="cpu")
+    """An unknown family stops at ``build_model``, naming the families."""
+    cfg = get_config("deepseek-7b").reduced().with_(family="retrieval")
+    with pytest.raises(ValueError, match="unknown family 'retrieval'.*encdec.*vlm"):
+        build_model(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch,family", [("seamless-m4t-medium", "encdec"),
+                                         ("phi-3-vision-4_2b", "vlm")])
+def test_enc_dec_and_vlm_build_on_cpu(arch, family):
+    """Both families of the last slice build on the CPU and make their
+    params: enc-dec's two layer stacks, the VLM's ``vision_proj``."""
+    cfg = get_config(arch).reduced()
+    lm = build_model(cfg, device="cpu")
+    assert lm.cfg.family == family and lm.device.type == "cpu"
+    params = lm.init(0)
+    if family == "encdec":
+        assert "layers" not in params
+        assert len(params["encoder"]) == cfg.n_encoder_layers
+        assert len(params["decoder"]) == cfg.n_layers
+        assert set(params["decoder"][0]) == {"ln_self", "self_attn", "ln_cross", "cross_attn",
+                                             "ln_ffn", "ffn"}
+    else:
+        assert len(params["layers"]) == cfg.n_layers
+        assert params["vision_proj"]["w"].shape == (cfg.d_model, cfg.d_model)
 
 
 def test_init_cache_paged_layout():

@@ -189,6 +189,22 @@ def test_plain_ragged_dot_equals_reference(sizes):
                        impl="torch").numpy(), got.numpy())
 
 
+def test_ragged_dot_zeroes_rows_past_the_groups_without_a_host_read():
+    """The mask that zeroes the rows past the last group (which
+    ``grouped_mm`` leaves unwritten on the card) is built on the device:
+    it runs under the host-read guard of the captured steps and leaves the
+    rows inside the groups as they are."""
+    from test_torch_step_graph import NoHostRead
+
+    out = torch.arange(1.0, 25.0).reshape(8, 3)
+    offs = torch.cumsum(torch.tensor([2, 0, 3], dtype=torch.int32), 0, dtype=torch.int32)
+    with NoHostRead():
+        got = ops._zero_past_groups(out, offs)
+    assert torch.equal(got[:5], out[:5]) and not got[5:].any()
+    with NoHostRead():
+        assert torch.equal(ops._zero_past_groups(out, offs.new_tensor([4, 8])), out)
+
+
 def test_ragged_dot_refusals():
     x, w, gs = torch.zeros(4, 8), torch.zeros(2, 8, 3), torch.tensor([2, 2], dtype=torch.int32)
     with pytest.raises(ValueError, match="needs CUDA tensors"):

@@ -5,7 +5,7 @@ replays, so these tests hold the step functions to what a capture needs:
 
 * no host read inside a step: one step of each captured kind (the
   continuous mixed step at width 1 and at the chunk width; the static
-  decode step of the dense, MoE, SSM and hybrid families, and both mixed
+  decode step of the dense, MoE, SSM, hybrid, enc-dec and VLM families, and both mixed
   widths after a traversal-order switch and for the MoE family) runs under
   a dispatch mode that fails on ``aten._local_scalar_dense`` (any
   ``.item()``, ``int(t)`` or ``bool(t)``) and on the ops that size their
@@ -120,7 +120,8 @@ def test_guard_catches_host_reads():
                                   "mixed/16 after a switch", "mixed/1 int8", "mixed/16 int8",
                                   "deepseek-7b int8", "zamba2-2_7b int8", "mixed/1 olmoe-1b-7b",
                                   "mixed/16 olmoe-1b-7b", "olmoe-1b-7b", "mixtral-8x7b",
-                                  "olmoe-1b-7b capacity"])
+                                  "olmoe-1b-7b capacity", "seamless-m4t-medium",
+                                  "phi-3-vision-4_2b"])
 def test_captured_steps_read_no_host_value(kind):
     """One step of each kind, on the inputs and state its engine left, runs
     under the guard; it is the function the card captures. After an order
@@ -130,7 +131,9 @@ def test_captured_steps_read_no_host_value(kind):
     the caches they read, and still read nothing. The MoE steps route,
     sort and run the grouped products (olmoe's mixed steps, olmoe's and
     mixtral's static decode; the capacity path too, served with
-    ``moe_serve_dropless`` off) and read nothing either."""
+    ``moe_serve_dropless`` off) and read nothing either, nor do the
+    enc-dec's decode step (its cross K/V's length a device tensor) and the
+    VLM's."""
     cfg_kw = {"kv_cache_dtype": "int8"} if kind.endswith("int8") else None
     if kind.endswith("capacity"):
         cfg_kw = {"moe_serve_dropless": False}
@@ -156,7 +159,9 @@ def test_captured_steps_read_no_host_value(kind):
 @pytest.mark.parametrize("scheduler,arch", [("continuous", "deepseek-7b"),
                                             ("static", "deepseek-7b"),
                                             ("static", "mamba2-130m"),
-                                            ("static", "zamba2-2_7b")])
+                                            ("static", "zamba2-2_7b"),
+                                            ("static", "seamless-m4t-medium"),
+                                            ("static", "phi-3-vision-4_2b")])
 def test_generate_twice_reuses_step_buffers(scheduler, arch):
     eng = _engine(arch, scheduler)
     specs = _specs(eng.lm.cfg.vocab)
@@ -205,7 +210,9 @@ def reference():
 @pytest.mark.parametrize("scheduler,arch", [("continuous", "deepseek-7b"),
                                             ("static", "deepseek-7b"),
                                             ("static", "mamba2-130m"),
-                                            ("static", "zamba2-2_7b")])
+                                            ("static", "zamba2-2_7b"),
+                                            ("static", "seamless-m4t-medium"),
+                                            ("static", "phi-3-vision-4_2b")])
 def test_second_generate_equals_reference(reference, scheduler, arch):
     """A second ``generate()`` (reset pool, reused steps and caches; other
     prompts than the first) gives the reference engine's second call."""
@@ -303,7 +310,9 @@ CARD_KW = dict(dtype="bfloat16", param_dtype="bfloat16", d_model=256, n_heads=4,
                                                ("continuous", "deepseek-7b", "int8"),
                                                ("static", "deepseek-7b", "int8"),
                                                ("continuous", "olmoe-1b-7b", "bfloat16"),
-                                               ("static", "olmoe-1b-7b", "bfloat16")])
+                                               ("static", "olmoe-1b-7b", "bfloat16"),
+                                               ("static", "seamless-m4t-medium", "bfloat16"),
+                                               ("static", "phi-3-vision-4_2b", "bfloat16")])
 def test_replay_equals_eager_on_card(cuda, scheduler, arch, kv):
     from repro_torch.kernels import cuda_lib
 
@@ -321,7 +330,8 @@ def test_replay_equals_eager_on_card(cuda, scheduler, arch, kv):
     assert eng.step_graphs() == graphs and eng.compiled_step_count() == len(graphs)
     if arch != "mamba2-130m":   # a replay counts the launches its capture issued
         key = "paged_decode" if scheduler == "continuous" else "contig_decode"
-        sites = eng.lm.cfg.n_layers // (2 if arch == "zamba2-2_7b" else 1)
+        n = eng.lm.cfg.n_layers   # zamba2: a site every 2 layers; enc-dec: self and cross
+        sites = {"zamba2-2_7b": n // 2, "seamless-m4t-medium": 2 * n}.get(arch, n)
         assert {g.launches[key] for g in graphs.values()} == {sites}
         ran = sum(g.launches[key] * (g.replays - replays[name]) for name, g in graphs.items())
         assert cuda_lib.launch_counts[key] == ran > 0
