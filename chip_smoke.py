@@ -73,8 +73,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    two graphs), each twice: drafts accepted + rolled back == drafted, the
    target's two graphs, B1 layers x (target + drafter) steps, the rerun
    equal to the bit, flips tied, and a ladder shifted by one position
-   caught by the tie rule; then, with the serving weights released, the
-   MoE family (A13): ``ops.ragged_dot`` (one ``grouped_mm``, the
+   caught by the tie rule; then the main path sharded (A14): the same
+   continuous engine with ``mesh=make_local_mesh(1, 1)`` (a 1x1
+   DeviceMesh over NCCL, the params DTensors on their ``dist.sharding``
+   specs, the kernels on each rank's local block) serving the 12
+   requests: streams equal to the main path's to the bit, B1 30 a mixed
+   step, every step a replay equal to the eager step; and the static
+   engine on the same mesh: streams equal to the static path's, B2 30 a
+   prefill, B3 30 a decode step, the decode step's replays equal to the
+   eager step; then, with the
+   serving weights released, the MoE family (A13): ``ops.ragged_dot`` (one ``grouped_mm``, the
    counterpart of XLA's ``ragged_dot``; a library call, not a kernel of
    this repository) against its plain masked products at olmoe-1b-7b's
    and mixtral-8x7b's expert shapes (a narrow step's, a wide step's and a
@@ -107,11 +115,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    ``flash_fwd`` 2 x attentions x steps and each backward kernel
    attentions x steps (B2, B4-B6 at D 96 for the VLM), step 0 within the
    training limits of the plain versions, a falling loss, a peak under 80
-   GB; then
-   trained for 4 adamw_factored steps (batch 4 x 1024, remat full), with
+   GB; then olmoe-1b-7b trained the same way (A12: the capacity path's
+   (E, C, d) buffer, ``index_add`` dispatch and ``bmm`` products; B2 and
+   B4-B6 at D 128): launches from the code, step 0 within the training
+   limits of the plain versions with the router's softmax dropped beyond
+   them, the aux loss above 0, a falling loss, its peak printed; then
+   deepseek-7b trained for 4 adamw_factored steps (batch 4 x 1024, remat full), with
    ``flash_fwd`` launches == 2 x layers x steps (forward and remat
    recompute) and 120 of each backward kernel, a falling loss, and step 0
-   held to the plain attention on the same weights. Then small bf16 models
+   held to the plain attention on the same weights; then sharded training
+   (A14): deepseek-7b at full width and SHARDED_TRAIN_LAYERS layers, 2
+   steps of 2 microbatches, unsharded and on the 1x1 NCCL mesh from the
+   same weights and batches (losses, gradient norms and params equal to
+   the bit, the same launches), and ``reduce_grads_compressed`` on one
+   gradient leaf equal to its plain result to the bit. Then small bf16 models
    whose logits (serving) and losses (training) with the kernels must agree
    with the plain versions', and ``run_training`` crashed at a step and
    resumed from its checkpoint against an uninterrupted run. With
@@ -255,6 +272,11 @@ SMALL_TRAIN_TOL = 5e-3
 # 5.5e-2 and 3.46e-2 (under ATTN_GRAD_TOL), dK zeroed 1.0 (PERF.md, PR 26).
 RESIDUAL_ATTN_GRAD_TOL = 2.3e-2
 TRAIN_MEM_LIMIT_GB = 80.0
+# sharded-train runs deepseek-7b at full width but 16 of its 30 layers: two
+# microbatches keep a float32 accumulator of every gradient (4 bytes a
+# parameter) beside the step's own gradients, moments and params, which at 30
+# layers (6.9 B params) comes within a few GB of the card's 80.
+SHARDED_TRAIN_LAYERS = 16
 
 # B7 (the SSD scan) against its plain version (ssd_chunked in float32 on
 # the same bf16 inputs), each as max-abs error over max |plain|. y is
@@ -2260,6 +2282,7 @@ def phase_static_path(cfg, lm, params, profile: bool = False, label: str = "stat
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     print(f"[{label}] " + json.dumps(out))
+    out["streams"] = {r.rid: r.tokens.tolist() for r in results}
     out["graphs"] = phase_graphs(eng, label)
     out["step_idle"] = _step_idle(spans["serve.decode_step"], out["graphs"]["decode"]["replay_ms"])
     print(f"[{label}] decode steps, wall against a replay's device time: "
@@ -3642,6 +3665,464 @@ class _KernelFwdPlainBwd(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class _SoftmaxDroppedTorch:
+    """``torch`` as ``models.moe`` sees it, but with the softmax over a
+    token's top-k router logits dropped: those raw logits become the
+    combine weights (the softmax over all experts, the aux loss's, stays)."""
+
+    def __init__(self, top_k: int):
+        self._k = top_k
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def softmax(self, x, dim=-1):
+        return x if x.shape[-1] == self._k else torch.softmax(x, dim=dim)
+
+
+@contextlib.contextmanager
+def _router_softmax_dropped(top_k: int):
+    """Within the block the MoE's capacity path combines its experts with
+    the raw top-k router logits (a deliberately wrong router)."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE.torch
+    MOE.torch = _SoftmaxDroppedTorch(top_k)
+    try:
+        yield
+    finally:
+        MOE.torch = real
+
+
+@contextlib.contextmanager
+def _routing(record: list = None, replay: list = None):
+    """Within the block ``models.moe._route`` appends each call's expert
+    choices (T, k) to ``record``, or takes them from ``replay`` in call
+    order (the top-k logits then gathered from this run's own router
+    logits at those choices): two runs on the same routing."""
+    from repro_torch.models import moe as MOE
+
+    real = MOE._route
+    calls = iter(replay or ())
+
+    def route(p, cfg, xf):
+        logits, top, sel = real(p, cfg, xf)
+        if replay is not None:
+            sel = next(calls)
+            top = torch.gather(logits, -1, sel)
+        if record is not None:
+            record.append(sel.detach().clone())
+        return logits, top, sel
+
+    MOE._route = route
+    try:
+        yield
+    finally:
+        MOE._route = real
+
+
+def _routing_flips(a: list, b: list) -> dict:
+    """Choices (token, expert) of run ``a`` that run ``b`` did not make,
+    over the routing calls both made in the same order."""
+    n = flips = 0
+    for x, y in zip(a, b):
+        e = int(x.max().item()) + 1
+        hx = torch.zeros((x.shape[0], max(e, int(y.max().item()) + 1)), device=x.device)
+        hy = hx.clone()
+        hx.scatter_(1, x, 1.0)
+        hy.scatter_(1, y, 1.0)
+        flips += int((hx - hy).clamp(min=0).sum().item())
+        n += x.numel()
+    return {"choices": n, "differ": flips, "share": flips / max(n, 1)}
+
+
+def phase_train_moe() -> dict:
+    """Full-width olmoe-1b-7b (16 layers, d 2048, 16 heads of 128, 64
+    experts of d_ff 1024, top 8; 6.92 B params), random weights from seed
+    0, remat full, 4 adamw_factored steps of batch 4 x 1024 from
+    DataConfig(seed=0) through make_train_state + make_train_step, as
+    phase_train_family does. ``LM.loss`` takes the capacity path (the (E,
+    C, d) buffer, ``index_add`` dispatch, ``bmm`` products); attention runs
+    on B2 forward and B4-B6 backward at D 128. Launches from the code:
+    ``flash_fwd`` 2 x 16 x steps (forward and remat recompute), each
+    backward kernel 16 x steps, nothing else (the capacity path calls no
+    ``ragged_dot``). Step 0 against the plain versions on the same weights
+    and batch (TRAIN_LOSS_TOL, TRAIN_GNORM_RTOL) on the kernels' routing
+    (recorded and replayed), and the total loss within TRAIN_LOSS_TOL on
+    the plain versions' own routing; the router's softmax
+    dropped (``_router_softmax_dropped``) must fail one of those limits;
+    the aux loss above 0 at every step; each batch's loss lower after the
+    steps than before them; the peak under 80 GB."""
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticPacked
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import named_leaves
+    from repro_torch.train.step import make_train_state, make_train_step
+
+    steps, batch, seq = 4, 4, 1024
+    label = "train-olmoe"
+    cfg = get_config(MOE_ARCH).with_(attn_impl="auto", remat="full")
+    tcfg = _train_cfgs(steps, optimizer="adamw_factored")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = build_model(cfg, device="cuda")
+    state = make_train_state(lm, tcfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in named_leaves(state["params"]))
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    print(f"[{label}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts of d_ff {cfg.moe.d_ff_expert}, top {cfg.moe.top_k}, "
+          f"{n_params / 1e9:.3f} B params ({cfg.param_dtype}), remat {cfg.remat}, "
+          f"{tcfg.optimizer}: params + optimizer state {state_gb:.2f} GB, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    data = SyntheticPacked(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
+    batches = [{"tokens": torch.as_tensor(data.batch(i)["tokens"], device="cuda")}
+               for i in range(steps)]
+    params = state["params"]
+    # Step 0's gradient pass with the kernels, its routing recorded; the
+    # plain versions on that routing (both limits: a top-k choice is
+    # discrete, and the two attentions' bf16 roundings flip the near-tied
+    # ones, which moves the gradient norm past what the kernels' own error
+    # does) and on their own (the loss limit; the gradient norm printed).
+    kernel_sel, plain_sel = [], []
+    with _routing(record=kernel_sel):
+        kernel_loss, kernel_gnorm, _ = _step0_grads(lm, params, batches[0])
+    t0 = time.perf_counter()
+    plain_lm = build_model(cfg.with_(attn_impl="torch"), device="cuda")
+    with _routing(replay=kernel_sel):
+        plain_loss, plain_gnorm, _ = _step0_grads(plain_lm, params, batches[0])
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    with _routing(record=plain_sel):
+        own_loss, own_gnorm, _ = _step0_grads(plain_lm, params, batches[0])
+    flips = _routing_flips(kernel_sel, plain_sel)
+    del plain_lm, kernel_sel, plain_sel
+    with _router_softmax_dropped(cfg.moe.top_k):
+        bad_loss, bad_gnorm, _ = _step0_grads(lm, params, batches[0])
+    torch.cuda.empty_cache()
+
+    def batch_losses(p):
+        with torch.no_grad():
+            return [float(lm.loss(p, b)[0]) for b in batches]
+
+    before = batch_losses(params)
+    step_fn = make_train_step(lm, tcfg, ParallelConfig())
+    records = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        loss = float(metrics["loss"])  # waits for the card, as run_training's span does
+        dt = time.perf_counter() - t0
+        rec = {"step": i, "loss": loss, "total_loss": float(metrics["total_loss"]),
+               "aux_loss": float(metrics["aux_loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
+               "step_s": dt, "tokens_per_s": batch * seq / dt}
+        print(f"[{label}] " + json.dumps(rec))
+        records.append(rec)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    library = dict(cuda_lib.library_counts)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r["loss"] for r in records]
+    after = batch_losses(state["params"])
+    want = {name: 0 for name in launches}
+    want["flash_fwd"] = 2 * cfg.n_layers * steps
+    for name in ("flash_bwd_delta", "flash_bwd_dq", "flash_bwd_dkv"):
+        want[name] = cfg.n_layers * steps
+    # LM.loss returns the cross-entropy plus the aux loss, metrics["loss"]
+    # the cross-entropy alone: step 0 is compared on the total.
+    d_loss = abs(plain_loss - records[0]["total_loss"])
+    d_gnorm = abs(plain_gnorm - records[0]["grad_norm"]) / plain_gnorm
+    bad = {"loss_diff": abs(plain_loss - bad_loss),
+           "gnorm_rel_diff": abs(plain_gnorm - bad_gnorm) / plain_gnorm}
+    own = {"loss": own_loss, "grad_norm": own_gnorm, "routing_flips": flips,
+           "loss_diff": abs(own_loss - records[0]["total_loss"]),
+           "gnorm_rel_diff": abs(own_gnorm - records[0]["grad_norm"]) / own_gnorm}
+    out = {"arch": cfg.name, "steps": steps, "batch": batch, "seq": seq,
+           "params_b": n_params / 1e9, "state_gb": state_gb,
+           "plain_step0": {"loss": plain_loss, "grad_norm": plain_gnorm, "seconds": plain_s},
+           "step0_loss_diff": d_loss, "step0_gnorm_rel_diff": d_gnorm,
+           "kernels_step0_pass": {"loss": kernel_loss, "grad_norm": kernel_gnorm},
+           "plain_own_routing": own, "router_softmax_dropped": bad, "losses": losses,
+           "aux_losses": [r["aux_loss"] for r in records],
+           "step_s": [r["step_s"] for r in records],
+           "tokens_per_s": [r["tokens_per_s"] for r in records],
+           "grad_norms": [r["grad_norm"] for r in records], "peak_mem_gb": peak,
+           "batch_losses_before": before, "batch_losses_after": after,
+           "launches": launches, "launches_want": want, "library": library}
+    print(f"[{label}] " + json.dumps(out))
+    print(f"[{label}] step 0, kernels vs plain versions on the same routing: total loss "
+          f"{records[0]['total_loss']:.5f} vs {plain_loss:.5f} (|diff| {d_loss:.2e}, tol "
+          f"{TRAIN_LOSS_TOL}); grad_norm {records[0]['grad_norm']:.5f} vs {plain_gnorm:.5f} "
+          f"(rel diff {d_gnorm:.2e}, tol {TRAIN_GNORM_RTOL}); on their own routing: total "
+          f"loss |diff| {own['loss_diff']:.2e} (tol {TRAIN_LOSS_TOL}), grad_norm rel "
+          f"{own['gnorm_rel_diff']:.2e} (no limit), "
+          f"{flips['differ']} of {flips['choices']} choices differ; router softmax dropped: "
+          f"|diff| {bad['loss_diff']:.2e}, rel "
+          f"{bad['gnorm_rel_diff']:.2e}; steps 1-3 {np.mean(out['step_s'][1:]):.3f} s, "
+          f"{np.mean(out['tokens_per_s'][1:]):.0f} tokens/s; aux {out['aux_losses']}; B2 "
+          f"{launches.get('flash_fwd')}, B4-B6 {launches.get('flash_bwd_delta')}/"
+          f"{launches.get('flash_bwd_dq')}/{launches.get('flash_bwd_dkv')}; peak {peak:.2f} GB")
+    if launches != want or any(library.values()):
+        raise AssertionError(f"olmoe training launches {launches} (library {library}), "
+                             f"want {want}")
+    if not all(np.isfinite(losses)) or abs(losses[0] - math.log(cfg.vocab)) > 1.5:
+        raise AssertionError(f"olmoe step 0 loss {losses[0]} not finite or not within 1.5 of "
+                             f"ln(vocab) = {math.log(cfg.vocab):.3f}")
+    if not all(r["aux_loss"] > 0 for r in records):
+        raise AssertionError(f"olmoe aux losses {out['aux_losses']} not all above 0")
+    if not all(a < b for a, b in zip(after, before)):
+        raise AssertionError(f"olmoe loss did not fall over {steps} steps: batch losses "
+                             f"before {before}, after {after}")
+    if peak >= TRAIN_MEM_LIMIT_GB:
+        raise AssertionError(f"olmoe training peaked at {peak:.2f} GB")
+    if d_loss > TRAIN_LOSS_TOL or d_gnorm > TRAIN_GNORM_RTOL:
+        raise AssertionError("olmoe training step 0 with the kernels disagrees with the plain "
+                             "versions")
+    if own["loss_diff"] > TRAIN_LOSS_TOL:
+        raise AssertionError(f"olmoe training step 0's total loss with the kernels disagrees "
+                             f"with the plain versions on their own routing: {own}")
+    if not (bad["loss_diff"] > TRAIN_LOSS_TOL or bad["gnorm_rel_diff"] > TRAIN_GNORM_RTOL):
+        raise AssertionError(f"the step-0 check cannot tell a dropped router softmax from the "
+                             f"sound router: {bad}")
+    del state, step_fn, lm, params, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_train() -> dict:
+    """deepseek-7b at full width and SHARDED_TRAIN_LAYERS of its 30 layers,
+    2 adamw_factored steps of batch 4 x 1024 in 2 microbatches, twice from
+    the same weights (seed 0) and batches: unsharded (``make_train_step``
+    without a mesh), then on ``make_local_mesh(1, 1)`` over NCCL with
+    ``ParallelConfig(fsdp_axes=("data",), data_axes=("data",),
+    microbatches=2)`` (``shard_state``: every leaf a DTensor; the model runs
+    on DTensors, the kernels on each rank's local block). Each step's loss
+    and gradient norm, and the params after the steps, equal to the bit;
+    the same launches (``flash_fwd`` 2 x layers x 2 microbatches a step,
+    each backward kernel layers x 2). Then ``reduce_grads_compressed`` on
+    one gradient leaf (layer 0's wq, step 0's) over the mesh's "data" dim:
+    equal to the bit to its plain result, ``dequantize_int8(quantize_int8(g))``
+    and the residual ``g`` less that."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ParallelConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticPacked
+    from repro_torch.dist import compression
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.step import make_train_state, make_train_step, shard_state
+
+    steps, batch, seq, micro = 2, 4, 1024, 2
+    label = "sharded-train"
+    cfg = get_config("deepseek-7b").with_(attn_impl="auto", n_layers=SHARDED_TRAIN_LAYERS)
+    tcfg = _train_cfgs(steps, optimizer="adamw_factored")
+    pcfg = ParallelConfig(fsdp_axes=("data",), data_axes=("data",), microbatches=micro)
+    data = SyntheticPacked(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
+    batches = [data.batch(i) for i in range(steps)]
+    mesh = make_local_mesh(1, 1)
+    lm = build_model(cfg, device="cuda")
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(lm, tcfg, 0, device="cuda")
+        if name == "sharded":
+            state = shard_state(state, pcfg, mesh)
+        step_fn = make_train_step(lm, tcfg, pcfg, mesh if name == "sharded" else None)
+        recs = []
+        cuda_lib.reset_launch_counts()
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, b)
+            loss = float(metrics["loss"])
+            dt = time.perf_counter() - t0
+            recs.append({"loss": loss, "grad_norm": float(metrics["grad_norm"]), "step_s": dt,
+                         "tokens_per_s": batch * seq / dt})
+            print(f"[{label}] {name} " + json.dumps(recs[-1]))
+        torch.cuda.synchronize()
+        p = state["params"]
+        local = lambda t: t.to_local() if isinstance(t, DTensor) else t  # noqa: E731
+        runs[name] = {"records": recs, "launches": dict(cuda_lib.launch_counts),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "placed": isinstance(p["layers"][0]["attn"]["wq"]["w"], DTensor),
+                      "leaves": {k: local(t).clone() for k, t in (
+                          ("layer0.wq", p["layers"][0]["attn"]["wq"]["w"]),
+                          ("last.w_down", p["layers"][-1]["ffn"]["w_down"]["w"]),
+                          ("embed", p["embed"]["table"]))}}
+        del state, step_fn, p
+    a, b = runs["unsharded"], runs["sharded"]
+    unequal = [k for k in ("loss", "grad_norm")
+               if [r[k] for r in a["records"]] != [r[k] for r in b["records"]]]
+    unequal += [k for k in a["leaves"] if not torch.equal(a["leaves"][k], b["leaves"][k])]
+    want = {"flash_fwd": 2 * cfg.n_layers * micro * steps,
+            "flash_bwd_delta": cfg.n_layers * micro * steps,
+            "flash_bwd_dq": cfg.n_layers * micro * steps,
+            "flash_bwd_dkv": cfg.n_layers * micro * steps}
+
+    # The compressed all-reduce on one gradient leaf over the mesh's "data".
+    params = make_train_state(lm, tcfg, 0, device="cuda")["params"]
+    g = _step0_grads(lm, params, {k: v[:1] for k, v in batches[0].items()})[2]["layer0.wq"]
+    del params
+    red, res = compression.reduce_grads_compressed(
+        {"w": g}, compression.init_residuals({"w": g}), (mesh, "data"))
+    q, sc = compression.quantize_int8(g.float())
+    plain = compression.dequantize_int8(q, sc, g.shape, torch.float32)
+    compressed = {"reduced_equal": bool(torch.equal(red["w"], plain.to(g.dtype))),
+                  "residual_equal": bool(torch.equal(res["w"], g.float() - plain)),
+                  "shape": list(g.shape), "dtype": str(g.dtype)}
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "steps": steps, "batch": batch, "seq": seq,
+           "microbatches": micro, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "backend": torch.distributed.get_backend(),
+           "runs": {k: {kk: v[kk] for kk in ("records", "launches", "peak_mem_gb", "placed")}
+                    for k, v in runs.items()},
+           "unequal": unequal, "launches": b["launches"], "launches_want": want,
+           "compressed_allreduce": compressed}
+    print(f"[{label}] " + json.dumps(out))
+    print(f"[{label}] {cfg.name} at {cfg.n_layers} layers, 1x1 {out['backend']} mesh, "
+          f"microbatches {micro}: losses {[r['loss'] for r in b['records']]} (unsharded "
+          f"{[r['loss'] for r in a['records']]}), equal to the bit: {not unequal}; step "
+          f"{b['records'][-1]['step_s']:.3f} s against {a['records'][-1]['step_s']:.3f} s "
+          f"unsharded; peaks {b['peak_mem_gb']:.2f} and {a['peak_mem_gb']:.2f} GB; "
+          f"compressed all-reduce equal to its plain result: {compressed}")
+    if unequal:
+        raise AssertionError(f"sharded training on the 1x1 mesh differs from the unsharded "
+                             f"step in {unequal}")
+    if not b["placed"] or a["placed"]:
+        raise AssertionError("the sharded run's params are not DTensors")
+    for name, run in runs.items():
+        got = {k: run["launches"].get(k, 0) for k in want}
+        if got != want or any(v for k, v in run["launches"].items() if k not in want):
+            raise AssertionError(f"{name} launches {run['launches']}, want {want}")
+    if not (compressed["reduced_equal"] and compressed["residual_equal"]):
+        raise AssertionError(f"reduce_grads_compressed differs from its plain result: "
+                             f"{compressed}")
+    del lm, runs, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_serve(cfg, lm, params, main: dict, static: dict) -> dict:
+    """The main path on ``make_local_mesh(1, 1)`` over NCCL: the continuous
+    engine with ``mesh`` (params placed as DTensors on their specs), warmed
+    and captured as the main path's, then the 12 main requests. Streams
+    equal to the main path's to the bit, every request ok, ``paged_decode``
+    == layers x mixed steps (30 a step), every mixed step a replay, and
+    each captured step replayed against the eager step to the bit
+    (``phase_graphs``). Then the static engine with the same mesh on the
+    same requests: streams equal to the static path's to the bit,
+    ``flash_fwd`` == layers x prefills, ``contig_decode`` == layers x decode
+    steps, every decode step a replay equal to the eager step."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.serve import Request, ServeEngine
+
+    label = "sharded-serve"
+    mesh = make_local_mesh(1, 1)
+    eng = ServeEngine(lm, params, scheduler="continuous", batch_size=8, max_len=1024,
+                      page_size=64, device="cuda", mesh=mesh)
+    placed = isinstance(eng.params["layers"][0]["attn"]["wq"]["w"], DTensor)
+    rng = np.random.default_rng(99)
+    t0 = time.perf_counter()
+    eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                          max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+    warm_s = time.perf_counter() - t0
+    assert eng.compiled_step_count() == 2, eng.step_graphs()
+    replays = {name: g.replays for name, g in eng.step_graphs().items()}
+    eng.tracer.clear()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.generate(_main_requests(cfg.vocab))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+    stats = eng.last_stats
+    replayed = {name: g.replays - replays[name] for name, g in eng.step_graphs().items()}
+    streams = {r.rid: r.tokens.tolist() for r in results}
+    differ = sorted(rid for rid, t in streams.items() if t != main["streams"][rid])
+    tokens = sum(r.steps for r in results)
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "backend": torch.distributed.get_backend(), "params_placed": placed,
+           "requests": len(results), "tokens": tokens, "wall_s": wall,
+           "tokens_per_s": tokens / wall, "main_tokens_per_s": main["tokens_per_s"],
+           "warmup_and_capture_s": warm_s, "mixed_steps": stats.mixed_steps,
+           "wide_steps": stats.wide_steps, "launches": launches,
+           "launches_per_step": launches.get("paged_decode", 0) / max(stats.mixed_steps, 1),
+           "graph_replays": replayed, "streams_differ": differ}
+    print(f"[{label}] " + json.dumps(out))
+    if not placed:
+        raise AssertionError("the sharded engine's params are not DTensors")
+    if not all(r.status == "ok" and r.steps == 32 for r in results):
+        raise AssertionError(f"sharded serving: {[(r.status, r.steps) for r in results]}")
+    if differ:
+        raise AssertionError(f"sharded serving streams differ from the main path's: {differ}")
+    if launches.get("paged_decode") != cfg.n_layers * stats.mixed_steps:
+        raise AssertionError(f"sharded serving launches {launches}, want paged_decode "
+                             f"{cfg.n_layers} x {stats.mixed_steps}")
+    if sum(replayed.values()) != stats.mixed_steps:
+        raise AssertionError(f"sharded serving: not every mixed step replayed: {replayed}")
+    out["graphs"] = phase_graphs(eng, label)
+    print(f"[{label}] {cfg.name} continuous on the 1x1 {out['backend']} mesh: "
+          f"{out['tokens_per_s']:.1f} tokens/s (main path {main['tokens_per_s']:.1f}), streams "
+          f"equal to the bit, paged_decode {out['launches_per_step']:.0f} a mixed step")
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = ServeEngine(lm, params, scheduler="static", batch_size=8, max_len=1024, device="cuda",
+                      mesh=mesh)
+    rng = np.random.default_rng(98)
+    eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=n).astype(np.int32),
+                          max_new_tokens=2, eos_id=-1) for n in (300, 20)])
+    replays = eng.step_graphs()["decode"].replays
+    eng.tracer.clear()
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = eng.generate(_main_requests(cfg.vocab))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    slaunches = dict(cuda_lib.launch_counts)
+    _, calls = _step_spans(eng)
+    replayed = eng.step_graphs()["decode"].replays - replays
+    differ = sorted(r.rid for r in results if r.tokens.tolist() != static["streams"][r.rid])
+    tokens = sum(r.steps for r in results)
+    st = {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+          "static_tokens_per_s": static["tokens_per_s"], "calls": calls,
+          "launches": slaunches, "graph_replays": replayed, "streams_differ": differ}
+    print(f"[{label}] static " + json.dumps(st))
+    if not all(r.status == "ok" and r.steps == 32 for r in results) or differ:
+        raise AssertionError(f"sharded static serving: streams differ at {differ}, "
+                             f"{[(r.status, r.steps) for r in results]}")
+    want = {"flash_fwd": cfg.n_layers * calls["prefill"],
+            "contig_decode": cfg.n_layers * calls["decode"]}
+    if {k: slaunches.get(k) for k in want} != want or slaunches.get("paged_decode"):
+        raise AssertionError(f"sharded static serving launches {slaunches}, want {want}")
+    if replayed != calls["decode"]:
+        raise AssertionError(f"sharded static serving: {replayed} replays for {calls}")
+    st["graphs"] = phase_graphs(eng, label + " static")
+    print(f"[{label}] {cfg.name} static on the 1x1 mesh: {st['tokens_per_s']:.1f} tokens/s "
+          f"(static path {static['tokens_per_s']:.1f}), streams equal to the bit, flash_fwd "
+          f"{cfg.n_layers} a prefill, contig_decode {cfg.n_layers} a decode step")
+    out["static"] = st
+    out["launches_continuous"] = launches
+    out["launches"] = {k: launches.get(k, 0) + slaunches.get(k, 0)
+                       for k in set(launches) | set(slaunches)}
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 @contextlib.contextmanager
 def _plain_backward():
     """Within the block, ``ops.attention`` runs B2 forward and the plain
@@ -4566,6 +5047,7 @@ def main(argv=None) -> int:
     tiered, tiered_run = phase_tiered_path(cfg, lm, params, fixed, int8_run)
     tier_faults = phase_tier_fault_path(cfg, lm, params, fixed, tiered_run)
     spec = phase_spec_path(cfg, lm, params, fixed)
+    sharded_serve = phase_sharded_serve(cfg, lm, params, main_path, static)
     del lm, params, fixed, int8_run, tiered_run
     torch.cuda.empty_cache()
     moe_matrix = phase_moe_matrix(dev_info)
@@ -4575,9 +5057,11 @@ def main(argv=None) -> int:
     vlm = phase_family_path(VLM_ARCH, profile=args.profile)
     train_encdec = phase_train_family(ENCDEC_ARCH)
     train_vlm = phase_train_family(VLM_ARCH)
+    train_olmoe = phase_train_moe()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     train = phase_train_main(profile=args.profile)
+    sharded_train = phase_sharded_train()
     small = phase_small_model()
     small_static = phase_small_static()
     loop = phase_train_loop()
@@ -4607,7 +5091,9 @@ def main(argv=None) -> int:
              "olmoe_continuous": moe_cont, "olmoe_static": moe_static, "train": train,
              "mamba2": mamba, "zamba2": zamba,
              "train_mamba2": train_mamba, "train_zamba2": train_zamba,
-             "encdec": encdec, "vlm": vlm, "train_encdec": train_encdec, "train_vlm": train_vlm}
+             "encdec": encdec, "vlm": vlm, "train_encdec": train_encdec, "train_vlm": train_vlm,
+             "train_olmoe": train_olmoe, "sharded_train": sharded_train,
+             "sharded_serve": sharded_serve}
     by_path = {name: {path: rec["launches"].get(name, 0) for path, rec in paths.items()}
                for name in main_path["launches"]}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
@@ -4652,6 +5138,10 @@ def main(argv=None) -> int:
                / train_encdec["steps"],
                launches_per_phi3v_train_step=train_vlm["launches"]["flash_fwd"]
                / train_vlm["steps"],
+               launches_per_olmoe_train_step=train_olmoe["launches"]["flash_fwd"]
+               / train_olmoe["steps"],
+               launches_per_sharded_train_step=sharded_train["launches"]["flash_fwd"]
+               / sharded_train["steps"],
                long_shape_informational={k: long_times[k] for k in (
                    "shape", "kernel_ms", "orders_ms", "bound_ms", "bound_by", "library_ms",
                    "library_max_abs_diff")},
@@ -4702,6 +5192,9 @@ def main(argv=None) -> int:
             launches_per_seamless_train_step=train_encdec["launches"][name]
             / train_encdec["steps"],
             launches_per_phi3v_train_step=train_vlm["launches"][name] / train_vlm["steps"],
+            launches_per_olmoe_train_step=train_olmoe["launches"][name] / train_olmoe["steps"],
+            launches_per_sharded_train_step=sharded_train["launches"][name]
+            / sharded_train["steps"],
             sdpa_bwd_ms=rec["sdpa_bwd_ms"], bwd_kernels_sum_ms=rec["bwd_kernels_sum_ms"],
             bwd_trio_ms=rec["bwd_trio"]["trio_ms"],
             plain_covers=rec["plain_covers"], small_train_max_abs_loss_diff=small_train,
@@ -4753,7 +5246,13 @@ def main(argv=None) -> int:
           f"{encdec['peak_mem_gb']:.2f} GB, training {train_encdec['tokens_per_s'][-1]:.0f} "
           f"tokens/s, peak {train_encdec['peak_mem_gb']:.2f} GB; phi-3-vision-4.2b static "
           f"{vlm['tokens_per_s']:.1f} tokens/s, peak {vlm['peak_mem_gb']:.2f} GB, training "
-          f"{train_vlm['tokens_per_s'][-1]:.0f} tokens/s, peak {train_vlm['peak_mem_gb']:.2f} GB")
+          f"{train_vlm['tokens_per_s'][-1]:.0f} tokens/s, peak {train_vlm['peak_mem_gb']:.2f} GB; "
+          f"olmoe-1b-7b training {train_olmoe['tokens_per_s'][-1]:.0f} tokens/s, peak "
+          f"{train_olmoe['peak_mem_gb']:.2f} GB; sharded (1x1 "
+          f"{sharded_serve['backend']}) serving {sharded_serve['tokens_per_s']:.1f} tokens/s, "
+          f"training step {sharded_train['runs']['sharded']['records'][-1]['step_s']:.3f} s "
+          f"against {sharded_train['runs']['unsharded']['records'][-1]['step_s']:.3f} s, both "
+          f"equal to the unsharded runs to the bit")
     # The grouped product is a library call (grouped_mm), the counterpart of
     # XLA's ragged_dot: not a kernel of this repository, so not in the list
     # of kernels below.
@@ -4765,6 +5264,8 @@ def main(argv=None) -> int:
                              "olmoe_static": moe_static["library"]["ragged_dot"]},
         "max_abs_err": moe_matrix["worst"], "shifted_offsets_min_err": moe_matrix["shifted_min"],
         "shapes": moe_matrix["shapes"]}]}))
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     print(dev_info["smi"])
     print("checked kernels: " + json.dumps([k["name"] for k in kernels]))
     print(json.dumps({"kernels": kernels}))

@@ -144,11 +144,13 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """How logical dims map onto a mesh, and runtime knobs. The port runs on
-    one card without a mesh: only ``microbatches`` (gradient accumulation)
-    has an effect. The sharding fields keep the reference's names and
-    defaults; ``make_train_step`` refuses any other value of them (sharding
-    is ROADMAP A14)."""
+    """How logical dims map onto a mesh, and runtime knobs, with the
+    reference's names and defaults. The axes place params, batches and
+    caches on a ``DeviceMesh`` (``dist.sharding``); without a mesh only
+    ``microbatches`` (gradient accumulation) has an effect.
+    ``seq_shard_activations`` is read by the dry-run's activation rules;
+    ``grad_compression`` and ``zero_grads`` are read by nothing, in the
+    reference's step as in the port's."""
 
     fsdp_axes: Sequence[str] = ("pod", "data")
     tensor_axis: str = "model"

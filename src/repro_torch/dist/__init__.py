@@ -1,9 +1,59 @@
-"""``repro_torch.dist`` — the distribution subsystem's port. So far only
-the per-vector int8 quantization of the KV caches
-(``compression.quantize_int8_vec``); the blockwise wire format, the
-compressed all-reduce, sharding and the activation rules come with the
-sharded paths (ROADMAP §A14)."""
+"""``repro_torch.dist`` — the distribution subsystem, a port of
+``repro.dist``. Three orthogonal pieces:
 
-from repro_torch.dist.compression import dequantize_int8_vec, quantize_int8_vec
+  * :mod:`repro_torch.dist.sharding` — partition specs for parameters,
+    batches and KV caches (path-pattern rules + divisibility tightening, on
+    a ``DeviceMesh`` or a device-free ``MeshShape``), and their DTensor
+    placements;
+  * :mod:`repro_torch.dist.context` — context-local activation-sharding
+    rules; model code calls ``constrain(x, role)``, a no-op unless a rules
+    context is installed;
+  * :mod:`repro_torch.dist.compression` — blockwise int8 quantization, the
+    error-feedback compressed gradient all-reduce, and the per-vector int8
+    of the KV caches.
+"""
 
-__all__ = ["quantize_int8_vec", "dequantize_int8_vec"]
+from repro_torch.dist import compression, context, sharding
+from repro_torch.dist.compression import (
+    dequantize_int8,
+    dequantize_int8_vec,
+    init_residuals,
+    quantize_int8,
+    quantize_int8_vec,
+    reduce_grads_compressed,
+)
+from repro_torch.dist.context import activation_rules, constrain
+from repro_torch.dist.sharding import (
+    MeshShape,
+    P,
+    batch_shardings,
+    batch_spec,
+    cache_shardings,
+    param_shardings,
+    param_specs,
+    spec_for,
+    tighten,
+)
+
+__all__ = [
+    "sharding",
+    "context",
+    "compression",
+    "P",
+    "MeshShape",
+    "tighten",
+    "spec_for",
+    "param_specs",
+    "param_shardings",
+    "batch_spec",
+    "batch_shardings",
+    "cache_shardings",
+    "activation_rules",
+    "constrain",
+    "quantize_int8",
+    "dequantize_int8",
+    "quantize_int8_vec",
+    "dequantize_int8_vec",
+    "init_residuals",
+    "reduce_grads_compressed",
+]

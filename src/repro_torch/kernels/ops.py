@@ -52,6 +52,8 @@ device-side mask zeroes them).
 
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import Optional
 
 import torch
@@ -141,6 +143,99 @@ class _Attention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _mesh_of(*ts):
+    """The mesh of the first DTensor among ``ts``, or None when none is one
+    (no mesh: the call runs as it always has)."""
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+
+    for t in ts:
+        if isinstance(t, DTensor):
+            return t.device_mesh
+    return None
+
+
+def _local_placements(t, mesh, *, batch: bool, heads: tuple = ()) -> tuple:
+    """The placements a kernel's operands take on each rank: a mesh dim that
+    shards the batch dim (0) of ``t`` stays on it where ``batch``; one that
+    shards the head dim (2) stays on it where every head count in ``heads``
+    divides its size (GQA groups then stay whole on a rank); every other
+    mesh dim is replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    given = t.placements if isinstance(t, DTensor) else (Replicate(),) * mesh.ndim
+    out = []
+    for i, pl in enumerate(given):
+        n = mesh.size(i)
+        if isinstance(pl, Shard) and pl.dim == 0 and batch:
+            out.append(pl)
+        elif isinstance(pl, Shard) and pl.dim == 2 and heads and all(h % n == 0 for h in heads):
+            out.append(pl)
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _to_local(t, mesh, pl=None):
+    """This rank's block of ``t`` at placements ``pl`` (default: whole).
+    ``t`` is a DTensor, or a plain tensor every rank holds whole (an index,
+    a length, a pool); anything else passes through."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, torch.Tensor):
+        return t
+    rep = (Replicate(),) * mesh.ndim
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, rep, run_check=False)
+    return t.redistribute(mesh, pl or rep).to_local()
+
+
+def _from_local(t, mesh, pl=None):
+    """The DTensor of this rank's block ``t`` at placements ``pl`` (default:
+    every rank holds it whole)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, mesh, pl or (Replicate(),) * mesh.ndim, run_check=False)
+
+
+def _blocks(names, pl) -> tuple:
+    """``_on_local_blocks``'s plan: the operands ``names`` and the output
+    at placements ``pl``."""
+    return dict.fromkeys(names, pl), pl
+
+
+def _on_local_blocks(plan):
+    """A kernel boundary under a mesh: when any argument is a DTensor, the
+    decorated op runs on this rank's local blocks and its output (each
+    output of a tuple) comes back as a DTensor. ``plan(mesh, **arguments)``
+    gives ``(placements by argument name, the output's placements)``; an
+    argument it does not name is taken whole. Without a DTensor the op runs
+    as it always has."""
+    def wrap(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            mesh = _mesh_of(*args, *kw.values())
+            if mesh is None:
+                return fn(*args, **kw)
+            bound = sig.bind(*args, **kw)
+            pls, out_pl = plan(mesh, **bound.arguments)
+            for name, t in bound.arguments.items():
+                bound.arguments[name] = _to_local(t, mesh, pls.get(name))
+            out = fn(*bound.args, **bound.kwargs)
+            if isinstance(out, tuple):
+                return tuple(_from_local(o, mesh, out_pl) for o in out)
+            return _from_local(out, mesh, out_pl)
+
+        return run
+
+    return wrap
+
+
+@_on_local_blocks(lambda mesh, q, k, **_: _blocks(
+    "qkv", _local_placements(q, mesh, batch=True, heads=(q.shape[2], k.shape[2]))))
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -162,7 +257,12 @@ def attention(
     and ``kv_block`` tile the plain version; the CUDA kernels use their own
     tiles. ``bwd_q_block``/``bwd_kv_block`` tile the plain backward
     (default: the forward's). ``snake_group`` sizes the ``block_snake``
-    reversal window."""
+    reversal window.
+
+    DTensor operands (a step under a mesh) run on each rank's local block:
+    batch shards stay, head shards stay where the head counts divide them,
+    the rest is replicated, and the same kernel runs on the block as on a
+    whole tensor; the output is a DTensor of those placements."""
     cfg = dict(
         impl=_resolve(impl, q, "attention"), order=Order.parse(order), causal=causal,
         window=window, scale=scale, q_block=q_block, kv_block=kv_block,
@@ -173,6 +273,11 @@ def attention(
     return _Attention.apply(q, k, v, cfg)
 
 
+# Heads at dim 2 in q, the contiguous caches and the pools alike; the pools
+# have no batch dim, so every rank keeps every row.
+@_on_local_blocks(lambda mesh, q, k_cache, **_: _blocks(
+    ("q", "k_cache", "v_cache"),
+    _local_placements(q, mesh, batch=False, heads=(q.shape[2], k_cache.shape[2]))))
 def attention_decode(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -197,7 +302,8 @@ def attention_decode(
     walk folded once for a step, overrides both). ``reference``
     computes what ``torch`` does (the reference's decode oracle is the
     same function), and so does ``recompute``, whose only difference from
-    ``torch`` is its backward."""
+    ``torch`` is its backward. Under a mesh (DTensor operands) each rank
+    runs on its head shard, the indices and lengths whole."""
     impl = _resolve("torch" if impl == "recompute" else impl, q, "decode")
     kw = dict(
         window=window, scale=scale, block_table=block_table, q_lens=q_lens, order=order,
@@ -242,6 +348,8 @@ class _SSD(torch.autograd.Function):
         return (*(None if t is None else next(grads) for t in saved), None, None, None)
 
 
+@_on_local_blocks(lambda mesh, x, **_: _blocks(
+    ("x", "dt", "b", "c", "init_state"), _local_placements(x, mesh, batch=True)))
 def ssd(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -256,7 +364,8 @@ def ssd(
     """Mamba-2 SSD scan: (y (B, S, H, P) in x's dtype, final state (B, H,
     P, N) float32). Layouts as ``kernels.ref.ssd_ref``; ``init_state`` None
     means zeros, and goes to the impl as None: B7 then starts from zeros
-    without reading a state."""
+    without reading a state. Under a mesh (DTensor operands) each rank
+    scans its batch shard."""
     impl = _resolve(impl, x, "ssd")
     grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x, dt, a, b, c, init_state))
@@ -275,12 +384,14 @@ def _ragged_dot_plain(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tenso
     return out
 
 
+@_on_local_blocks(lambda mesh, **_: ({}, None))
 def ragged_dot(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
                impl: str = "auto") -> torch.Tensor:
     """Grouped product, as ``jax.lax.ragged_dot``: x (M, K) with its rows
     sorted by group, w (G, K, N), group_sizes (G,) ints summing to at most
     M -> (M, N) in x's dtype, rows of group g times ``w[g]``. ``cuda`` takes
-    bf16 CUDA tensors only and raises on anything else."""
+    bf16 CUDA tensors only and raises on anything else. Under a mesh
+    (DTensor operands) every rank runs the whole product on its replicas."""
     impl = _resolve(impl, x, "ragged_dot")
     if impl == "torch":
         return _ragged_dot_plain(x, w, group_sizes)

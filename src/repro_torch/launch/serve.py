@@ -11,8 +11,9 @@ config supports it and the static one otherwise, as the JAX launcher does.
 
 The flags are the JAX launcher's (``repro.launch.serve``) plus ``--device``
 (default ``cuda``; with no GPU the launcher raises unless ``--device cpu``
-is given). Flags of features not ported yet exit with an error naming the
-ROADMAP item. ``--attn-order auto`` turns on online order adaptation
+is given). ``--ckpt-dir D`` serves the params of the newest checkpoint
+under D (one the port's or the JAX package's training wrote), or the
+seed's where D holds none. ``--attn-order auto`` turns on online order adaptation
 (``serve.adapt``): the engine seeds its first order from
 ``--autotune-cache`` and re-picks it every ``--adapt-epoch`` mixed steps
 from the modeled-LLC gauges that ``--llc-every`` also samples.
@@ -47,6 +48,7 @@ from repro_torch.serve import (
     make_drafter,
     supports_continuous,
 )
+from repro_torch.train.checkpoint import latest_step, restore_pytree
 
 _AUTOTUNE_CACHE = "artifacts/hillclimb/autotune_cache.jsonl"
 
@@ -62,14 +64,6 @@ def pick_scheduler(choice: str, cfg) -> str:
             "does not support continuous batching; using static groups"
         )
     return "continuous" if ok else "static"
-
-
-def _unported(args) -> list[str]:
-    """Flags set to a feature the port does not have yet."""
-    checks = [
-        (args.ckpt_dir is not None, "--ckpt-dir", "A12 checkpoints"),
-    ]
-    return [f"{flag} is not ported yet: ROADMAP §{item}" for bad, flag, item in checks if bad]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -156,9 +150,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    errors = _unported(args)
-    if errors:
-        ap.error("; ".join(errors))
     if args.attn_order == "block_snake" and args.snake_group is None:
         valid = ", ".join(repr(o.value) for o in Order)
         ap.error(
@@ -177,6 +168,10 @@ def main(argv=None):
     cfg = cfg.with_(snake_group=args.snake_group)
     lm = build_model(cfg, device=args.device)
     params = lm.init(0)
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        state, step = restore_pytree({"params": params}, args.ckpt_dir)
+        params = state["params"]
+        print(f"restored params from step {step}")
     drafter = None
     if args.draft != "none":
         draft_lm, draft_params = lm, params

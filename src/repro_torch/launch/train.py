@@ -8,27 +8,67 @@ through the port's fault-tolerant loop.
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2_7b \\
       --optimizer adamw_factored --batch 4 --seq 1024 --steps 4 --ckpt-dir /tmp/ck
 
-Every family trains: dense, SSM (mamba2-130m) and hybrid (zamba2-2_7b),
-with the config's ``remat`` (``none``, ``full`` or ``dots``).
+  PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
+      --reduced --device cpu --steps 4 --mesh 2x2 --microbatches 2 --ckpt-dir /tmp/ck
+
+Every family trains: dense, MoE, SSM (mamba2-130m), hybrid (zamba2-2_7b),
+enc-dec and VLM, with the config's ``remat`` (``none``, ``full`` or
+``dots``).
 
 The flags are the JAX launcher's (``repro.launch.train``) plus ``--device``
 (default ``cuda``; with no GPU the launcher raises unless ``--device cpu``
-is given). The port runs on one card without a mesh: ``--mesh`` takes only
-``1x1`` (sharding is ROADMAP A14). ``--attn-impl`` takes the port's impls.
-Re-running the same command resumes from the newest checkpoint.
+is given). ``--mesh`` takes ``DxM``, ``production`` (16x16) or
+``multipod`` (2x16x16), with the reference's
+``ParallelConfig(fsdp_axes=("data",), data_axes=("data",))``. A mesh of
+more than one rank runs as that many processes: started here, each joins
+a process group (gloo on the CPU, NCCL with one card a rank) on a
+``FileStore`` in a temporary directory, and rank 0 prints and writes the
+checkpoints; a process that already belongs to a group of the right size
+(its own launcher's) builds the mesh over it. ``1x1`` outside a group
+trains on the one device without a mesh, which gives the same numbers.
+``--attn-impl`` takes the port's impls. Re-running the same command
+resumes from the newest checkpoint.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
+import sys
+import tempfile
 
 from repro_torch.configs import ParallelConfig, TrainConfig, get_config
 from repro_torch.core.schedule import Order
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh, production_mesh_shape
 from repro_torch.models import build_model
 from repro_torch.train.fault_tolerance import FailureInjector
 from repro_torch.train.loop import run_training
+
+
+def mesh_shape(s: str) -> tuple:
+    """``DxM``, ``production`` or ``multipod`` -> the mesh's shape."""
+    if s in ("production", "multipod"):
+        return tuple(production_mesh_shape(multi_pod=s == "multipod").shape.values())
+    parts = s.split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise SystemExit(f"--mesh {s!r}: must be DxM, 'production', or 'multipod'")
+    return tuple(int(p) for p in parts)
+
+
+def parse_mesh(s: str, device: str):
+    """The ``DeviceMesh`` of ``--mesh`` over the process group, or None for
+    ``1x1`` outside one (one device, no mesh)."""
+    import torch.distributed as dist
+
+    if mesh_shape(s) == (1, 1) and not dist.is_initialized():
+        return None
+    if s == "production":
+        return make_production_mesh(device=device)
+    if s == "multipod":
+        return make_production_mesh(multi_pod=True, device=device)
+    return make_local_mesh(*mesh_shape(s), device=device)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,7 +83,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="1x1",
-                    help="only 1x1: the port trains on one card (sharding is ROADMAP A14)")
+                    help="DxM, 'production' (16x16) or 'multipod' (2x16x16); more than one "
+                         "rank runs as that many processes")
     ap.add_argument("--ckpt-dir", default="checkpoints")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--optimizer", default="adamw", choices=["adamw", "adamw_factored"])
@@ -71,12 +112,49 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv=None):
+def _worker(rank: int, world: int, store_path: str, argv) -> None:
+    """One rank of a launched mesh: join the group, train, leave."""
+    import torch
+    import torch.distributed as dist
+
     args = parse_args(argv)
-    if args.mesh != "1x1":
-        raise SystemExit(f"--mesh {args.mesh}: the port trains on one card without a mesh; "
-                         "sharded training is ROADMAP A14")
+    kw = {}
+    if args.device != "cpu":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group("gloo" if args.device == "cpu" else "nccl",
+                            store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world, **kw)
+    try:
+        train(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def main(argv=None):
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    args = parse_args(argv)
+    shape = mesh_shape(args.mesh)
+    world = 1
+    for n in shape:
+        world *= n
+    if world > 1 and not dist.is_initialized():
+        store = os.path.join(tempfile.mkdtemp(prefix="repro_torch_train_"), "store")
+        argv = sys.argv[1:] if argv is None else list(argv)
+        mp.spawn(_worker, args=(world, store, argv), nprocs=world)
+        return
+    train(args)
+
+
+def train(args) -> None:
+    """Train by ``args`` in this process (one rank of the mesh, if any)."""
+    import torch.distributed as dist
+
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+    mesh = parse_mesh(args.mesh, "cpu" if args.device == "cpu" else "cuda")
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -104,11 +182,14 @@ def main(argv=None):
         optimizer=args.optimizer,
         seed=args.seed,
     )
-    pcfg = ParallelConfig(microbatches=args.microbatches)
+    pcfg = ParallelConfig(fsdp_axes=("data",), data_axes=("data",),
+                          microbatches=args.microbatches)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch, seed=args.seed)
     injector = FailureInjector(crash_at=(args.crash_at,)) if args.crash_at else None
-    res = run_training(lm, tcfg, pcfg, device=args.device, steps=args.steps, data_cfg=dcfg,
-                       injector=injector)
+    res = run_training(lm, tcfg, pcfg, mesh, device=args.device, steps=args.steps,
+                       data_cfg=dcfg, injector=injector)
+    if not lead:
+        return
     print(
         f"done: final_step={res.final_step} resumed_from={res.resumed_from} "
         f"first_loss={res.losses[0] if res.losses else None} "

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import constrain, whole
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -93,7 +94,8 @@ def decode_train(params: dict, cfg: ModelConfig, tgt_embeds: torch.Tensor,
     h = tgt_embeds
     for lp in params["decoder"]:
         body = T.remat_wrap(
-            lambda h_, e_, lp=lp: _dec_layer(lp, cfg, h_, e_, positions, enc_positions), cfg)
+            lambda h_, e_, lp=lp: constrain(_dec_layer(lp, cfg, h_, e_, positions,
+                                                       enc_positions), "residual"), cfg)
         h = body(h, enc_out)
     return h
 
@@ -129,8 +131,8 @@ def encdec_prefill(params: dict, cfg: ModelConfig, tgt_embeds: torch.Tensor,
         h = h + c
         h = h + T.ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
         filled = T.fill_cache(cfg, T._layer_cache(self_caches, i), k, v)
-        cross["k"][i, :, :skv].copy_(ck)
-        cross["v"][i, :, :skv].copy_(cv)
+        cross["k"][i, :, :skv].copy_(whole(ck))
+        cross["v"][i, :, :skv].copy_(whole(cv))
     self_caches["len"] = filled["len"]
     return h, {"self": self_caches, "cross": cross}
 

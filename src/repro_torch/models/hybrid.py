@@ -12,8 +12,8 @@ reference's stacked ``(groups, every, ...)`` leaves as nested lists of
 per-layer dicts. Each application site keeps its own contiguous KV cache;
 the caches of all sites are allocated once (``init_cache(...,
 n_layers=groups)``) and the Mamba states of all layers once, both written in
-place. The reference's ``constrain(h, "residual")`` after each group is a
-sharding hint, which has no counterpart on one card: it is dropped.
+place. Each group's output passes ``constrain(h, "residual")``, as in the
+reference: a no-op outside an activation-rules context.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import constrain, whole
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
@@ -84,7 +85,7 @@ def hybrid_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: tor
     def group(h, gp):
         for lp in gp:
             h = h + ssm.mamba_apply(lp["mamba"], cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
-        return _shared_block(shared, cfg, h, h0, positions)
+        return constrain(_shared_block(shared, cfg, h, h0, positions), "residual")
 
     h = x
     for gp in params["mamba"]:
@@ -122,7 +123,7 @@ def hybrid_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: t
             out, st = ssm.mamba_prefill(lp["mamba"], cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
             h = h + out
             for name, t in _layer_state(caches["mamba"], gi, ei).items():
-                t.copy_(st[name])
+                t.copy_(whole(st[name]))
         zin = _proj_in(shared, cfg, h, h0)
         a, (k, v) = T.attn_apply(shared["attn"], cfg,
                                  L.rmsnorm(shared["ln_attn"], zin, cfg.norm_eps),

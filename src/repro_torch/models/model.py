@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.context import constrain, whole
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
@@ -72,7 +73,12 @@ class LM:
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["table"].to(cfg.activation_dtype())[tokens.long()]
+    # ``embedding`` rather than indexing, and on a mesh the table as the
+    # ``embed_table`` rule places it (whole): DTensor's ``index_put`` (the
+    # indexing's backward) and its masked vocab-parallel lookup fail on some
+    # torch versions.
+    table = constrain(params["embed"]["table"], "embed_table")
+    return torch.nn.functional.embedding(tokens.long(), table.to(cfg.activation_dtype()))
 
 
 def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
@@ -91,7 +97,7 @@ def _lm_loss(params, cfg: ModelConfig, tokens: torch.Tensor, h: torch.Tensor, *,
     """Next-token cross-entropy of h (B, S, d) against tokens (B, S). As in
     the reference, ``LM.loss`` calls it with this default ``z_loss``, not
     ``TrainConfig.z_loss``."""
-    logits = _logits(params, cfg, h[:, :-1])
+    logits = constrain(_logits(params, cfg, h[:, :-1]), "logits")
     labels = tokens[:, 1:]
     m = None if mask is None else mask[:, 1:]
     loss, metrics = L.cross_entropy(logits, labels, m, z_loss=z_loss)
@@ -261,7 +267,7 @@ def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
                 out, st = SSM.mamba_prefill(lp["mamba"], cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
                 h = h + out
                 for name, t in states.items():
-                    t[i].copy_(st[name])
+                    t[i].copy_(whole(st[name]))
             caches = {"mamba": states,
                       "len": torch.full((), s, dtype=torch.int32, device=x.device)}
         h = L.rmsnorm(params["ln_f"], h[:, -1:], cfg.norm_eps)

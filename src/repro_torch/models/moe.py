@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import constrain, whole
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -111,7 +112,7 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, dropless: bool = Fa
     # dispatch: scatter-add the kept choices into the (E, C, d) buffer
     x_rep = _repeat_k(xf, k).to(dt) * keep[:, None].to(dt)
     buf = torch.zeros((e * cap, d), dtype=dt, device=x.device)
-    buf = buf.index_add(0, e_flat * cap + pos_c, x_rep).view(e, cap, d)
+    buf = constrain(buf.index_add(0, e_flat * cap + pos_c, x_rep).view(e, cap, d), "moe_buffer")
 
     # expert SwiGLU as batched products
     g = torch.bmm(buf, p["w_gate"].to(dt))
@@ -142,7 +143,7 @@ def _dropless_routing(p: dict, cfg: ModelConfig, xf: torch.Tensor):
     order = torch.argsort(e_flat, stable=True)
     inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=xf.device))
     sizes = torch.zeros(e, dtype=torch.int64, device=xf.device)
-    sizes = sizes.scatter_add_(0, e_flat, torch.ones_like(e_flat)).to(torch.int32)
+    sizes = sizes.scatter_add(0, e_flat, torch.ones_like(e_flat)).to(torch.int32)
     return w_flat, order, inv, sizes
 
 
@@ -154,12 +155,15 @@ def _moe_dropless(p: dict, cfg: ModelConfig, x: torch.Tensor):
     t, k = b * s, cfg.moe.top_k
     xf = x.reshape(t, d)
     w_flat, order, inv, sizes = _dropless_routing(p, cfg, xf)
-    x_sorted = _repeat_k(xf, k).index_select(0, order).to(dt)
+    x_sorted = constrain(_repeat_k(xf, k).index_select(0, order).to(dt), "moe_tokens")
 
     g = ops.ragged_dot(x_sorted, p["w_gate"].to(dt), sizes)
     u = ops.ragged_dot(x_sorted, p["w_up"].to(dt), sizes)
     y_sorted = ops.ragged_dot(F.silu(g) * u, p["w_down"].to(dt), sizes)
 
-    y_flat = y_sorted.index_select(0, inv) * w_flat[:, None].to(dt)
+    # On a mesh the routing weights are taken whole: DTensor shards the
+    # softmax's token dim, and its reshape of the (T·k, d) product cannot
+    # follow that shard (an exact no-op off a mesh).
+    y_flat = y_sorted.index_select(0, inv) * whole(w_flat)[:, None].to(dt)
     y = y_flat.reshape(t, k, d).sum(dim=1).reshape(b, s, d)
     return y.to(x.dtype), torch.zeros((), dtype=torch.float32, device=x.device)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import whole
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -256,6 +257,6 @@ def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, state: dict) -> tup
     s_new = decay * state["ssd"] + upd
     y = torch.einsum("bhpn,bn->bhp", s_new, c_in[:, 0].float())[:, None]
     out = _finish(cfg, p, y, x_h, z)
-    state["conv"].copy_(hist[:, 1:])
-    state["ssd"].copy_(s_new)
+    state["conv"].copy_(whole(hist[:, 1:]))
+    state["ssd"].copy_(whole(s_new))
     return out, state

@@ -42,6 +42,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import compression
+from repro_torch.dist.context import constrain, whole
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import fold_schedule
 from repro_torch.models import layers as L
@@ -225,7 +226,7 @@ def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
     offset = (wpos % page).long()
     phys = torch.gather(bt, 1, page_log.long())
     phys = torch.where(valid, phys, torch.zeros_like(phys)).long()
-    for name, val in (("k_pages", k), ("v_pages", v)):
+    for name, val in (("k_pages", whole(k)), ("v_pages", whole(v))):
         if cfg.kv_cache_dtype == "int8":
             qv, sc = _quantize_kv(val)
             cache[name][phys, offset] = qv
@@ -369,6 +370,7 @@ def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, ro
     """Write ``val`` (B, s, H, D) at the cache rows ``rows`` (s,) int64, a
     device tensor, in place (an int8 cache: quantized, and its scales
     beside)."""
+    val = whole(val)
     if cfg.kv_cache_dtype == "int8":
         q, scale = _quantize_kv(val)
         cache[name].index_copy_(1, rows, q)
@@ -516,7 +518,7 @@ def _layer_fwd(lp: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Ten
     h = x + attn_apply(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
                        positions=positions, causal=causal)
     y, aux = _ffn(ffn_apply_fn, lp, cfg, h)
-    return h + y, aux
+    return constrain(h + y, "residual"), aux
 
 
 def stack_apply(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -560,7 +562,7 @@ def stack_prefill(
         xn = L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
         a, (k, v) = attn_apply(lp["attn"], cfg, xn, positions=positions, return_kv=True)
         h = h + a
-        h = h + _ffn(ffn_apply_fn, lp, cfg, h)[0]
+        h = constrain(h + _ffn(ffn_apply_fn, lp, cfg, h)[0], "residual")
         filled = fill_cache(cfg, _layer_cache(caches, i), k, v)
     caches["len"] = filled["len"]
     return h, caches

@@ -94,8 +94,19 @@ index ``count + p``, the index sequential steps would use), the longest
 matching draft prefix and one token more are committed, and the rest is
 rolled back out of the pool (``PagedKVPool.rollback``).
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-sharded serving (A14).
+Sharded serving, as in the reference: with ``mesh`` (a
+``torch.distributed`` ``DeviceMesh`` named ("data", "model")) the params
+are placed on their ``dist.sharding`` specs as DTensors (default
+``ParallelConfig(fsdp_axes=("data",), data_axes=("data",))``), and every
+step runs on the mesh: the tokens, pools and caches are plain tensors each
+rank holds whole, replicated implicitly, the kernels run on each rank's
+head shard (``kernels.ops``), and the logits come back whole to every rank,
+which samples the same tokens. Every rank of the mesh runs ``generate``
+with the same requests. The steps stay captured graphs on the card: DTensor
+dispatch runs on the host at capture, and nothing in it reads a device
+value (``tests/test_torch_dist.py`` holds each sharded step to the
+host-read guard of ``tests/test_torch_step_graph.py``).
+The speculative drafter runs unsharded, on its own params.
 """
 
 from __future__ import annotations
@@ -109,10 +120,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.cache_sim import slot_reuse_stats
 from repro_torch.core.schedule import future_visit_window
 from repro_torch.device import resolve_device
+from repro_torch.dist.context import on_mesh, whole
 from repro_torch.models.model import LM, build_model
 from repro_torch.obs.llc import DEFAULT_CAPACITY_BYTES, LLCSampler
 from repro_torch.obs.metrics import Registry
@@ -144,13 +156,6 @@ __all__ = [
 
 CONTINUOUS_FAMILIES = ("dense", "moe")
 REQUEST_STATUSES = ("ok", "deadline", "cancelled", "shed", "failed")
-
-# Engine arguments of a feature a later slice ports (A14), with the value
-# that means "off". Any other value raises NotImplementedError naming it.
-_UNPORTED = {
-    "mesh": (None, "A14 sharded serving"),
-    "pcfg": (None, "A14 sharded serving"),
-}
 
 
 def supports_continuous(cfg: ModelConfig) -> bool:
@@ -304,7 +309,8 @@ class ServeEngine:
         drafter=None,
         draft_len: int = 4,
         device="cuda",
-        **unported,
+        mesh=None,
+        pcfg: Optional[ParallelConfig] = None,
     ):
         """Serve ``lm`` with ``params`` on ``device`` (default ``"cuda"``;
         raises when no GPU is present unless ``device="cpu"`` is given).
@@ -350,15 +356,12 @@ class ServeEngine:
         is spilled, and a resuming slot's pages come back
         ``prefetch_depth`` a boundary. ``drafter`` (a ``serve.spec.Drafter``)
         turns on speculative decoding with up to ``draft_len`` drafts a
-        row."""
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"ServeEngine() got an unexpected keyword argument {name!r}")
-            off, item = _UNPORTED[name]
-            if value != off:
-                raise NotImplementedError(
-                    f"ServeEngine({name}={value!r}) is not ported yet: ROADMAP §{item}"
-                )
+        row.
+
+        ``mesh`` (a ``DeviceMesh``) serves sharded: ``params`` (whole, the
+        same on every rank) are placed on their specs under ``pcfg``
+        (default ``ParallelConfig(fsdp_axes=("data",),
+        data_axes=("data",))``, the reference's)."""
         if scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if drafter is not None and scheduler != "continuous":
@@ -400,6 +403,18 @@ class ServeEngine:
             self.lm = lm
         self._budget = token_budget
         self.scheduler = scheduler
+        self.mesh = mesh
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from repro_torch.dist import sharding as shd
+
+            if not isinstance(mesh, DeviceMesh) or mesh.mesh_dim_names is None:
+                raise TypeError(f"mesh must be a torch.distributed DeviceMesh with named dims "
+                                f"(mesh_dim_names), got {type(mesh).__name__}")
+            pcfg = pcfg or ParallelConfig(fsdp_axes=("data",), data_axes=("data",))
+            params = shd.distribute(params, shd.param_specs(params, pcfg, mesh), mesh)
+        self.pcfg = pcfg
         self.params = params
         self.eos = cfg.eos_id
         self.prefix_sharing = prefix_sharing
@@ -627,9 +642,10 @@ class ServeEngine:
 
     def _decode_fn(self, caches: dict):
         def step(tokens):
-            logits, new = self.lm.decode_step(self.params, tokens, caches)
-            _copy_tree(caches, new)  # the advanced lengths, for the next replay
-            last = logits[:, -1]
+            with on_mesh(self.mesh):
+                logits, new = self.lm.decode_step(self.params, tokens, caches)
+                _copy_tree(caches, new)  # the advanced lengths, for the next replay
+            last = whole(logits)[:, -1]
             return last, _argmax(last)
         return step
 
@@ -655,9 +671,10 @@ class ServeEngine:
 
         tr = self.tracer
         with tr.span("serve.prefill", rows=n, bucket=bucket):
-            logits, caches = self.lm.prefill(self.params, self._prefill_batch(tokens),
-                                             self.max_len)
-            last = logits[:, -1]
+            with on_mesh(self.mesh):
+                logits, caches = self.lm.prefill(self.params, self._prefill_batch(tokens),
+                                                 self.max_len)
+            last = whole(logits)[:, -1]
             cur = self._sample(last, _argmax(last), temps, seeds, 0)
             step = self._decode_step(caches)
             del logits, caches
@@ -736,7 +753,9 @@ class ServeEngine:
     def _mixed_fn(self, pages: dict):
         def step(tokens, block_table, lens, q_lens, order_group):
             caches = assemble_cache_view(pages, block_table, lens, q_lens, order_group)
-            logits, _ = self.lm.decode_step(self.params, tokens, caches)
+            with on_mesh(self.mesh):
+                logits, _ = self.lm.decode_step(self.params, tokens, caches)
+            logits = whole(logits)
             return logits, _argmax(logits)
         return step
 

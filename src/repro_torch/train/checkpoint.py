@@ -17,6 +17,12 @@ same key paths, a list of lists on two axes.
 Writes are atomic (tmp dir + rename) and asynchronous (a background thread,
 after a synchronous copy to the host); ``latest_step`` only ever sees fully
 written checkpoints. Retention keeps the newest k.
+
+Sharded states: a DTensor leaf is gathered whole before it is written (a
+collective: every rank of its mesh saves), and only rank 0 of the process
+group writes. ``restore_pytree(..., shardings=specs, mesh=mesh)`` places the
+restored tree on ``mesh`` by the specs (``train.step.state_shardings``), so
+a state saved on one mesh restores onto another.
 """
 
 from __future__ import annotations
@@ -32,14 +38,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.context import whole
 from repro_torch.train.optimizer import named_leaves, stack_members
 
 __all__ = ["CheckpointManager", "save_pytree", "restore_pytree", "latest_step"]
 
 
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no group."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def _to_host(x) -> tuple[np.ndarray, str]:
     """(numpy array, dtype name) of a tensor or a Python scalar; bfloat16
     as its uint16 bits."""
+    x = whole(x)
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -99,8 +113,12 @@ def _write(flat: list, directory: str, step: int) -> str:
 
 
 def save_pytree(tree, directory: str, step: int) -> str:
-    """Synchronous atomic save. Returns the final checkpoint path."""
-    return _write(list(_host_flat(tree)), directory, step)
+    """Synchronous atomic save (rank 0 writes). Returns the final
+    checkpoint path."""
+    flat = list(_host_flat(tree))
+    if _writer():
+        return _write(flat, directory, step)
+    return os.path.join(directory, f"step_{step:08d}")
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -154,9 +172,15 @@ def _load(data, keys: dict, path: tuple) -> np.ndarray:
     return data[key]
 
 
-def restore_pytree(template, directory: str, step: Optional[int] = None):
+def restore_pytree(template, directory: str, step: Optional[int] = None, *, shardings=None,
+                   mesh=None):
     """Restore into ``template``'s structure (tensors on the template
-    leaves' devices, in the saved dtypes). Returns (tree, step)."""
+    leaves' devices, in the saved dtypes). ``shardings`` (a tree of specs
+    matching ``template``, e.g. ``train.step.state_shardings``) places the
+    result on the ``DeviceMesh`` ``mesh``, each rank keeping its shard;
+    this reshards across mesh changes. Returns (tree, step)."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore_pytree(shardings=...) needs the mesh to place them on")
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
@@ -164,7 +188,12 @@ def restore_pytree(template, directory: str, step: Optional[int] = None):
     with open(os.path.join(path, "manifest.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(path, "shard_0.npz")) as data:
-        return _fill(template, data, meta["keys"], ()), step
+        tree = _fill(template, data, meta["keys"], ())
+    if shardings is not None:
+        from repro_torch.dist.sharding import distribute
+
+        tree = distribute(tree, shardings, mesh)
+    return tree, step
 
 
 class CheckpointManager:
@@ -188,6 +217,8 @@ class CheckpointManager:
     def save(self, tree, step: int, *, blocking: bool = False):
         self.wait()  # one in-flight write at a time
         flat = list(_host_flat(tree))  # the host copy, before training moves on
+        if not _writer():
+            return
 
         def work():
             try:
@@ -210,9 +241,9 @@ class CheckpointManager:
         for s in steps[: -self.keep] if self.keep > 0 else []:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"), ignore_errors=True)
 
-    def restore_latest(self, template):
+    def restore_latest(self, template, *, shardings=None, mesh=None):
         self.wait()
-        return restore_pytree(template, self.directory)
+        return restore_pytree(template, self.directory, shardings=shardings, mesh=mesh)
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)

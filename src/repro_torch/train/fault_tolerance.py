@@ -1,14 +1,15 @@
-"""Fault tolerance: step watchdogs and failure injection.
+"""Fault tolerance: step watchdogs, failure injection, elastic re-mesh.
 
-A copy of the host-side part of ``repro.train.fault_tolerance``:
+A port of ``repro.train.fault_tolerance``:
 
-  * ``Watchdog`` -- wall-clock bound per step; a hung step raises
-    ``StepTimeout`` instead of blocking the job forever.
+  * ``Watchdog`` -- wall-clock bound per step; a hung step (or collective)
+    raises ``StepTimeout`` instead of blocking the job forever.
   * ``FailureInjector`` -- deterministic fault schedule for integration
     tests (kill at step k, slow step = straggler).
-
-``elastic_remesh`` and ``usable_mesh_shape`` rebuild a device mesh from the
-survivors; the port has no mesh yet (ROADMAP A14).
+  * ``usable_mesh_shape`` and ``elastic_remesh`` -- the largest usable
+    (data, model) grid from the surviving ranks, as a ``DeviceMesh``; the
+    latest checkpoint then restores onto it
+    (``restore_pytree(..., shardings=, mesh=)``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import threading
 import time
 from typing import Callable, Optional, Sequence
 
-__all__ = ["Watchdog", "StepTimeout", "FailureInjector"]
+__all__ = ["Watchdog", "StepTimeout", "FailureInjector", "elastic_remesh", "usable_mesh_shape"]
 
 
 class StepTimeout(RuntimeError):
@@ -70,3 +71,32 @@ class FailureInjector:
             raise RuntimeError(f"[injected] node failure at step {step}")
         if step in self.straggle_at:
             time.sleep(self.straggle_seconds)
+
+
+def usable_mesh_shape(n_devices: int, *, model_parallel: int) -> tuple[int, int]:
+    """Largest (data, model) grid from survivors, keeping the TP degree if
+    possible (params were sharded model-wise; keeping it avoids resharding
+    the TP axis), else the biggest TP degree that divides the survivors."""
+    mp = model_parallel
+    while mp > 1 and n_devices % mp:
+        mp //= 2
+    return (n_devices // mp, mp)
+
+
+def elastic_remesh(
+    ranks: Sequence[int],
+    *,
+    model_parallel: int,
+    axis_names: tuple[str, str] = ("data", "model"),
+    device_type: str = "cuda",
+):
+    """A ``DeviceMesh`` over the first ``data * model`` of the surviving
+    ``ranks`` (of the default process group), shaped by
+    :func:`usable_mesh_shape`. Every rank of the group calls it, as
+    ``DeviceMesh`` requires; a rank left out holds no coordinate in it."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dp, mp = usable_mesh_shape(len(ranks), model_parallel=model_parallel)
+    grid = torch.tensor(list(ranks)[: dp * mp], dtype=torch.int64).reshape(dp, mp)
+    return DeviceMesh(device_type, grid, mesh_dim_names=axis_names)

@@ -1,7 +1,8 @@
 """Fault-tolerant training loop: checkpoint/resume, watchdog, injection.
 
-A port of ``repro.train.loop`` for one card: build the step, restore the
-latest checkpoint or initialize, iterate over the data with a watchdog,
+A port of ``repro.train.loop``: build the step, restore the latest
+checkpoint or initialize, place the state on the mesh (``mesh``; None
+trains on one device), iterate over the data with a watchdog,
 checkpoint on a cadence, and on a failure stop with ``interrupted=True``
 after a final checkpoint, so that the next run resumes from it. A
 ``RuntimeError`` inside a step counts as a failure, as in the reference; a
@@ -27,7 +28,13 @@ from repro_torch.models.model import LM
 from repro_torch.obs import Registry, Tracer
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault_tolerance import FailureInjector, StepTimeout, Watchdog
-from repro_torch.train.step import PartialUpdate, check_device, make_train_state, make_train_step
+from repro_torch.train.step import (
+    PartialUpdate,
+    check_device,
+    make_train_state,
+    make_train_step,
+    shard_state,
+)
 
 log = logging.getLogger(__name__)
 
@@ -63,6 +70,7 @@ def run_training(
     lm: LM,
     tcfg: TrainConfig,
     pcfg: ParallelConfig = ParallelConfig(),
+    mesh=None,
     *,
     device="cuda",
     steps: Optional[int] = None,
@@ -77,7 +85,10 @@ def run_training(
     """Train ``lm`` for ``steps`` (default ``tcfg.total_steps``) on
     ``data_cfg``'s synthetic batches or ``make_batch(step)``. ``device``
     must be the model's; it defaults to ``"cuda"`` and raises without a GPU
-    unless the caller names the CPU."""
+    unless the caller names the CPU. With ``mesh`` (a ``DeviceMesh``) every
+    rank of it calls this with the same arguments: the state is sharded by
+    ``pcfg`` after init or restore, each step takes the whole batch and
+    keeps its rank's shard, and rank 0 writes the checkpoints."""
     check_device(lm, device)
     steps = steps or tcfg.total_steps
     ckpt = CheckpointManager(tcfg.checkpoint_dir, keep=tcfg.keep_checkpoints)
@@ -103,6 +114,8 @@ def run_training(
             state, resumed = ckpt.restore_latest(state)
         resumed_from = resumed
         log.info("resumed from step %d", resumed)
+    if mesh is not None:
+        state = shard_state(state, pcfg, mesh)
     start = resumed_from + 1 if resumed_from is not None else 0
 
     src = None
@@ -114,7 +127,7 @@ def run_training(
     else:
         batch_fn = make_batch
 
-    step_fn = make_train_step(lm, tcfg, pcfg)
+    step_fn = make_train_step(lm, tcfg, pcfg, mesh)
     batch0 = batch_fn(start)
     losses = []
     interrupted = False

@@ -40,6 +40,8 @@ def test_every_module_imports_without_jax_or_repro():
     (without running it); neither jax nor repro may be loaded."""
     mods = _modules()
     assert "repro_torch.serve.engine" in mods and "repro_torch.launch.serve" in mods
+    assert {"repro_torch.dist.sharding", "repro_torch.dist.context",
+            "repro_torch.dist.compression", "repro_torch.launch.mesh"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(SRC)!r}, {str(ROOT)!r}]\n"
@@ -98,7 +100,8 @@ def test_launcher_serves_on_the_cpu_when_asked(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--ckpt-dir", "checkpoints"], "A12"),
+    (["--mesh", "2x2"], "unrecognized arguments: --mesh"),
+    (["--attn-impl", "pallas"], "unrecognized arguments: --attn-impl"),
 ])
 def test_launcher_refuses_unported_flags(flag, item, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -25,7 +25,7 @@ from repro.configs import get_config as ref_get_config
 from repro.models import build_model as ref_build_model
 from repro.serve import Request as RefRequest
 from repro.serve import ServeEngine as RefEngine
-from repro_torch.configs import get_config
+from repro_torch.configs import ParallelConfig, get_config
 from repro_torch.models import build_model
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.engine import sample_seed, sample_token
@@ -138,13 +138,28 @@ def test_sample_token_follows_softmax():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh=object()), "A14"),
-    (dict(pcfg=object()), "A14"),
+    (dict(mesh=object()), "mesh_dim_names"),
+    (dict(shards=2), "unexpected keyword argument 'shards'"),
 ])
 def test_unported_engine_arguments_raise(models, kwargs, item):
+    """Every argument of the reference's engine is ported (``mesh`` and
+    ``pcfg`` since A14): what still raises is a mesh that is not a
+    ``DeviceMesh`` and an argument the reference does not have either."""
     _, _, lm, params = models
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises((TypeError, AttributeError), match=item):
         ServeEngine(lm, params, device="cpu", **kwargs)
+
+
+def test_mesh_and_pcfg_are_accepted(models):
+    """``pcfg`` without a mesh changes nothing; ``mesh`` is served in
+    ``tests/test_torch_dist.py`` on gloo meshes."""
+    _, _, lm, params = models
+    reqs = [Request(tokens=np.arange(2, 9, dtype=np.int32), max_new_tokens=3, rid=0)]
+    a = ServeEngine(lm, params, device="cpu", batch_size=1, max_len=32,
+                    pcfg=ParallelConfig(fsdp_axes=("data",), data_axes=("data",)))
+    b = ServeEngine(lm, params, device="cpu", batch_size=1, max_len=32)
+    assert a.mesh is None and a.params is params
+    assert a.generate(reqs)[0].tokens.tolist() == b.generate(reqs)[0].tokens.tolist()
 
 
 @pytest.mark.parametrize("kwargs,match", [

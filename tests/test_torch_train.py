@@ -27,8 +27,11 @@ packages generate bit for bit alike.
   uninterrupted run; a failure part way through the optimizer's in-place
   update writes no checkpoint of the half-updated state; the watchdog
   re-runs a step that overran.
-* ``make_train_step`` refuses the sharding fields of ``ParallelConfig``.
-* The launcher on the CPU, and its refusal without ``--device cpu``.
+* ``make_train_step`` takes the sharding fields of ``ParallelConfig``;
+  without a mesh they change nothing (``tests/test_torch_dist.py`` runs
+  them on a mesh).
+* The launcher on the CPU, its refusal of a malformed ``--mesh`` and its
+  refusal without ``--device cpu``.
 """
 
 import dataclasses
@@ -294,9 +297,15 @@ def test_train_steps_track_reference(dense):
                                    dict(grad_compression="int8_pod"), dict(zero_grads=False)],
                          ids=lambda kw: next(iter(kw)))
 def test_sharding_fields_are_refused(dense, field):
-    _, _, lm, _ = dense
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_train_step(lm, TrainConfig(), ParallelConfig(**field))
+    """No field is refused any more (the port shards, ROADMAP A14): each
+    builds a step, and without a mesh the step's loss is the default's, bit
+    for bit; ``grad_compression`` and ``zero_grads`` are read by nothing, as
+    in the reference's step."""
+    _, jparams, lm, batches = dense
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0)
+    got, _ = _port_losses(lm, jparams, tcfg, ParallelConfig(**field), batches[:2])
+    want, _ = _port_losses(lm, jparams, tcfg, ParallelConfig(), batches[:2])
+    assert got == want
 
 
 def test_microbatches_equal_full_batch(dense):
@@ -450,8 +459,8 @@ def test_launcher_trains_on_cpu_and_refuses_without_a_gpu(tmp_path, capsys):
     launch_train.main(args + ["--device", "cpu"])
     out = capsys.readouterr().out
     assert "done: final_step=3 resumed_from=None" in out and "interrupted=False" in out
-    with pytest.raises(SystemExit, match="A14"):
-        launch_train.main(args + ["--device", "cpu", "--mesh", "2x1"])
+    with pytest.raises(SystemExit, match="must be DxM"):
+        launch_train.main(args + ["--device", "cpu", "--mesh", "2x1x1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             launch_train.main(args)
