@@ -128,7 +128,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    steps of 2 microbatches, unsharded and on the 1x1 NCCL mesh from the
    same weights and batches (losses, gradient norms and params equal to
    the bit, the same launches), and ``reduce_grads_compressed`` on one
-   gradient leaf equal to its plain result to the bit. Then small bf16 models
+   gradient leaf equal to its plain result to the bit; then, the NCCL
+   group left, the dry-run (``launch.dryrun``) on fake process groups:
+   deepseek-7b decode_32k on the 16x16 mesh, its train_4k extrapolated
+   from depth 1 and 2 and held exactly to a full-depth trace (flops), its
+   useful ratio above DRYRUN_USEFUL_MIN (a per-rank count), reduced
+   olmoe-1b-7b on a (4, 2) mesh, every cell ok; the sharded-train step
+   traced on a fake 1x1 mesh, its argument bytes equal to the card's state
+   and batch exactly and its argument + temp bytes beside the card's
+   ``max_memory_allocated``, the real step's MFU at most 1, the card's
+   memory and shared memory an SM against ``analysis.constants``; then
+   the four examples through their ``main`` (quickstart: B2 in both
+   orders and its recorded walks; train_lm: 20 steps, B2 and B4-B6 8 x
+   steps, a falling loss; serve_lm: full-size deepseek-7b continuously, 12
+   requests, B1 30 x (mixed steps + warm-ups); sawtooth_analysis
+   --quick). Then small bf16 models
    whose logits (serving) and losses (training) with the kernels must agree
    with the plain versions', and ``run_training`` crashed at a step and
    resumed from its checkpoint against an uninterrupted run. With
@@ -277,6 +291,22 @@ TRAIN_MEM_LIMIT_GB = 80.0
 # parameter) beside the step's own gradients, moments and params, which at 30
 # layers (6.9 B params) comes within a few GB of the card's 80.
 SHARDED_TRAIN_LAYERS = 16
+# The dry-run's full-depth deepseek-7b train_4k trace on the 16 x 16 mesh
+# (remat full, the plain attention materializing every score, the vocab
+# products replicated over "model" by the "logits" rule) reads a useful
+# ratio of 0.321 (a CPU trace, PR 28: flops are counted from shapes). A
+# count of the global op in place of the rank's would read 1/256 of it.
+DRYRUN_USEFUL_MIN = 0.1
+# The reduced olmoe cell's batch in phase_dryrun: the reduced shape's batch
+# of 2 does not divide the (4, 2) mesh's data axis, and on such a batch the
+# card's torch 2.11 DTensor refuses the MoE step's views (ROADMAP §C, open);
+# 8 gives each data rank 2 sequences, as the production cells do.
+DRYRUN_SMALL_BATCH = 8
+# The card shows less than its data-sheet 80 GB (``CHIP_HBM_BYTES``): the
+# driver and ECC keep some; 5% is ample.
+HBM_VISIBLE_MIN = 0.95
+# train_lm's steps in phase_examples (the issue's 20; the loss must fall).
+EXAMPLE_TRAIN_STEPS = 20
 
 # B7 (the SSD scan) against its plain version (ssd_chunked in float32 on
 # the same bf16 inputs), each as max-abs error over max |plain|. y is
@@ -3917,6 +3947,7 @@ def phase_sharded_train() -> dict:
     from repro_torch.data import DataConfig, SyntheticPacked
     from repro_torch.dist import compression
     from repro_torch.kernels import cuda_lib
+    from repro_torch.launch.dryrun import local_bytes
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import build_model
     from repro_torch.train.step import make_train_state, make_train_step, shard_state
@@ -3937,6 +3968,7 @@ def phase_sharded_train() -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         state = make_train_state(lm, tcfg, 0, device="cuda")
+        state_bytes = local_bytes(state)
         if name == "sharded":
             state = shard_state(state, pcfg, mesh)
         step_fn = make_train_step(lm, tcfg, pcfg, mesh if name == "sharded" else None)
@@ -3955,6 +3987,8 @@ def phase_sharded_train() -> dict:
         local = lambda t: t.to_local() if isinstance(t, DTensor) else t  # noqa: E731
         runs[name] = {"records": recs, "launches": dict(cuda_lib.launch_counts),
                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "state_bytes": state_bytes,
                       "placed": isinstance(p["layers"][0]["attn"]["wq"]["w"], DTensor),
                       "leaves": {k: local(t).clone() for k, t in (
                           ("layer0.wq", p["layers"][0]["attn"]["wq"]["w"]),
@@ -3984,8 +4018,11 @@ def phase_sharded_train() -> dict:
     out = {"arch": cfg.name, "layers": cfg.n_layers, "steps": steps, "batch": batch, "seq": seq,
            "microbatches": micro, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
            "backend": torch.distributed.get_backend(),
-           "runs": {k: {kk: v[kk] for kk in ("records", "launches", "peak_mem_gb", "placed")}
+           "runs": {k: {kk: v[kk] for kk in ("records", "launches", "peak_mem_gb", "placed",
+                                             "peak_mem_bytes", "state_bytes")}
                     for k, v in runs.items()},
+           "batch_bytes": sum(int(x.nbytes) for x in batches[0].values()),
+           "optimizer": tcfg.optimizer,
            "unequal": unequal, "launches": b["launches"], "launches_want": want,
            "compressed_allreduce": compressed}
     print(f"[{label}] " + json.dumps(out))
@@ -4120,6 +4157,247 @@ def phase_sharded_serve(cfg, lm, params, main: dict, static: dict) -> dict:
                        for k in set(launches) | set(slaunches)}
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+def _dryrun_line(label: str, rec: dict) -> dict:
+    """The figures of one dry-run record that the phase prints."""
+    r = rec["roofline"]
+    out = {"cell": f"{rec['arch']} {rec['shape']} {rec['mesh']}", "status": rec["status"],
+           "trace_s": rec.get("lower_s"), "ops": rec.get("ops"),
+           "flops_per_device": rec["cost"]["flops"],
+           "bytes_accessed": rec["cost"].get("bytes_accessed", rec["cost"].get("bytes accessed")),
+           "collectives": rec["collectives"], "memory": rec.get("memory"),
+           "bottleneck": r["bottleneck"], "useful_ratio": r["useful_ratio"],
+           "step_s_bound": r["step_s"]}
+    print(f"[{label}] " + json.dumps(out))
+    return out
+
+
+def phase_dryrun() -> dict:
+    """The dry-run (``launch.dryrun``) on this machine's torch, on fake
+    process groups (no card, no collective moves a byte): deepseek-7b's
+    decode_32k cell on the 16 x 16 mesh (256 fake ranks); its train_4k cell
+    extrapolated from depth 1 and 2 (``extrapolate_cell``, microbatches 1)
+    and held exactly to a full-depth trace of the same cell (flops; the
+    trace unrolls every layer), whose useful ratio must lie in
+    (DRYRUN_USEFUL_MIN, 1] (a count of the global op, not the rank's, reads
+    1/256 of that); reduced olmoe-1b-7b's train_4k on a (4, 2) mesh at a
+    batch of DRYRUN_SMALL_BATCH, which the data axis divides. Every
+    cell must be ok; each prints its flops per device, collective bytes by
+    kind, temp bytes and bottleneck."""
+    from torch.testing._internal.distributed import fake_pg
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+
+    label = "dryrun"
+    t_start = time.perf_counter()
+    print(f"[{label}] torch {torch.__version__}; fake process group: {fake_pg.__name__} "
+          f"({Path(fake_pg.__file__).name}), backend 'fake' on a FakeStore")
+    out = {"cells": {}}
+    with D.fake_world(D.MESH_RANKS["single"]):
+        mesh = make_production_mesh(device="cpu")
+        rec, _ = D.lower_cell("deepseek-7b", "decode_32k", mesh, "single")
+        out["cells"]["decode"] = _dryrun_line(label, rec)
+        ex = D.extrapolate_cell("deepseek-7b", "train_4k", mesh, "single")
+        out["cells"]["train_extrapolated"] = _dryrun_line(label, ex)
+        full, _ = D.lower_cell("deepseek-7b", "train_4k", mesh, "single",
+                               cfg_overrides={"scan_layers": False},
+                               par_overrides={"microbatches": 1})
+        out["cells"]["train_full_depth"] = _dryrun_line(label, full)
+    with D.fake_world(8):
+        rec, _ = D.lower_cell("olmoe-1b-7b", "train_4k", make_local_mesh(4, 2, device="cpu"),
+                              "4x2", reduced=True,
+                              shape_overrides={"global_batch": DRYRUN_SMALL_BATCH})
+        out["cells"]["olmoe_reduced"] = _dryrun_line(label, rec)
+    if torch.distributed.is_initialized():
+        raise AssertionError("the dry-run left a process group joined")
+    bad = [name for name, cell in out["cells"].items() if cell["status"] != "ok"]
+    if bad:
+        raise AssertionError(f"dry-run cells not ok: {bad}")
+    got, want = full["cost"]["flops"], ex["cost"]["flops"]
+    out["extrapolation"] = {"extrapolated_flops": want, "full_depth_flops": got,
+                            "equal": got == want,
+                            "bytes": [ex["cost"]["bytes accessed"], full["cost"]["bytes_accessed"]],
+                            "collectives_total": [ex["collectives"].get("total"),
+                                                  full["collectives"].get("total")]}
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[{label}] extrapolated against full depth: " + json.dumps(out["extrapolation"])
+          + f"; the phase took {out['seconds']:.1f} s")
+    if got != want:
+        raise AssertionError(f"extrapolate_cell's flops {want} differ from the full-depth "
+                             f"trace's {got}")
+    useful = full["roofline"]["useful_ratio"]
+    if not DRYRUN_USEFUL_MIN < useful <= 1.0:
+        raise AssertionError(f"deepseek-7b train_4k's useful ratio {useful} lies outside "
+                             f"({DRYRUN_USEFUL_MIN}, 1]: the trace does not count per rank")
+    return out
+
+
+def phase_dryrun_vs_card(sharded_train: dict) -> dict:
+    """The dry-run held to the card: deepseek-7b's training step at the
+    sharded-train phase's shape (SHARDED_TRAIN_LAYERS layers, 4 x 1024, 2
+    microbatches, adamw_factored) traced on a fake 1 x 1 mesh. Its
+    argument bytes must equal the real state's bytes on the card plus the
+    batch's, exactly, and its collective bytes 0; its argument + temp
+    bytes print beside ``max_memory_allocated`` of the real unsharded
+    step. The real step's MFU (``model_flops`` over step time x
+    ``PEAK_FLOPS_BF16``) must be at most 1. ``get_device_properties`` must
+    agree with ``CHIP_HBM_BYTES`` (the visible memory within
+    HBM_VISIBLE_MIN of it) and ``SMEM_PER_SM_BYTES``."""
+    from repro_torch.analysis import constants as C
+    from repro_torch.analysis import roofline as rf
+    from repro_torch.configs import SHAPES, TrainConfig
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_local_mesh
+
+    label = "dryrun-vs-card"
+    t_start = time.perf_counter()
+    real = sharded_train["runs"]["unsharded"]
+    shape = {"seq_len": sharded_train["seq"], "global_batch": sharded_train["batch"]}
+    with D.fake_world(1):
+        rec, _ = D.lower_cell(
+            "deepseek-7b", "train_4k", make_local_mesh(1, 1, device="cpu"), "1x1",
+            cfg_overrides={"n_layers": sharded_train["layers"]},
+            par_overrides={"microbatches": sharded_train["microbatches"]},
+            shape_overrides=shape, train_cfg=TrainConfig(optimizer=sharded_train["optimizer"]))
+    mem = rec["memory"]
+    real_args = real["state_bytes"] + sharded_train["batch_bytes"]
+    step_s = real["records"][-1]["step_s"]
+    cfg = D.cfg_for_dryrun("deepseek-7b", {"n_layers": sharded_train["layers"]})
+    mf = rf.model_flops(cfg, dataclasses.replace(SHAPES["train_4k"], **shape))
+    mfu = mf / (step_s * C.PEAK_FLOPS_BF16)
+    props = torch.cuda.get_device_properties(0)
+    out = {"status": rec["status"], "trace_s": rec["lower_s"], "ops": rec["ops"],
+           "argument_bytes": mem["argument_bytes"], "real_state_bytes": real["state_bytes"],
+           "real_batch_bytes": sharded_train["batch_bytes"],
+           "argument_equal": mem["argument_bytes"] == real_args,
+           "collectives": rec["collectives"], "temp_bytes": mem["temp_bytes"],
+           "dryrun_peak_bytes": mem["argument_bytes"] + mem["temp_bytes"],
+           "card_max_memory_allocated": real["peak_mem_bytes"],
+           "dryrun_over_card": (mem["argument_bytes"] + mem["temp_bytes"])
+           / real["peak_mem_bytes"],
+           "traced_flops": rec["cost"]["flops"], "model_flops": mf, "step_s": step_s,
+           "mfu": mfu, "card_total_memory": props.total_memory,
+           "chip_hbm_bytes": C.CHIP_HBM_BYTES,
+           "card_smem_per_sm": props.shared_memory_per_multiprocessor,
+           "smem_per_sm": C.SMEM_PER_SM_BYTES}
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[{label}] " + json.dumps(out))
+    print(f"[{label}] fake 1x1 argument bytes {mem['argument_bytes']:,} against the card's "
+          f"state {real['state_bytes']:,} + batch {sharded_train['batch_bytes']:,}; dry-run "
+          f"argument + temp {out['dryrun_peak_bytes'] / 1e9:.2f} GB against the card's "
+          f"max_memory_allocated {real['peak_mem_bytes'] / 1e9:.2f} GB; the step's MFU "
+          f"{mfu:.4f} ({mf:.4e} model flops in {step_s:.3f} s at {C.PEAK_FLOPS_BF16:.3e})")
+    if rec["status"] != "ok" or not out["argument_equal"]:
+        raise AssertionError(f"the fake 1x1 cell's argument bytes {mem['argument_bytes']} "
+                             f"differ from the card's state and batch, {real_args}")
+    if rec["collectives"].get("total", 0) != 0:
+        raise AssertionError(f"a 1x1 mesh issued collective bytes: {rec['collectives']}")
+    if not 0 < mfu <= 1:
+        raise AssertionError(f"MFU {mfu} above 1: the flop count or the peak is wrong")
+    if not HBM_VISIBLE_MIN * C.CHIP_HBM_BYTES <= props.total_memory <= C.CHIP_HBM_BYTES:
+        raise AssertionError(f"the card reports {props.total_memory} bytes, CHIP_HBM_BYTES "
+                             f"is {C.CHIP_HBM_BYTES}")
+    if props.shared_memory_per_multiprocessor != C.SMEM_PER_SM_BYTES:
+        raise AssertionError(f"the card reports {props.shared_memory_per_multiprocessor} "
+                             f"bytes of shared memory an SM, SMEM_PER_SM_BYTES is "
+                             f"{C.SMEM_PER_SM_BYTES}")
+    return out
+
+
+def phase_examples() -> dict:
+    """The four examples (``repro_torch.examples``), each through its
+    ``main(argv)`` in this process (the kernels' builds are reused):
+    quickstart (B2: cyclic and sawtooth within KERNEL_TOL of each other and
+    of the reference impl, its walks equal to the host model's; 4
+    ``flash_fwd`` launches); train_lm (EXAMPLE_TRAIN_STEPS steps of the
+    50.3 M-param config: the loss falls, ``flash_fwd`` and each backward kernel 8
+    x steps, remat none; its peak printed); serve_lm (full-size deepseek-7b
+    served continuously, 12 requests x 24 new tokens, train_lm's
+    checkpoint refused as another config: every request ok, ``paged_decode``
+    30 x (mixed steps + the two captured steps' warm-ups) and nothing
+    else); sawtooth_analysis --quick."""
+    import shutil
+
+    from repro_torch.examples import quickstart, sawtooth_analysis, serve_lm, train_lm
+    from repro_torch.kernels import cuda_lib
+
+    label = "examples"
+    t_start = time.perf_counter()
+    ckdir = ROOT / "build" / "examples_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    out = {}
+    try:
+        qs = quickstart.main([])
+        out["quickstart"] = {k: qs[k] for k in ("sawtooth_vs_cyclic", "kernel_vs_reference",
+                                                 "gb10_reduction_pct", "walks", "launches")}
+        print(f"[{label}] quickstart " + json.dumps(out["quickstart"]))
+        want = {"flash_fwd": 4}  # two orders in part 1, each again recording its walk
+        got = {k: v for k, v in qs["launches"].items() if v}
+        if got != want:
+            raise AssertionError(f"quickstart launches {got}, want {want}")
+        if max(qs["sawtooth_vs_cyclic"], qs["kernel_vs_reference"]) > KERNEL_TOL:
+            raise AssertionError(f"quickstart's outputs differ by more than {KERNEL_TOL}")
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr = train_lm.main(["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", str(ckdir)])
+        wall = time.perf_counter() - t0
+        res, steps = tr["result"], tr["steps"]
+        launches = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+        layers = tr["cfg"].n_layers
+        want = {"flash_fwd": layers * steps, "flash_bwd_delta": layers * steps,
+                "flash_bwd_dq": layers * steps, "flash_bwd_dkv": layers * steps}
+        out["train_lm"] = {"params": tr["params"], "steps": steps,
+                           "losses": [res.losses[0], res.losses[-1]],
+                           "interrupted": res.interrupted, "launches": launches,
+                           "wall_s": wall,
+                           "tokens_per_s": steps * tr["batch"] * tr["seq"] / wall,
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[{label}] train_lm " + json.dumps(out["train_lm"]))
+        if res.interrupted or not res.losses[-1] < res.losses[0]:
+            raise AssertionError(f"train_lm did not learn: {out['train_lm']}")
+        if launches != want:
+            raise AssertionError(f"train_lm launches {launches}, want {want}")
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        cuda_lib.reset_launch_counts()
+        sv = serve_lm.main(["--ckpt-dir", str(ckdir)])
+        stats = sv["stats"]
+        launches = {k: v for k, v in cuda_lib.launch_counts.items() if v}
+        # each captured step's warm-up runs once for real (serve/step_graph.py)
+        want = {"paged_decode": sv["cfg"].n_layers * (stats.mixed_steps + sv["graphs"])}
+        statuses = sorted({r.status for r in sv["results"]})
+        out["serve_lm"] = {"scheduler": sv["scheduler"], "requests": len(sv["results"]),
+                           "statuses": statuses, "tokens": sv["tokens"],
+                           "tokens_per_s": sv["tokens"] / sv["seconds"],
+                           "mixed_steps": stats.mixed_steps, "graphs": sv["graphs"],
+                           "launches": launches,
+                           "restored_step": sv["restored_step"]}
+        print(f"[{label}] serve_lm " + json.dumps(out["serve_lm"]))
+        if sv["scheduler"] != "continuous" or statuses != ["ok"] or len(sv["results"]) != 12:
+            raise AssertionError(f"serve_lm: {out['serve_lm']}")
+        if launches != want:
+            raise AssertionError(f"serve_lm launches {launches}, want {want}")
+        del sv
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        sa = sawtooth_analysis.main(["--quick"])
+        out["sawtooth_analysis"] = {"seconds": time.perf_counter() - t0, **sa}
+        print(f"[{label}] sawtooth_analysis --quick " + json.dumps(out["sawtooth_analysis"]))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    out["launches"] = _sum_launches(*(out[k] for k in ("quickstart", "train_lm", "serve_lm")))
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"[{label}] the four examples took {out['seconds']:.1f} s")
     return out
 
 
@@ -5062,6 +5340,11 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     train = phase_train_main(profile=args.profile)
     sharded_train = phase_sharded_train()
+    if torch.distributed.is_initialized():  # the dry-run joins fake groups of its own
+        torch.distributed.destroy_process_group()
+    dryrun = phase_dryrun()
+    dryrun_vs_card = phase_dryrun_vs_card(sharded_train)
+    examples = phase_examples()
     small = phase_small_model()
     small_static = phase_small_static()
     loop = phase_train_loop()
@@ -5093,7 +5376,7 @@ def main(argv=None) -> int:
              "train_mamba2": train_mamba, "train_zamba2": train_zamba,
              "encdec": encdec, "vlm": vlm, "train_encdec": train_encdec, "train_vlm": train_vlm,
              "train_olmoe": train_olmoe, "sharded_train": sharded_train,
-             "sharded_serve": sharded_serve}
+             "sharded_serve": sharded_serve, "examples": examples}
     by_path = {name: {path: rec["launches"].get(name, 0) for path, rec in paths.items()}
                for name in main_path["launches"]}
     launches = {name: sum(paths.values()) for name, paths in by_path.items()}
@@ -5253,6 +5536,11 @@ def main(argv=None) -> int:
           f"training step {sharded_train['runs']['sharded']['records'][-1]['step_s']:.3f} s "
           f"against {sharded_train['runs']['unsharded']['records'][-1]['step_s']:.3f} s, both "
           f"equal to the unsharded runs to the bit")
+    print(f"[done] dry-run: {len(dryrun['cells'])} cells ok in {dryrun['seconds']:.1f} s, "
+          f"extrapolation equal to full depth; fake 1x1 argument bytes equal to the card's: "
+          f"{dryrun_vs_card['argument_equal']}, MFU {dryrun_vs_card['mfu']:.4f}; examples in "
+          f"{examples['seconds']:.1f} s: train_lm {examples['train_lm']['tokens_per_s']:.0f} "
+          f"tokens/s, serve_lm {examples['serve_lm']['tokens_per_s']:.1f} tokens/s")
     # The grouped product is a library call (grouped_mm), the counterpart of
     # XLA's ragged_dot: not a kernel of this repository, so not in the list
     # of kernels below.

@@ -2,6 +2,8 @@ from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
     ParallelConfig,
+    SHAPES,
+    ShapeConfig,
     SSMConfig,
     TrainConfig,
     torch_dtype,
@@ -12,6 +14,8 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
+    "ShapeConfig",
+    "SHAPES",
     "ParallelConfig",
     "TrainConfig",
     "torch_dtype",

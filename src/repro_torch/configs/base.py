@@ -1,6 +1,7 @@
 """Configs for the PyTorch port: ``ModelConfig`` with the same fields and
 defaults as ``repro.configs.base.ModelConfig``, dtypes resolved to torch
-dtypes; ``ParallelConfig`` and ``TrainConfig`` as the reference's.
+dtypes; ``ShapeConfig`` and the dry-run's four ``SHAPES``,
+``ParallelConfig`` and ``TrainConfig`` as the reference's.
 
 Every assigned architecture is a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; ``repro_torch.configs.registry`` maps ``--arch`` ids
@@ -14,8 +15,8 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "ParallelConfig", "TrainConfig",
-           "torch_dtype"]
+__all__ = ["MoEConfig", "SSMConfig", "ModelConfig", "ShapeConfig", "SHAPES", "ParallelConfig",
+           "TrainConfig", "torch_dtype"]
 
 _DTYPES = {
     "bfloat16": torch.bfloat16,
@@ -140,6 +141,30 @@ class ModelConfig:
         if self.window is not None:
             kw["window"] = 32
         return self.with_(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry-run: the global batch of a training step,
+    a prefill or a decode step."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    def reduced(self) -> "ShapeConfig":
+        return dataclasses.replace(
+            self, seq_len=min(self.seq_len, 128), global_batch=min(self.global_batch, 2)
+        )
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

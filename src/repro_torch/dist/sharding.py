@@ -91,12 +91,16 @@ class MeshShape:
 
 def _mesh_sizes(mesh) -> dict[str, int]:
     """Axis name -> size for a ``DeviceMesh``, a :class:`MeshShape` or a
-    plain mapping."""
+    plain mapping. A ``DeviceMesh``'s sizes come from its ``shape``, not
+    its rank tensor ``mesh``, which newer torch builds by indexing (an op
+    that ``FakeTensorMode`` refuses on a real tensor); an object with named
+    dims and no ``shape`` gives its ``mesh`` grid's."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
     names = getattr(mesh, "mesh_dim_names", None)
     if names is not None:  # torch DeviceMesh
-        return dict(zip(names, mesh.mesh.shape))
+        shape = mesh.shape if hasattr(mesh, "shape") else mesh.mesh.shape
+        return dict(zip(names, (int(n) for n in shape)))
     return dict(mesh.shape)
 
 

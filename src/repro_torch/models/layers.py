@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.context import reduce_partial
+
 __all__ = [
     "dense_init",
     "dense",
@@ -61,7 +63,11 @@ def rmsnorm_init(dim: int, dtype=torch.float32, device="cpu") -> dict:
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
+    # On a mesh a partial sum (a row-parallel product's output) is reduced
+    # first, as Megatron's all-reduce: DTensor would otherwise reduce-scatter
+    # it onto the sequence, whose strided shard the next product cannot plan
+    # on fake tensors (the dry-run). A no-op off a mesh.
+    xf = reduce_partial(x).float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)

@@ -5,15 +5,17 @@
   loss, metrics    = lm.loss(params, batch)
   logits, caches   = lm.prefill(params, batch, max_len)
   logits, caches   = lm.decode_step(params, tokens, caches)
+  batch            = lm.input_specs(shape, reduced=False, device=None)
 
-Batches, as the reference's (the port has no ``input_specs``: callers build
-them by its rules):
+Batches, as the reference's; ``input_specs`` makes one of a
+``configs.ShapeConfig`` with ``torch.empty`` (under ``FakeTensorMode``,
+fake tensors: the counterpart of the reference's ``ShapeDtypeStruct``s):
 
-  dense/moe/ssm/hybrid: ``{"tokens": (B, S) int}``
-  vlm:    ``{"tokens": (B, S - P) int, "prefix_embeds": (B, P, d)}``, P =
+  dense/moe/ssm/hybrid: ``{"tokens": (B, S) int32}``
+  vlm:    ``{"tokens": (B, S - P) int32, "prefix_embeds": (B, P, d)}``, P =
           ``min(n_prefix_embeds, max(S // 4, 1))`` in training (the serve
           engine feeds min(n_prefix_embeds, 8) zero embeddings)
-  encdec: ``{"src_embeds": (B, S_src, d), "tgt_tokens": (B, S) int}``
+  encdec: ``{"src_embeds": (B, S_src, d), "tgt_tokens": (B, S) int32}``
 
 The port trains and serves every family of the reference. Dense and MoE:
 ``loss`` is the next-token cross-entropy of the training step
@@ -47,9 +49,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.context import constrain, whole
+from repro_torch.dist.context import constrain, placed_like, whole
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
@@ -70,6 +72,7 @@ class LM:
     loss: Callable
     prefill: Callable
     decode_step: Callable
+    input_specs: Callable
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -115,6 +118,30 @@ def _generator(seed, device) -> torch.Generator:
     if isinstance(seed, torch.Generator):
         return seed
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _input_specs_fn(cfg: ModelConfig, model_device: torch.device):
+    """``input_specs(shape, reduced=False, device=None)``: the batch of
+    ``shape`` (its ``.reduced()`` form, with the config's, when ``reduced``)
+    as ``torch.empty`` tensors on ``device`` (default the model's), built
+    by the reference's rules for the family."""
+    def input_specs(shape: ShapeConfig, reduced: bool = False, device=None) -> dict:
+        c = cfg.reduced() if reduced else cfg
+        sh = shape.reduced() if reduced else shape
+        b, s = sh.global_batch, sh.seq_len
+        dev = model_device if device is None else torch.device(device)
+        if c.family == "vlm":
+            p = min(c.n_prefix_embeds, max(s // 4, 1))
+            return {"tokens": torch.empty((b, s - p), dtype=torch.int32, device=dev),
+                    "prefix_embeds": torch.empty((b, p, c.d_model), dtype=c.activation_dtype(),
+                                                 device=dev)}
+        if c.family == "encdec":
+            return {"src_embeds": torch.empty((b, s, c.d_model), dtype=c.activation_dtype(),
+                                              device=dev),
+                    "tgt_tokens": torch.empty((b, s), dtype=torch.int32, device=dev)}
+        return {"tokens": torch.empty((b, s), dtype=torch.int32, device=dev)}
+
+    return input_specs
 
 
 def _head_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -168,7 +195,10 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
                          torch.as_tensor(batch["prefix_embeds"], device=device),
                          dtype=cfg.activation_dtype())
             b, p = pe.shape[:2]
-            x = torch.cat([pe, x], dim=1)
+            # on a mesh the prefix takes the tokens' placements: DTensor
+            # would join a column-sharded prefix by sharding the sequence,
+            # which the next products cannot plan on fake tensors
+            x = torch.cat([placed_like(pe, x), x], dim=1)
             tokens = torch.cat([tokens.new_zeros((b, p)), tokens], dim=1)
             mask = torch.cat([mask.new_zeros((b, p)), mask], dim=1)
         return x, tokens, mask
@@ -208,7 +238,7 @@ def _build_decoder_only(cfg: ModelConfig, device: torch.device) -> LM:
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return _logits(params, cfg, h), caches
 
-    return LM(cfg, device, init, loss, prefill, decode_step)
+    return LM(cfg, device, init, loss, prefill, decode_step, _input_specs_fn(cfg, device))
 
 
 def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
@@ -291,7 +321,7 @@ def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return _logits(params, cfg, h), caches
 
-    return LM(cfg, device, init, loss, prefill, decode_step)
+    return LM(cfg, device, init, loss, prefill, decode_step, _input_specs_fn(cfg, device))
 
 
 def _build_encdec(cfg: ModelConfig, device: torch.device) -> LM:
@@ -336,7 +366,7 @@ def _build_encdec(cfg: ModelConfig, device: torch.device) -> LM:
         h = L.rmsnorm(params["ln_f"], h, cfg.norm_eps)
         return _logits(params, cfg, h), caches
 
-    return LM(cfg, device, init, loss, prefill, decode_step)
+    return LM(cfg, device, init, loss, prefill, decode_step, _input_specs_fn(cfg, device))
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> LM:

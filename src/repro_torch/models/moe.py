@@ -29,7 +29,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import constrain, whole
+from repro_torch.dist.context import (
+    constrain,
+    grad_placed_like,
+    placed_like,
+    replicated,
+    whole,
+)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -100,7 +106,9 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, dropless: bool = Fa
     e, k = m.num_experts, m.top_k
     cap = expert_capacity(t, cfg)
 
-    xf = x.reshape(t, d)
+    # on a mesh xf's gradient comes back in xf's placements, for the same
+    # reason as the combine's below (exact no-ops off a mesh)
+    xf = grad_placed_like(x.reshape(t, d))
     logits, top_logits, sel = _route(p, cfg, xf)
     probs = torch.softmax(logits, dim=-1)
     weights = torch.softmax(top_logits, dim=-1)
@@ -109,19 +117,28 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, dropless: bool = Fa
     w_flat = weights.reshape(-1)
     oh, keep, pos_c = _capacity_slots(e_flat, e, cap)
 
-    # dispatch: scatter-add the kept choices into the (E, C, d) buffer
-    x_rep = _repeat_k(xf, k).to(dt) * keep[:, None].to(dt)
+    # dispatch: scatter-add the kept choices into the (E, C, d) buffer; on a
+    # mesh from the replicated token stream and slots, the buffer's gradient
+    # replicated too (torch 2.11's DTensor pairs a whole index with a shard
+    # of the rows otherwise, and a shard of the capacity dim cannot be
+    # flattened back on fake tensors; the expert products read the buffer
+    # whole there anyway; exact no-ops off a mesh)
+    slots = replicated(e_flat * cap + pos_c)
+    x_rep = replicated(_repeat_k(xf, k).to(dt) * keep[:, None].to(dt))
     buf = torch.zeros((e * cap, d), dtype=dt, device=x.device)
-    buf = constrain(buf.index_add(0, e_flat * cap + pos_c, x_rep).view(e, cap, d), "moe_buffer")
+    buf = grad_placed_like(buf.index_add(0, slots, x_rep).view(e, cap, d))
+    buf = constrain(buf, "moe_buffer")
 
     # expert SwiGLU as batched products
     g = torch.bmm(buf, p["w_gate"].to(dt))
     u = torch.bmm(buf, p["w_up"].to(dt))
     y_buf = torch.bmm(F.silu(g) * u, p["w_down"].to(dt))
 
-    # combine: gather back, weight, sum over k
+    # combine: gather back, weight, sum over k; on a mesh the tokens go back
+    # to xf's placements first: DTensor may shard them over mesh dims that
+    # the batch does not divide, which the reshape to (B, S) cannot follow
     y_flat = y_buf[e_flat, pos_c] * (w_flat * keep)[:, None].to(dt)
-    y = y_flat.reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+    y = placed_like(y_flat.reshape(t, k, d).sum(dim=1), xf).reshape(b, s, d)
 
     # aux losses (float32)
     me = probs.mean(dim=0)                                # mean router prob

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import whole
+from repro_torch.dist.context import grad_placed_like, placed_like, replicated, whole
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -189,12 +189,19 @@ def _finish(cfg: ModelConfig, p: dict, y_heads, x_heads, z):
     y = y_heads + p["d_skip"][None, None, :, None] * x_heads.float()
     y = y.reshape(y.shape[0], y.shape[1], di)
     y = L.rmsnorm(p["norm"], (y * F.silu(z.float())).to(z.dtype), cfg.norm_eps)
+    # on a mesh, out_proj's input takes z's placements (the in-projection's):
+    # DTensor's norm would otherwise hand it a shard of the sequence, whose
+    # strided form the product cannot plan on fake tensors (a no-op off a mesh)
+    y = placed_like(y, z)
     return L.dense(p["out_proj"], y, dtype=cfg.activation_dtype())
 
 
 def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, init_state=None) -> torch.Tensor:
     """Full-sequence Mamba-2 block. x (B, S, d) -> (B, S, d)."""
-    zxbcdt = L.dense(p["in_proj"], x, dtype=cfg.activation_dtype())
+    # on a mesh the projection's gradient comes back in its placements: the
+    # causal conv's sequence slices would hand in_proj's weight gradient a
+    # shard of the sequence it cannot plan on fake tensors (a no-op off a mesh)
+    zxbcdt = grad_placed_like(L.dense(p["in_proj"], x, dtype=cfg.activation_dtype()))
     z, xbc, dt_raw = _split_proj(cfg, zxbcdt)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     x_h, b_in, c_in, dt, a = _ssm_inputs(cfg, p, xbc, dt_raw)
@@ -254,7 +261,10 @@ def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, state: dict) -> tup
     dtf = dt[:, 0]                                                   # (B, H)
     decay = torch.exp(dtf * a[None, :])[..., None, None]
     upd = (dtf[..., None] * x_h[:, 0].float())[..., :, None] * b_in[:, 0, None, None, :].float()
-    s_new = decay * state["ssd"] + upd
+    # on a mesh the new state is replicated here, not at the copy below:
+    # its head shard, flattened by the einsum, cannot be planned on fake
+    # tensors (a no-op off a mesh; the state is kept whole either way)
+    s_new = replicated(decay * state["ssd"] + upd)
     y = torch.einsum("bhpn,bn->bhp", s_new, c_in[:, 0].float())[:, None]
     out = _finish(cfg, p, y, x_h, z)
     state["conv"].copy_(whole(hist[:, 1:]))

@@ -42,7 +42,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import compression
-from repro_torch.dist.context import constrain, whole
+from repro_torch.dist.context import constrain, split_last, whole
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import fold_schedule
 from repro_torch.models import layers as L
@@ -91,12 +91,10 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_src: torch.Tensor,
     output for cross-attention. With ``use_rope`` q and k are roped at
     ``positions`` and ``kv_positions``."""
     dt = cfg.activation_dtype()
-    b, s, _ = x.shape
-    skv = kv_src.shape[1]
     hd = cfg.hd
-    q = L.dense(p["wq"], x, dtype=dt).reshape(b, s, cfg.n_heads, hd)
-    k = L.dense(p["wk"], kv_src, dtype=dt).reshape(b, skv, cfg.n_kv_heads, hd)
-    v = L.dense(p["wv"], kv_src, dtype=dt).reshape(b, skv, cfg.n_kv_heads, hd)
+    q = split_last(L.dense(p["wq"], x, dtype=dt), cfg.n_heads, hd)
+    k = split_last(L.dense(p["wk"], kv_src, dtype=dt), cfg.n_kv_heads, hd)
+    v = split_last(L.dense(p["wv"], kv_src, dtype=dt), cfg.n_kv_heads, hd)
     if use_rope:
         q = L.rope(q, positions, theta=cfg.rope_theta)
         k = L.rope(k, kv_positions, theta=cfg.rope_theta)
@@ -170,7 +168,7 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     dt = cfg.activation_dtype()
     b = x.shape[0]
     hd = cfg.hd
-    q = L.dense(p["wq"], x, dtype=dt).reshape(b, -1, cfg.n_heads, hd)
+    q = split_last(L.dense(p["wq"], x, dtype=dt), cfg.n_heads, hd)
     if cross:
         if q.shape[1] != 1:
             raise ValueError(f"cross decode takes a single query position, got {q.shape[1]}")
@@ -178,8 +176,8 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
         return L.dense(p["wo"], o.reshape(b, 1, -1), dtype=dt), cache
     if "valid" not in cache:
         cache = decode_view(cfg, cache, b, x.shape[1])
-    k = L.dense(p["wk"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
-    v = L.dense(p["wv"], x, dtype=dt).reshape(b, -1, cfg.n_kv_heads, hd)
+    k = split_last(L.dense(p["wk"], x, dtype=dt), cfg.n_kv_heads, hd)
+    v = split_last(L.dense(p["wv"], x, dtype=dt), cfg.n_kv_heads, hd)
     if "k_pages" in cache:
         o, cache = _attn_decode_paged(cfg, cache, q, k, v)
     else:

@@ -190,3 +190,16 @@ def test_launcher_auto_scheduler_needs_a_ported_family(capsys):
                            "--batch-size", "2", "--max-new", "4", "--max-len", "64",
                            "--page-size", "8"])
         assert "served 3 requests, 12 tokens" in capsys.readouterr().out, arch
+
+
+@pytest.mark.parametrize("name", ["quickstart", "sawtooth_analysis", "train_lm", "serve_lm"])
+def test_examples_refuse_to_run_without_a_gpu(name, no_cuda):
+    """``python -m repro_torch.examples.<name>`` with neither a GPU nor
+    ``--device cpu`` raises before it does any work on the CPU."""
+    assert f"repro_torch.examples.{name}" in _modules()
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{name}"],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode != 0
+    assert "pass device='cpu' (or --device cpu)" in out.stderr, out.stderr[-2000:]
+    assert out.stdout == ""
