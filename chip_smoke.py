@@ -79,9 +79,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    specs, the kernels on each rank's local block) serving the 12
    requests: streams equal to the main path's to the bit, B1 30 a mixed
    step, every step a replay equal to the eager step; and the static
-   engine on the same mesh: streams equal to the static path's, B2 30 a
-   prefill, B3 30 a decode step, the decode step's replays equal to the
-   eager step; then, with the
+   engine on the same mesh: its caches DTensors placed by
+   ``dist.sharding.cache_shardings`` (each rank's bytes printed; on one
+   card a shard is the whole cache), streams equal to the static path's,
+   B2 30 a prefill, B3 30 a decode step, the decode step's replays equal
+   to the eager step; then the sequence split of a decode cache at the
+   static decode step's shape (``phase_seq_split_decode``): B3 with its lse
+   on halves and quarters of the cache, merged by log-sum-exp, within
+   KERNEL_TOL (o) and LSE_TOL (lse) of B3 on the whole cache and of the
+   plain version, halves averaged and one half's lse dropped beyond them,
+   the lse-on and lse-off launches timed in turns; then, with the
    serving weights released, the MoE family (A13): ``ops.ragged_dot`` (one ``grouped_mm``, the
    counterpart of XLA's ``ragged_dot``; a library call, not a kernel of
    this repository) against its plain masked products at olmoe-1b-7b's
@@ -130,10 +137,17 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the bit, the same launches), and ``reduce_grads_compressed`` on one
    gradient leaf equal to its plain result to the bit; then, the NCCL
    group left, the dry-run (``launch.dryrun``) on fake process groups:
-   deepseek-7b decode_32k on the 16x16 mesh, its train_4k extrapolated
-   from depth 1 and 2 and held exactly to a full-depth trace (flops), its
-   useful ratio above DRYRUN_USEFUL_MIN (a per-rank count), reduced
-   olmoe-1b-7b on a (4, 2) mesh, every cell ok; the sharded-train step
+   deepseek-7b decode_32k on the 16x16 mesh (its caches' shards held to
+   the reference's ``cache_shardings`` arithmetic, 8,053,063,680 bytes a
+   rank, and its arguments to the params' shards, the tokens and those),
+   mixtral-8x7b decode_32k there (2 KV heads on 16: the sequence split),
+   its train_4k extrapolated from depth 1 and 2 and held exactly to a
+   full-depth trace (flops), its useful ratio above DRYRUN_USEFUL_MIN (a
+   per-rank count), reduced olmoe-1b-7b train_4k on a (4, 2) mesh at its
+   shape's batch of 2 (which the data axis does not divide), reduced
+   deepseek-7b train_4k on 2x2 with ``seq_shard_activations`` (the flops of
+   the cell without it, all-gathers and reduce-scatters), every cell ok;
+   the sharded-train step
    traced on a fake 1x1 mesh, its argument bytes equal to the card's state
    and batch exactly and its argument + temp bytes beside the card's
    ``max_memory_allocated``, the real step's MFU at most 1, the card's
@@ -292,16 +306,15 @@ TRAIN_MEM_LIMIT_GB = 80.0
 # layers (6.9 B params) comes within a few GB of the card's 80.
 SHARDED_TRAIN_LAYERS = 16
 # The dry-run's full-depth deepseek-7b train_4k trace on the 16 x 16 mesh
-# (remat full, the plain attention materializing every score, the vocab
-# products replicated over "model" by the "logits" rule) reads a useful
-# ratio of 0.321 (a CPU trace, PR 28: flops are counted from shapes). A
-# count of the global op in place of the rank's would read 1/256 of it.
+# (remat full, whose recompute alone caps it at 0.75; the vocab products
+# replicated over "model" by the "logits" rule) reads a useful ratio of
+# 0.709 (flops are counted from shapes, so a host trace gives it). A count
+# of the global op in place of the rank's would read 1/256 of it.
 DRYRUN_USEFUL_MIN = 0.1
-# The reduced olmoe cell's batch in phase_dryrun: the reduced shape's batch
-# of 2 does not divide the (4, 2) mesh's data axis, and on such a batch the
-# card's torch 2.11 DTensor refuses the MoE step's views (ROADMAP §C, open);
-# 8 gives each data rank 2 sequences, as the production cells do.
-DRYRUN_SMALL_BATCH = 8
+# phase_seq_split_decode: the sequence split's parts, each a slice of the
+# static decode step's cache; o within KERNEL_TOL and the lse within
+# LSE_TOL, of B3 on the whole cache and of the plain version.
+SEQ_SPLIT_PARTS = (2, 4)
 # The card shows less than its data-sheet 80 GB (``CHIP_HBM_BYTES``): the
 # driver and ECC keep some; 5% is ample.
 HBM_VISIBLE_MIN = 0.95
@@ -4059,7 +4072,9 @@ def phase_sharded_serve(cfg, lm, params, main: dict, static: dict) -> dict:
     (``phase_graphs``). Then the static engine with the same mesh on the
     same requests: streams equal to the static path's to the bit,
     ``flash_fwd`` == layers x prefills, ``contig_decode`` == layers x decode
-    steps, every decode step a replay equal to the eager step."""
+    steps, every decode step a replay equal to the eager step, its caches
+    DTensors at ``cache_shardings``' placements (``len`` plain) whose bytes
+    on this rank are the whole cache's (a shard of a 1x1 mesh)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.kernels import cuda_lib
@@ -4147,16 +4162,140 @@ def phase_sharded_serve(cfg, lm, params, main: dict, static: dict) -> dict:
         raise AssertionError(f"sharded static serving launches {slaunches}, want {want}")
     if replayed != calls["decode"]:
         raise AssertionError(f"sharded static serving: {replayed} replays for {calls}")
+    # the caches its captured decode step holds, placed by cache_shardings:
+    # on a 1x1 mesh each rank's shard is the whole cache
+    caches = {k: c for k, c in eng._decode_caches.items() if isinstance(c, torch.Tensor)}
+    placed = {k: isinstance(c, DTensor) for k, c in caches.items()}
+    local = {k: (c.to_local() if isinstance(c, DTensor) else c) for k, c in caches.items()}
+    st["caches"] = {
+        k: {"dtensor": placed[k], "shape": list(caches[k].shape),
+            "placements": [str(p) for p in getattr(caches[k], "placements", ())],
+            "rank_bytes": local[k].numel() * local[k].element_size()}
+        for k in caches}
+    st["cache_rank_bytes"] = sum(v["rank_bytes"] for v in st["caches"].values())
+    whole = 2 * cfg.n_layers * 8 * 1024 * cfg.n_kv_heads * cfg.hd * 2
+    print(f"[{label}] static caches on rank {torch.distributed.get_rank()}: "
+          + json.dumps(st["caches"]))
+    if not (placed["k"] and placed["v"]) or placed.get("len"):
+        raise AssertionError(f"sharded static serving: caches not placed as cache_shardings: "
+                             f"{placed}")
+    if st["cache_rank_bytes"] != whole + 4:
+        raise AssertionError(f"sharded static serving: a rank holds {st['cache_rank_bytes']} "
+                             f"bytes of caches, want {whole} (K/V) + 4 (len)")
     st["graphs"] = phase_graphs(eng, label + " static")
     print(f"[{label}] {cfg.name} static on the 1x1 mesh: {st['tokens_per_s']:.1f} tokens/s "
           f"(static path {static['tokens_per_s']:.1f}), streams equal to the bit, flash_fwd "
-          f"{cfg.n_layers} a prefill, contig_decode {cfg.n_layers} a decode step")
+          f"{cfg.n_layers} a prefill, contig_decode {cfg.n_layers} a decode step, caches "
+          f"DTensors of {st['cache_rank_bytes']} bytes a rank")
     out["static"] = st
     out["launches_continuous"] = launches
     out["launches"] = {k: launches.get(k, 0) + slaunches.get(k, 0)
                        for k in set(launches) | set(slaunches)}
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+def phase_seq_split_decode(dev_info: dict) -> dict:
+    """The sequence split of a decode cache (a mesh whose tensor axis the KV
+    heads do not divide, ``kernels.ops._decode_on_mesh``), on one card at
+    deepseek-7b's static decode step (B 8, S_max 1024, 32 heads of 128,
+    lengths 700-731 by row, as ``phase_static_kernel_times``): B3 with its
+    lse (``contig_decode_bf16_lse``) on the whole cache, its output equal to
+    the bit to the launch without the lse; then on halves and on quarters
+    of the cache (the last quarter sees nothing: zeros and MASK_VALUE),
+    each with its local lengths, merged by
+    ``core.attention.merge_decode_partials``. The merged o within
+    KERNEL_TOL and lse within LSE_TOL of B3 on the whole cache and of the
+    plain version; halves averaged, and halves merged with the first one's
+    lse dropped, must each exceed a limit. Then the lse-on and lse-off
+    launches timed in turns (four batched readings each), with their
+    registers, shared memory and spills."""
+    from repro_torch.core.attention import MASK_VALUE, decode_attention, merge_decode_partials
+    from repro_torch.kernels.flash_decode import (
+        decode_chunk,
+        decode_kernel_attr,
+        flash_decode_fwd,
+        launch_contig_decode,
+    )
+
+    label = "seq-split"
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    b, h, d, s_max = 8, 32, 128, 1024
+    lens0 = [int(x) for x in np.random.default_rng(7).integers(700, 732, size=b)]
+    lens = torch.tensor(lens0, dtype=torch.int32, device="cuda")
+    q = _bf16(gen, (b, 1, h, d))
+    k, v = _bf16(gen, (b, s_max, h, d)), _bf16(gen, (b, s_max, h, d))
+    o, lse = flash_decode_fwd(q, k, v, lens, order="sawtooth", return_lse=True)
+    o_off = launch_contig_decode(q, k, v, lens, order="sawtooth")
+    ref, ref_lse = decode_attention(q.float(), k.float(), v.float(), lens, return_lse=True)
+    torch.cuda.synchronize()
+    out = {"shape": {"B": b, "S_max": s_max, "lens": lens0, "Hq": h, "Hkv": h, "D": d},
+           "lse_off_equal_bits": bool(torch.equal(o, o_off)),
+           "whole": {"o_vs_plain": (o.float() - ref).abs().max().item(),
+                     "lse_vs_plain": (lse - ref_lse).abs().max().item()}}
+
+    def errs(mo, ml):
+        return {"o_vs_kernel": (mo.float() - o.float()).abs().max().item(),
+                "o_vs_plain": (mo.float() - ref).abs().max().item(),
+                "lse_vs_kernel": (ml - lse).abs().max().item(),
+                "lse_vs_plain": (ml - ref_lse).abs().max().item()}
+
+    def within(e):
+        return (max(e["o_vs_kernel"], e["o_vs_plain"]) <= KERNEL_TOL
+                and max(e["lse_vs_kernel"], e["lse_vs_plain"]) <= LSE_TOL)
+
+    parts_of = {}
+    for n in SEQ_SPLIT_PARTS:
+        w = s_max // n
+        parts = [flash_decode_fwd(q, k[:, i * w:(i + 1) * w].contiguous(),
+                                  v[:, i * w:(i + 1) * w].contiguous(),
+                                  torch.clamp(lens - i * w, 0, w), order="sawtooth",
+                                  return_lse=True) for i in range(n)]
+        po, pl = torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts])
+        parts_of[n] = (po, pl)
+        out[f"parts_{n}"] = errs(*merge_decode_partials(po, pl))
+        out[f"parts_{n}"]["empty_parts"] = int((pl == MASK_VALUE).all(dim=(1, 2)).sum())
+    po, pl = parts_of[2]
+    controls = {"averaged": errs(po.float().mean(0).to(po.dtype), pl.mean(0)),
+                "lse_dropped": errs(*merge_decode_partials(
+                    po, torch.cat([torch.full_like(pl[:1], MASK_VALUE), pl[1:]])))}
+    out["controls"] = controls
+    shape = (b, s_max, h, h, d, decode_chunk(512, s_max))
+    out["kernel_attr"] = {"lse_off": decode_kernel_attr("contig_decode", shape),
+                          "lse_on": decode_kernel_attr("contig_decode_lse", shape)}
+    lse_buf = torch.empty_like(lse)
+    runs = _readings({
+        "lse_off": lambda: launch_contig_decode(q, k, v, lens, order="sawtooth"),
+        "lse_on": lambda: launch_contig_decode(q, k, v, lens, order="sawtooth", lse=lse_buf),
+    }, rounds=4)
+    nbytes = sum(lens0) * h * d * 2 * 2 + 2 * b * h * d * 2
+    t_bytes = nbytes / dev_info["bw"] * 1e3
+    out["times"] = {"lse_off_ms": statistics.median(runs["lse_off"]),
+                    "lse_on_ms": statistics.median(runs["lse_on"]), "runs": runs,
+                    "bound_ms": {"lse_off": t_bytes,
+                                 "lse_on": (nbytes + b * h * 4) / dev_info["bw"] * 1e3}}
+    print(f"[{label}] " + json.dumps(out))
+    if not out["lse_off_equal_bits"]:
+        raise AssertionError("B3's output with its lse differs from the launch without it")
+    whole = out["whole"]
+    if whole["o_vs_plain"] > KERNEL_TOL or whole["lse_vs_plain"] > LSE_TOL:
+        raise AssertionError(f"B3 with its lse against the plain version: {whole}")
+    bad = [n for n in SEQ_SPLIT_PARTS if not within(out[f"parts_{n}"])]
+    if bad:
+        raise AssertionError(f"the sequence split's merge outside its limits: "
+                             f"{ {n: out[f'parts_{n}'] for n in bad} }")
+    if out["parts_4"]["empty_parts"] != 1:
+        raise AssertionError(f"want one quarter that sees nothing: {out['parts_4']}")
+    caught = {name: not within(e) for name, e in controls.items()}
+    if not all(caught.values()):
+        raise AssertionError(f"a wrong merge passed the sequence split's limits: {controls}")
+    for name, attr in out["kernel_attr"].items():
+        if attr["local_bytes"]:
+            raise AssertionError(f"B3's {name} instantiation spills: {attr}")
+    print(f"[{label}] halves and quarters merged within {KERNEL_TOL} (o) and {LSE_TOL} (lse) "
+          f"of B3 whole and the plain version; both controls caught; lse off "
+          f"{out['times']['lse_off_ms']:.4f} ms, on {out['times']['lse_on_ms']:.4f} ms")
     return out
 
 
@@ -4174,20 +4313,79 @@ def _dryrun_line(label: str, rec: dict) -> dict:
     return out
 
 
+def _ref_cache_rank_bytes(cfg, batch: int, max_len: int, data: int, model: int) -> int:
+    """Bytes of a decoder-only model's K/V caches on one rank of a (data,
+    model) mesh by the reference's ``cache_shardings``
+    (``src/repro/dist/sharding.py:201-239``), computed here from the
+    config: (L, B, S, Hkv, hd) bf16 with S = max_len, or the window for a
+    ring buffer; the batch on "data" where it divides, the KV heads on
+    "model" where they divide, else the sequence where it divides."""
+    b = batch // data if batch % data == 0 else batch
+    seq = min(max_len, cfg.window) if cfg.window is not None else max_len
+    heads = cfg.n_kv_heads
+    if heads % model == 0:
+        heads //= model
+    elif seq % model == 0:
+        seq //= model
+    return 2 * cfg.n_layers * b * seq * heads * cfg.hd * 2
+
+
+def _param_rank_bytes(arch: str, mesh_shape, pcfg) -> int:
+    """Bytes of ``arch``'s dry-run params on one rank: each leaf divided by
+    the mesh axes of its ``dist.sharding.param_specs`` spec on a
+    device-free ``MeshShape`` (shapes from a build under
+    ``FakeTensorMode``: no memory)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import build_model
+
+    with FakeTensorMode():
+        params = build_model(D.cfg_for_dryrun(arch), device="cpu").init(0)
+    mesh = shd.MeshShape(mesh_shape, ("data", "model"))
+    specs = shd.param_specs(params, pcfg, mesh)
+    total = 0
+
+    def leaf(path, x):
+        nonlocal total
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        parts = math.prod(mesh.shape[a] for e in spec for a in
+                          (() if e is None else (e,) if isinstance(e, str) else e))
+        total += x.numel() // parts * x.element_size()
+        return x
+
+    shd.tree_map_with_path(leaf, params)
+    return total
+
+
 def phase_dryrun() -> dict:
     """The dry-run (``launch.dryrun``) on this machine's torch, on fake
     process groups (no card, no collective moves a byte): deepseek-7b's
-    decode_32k cell on the 16 x 16 mesh (256 fake ranks); its train_4k cell
+    decode_32k cell on the 16 x 16 mesh (256 fake ranks), its caches placed
+    by ``cache_shardings`` (the batch of 128 on "data", the 32 KV heads on
+    "model"): their bytes on a rank (``alias_bytes`` less the 4 of ``len``)
+    exactly the reference's shard arithmetic (``_ref_cache_rank_bytes``:
+    8,053,063,680), and ``argument_bytes`` exactly the params' shards
+    (``_param_rank_bytes``), the tokens and those; mixtral-8x7b's
+    decode_32k there (8 KV heads on 16: its 4096-position ring buffer split
+    along the sequence), held the same way; deepseek-7b's train_4k cell
     extrapolated from depth 1 and 2 (``extrapolate_cell``, microbatches 1)
     and held exactly to a full-depth trace of the same cell (flops; the
     trace unrolls every layer), whose useful ratio must lie in
     (DRYRUN_USEFUL_MIN, 1] (a count of the global op, not the rank's, reads
-    1/256 of that); reduced olmoe-1b-7b's train_4k on a (4, 2) mesh at a
-    batch of DRYRUN_SMALL_BATCH, which the data axis divides. Every
-    cell must be ok; each prints its flops per device, collective bytes by
-    kind, temp bytes and bottleneck."""
+    1/256 of that); reduced olmoe-1b-7b's train_4k on a (4, 2) mesh at its
+    shape's batch of 2, which the data axis does not divide (the batch
+    replicated there, the params gathered); reduced deepseek-7b's train_4k
+    on 2 x 2 with ``seq_shard_activations`` and without: the same flops,
+    and all-gathers and reduce-scatters in the first. Every cell must be
+    ok; each prints its flops per device, collective bytes by kind, temp
+    bytes and bottleneck."""
     from torch.testing._internal.distributed import fake_pg
 
+    from repro_torch.configs import SHAPES
     from repro_torch.launch import dryrun as D
     from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 
@@ -4195,11 +4393,24 @@ def phase_dryrun() -> dict:
     t_start = time.perf_counter()
     print(f"[{label}] torch {torch.__version__}; fake process group: {fake_pg.__name__} "
           f"({Path(fake_pg.__file__).name}), backend 'fake' on a FakeStore")
-    out = {"cells": {}}
+    out = {"cells": {}, "caches": {}}
     with D.fake_world(D.MESH_RANKS["single"]):
         mesh = make_production_mesh(device="cpu")
-        rec, _ = D.lower_cell("deepseek-7b", "decode_32k", mesh, "single")
-        out["cells"]["decode"] = _dryrun_line(label, rec)
+        for arch, key in (("deepseek-7b", "decode"), ("mixtral-8x7b", "decode_seq_split")):
+            rec, _ = D.lower_cell(arch, "decode_32k", mesh, "single")
+            out["cells"][key] = _dryrun_line(label, rec)
+            shape = SHAPES["decode_32k"]
+            cfg = D.cfg_for_dryrun(arch)
+            caches = _ref_cache_rank_bytes(cfg, shape.global_batch, shape.seq_len, 16, 16)
+            params = _param_rank_bytes(arch, (16, 16), D.dryrun_parallel_cfg(mesh, "decode"))
+            tokens = shape.global_batch * 4
+            mem = rec["memory"]
+            out["caches"][arch] = {
+                "cache_rank_bytes": mem["alias_bytes"] - 4, "reference_rank_bytes": caches,
+                "argument_bytes": mem["argument_bytes"],
+                "params_tokens_caches_len": params + tokens + caches + 4,
+                "whole_cache_bytes": caches * 256}
+            print(f"[{label}] {arch} decode_32k caches a rank: " + json.dumps(out["caches"][arch]))
         ex = D.extrapolate_cell("deepseek-7b", "train_4k", mesh, "single")
         out["cells"]["train_extrapolated"] = _dryrun_line(label, ex)
         full, _ = D.lower_cell("deepseek-7b", "train_4k", mesh, "single",
@@ -4208,14 +4419,35 @@ def phase_dryrun() -> dict:
         out["cells"]["train_full_depth"] = _dryrun_line(label, full)
     with D.fake_world(8):
         rec, _ = D.lower_cell("olmoe-1b-7b", "train_4k", make_local_mesh(4, 2, device="cpu"),
-                              "4x2", reduced=True,
-                              shape_overrides={"global_batch": DRYRUN_SMALL_BATCH})
-        out["cells"]["olmoe_reduced"] = _dryrun_line(label, rec)
+                              "4x2", reduced=True)
+        out["cells"]["olmoe_reduced_uneven_batch"] = _dryrun_line(label, rec)
+    seq = {}
+    with D.fake_world(4):
+        for on in (True, False):
+            rec, _ = D.lower_cell("deepseek-7b", "train_4k", make_local_mesh(2, 2, device="cpu"),
+                                  "2x2", reduced=True, par_overrides={"seq_shard_activations": on})
+            seq[on] = rec
+            out["cells"]["seq_shard_" + ("on" if on else "off")] = _dryrun_line(label, rec)
     if torch.distributed.is_initialized():
         raise AssertionError("the dry-run left a process group joined")
     bad = [name for name, cell in out["cells"].items() if cell["status"] != "ok"]
     if bad:
         raise AssertionError(f"dry-run cells not ok: {bad}")
+    for arch, c in out["caches"].items():
+        if c["cache_rank_bytes"] != c["reference_rank_bytes"]:
+            raise AssertionError(f"{arch} decode_32k: {c['cache_rank_bytes']} bytes of caches "
+                                 f"a rank, the reference's layout {c['reference_rank_bytes']}")
+        if c["argument_bytes"] != c["params_tokens_caches_len"]:
+            raise AssertionError(f"{arch} decode_32k: argument bytes {c['argument_bytes']}, "
+                                 f"want params + tokens + caches {c['params_tokens_caches_len']}")
+    if out["caches"]["deepseek-7b"]["cache_rank_bytes"] != 8_053_063_680:
+        raise AssertionError(f"deepseek-7b decode_32k: {out['caches']['deepseek-7b']}")
+    out["seq_shard"] = {"flops": [seq[True]["cost"]["flops"], seq[False]["cost"]["flops"]],
+                        "collectives_on": seq[True]["collectives"]}
+    if (seq[True]["cost"]["flops"] != seq[False]["cost"]["flops"]
+            or not seq[True]["collectives"].get("all-gather")
+            or not seq[True]["collectives"].get("reduce-scatter")):
+        raise AssertionError(f"seq_shard_activations: {out['seq_shard']}")
     got, want = full["cost"]["flops"], ex["cost"]["flops"]
     out["extrapolation"] = {"extrapolated_flops": want, "full_depth_flops": got,
                             "equal": got == want,
@@ -4224,6 +4456,7 @@ def phase_dryrun() -> dict:
                                                   full["collectives"].get("total")]}
     out["seconds"] = time.perf_counter() - t_start
     print(f"[{label}] extrapolated against full depth: " + json.dumps(out["extrapolation"])
+          + f"; seq_shard_activations: " + json.dumps(out["seq_shard"])
           + f"; the phase took {out['seconds']:.1f} s")
     if got != want:
         raise AssertionError(f"extrapolate_cell's flops {want} differ from the full-depth "
@@ -5328,6 +5561,8 @@ def main(argv=None) -> int:
     sharded_serve = phase_sharded_serve(cfg, lm, params, main_path, static)
     del lm, params, fixed, int8_run, tiered_run
     torch.cuda.empty_cache()
+    seq_split = phase_seq_split_decode(dev_info)
+    torch.cuda.empty_cache()
     moe_matrix = phase_moe_matrix(dev_info)
     moe_cont, moe_static = phase_moe_path(moe_matrix, profile=args.profile)
     torch.cuda.empty_cache()
@@ -5445,7 +5680,13 @@ def main(argv=None) -> int:
                                  for k in (*timing_keys, "kernel_attr", "alternating_ms")},
                kernel_attr=dec["kernel_attr"], alternating_ms=dec["alternating_ms"],
                one_sequence_splits_ms=split_times["contig_decode"],
-               small_model_max_abs_err=small_static),
+               small_model_max_abs_err=small_static,
+               lse={"lse_on_ms": seq_split["times"]["lse_on_ms"],
+                    "lse_off_ms": seq_split["times"]["lse_off_ms"],
+                    "bound_ms": seq_split["times"]["bound_ms"],
+                    "kernel_attr": seq_split["kernel_attr"],
+                    "sequence_split": {k: seq_split[k] for k in (
+                        "whole", *(f"parts_{n}" for n in SEQ_SPLIT_PARTS), "controls")}}),
     ]
     for name, key in (("flash_bwd_delta", "delta"), ("flash_bwd_dq", "dq"),
                       ("flash_bwd_dkv", "dk")):
@@ -5537,6 +5778,9 @@ def main(argv=None) -> int:
           f"against {sharded_train['runs']['unsharded']['records'][-1]['step_s']:.3f} s, both "
           f"equal to the unsharded runs to the bit")
     print(f"[done] dry-run: {len(dryrun['cells'])} cells ok in {dryrun['seconds']:.1f} s, "
+          f"deepseek-7b decode_32k caches {dryrun['caches']['deepseek-7b']['cache_rank_bytes']} "
+          f"bytes a rank, mixtral-8x7b "
+          f"{dryrun['caches']['mixtral-8x7b']['cache_rank_bytes']}; "
           f"extrapolation equal to full depth; fake 1x1 argument bytes equal to the card's: "
           f"{dryrun_vs_card['argument_equal']}, MFU {dryrun_vs_card['mfu']:.4f}; examples in "
           f"{examples['seconds']:.1f} s: train_lm {examples['train_lm']['tokens_per_s']:.0f} "

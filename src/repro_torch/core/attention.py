@@ -47,11 +47,15 @@ __all__ = [
     "attention_delta",
     "flash_attention_bwd",
     "decode_attention",
+    "merge_decode_partials",
     "paged_decode_attention",
     "row_meta",
+    "MASK_VALUE",
 ]
 
 NEG_INF = float(torch.finfo(torch.float32).min)
+# The lse of a row that sees nothing (the kernels' kMaskValue, csrc/common.cuh).
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def _valid_mask(rows, cols, *, causal: bool, window: Optional[int], kv_len: int):
@@ -313,7 +317,8 @@ def decode_attention(
     snake_group: Optional[int] = None,
     order_group=None,
     fold=None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Single-position decode attention against a contiguous cache.
 
     Contiguous layout: q (B, 1, Hq, D); caches (B, S_max, Hkv, D);
@@ -323,8 +328,16 @@ def decode_attention(
     0 has no defined output here (the kernel gives zeros). With
     ``block_table`` the caches are paged pools: see
     :func:`paged_decode_attention`.
+
+    ``return_lse`` (contiguous only) also returns each row's float32
+    log-sum-exp of its scaled scores, (B, Hq), as B3 writes it: the online
+    softmax's m + log l, and for a row that sees nothing exact zeros and
+    ``MASK_VALUE`` (m the mask value, l 0), so partial results over
+    disjoint slices of a cache merge exactly (:func:`merge_decode_partials`).
     """
     if block_table is not None:
+        if return_lse:
+            raise ValueError("return_lse takes the contiguous layout")
         return paged_decode_attention(
             q, k_cache, v_cache, cache_len, block_table, q_lens=q_lens, window=window,
             scale=scale, order=order, snake_group=snake_group, order_group=order_group,
@@ -345,10 +358,35 @@ def decode_attention(
     valid = pos < lens[:, None]
     if window is not None:
         valid &= pos > (lens[:, None] - 1 - window)
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
-    return o.reshape(b, 1, hq, d).to(q.dtype)
+    ok = valid[:, None, None, :]
+    if not return_lse:
+        p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+        return o.reshape(b, 1, hq, d).to(q.dtype)
+    m = torch.clamp(torch.where(ok, s, NEG_INF).amax(dim=-1), min=MASK_VALUE)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()) / torch.where(l == 0, 1.0, l)[..., None]
+    lse = torch.where(l > 0, m + torch.log(torch.where(l > 0, l, 1.0)), MASK_VALUE)
+    return o.reshape(b, 1, hq, d).to(q.dtype), lse.reshape(b, hq)
+
+
+def merge_decode_partials(o: torch.Tensor, lse: torch.Tensor):
+    """Merge n partial decodes over disjoint slices of one cache: o (n, B,
+    1, Hq, D) and lse (n, B, Hq) float32, as :func:`decode_attention` with
+    ``return_lse`` (or B3) gives them, into (o (B, 1, Hq, D) in o's dtype,
+    lse (B, Hq)), by log-sum-exp in float32. A part that saw nothing (lse
+    ``MASK_VALUE``, o zeros) weighs nothing; a row no part saw ends in exact
+    zeros and ``MASK_VALUE``."""
+    seen = lse > 0.5 * MASK_VALUE
+    top = torch.where(seen, lse, MASK_VALUE).amax(dim=0)                 # (B, Hq)
+    w = torch.where(seen, torch.exp(lse - top), 0.0)                     # (n, B, Hq)
+    total = w.sum(dim=0)
+    out = (w[:, :, None, :, None] * o.float()).sum(dim=0)
+    out = out / torch.where(total == 0, 1.0, total)[:, None, :, None]
+    merged = torch.where(total > 0, top + torch.log(torch.where(total > 0, total, 1.0)),
+                         MASK_VALUE)
+    return out.to(o.dtype), merged
 
 
 def row_meta(b: int, c: int, cache_len, q_lens, device) -> tuple[torch.Tensor, torch.Tensor]:

@@ -34,6 +34,14 @@
 // attention), 96 (phi-3-vision) and 128. With `visit`, each CTA records the first position of
 // every tile it walked (-1 past its segment):
 // kernels/flash_decode.py::contig_decode_walks is the host model.
+//
+// With `lse` (the kLse instantiation; a separate entry point, so the launch
+// without it runs the same code as before), each row's float32 log-sum-exp
+// of its scaled scores, (B, Hq), is written beside the output: the merged
+// state's m + log l (kept in the log2 domain, so (m2 + log2 l) ln 2), and
+// kMaskValue for a row that sees nothing. A cache split along its sequence
+// across ranks merges the ranks' partial outputs by it
+// (core/attention.py::merge_decode_partials).
 
 #include "decode_core.cuh"
 
@@ -49,6 +57,7 @@ struct Args {
   const uint16_t* v;
   const int* lens;    // (B,)
   uint16_t* out;      // (B, 1, Hq, D)
+  float* lse;         // (B, Hq) float32 (the kLse instantiation), or null
   int* visit;         // (B * Hkv, n_rt, S, W) int32, or null
   int S_max, Hq, Hkv, G, window, chunk, order, snake, splits, n_rt, W;
   float scale_log2;
@@ -72,7 +81,7 @@ struct Tile {
   __device__ __forceinline__ bool valid() const { return left > 0; }
 };
 
-template <int D, int R>
+template <int D, int R, bool kLse>
 __global__ void __launch_bounds__(kThreads) contig_decode_kernel(const Args p) {
   using L = Layout<D, R>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -89,11 +98,19 @@ __global__ void __launch_bounds__(kThreads) contig_decode_kernel(const Args p) {
   const int first = p.window >= 0 ? max(0, len - p.window) : 0;  // first visible position
   const int tid = threadIdx.x;
   auto out_row = [&](int r) { return p.out + ((size_t)b * p.Hq + head0 + r) * D; };
+  // By value: a reference capture would give the row's indices an address
+  // (local memory) in the kLse instantiation.
+  [[maybe_unused]] auto lse_out = [lse_row = p.lse + (size_t)b * p.Hq + head0](int r, float v) {
+    lse_row[r] = v;
+  };
   int* vrec = p.visit == nullptr ? nullptr
                                  : p.visit + (((size_t)bh * p.n_rt + rt) * S + split) * p.W;
 
   if (n_valid == 0) {
     store_zeros<D>(S, 0, n_out, out_row);
+    if constexpr (kLse) {
+      if (split == 0 && tid < n_out) lse_out(tid, kMaskValue);
+    }
     if (vrec != nullptr)
       for (int j = tid; j < p.W; j += kThreads) vrec[j] = -1;
     return;
@@ -168,14 +185,21 @@ __global__ void __launch_bounds__(kThreads) contig_decode_kernel(const Args p) {
   st.export_state(reinterpret_cast<float*>(smem + L::kWarpArea), ex, R);
   if (vrec != nullptr && tid == 0)
     for (int j = n_rec; j < p.W; ++j) vrec[j] = -1;
-  merge_store<D>(base + L::kRing, R, S, n_valid, n_out, out_row);
+  if constexpr (kLse)
+    merge_store<D>(base + L::kRing, R, S, n_valid, n_out, out_row, lse_out);
+  else
+    merge_store<D>(base + L::kRing, R, S, n_valid, n_out, out_row);
 }
 
 template <int D, int R>
 cudaError_t launch(const Args& a, int B, int dev, cudaStream_t stream) {
   static int opted[kMaxDevices];
+  static int opted_lse[kMaxDevices];
   const dim3 grid(a.splits * a.n_rt, B * a.Hkv);
-  return launch_clusters(contig_decode_kernel<D, R>, opted, dev, grid, a.splits,
+  if (a.lse != nullptr)
+    return launch_clusters(contig_decode_kernel<D, R, true>, opted_lse, dev, grid, a.splits,
+                           (int)Layout<D, R>::kBytes, a, stream);
+  return launch_clusters(contig_decode_kernel<D, R, false>, opted, dev, grid, a.splits,
                          (int)Layout<D, R>::kBytes, a, stream);
 }
 
@@ -195,9 +219,9 @@ cudaError_t launch_rows(const Args& a, int B, int dev, cudaStream_t stream) {
 // Fills `a` for a call; splits <= 0 picks them (pick_splits over the
 // items and the cache's 64-position tiles).
 cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, const void* lens,
-                      void* out, int* visit, int B, int S_max, int Hq, int Hkv, int D,
-                      int window, int chunk, int order, int snake, float scale, int splits,
-                      int* dev) {
+                      void* out, float* lse, int* visit, int B, int S_max, int Hq, int Hkv,
+                      int D, int window, int chunk, int order, int snake, float scale,
+                      int splits, int* dev) {
   if ((D != 64 && D != 80 && D != 96 && D != 128) || Hkv <= 0 || Hq % Hkv != 0 || B <= 0 || S_max <= 0 ||
       chunk <= 0)
     return cudaErrorInvalidValue;
@@ -214,6 +238,7 @@ cudaError_t make_args(Args* a, const void* q, const void* k, const void* v, cons
   a->v = static_cast<const uint16_t*>(v);
   a->lens = static_cast<const int*>(lens);
   a->out = static_cast<uint16_t*>(out);
+  a->lse = lse;
   a->visit = visit;
   a->S_max = S_max;
   a->Hq = Hq;
@@ -248,8 +273,8 @@ extern "C" int contig_decode_bf16(const void* q, const void* k, const void* v, c
                                   void* stream) {
   Args a;
   int dev = 0;
-  cudaError_t err = make_args(&a, q, k, v, lens, out, nullptr, B, S_max, Hq, Hkv, D, window,
-                              chunk, order, snake, scale, 0, &dev);
+  cudaError_t err = make_args(&a, q, k, v, lens, out, nullptr, nullptr, B, S_max, Hq, Hkv, D,
+                              window, chunk, order, snake, scale, 0, &dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(run(a, B, D, dev, static_cast<cudaStream_t>(stream)));
 }
@@ -265,33 +290,52 @@ extern "C" int contig_decode_bf16_visit(const void* q, const void* k, const void
                                         int splits) {
   Args a;
   int dev = 0;
-  cudaError_t err = make_args(&a, q, k, v, lens, out, static_cast<int*>(visit), B, S_max, Hq,
-                              Hkv, D, window, chunk, order, snake, scale, splits, &dev);
+  cudaError_t err = make_args(&a, q, k, v, lens, out, nullptr, static_cast<int*>(visit), B,
+                              S_max, Hq, Hkv, D, window, chunk, order, snake, scale, splits,
+                              &dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(run(a, B, D, dev, static_cast<cudaStream_t>(stream)));
 }
 
-// The launch contig_decode_bf16 makes at this shape: out[0] registers a
-// thread, out[1] dynamic shared memory bytes a CTA, out[2] threads a CTA,
-// out[3] local (spill) bytes a thread, out[4] the split (cluster) size,
-// out[5] CTAs in the grid. Returns a cudaError_t code.
-extern "C" int contig_decode_attr(int B, int S_max, int Hq, int Hkv, int D, int chunk, int* out) {
+// contig_decode_bf16 that also writes each row's log-sum-exp into `lse` (B,
+// Hq) float32 (kMaskValue for a row that sees nothing), through the kernel's
+// kLse instantiation. `splits` as in contig_decode_bf16_visit.
+extern "C" int contig_decode_bf16_lse(const void* q, const void* k, const void* v,
+                                      const void* lens, void* out, int B, int S_max, int Hq,
+                                      int Hkv, int D, int window, int chunk, int order, int snake,
+                                      float scale, void* stream, void* lse, int splits) {
+  if (lse == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   int dev = 0;
-  cudaError_t err = make_args(&a, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, B, S_max,
-                              Hq, Hkv, D, -1, chunk, 0, 1, 1.f, 0, &dev);
+  cudaError_t err = make_args(&a, q, k, v, lens, out, static_cast<float*>(lse), nullptr, B,
+                              S_max, Hq, Hkv, D, window, chunk, order, snake, scale, splits,
+                              &dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(run(a, B, D, dev, static_cast<cudaStream_t>(stream)));
+}
+
+namespace {
+
+// The attributes of the launch at this shape (see contig_decode_attr), of
+// the kLse instantiation or the other.
+template <bool kLse>
+int attr(int B, int S_max, int Hq, int Hkv, int D, int chunk, int* out) {
+  Args a;
+  int dev = 0;
+  cudaError_t err = make_args(&a, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              B, S_max, Hq, Hkv, D, -1, chunk, 0, 1, 1.f, 0, &dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
   int smem = 0;
 #define REPRO_ATTR(DD)                                                                  \
   switch (rows_of(a.G)) {                                                               \
-    case 1: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 1>);              \
+    case 1: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 1, kLse>);        \
             smem = (int)Layout<DD, 1>::kBytes; break;                                   \
-    case 2: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 2>);              \
+    case 2: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 2, kLse>);        \
             smem = (int)Layout<DD, 2>::kBytes; break;                                   \
-    case 4: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 4>);              \
+    case 4: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 4, kLse>);        \
             smem = (int)Layout<DD, 4>::kBytes; break;                                   \
-    default: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 8>);             \
+    default: err = cudaFuncGetAttributes(&fa, contig_decode_kernel<DD, 8, kLse>);       \
              smem = (int)Layout<DD, 8>::kBytes; break;                                  \
   }
   if (D == 128) {
@@ -312,4 +356,20 @@ extern "C" int contig_decode_attr(int B, int S_max, int Hq, int Hkv, int D, int 
   out[4] = a.splits;
   out[5] = a.splits * a.n_rt * B * Hkv;
   return 0;
+}
+
+}  // namespace
+
+// The launch contig_decode_bf16 makes at this shape: out[0] registers a
+// thread, out[1] dynamic shared memory bytes a CTA, out[2] threads a CTA,
+// out[3] local (spill) bytes a thread, out[4] the split (cluster) size,
+// out[5] CTAs in the grid. Returns a cudaError_t code.
+extern "C" int contig_decode_attr(int B, int S_max, int Hq, int Hkv, int D, int chunk, int* out) {
+  return attr<false>(B, S_max, Hq, Hkv, D, chunk, out);
+}
+
+// The same for contig_decode_bf16_lse's launch (the kLse instantiation).
+extern "C" int contig_decode_lse_attr(int B, int S_max, int Hq, int Hkv, int D, int chunk,
+                                      int* out) {
+  return attr<true>(B, S_max, Hq, Hkv, D, chunk, out);
 }

@@ -21,6 +21,8 @@
 // pre-scaled by scale * log2 e), the accumulator in float32.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -293,13 +295,29 @@ __device__ __forceinline__ void store_zeros(int S, int r0, int n_out, OutRow out
   }
 }
 
+// No lse output: merge_store's default, under which it compiles to the
+// store alone.
+struct NoLse {
+  __device__ __forceinline__ void operator()(int, float) const {}
+};
+
+// The natural log-sum-exp of a row from its merged log2-domain state: m2 +
+// log2 l, over log2 e; kMaskValue where the row saw nothing (l == 0).
+__device__ __forceinline__ float lse_of(float m2, float l) {
+  return l > 0.f ? (m2 + __log2f(l)) * 0.6931471805599453f : kMaskValue;
+}
+
 // The cluster's merge: rank k of S stores output columns [k D / S, (k + 1)
 // D / S) of rows [0, n_out) (row r at out_row(r), bf16), merging the S
 // exports at `ex` (nx rows each) in split order; rows at or past n_valid
-// are zeros. Every thread of every CTA of the cluster calls it.
-template <int D, class OutRow>
+// are zeros. With an `lse` writer (anything but NoLse), rank 0 also calls
+// lse(r, value) once for each of rows [0, n_out): the merged state's
+// log-sum-exp (lse_of), kMaskValue past n_valid. Every thread of every CTA
+// of the cluster calls it.
+template <int D, class OutRow, class Lse = NoLse>
 __device__ __forceinline__ void merge_store(uint32_t ex, int nx, int S, int n_valid, int n_out,
-                                            OutRow out_row) {
+                                            OutRow out_row, Lse lse = Lse{}) {
+  constexpr bool kLse = !std::is_same<Lse, NoLse>::value;
   hw::cluster_sync();  // every split's export is written
   const int cw = D / S;
   const int c0 = (int)hw::cluster_rank() * cw;
@@ -318,8 +336,15 @@ __device__ __forceinline__ void merge_store(uint32_t ex, int nx, int S, int n_va
     }
     const float inv = 1.f / (lt == 0.f ? 1.f : lt);
     *reinterpret_cast<uint32_t*>(out_row(r) + c) = pack_bf16(a0 * inv, a1 * inv);
+    if constexpr (kLse) {
+      if (c == 0) lse(r, lse_of(mx, lt));  // rank 0's first pair of the row
+    }
   }
   store_zeros<D>(S, n_valid, n_out, out_row);
+  if constexpr (kLse) {
+    if (hw::cluster_rank() == 0)
+      for (int r = n_valid + (int)threadIdx.x; r < n_out; r += kThreads) lse(r, kMaskValue);
+  }
   hw::cluster_sync();  // no split leaves while another still reads its export
 }
 

@@ -21,9 +21,13 @@ unknown roles pass through: a rules dict only names the activations it
 cares about.
 
 The helpers below the rules (``placed_like``, ``grad_placed_like``,
-``replicated``, ``reduce_partial``, ``split_last``) set placements where
-DTensor's own choice fails downstream (on torch 2.11 or on fake tensors;
-ROADMAP §C). Each is an exact no-op on plain tensors.
+``replicated``, ``reduce_partial``, ``split_last``, ``seq_gathered``,
+``gathered_on``) set placements where DTensor's own
+choice fails downstream (on torch 2.11 or on fake tensors; ROADMAP §C).
+Each is an exact no-op on plain tensors. ``write_local`` writes a step's
+new K/V rows or recurrent state into a serving cache in place: into this
+rank's shard of a cache placed by ``dist.sharding.distribute_caches``, or
+into a plain cache as before.
 
 ``logits`` and ``embed_table`` are the port's own roles: DTensor cannot
 reduce the gather of a label's logit from a vocab-sharded dim, nor (on
@@ -40,14 +44,18 @@ from typing import Mapping, Optional
 
 import torch
 
-__all__ = ["activation_rules", "constrain", "current_rules", "on_mesh", "placed_like",
-           "grad_placed_like", "reduce_partial", "replicated", "split_last", "whole"]
+__all__ = ["activation_rules", "cache_layout", "constrain", "current_rules", "gathered_on",
+           "is_dtensor", "on_mesh", "placed_like", "grad_placed_like", "reduce_partial",
+           "replicated", "seq_gathered", "split_last", "whole", "write_local"]
 
 # role -> spec or placements. ContextVar (not a module global) so rules stay
 # scoped under async/threaded drivers.
 _RULES: ContextVar[Optional[Mapping[str, object]]] = ContextVar(
     "activation_rules", default=None
 )
+# (mesh, ParallelConfig) the serving caches made in an ``on_mesh(pcfg=)``
+# block are placed on, or None.
+_CACHES: ContextVar[Optional[tuple]] = ContextVar("cache_layout", default=None)
 
 
 def current_rules() -> Optional[Mapping[str, object]]:
@@ -93,13 +101,16 @@ def constrain(x, role: str):
 
 
 @contextlib.contextmanager
-def on_mesh(mesh, rules: Optional[Mapping[str, object]] = None):
+def on_mesh(mesh, rules: Optional[Mapping[str, object]] = None, *, pcfg=None):
     """The context a step runs in on ``mesh`` (a ``DeviceMesh``): plain
     tensors meeting DTensors (positions, masks, pools) are replicated
     implicitly, the embedding lookup reads its table whole (``embed_table``,
     its gradient going back to the table's shards), and ``rules`` apply, on
     top of those of an enclosing :func:`activation_rules` (the dry-run's
-    sequence-sharded residuals). Without a mesh, nothing."""
+    sequence-sharded residuals). With ``pcfg`` (a ``ParallelConfig``) the
+    serving caches a prefill makes in the block are placed by
+    ``dist.sharding.cache_shardings`` (:func:`cache_layout`). Without a
+    mesh, nothing."""
     if mesh is None:
         yield
         return
@@ -107,10 +118,21 @@ def on_mesh(mesh, rules: Optional[Mapping[str, object]] = None):
 
     from repro_torch.dist.sharding import P
 
-    with implicit_replication(), activation_rules({"embed_table": P(None, None),
-                                                   **(current_rules() or {}),
-                                                   **(rules or {})}):
-        yield
+    token = _CACHES.set(None if pcfg is None else (mesh, pcfg))
+    try:
+        with implicit_replication(), activation_rules({"embed_table": P(None, None),
+                                                       **(current_rules() or {}),
+                                                       **(rules or {})}):
+            yield
+    finally:
+        _CACHES.reset(token)
+
+
+def cache_layout() -> dict:
+    """``{"mesh": ..., "pcfg": ...}`` inside an ``on_mesh(pcfg=)`` block
+    (what a prefill passes to the caches it allocates), ``{}`` elsewhere."""
+    got = _CACHES.get()
+    return {} if got is None else {"mesh": got[0], "pcfg": got[1]}
 
 
 def whole(x):
@@ -133,6 +155,13 @@ def _dtensor_type():
     from torch.distributed.tensor import DTensor
 
     return DTensor
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (False where torch has no distributed
+    package)."""
+    dt = _dtensor_type()
+    return dt is not None and isinstance(x, dt)
 
 
 def _placements_of(ref) -> tuple:
@@ -196,6 +225,102 @@ def split_last(x, n: int, size: int):
         if tuple(want) != tuple(x.placements):
             x = x.redistribute(x.device_mesh, tuple(want))
     return x.reshape(*x.shape[:-1], n, size)
+
+
+def seq_gathered(x):
+    """The DTensor activation ``x`` (B, S, ...) with every mesh dim that
+    shards its sequence dim (1) replicated, ``x`` itself otherwise: the
+    all-gather of Megatron's sequence parallelism before a column-parallel
+    product (a flattened sequence shard is a strided one, which DTensor
+    cannot plan on fake tensors)."""
+    if is_dtensor(x) and x.ndim >= 3:
+        from torch.distributed.tensor import Replicate, Shard
+
+        want = tuple(Replicate() if isinstance(p, Shard) and p.dim in (1, 1 - x.ndim) else p
+                     for p in x.placements)
+        if want != tuple(x.placements):
+            return x.redistribute(x.device_mesh, want)
+    return x
+
+
+def gathered_on(tree, dims: tuple):
+    """Every DTensor leaf of ``tree`` (nested dicts and lists) with the mesh
+    dims named in ``dims`` replicated; the tree itself when ``dims`` is
+    empty. A step whose batch those data axes do not divide runs its whole
+    batch on every rank of them, as the reference's tightened batch spec
+    says: its params are gathered there (FSDP's all-gather), so no
+    activation takes a shard of the sequence in the batch's place, and
+    their gradients go back to the shards through the redistribution."""
+    if not dims:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gathered_on(v, dims) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gathered_on(v, dims) for v in tree]
+    if is_dtensor(tree):
+        from torch.distributed.tensor import Replicate
+
+        names = tree.device_mesh.mesh_dim_names
+        want = tuple(Replicate() if names[i] in dims else p
+                     for i, p in enumerate(tree.placements))
+        if want != tuple(tree.placements):
+            return tree.redistribute(tree.device_mesh, want)
+    return tree
+
+
+def write_local(dst, val, rows=None) -> None:
+    """Write ``val`` into the serving-cache leaf ``dst`` in place: the whole
+    of it (a recurrent state), or with ``rows`` (s,) int64, a device tensor
+    of consecutive cache rows, ``val`` (B, s, ...) at those rows of dim 1.
+
+    A plain ``dst`` (every rank holds it whole) takes the whole value of
+    ``val`` (:func:`whole`) as before: on one device, exactly the write it
+    always was. A DTensor ``dst`` (placed by
+    ``dist.sharding.distribute_caches``) is written on this rank's shard
+    only, from ``val``'s block at the same placements (a projection's
+    output is there already, so nothing moves). Where a mesh dim shards the
+    rows (the sequence split), this rank writes only those of ``rows`` in
+    its range: a window of ``min(s, rows here)`` consecutive local rows
+    placed from ``rows[0]`` on the device, holding ``val``'s rows where they
+    land and the rows' old values elsewhere, so a captured step reads no
+    host value and no two writes meet."""
+    if not is_dtensor(dst):
+        val = whole(val)
+        if rows is None:
+            dst.copy_(val)
+        else:
+            dst.index_copy_(1, rows, val.to(dst.dtype))
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = dst.device_mesh
+    seq = [i for i, p in enumerate(dst.placements)
+           if rows is not None and isinstance(p, Shard) and p.dim == 1]
+    want = tuple(Replicate() if i in seq else p for i, p in enumerate(dst.placements))
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    val = val.redistribute(mesh, want).to_local().to(dst.dtype)
+    local = dst.to_local()
+    if rows is None:
+        local.copy_(val)
+        return
+    if not seq:
+        local.index_copy_(1, rows, val)
+        return
+    n_local, s = local.shape[1], val.shape[1]
+    off = 0
+    for i in seq:  # this rank's first row: its coordinate on each splitting dim
+        off = off * mesh.size(i) + mesh.get_local_rank(i)
+    off *= n_local
+    w = min(s, n_local)
+    start = torch.clamp(rows[:1] - off, 0, n_local - w)            # (1,) on the device
+    here = start + torch.arange(w, device=rows.device)             # local rows written
+    src = here + off - rows[:1]                                    # val's row for each
+    keep = (src >= 0) & (src < s)
+    new = val.index_select(1, torch.clamp(src, 0, s - 1))
+    old = local.index_select(1, here)
+    mask = keep.reshape((1, w) + (1,) * (val.ndim - 2))
+    local.index_copy_(1, here, torch.where(mask, new, old))
 
 
 class _GradPlacedLike(torch.autograd.Function):

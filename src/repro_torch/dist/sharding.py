@@ -50,8 +50,10 @@ __all__ = [
     "param_shardings",
     "batch_spec",
     "batch_shardings",
+    "batch_replica_axes",
     "cache_specs",
     "cache_shardings",
+    "distribute_caches",
     "placements",
     "distribute",
     "path_str",
@@ -243,6 +245,16 @@ def batch_spec(global_batch: int, pcfg: ParallelConfig, mesh) -> P:
     return tighten((global_batch,), (axes,), mesh)
 
 
+def batch_replica_axes(global_batch: int, pcfg: ParallelConfig, mesh) -> tuple[str, ...]:
+    """The data axes of ``mesh`` that :func:`batch_spec` drops for
+    ``global_batch`` (those that do not divide it): the batch is replicated
+    on them, and a step gathers its params there
+    (``dist.context.gathered_on``)."""
+    axes = tuple(a for a in pcfg.data_axes if a in _mesh_sizes(mesh))
+    kept = _as_tuple(batch_spec(global_batch, pcfg, mesh)[0])
+    return tuple(a for a in axes if a not in kept)
+
+
 def _batch_leaf_spec(x, pcfg: ParallelConfig, mesh) -> P:
     rank = len(_shape(x))
     if rank == 0:
@@ -357,3 +369,36 @@ def cache_shardings(caches, pcfg: ParallelConfig, mesh):
     """Placements of :func:`cache_specs` on a ``DeviceMesh``."""
     return tree_map_with_path(lambda _, s: placements(s, mesh),
                               cache_specs(caches, pcfg, mesh))
+
+
+def distribute_caches(caches, pcfg: ParallelConfig, mesh):
+    """The serving caches ``caches`` (the tree ``LM.prefill`` returns, each
+    leaf whole) with every leaf that :func:`cache_shardings` splits --
+    ``k``, ``v``, ``k_scale``, ``v_scale``, ``conv``, ``ssd`` -- a DTensor
+    on ``mesh`` holding this rank's block: a copy of that block alone,
+    taken on the rank with no communication (an expanded zero, the
+    allocators' form, is never materialised whole). The 0-d ``len`` and
+    ``kv_len`` stay plain tensors every rank holds whole (their spec
+    replicates them), so a captured step keeps reading them on the device
+    as it does off a mesh."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    specs = cache_specs(caches, pcfg, mesh)
+
+    def leaf(path, x):
+        if not isinstance(x, torch.Tensor) or x.ndim == 0:
+            return x
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        pl = placements(spec, mesh)
+        block = x.detach()
+        for i, p in enumerate(pl):  # in mesh-dim order, as DTensor splits a dim
+            if isinstance(p, Shard):  # the spec is tightened: the split is even
+                n = block.shape[p.dim] // mesh.size(i)
+                block = block.narrow(p.dim, mesh.get_local_rank(i) * n, n)
+        return DTensor.from_local(block.clone(memory_format=torch.contiguous_format), mesh, pl,
+                                  run_check=False)
+
+    return tree_map_with_path(leaf, caches)

@@ -99,9 +99,13 @@ KERNELS = {
         # snake, scale, stream
         argtypes=(_P,) * 5 + (_I,) * 9 + (_F, _P),
         replaces="src/repro/kernels/flash_decode.py:94",
-        # as paged_decode's; attributes at (B, S_max, Hq, Hkv, D, chunk, out)
+        # as paged_decode's; the launch writing each row's lse too (+ lse,
+        # splits); attributes at (B, S_max, Hq, Hkv, D, chunk, out), of the
+        # launch without the lse and with it
         extra=(("contig_decode_bf16_visit", (_P,) * 5 + (_I,) * 9 + (_F, _P, _P, _I)),
-               ("contig_decode_attr", (_I,) * 6 + (_P,))),
+               ("contig_decode_bf16_lse", (_P,) * 5 + (_I,) * 9 + (_F, _P, _P, _I)),
+               ("contig_decode_attr", (_I,) * 6 + (_P,)),
+               ("contig_decode_lse_attr", (_I,) * 6 + (_P,))),
     ),
     "flash_bwd_delta": Kernel(
         name="flash_bwd_delta",

@@ -36,7 +36,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.attention import decode_attention, paged_decode_attention, row_meta
+from repro_torch.core.attention import (
+    MASK_VALUE,
+    decode_attention,
+    paged_decode_attention,
+    row_meta,
+)
 from repro_torch.core.schedule import (
     DEFAULT_SNAKE_GROUP,
     Order,
@@ -203,14 +208,16 @@ def _sms(device) -> int:
 
 def decode_kernel_attr(kernel: str, shape: tuple, device=None) -> dict:
     """What the launch of ``kernel`` ("paged_decode": shape (B, C, Hq, Hkv,
-    D, n_blocks, page); "contig_decode": (B, S_max, Hq, Hkv, D, chunk))
-    runs: registers and local (spill) bytes a thread, dynamic shared memory
-    and threads a CTA, the split (cluster) size and the grid's CTAs."""
+    D, n_blocks, page); "contig_decode", or "contig_decode_lse" for the
+    launch that writes the lse: (B, S_max, Hq, Hkv, D, chunk)) runs:
+    registers and local (spill) bytes a thread, dynamic shared memory and
+    threads a CTA, the split (cluster) size and the grid's CTAs."""
     import ctypes
 
     vals = (ctypes.c_int * 6)(*([-1] * 6))
+    lib = cuda_lib.load("contig_decode" if kernel.startswith("contig_decode") else kernel)
     with torch.cuda.device(device):
-        err = getattr(cuda_lib.load(kernel), f"{kernel}_attr")(*shape, vals)
+        err = getattr(lib, f"{kernel}_attr")(*shape, vals)
     if err:
         raise RuntimeError(f"{kernel}_attr{shape} returned cudaError_t {err}")
     return {"registers": vals[0], "dynamic_smem_bytes": vals[1], "threads": vals[2],
@@ -271,12 +278,16 @@ def flash_decode_fwd(
     q_lens=None,
     order_group=None,
     fold=None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Decode attention. Contiguous: q (B, 1, Hq, D), caches (B, S_max,
-    Hkv, D), ``cache_len`` scalar or (B,). With ``block_table`` (B,
-    n_blocks) the caches are paged pools and q may carry ragged chunks (see
-    :func:`paged_flash_decode_fwd`)."""
+    Hkv, D), ``cache_len`` scalar or (B,); with ``return_lse`` also each
+    row's float32 log-sum-exp (B, Hq) (see ``decode_attention``). With
+    ``block_table`` (B, n_blocks) the caches are paged pools and q may carry
+    ragged chunks (see :func:`paged_flash_decode_fwd`)."""
     if block_table is not None:
+        if return_lse:
+            raise ValueError("return_lse takes the contiguous layout")
         return paged_flash_decode_fwd(
             q, k_cache, v_cache, cache_len, block_table, q_lens=q_lens, order=order,
             window=window, scale=scale, snake_group=snake_group, order_group=order_group,
@@ -286,33 +297,42 @@ def flash_decode_fwd(
         raise ValueError("q_lens, order_group and fold require the paged layout (block_table)")
     return _flash_decode_contiguous(
         q, k_cache, v_cache, cache_len, order=Order.parse(order), window=window,
-        scale=scale, chunk=chunk, snake_group=snake_group,
+        scale=scale, chunk=chunk, snake_group=snake_group, return_lse=return_lse,
     )
 
 
 def _flash_decode_contiguous(q, k_cache, v_cache, cache_len, *, order, window, scale, chunk,
-                             snake_group):
+                             snake_group, return_lse=False):
     if q.device.type == "cpu":
-        return decode_attention(q, k_cache, v_cache, cache_len, window=window, scale=scale)
+        return decode_attention(q, k_cache, v_cache, cache_len, window=window, scale=scale,
+                                return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_fwd: unsupported device {q.device}")
     # A tensor length (the static path's 0-d ``len``) stays on the device:
     # a captured step reads it at each replay.
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=q.device).expand(q.shape[0])
-    return launch_contig_decode(
+    lse = (torch.empty((q.shape[0], q.shape[2]), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    out = launch_contig_decode(
         q, k_cache, v_cache, lens.contiguous(), order=order, window=window, scale=scale,
-        chunk=chunk, snake_group=snake_group,
+        chunk=chunk, snake_group=snake_group, lse=lse,
     )
+    return (out, lse) if return_lse else out
 
 
 def launch_contig_decode(q, k_cache, v_cache, lens, *, order=Order.CYCLIC, window=None,
-                         scale=None, chunk=512, snake_group=None, visit_out=None, splits=None):
+                         scale=None, chunk=512, snake_group=None, visit_out=None, splits=None,
+                         lse=None):
     """Launch the contiguous decode kernel on the current stream: q (B, 1,
     Hq, D), caches (B, S_max, Hkv, D) bfloat16, ``lens`` (B,) int32; returns
     the (B, 1, Hq, D) bfloat16 output (exact zeros for rows of length 0).
     ``splits`` (1, 2, 4 or 8) overrides the kernel's split count
     (:func:`contig_decode_splits`); ``visit_out``, an int32 tensor shaped as
-    :func:`contig_decode_walks`'s result, receives the walk."""
+    :func:`contig_decode_walks`'s result, receives the walk. ``lse``, a
+    contiguous float32 (B, Hq) tensor on q's card, receives each row's
+    log-sum-exp (``MASK_VALUE`` where a row sees nothing): the kernel's
+    instantiation with the output, which the launch without it never
+    runs."""
     order = Order.parse(order)
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"contig_decode kernel takes one query position, q {tuple(q.shape)}")
@@ -337,8 +357,17 @@ def launch_contig_decode(q, k_cache, v_cache, lens, *, order=Order.CYCLIC, windo
     if (lens.dtype != torch.int32 or tuple(lens.shape) != (b,) or not lens.is_contiguous()
             or lens.device != q.device):
         raise ValueError(f"contig_decode kernel takes contiguous int32 lens of shape ({b},)")
+    if lse is not None and (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq)
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"contig_decode kernel writes a contiguous float32 lse of shape "
+                         f"({b}, {hq}) on {q.device}, got {lse.dtype} {tuple(lse.shape)} on "
+                         f"{lse.device}")
+    if lse is not None and visit_out is not None:
+        raise ValueError("contig_decode kernel records a walk or writes an lse, not both")
     out = torch.empty_like(q)
     if b == 0 or s_max == 0:
+        if lse is not None:
+            lse.fill_(MASK_VALUE)
         return out.zero_()
     snake = DEFAULT_SNAKE_GROUP if snake_group is None else int(snake_group)
     if snake < 1:
@@ -351,7 +380,9 @@ def launch_contig_decode(q, k_cache, v_cache, lens, *, order=Order.CYCLIC, windo
             torch.cuda.current_stream(q.device).cuda_stream)
     lib = cuda_lib.load("contig_decode")
     with torch.cuda.device(q.device):
-        if visit_out is None and splits is None:
+        if lse is not None:
+            err = lib.contig_decode_bf16_lse(*args, lse.data_ptr(), splits or 0)
+        elif visit_out is None and splits is None:
             err = getattr(lib, cuda_lib.KERNELS["contig_decode"].entry)(*args)
         else:
             g = hq // hkv

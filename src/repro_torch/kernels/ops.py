@@ -59,7 +59,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.attention import decode_attention, flash_attention, flash_attention_bwd
+from repro_torch.core.attention import (
+    decode_attention,
+    flash_attention,
+    flash_attention_bwd,
+    merge_decode_partials,
+)
 from repro_torch.core.schedule import Order
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels import flash_attention as kflash
@@ -273,11 +278,6 @@ def attention(
     return _Attention.apply(q, k, v, cfg)
 
 
-# Heads at dim 2 in q, the contiguous caches and the pools alike; the pools
-# have no batch dim, so every rank keeps every row.
-@_on_local_blocks(lambda mesh, q, k_cache, **_: _blocks(
-    ("q", "k_cache", "v_cache"),
-    _local_placements(q, mesh, batch=False, heads=(q.shape[2], k_cache.shape[2]))))
 def attention_decode(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -302,16 +302,86 @@ def attention_decode(
     walk folded once for a step, overrides both). ``reference``
     computes what ``torch`` does (the reference's decode oracle is the
     same function), and so does ``recompute``, whose only difference from
-    ``torch`` is its backward. Under a mesh (DTensor operands) each rank
-    runs on its head shard, the indices and lengths whole."""
+    ``torch`` is its backward.
+
+    Under a mesh (DTensor operands) each rank runs on its local blocks
+    (:func:`_decode_on_mesh`): over a cache placed by
+    ``dist.sharding.cache_shardings``, on its batch and head shards, and
+    where the cache's sequence is split, on its slice, the ranks' partial
+    results merged by log-sum-exp; over a plain pool or cache, on its head
+    shard, the indices and lengths whole."""
     impl = _resolve("torch" if impl == "recompute" else impl, q, "decode")
     kw = dict(
         window=window, scale=scale, block_table=block_table, q_lens=q_lens, order=order,
         snake_group=snake_group, order_group=order_group, fold=fold,
     )
+    mesh = _mesh_of(q, k_cache, v_cache)
+    if mesh is not None:
+        return _decode_on_mesh(mesh, impl, q, k_cache, v_cache, cache_len, kw)
+    return _decode(impl, q, k_cache, v_cache, cache_len, kw)
+
+
+def _decode(impl, q, k_cache, v_cache, cache_len, kw, return_lse=False):
     if impl == "cuda":
-        return flash_decode_fwd(q, k_cache, v_cache, cache_len, **kw)
-    return decode_attention(q, k_cache, v_cache, cache_len, **kw)
+        return flash_decode_fwd(q, k_cache, v_cache, cache_len, return_lse=return_lse, **kw)
+    return decode_attention(q, k_cache, v_cache, cache_len, return_lse=return_lse, **kw)
+
+
+def _decode_on_mesh(mesh, impl, q, k_cache, v_cache, cache_len, kw):
+    """``attention_decode`` on each rank's local blocks. The plan follows
+    the cache's placements, one mesh dim at a time: a batch shard (dim 0)
+    keeps q, the lengths and the output on this rank's rows; a head shard
+    (dim 2) keeps q and the output on this rank's heads; a sequence shard
+    (dim 1, fewer KV heads than the tensor axis) gives this rank a slice of
+    the positions, on which it decodes every head of its rows with its
+    local lengths ``clamp(len - offset, 0, S_local)`` and an lse, and the
+    slices' results are all-gathered over those mesh dims and merged in
+    float32 (``core.attention.merge_decode_partials``). A plain cache or
+    pool (every rank holds it whole) is read on this rank's head shard, as
+    q's placements allow, with the indices and lengths whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    rep = (Replicate(),) * mesh.ndim
+    if not isinstance(k_cache, DTensor):
+        pl = _local_placements(q, mesh, batch=False, heads=(q.shape[2], k_cache.shape[2]))
+        o = _decode(impl, _to_local(q, mesh, pl), _to_local(k_cache, mesh, pl),
+                    _to_local(v_cache, mesh, pl), _to_local(cache_len, mesh),
+                    {k: _to_local(v, mesh) for k, v in kw.items()})
+        return _from_local(o, mesh, pl)
+    q_pl, len_pl, split = [], [], []
+    for i, p in enumerate(k_cache.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            split.append(i)
+            p = Replicate()
+        q_pl.append(p)
+        len_pl.append(p if isinstance(p, Shard) and p.dim == 0 else Replicate())
+    q_pl = tuple(q_pl)
+    lens = cache_len
+    if not isinstance(lens, torch.Tensor):
+        lens = torch.as_tensor(lens, dtype=torch.int32, device=k_cache.device)
+    lens = _to_local(lens, mesh, tuple(len_pl) if lens.ndim else None)
+    kl, vl = k_cache.to_local(), _to_local(v_cache, mesh, tuple(k_cache.placements))
+    ql = _to_local(q, mesh, q_pl)
+    local_kw = {k: _to_local(v, mesh) for k, v in kw.items()}
+    if not split:
+        return _from_local(_decode(impl, ql, kl, vl, lens, local_kw), mesh, q_pl)
+    if kw["window"] is not None:
+        raise ValueError("a sequence-split cache takes no window: the ring buffer of a "
+                         "windowed cache holds the window already")
+    n_local = kl.shape[1]
+    part = 0
+    for i in split:  # this rank's slice: its coordinate on each splitting dim
+        part = part * mesh.size(i) + mesh.get_local_rank(i)
+    local_lens = torch.clamp(lens - part * n_local, 0, n_local).to(torch.int32)
+    o, lse = _decode(impl, ql, kl, vl, local_lens, local_kw, return_lse=True)
+    b, _, hq, d = o.shape
+    packed = torch.cat([o.float().reshape(b, hq * d), lse], dim=1)[None]
+    gather_pl = tuple(Shard(0) if i in split else Replicate() for i in range(mesh.ndim))
+    parts = DTensor.from_local(packed, mesh, gather_pl, run_check=False)
+    parts = parts.redistribute(mesh, rep).to_local()            # (n, B, Hq (D + 1))
+    merged, _ = merge_decode_partials(parts[:, :, :hq * d].reshape(-1, b, 1, hq, d),
+                                      parts[:, :, hq * d:])
+    return _from_local(merged.to(o.dtype), mesh, q_pl)
 
 
 def _ssd_chunked(x, dt, a, b, c, init_state, chunk):

@@ -28,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import constrain, whole
+from repro_torch.dist.context import cache_layout, constrain, grad_placed_like, write_local
+from repro_torch.dist.sharding import distribute_caches
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -91,6 +92,10 @@ def decode_train(params: dict, cfg: ModelConfig, tgt_embeds: torch.Tensor,
     embeddings (B, S, d), each layer under ``remat_wrap``."""
     positions = _arange(tgt_embeds.shape[1], tgt_embeds.device)
     enc_positions = _arange(enc_out.shape[1], enc_out.device)
+    # on a mesh the encoder's output gradient (partial sums from every cross
+    # K/V product) is reduced once, before the encoder's layers, as a norm's
+    # input gradient is (``L.rmsnorm``); a no-op off a mesh
+    enc_out = grad_placed_like(enc_out)
     h = tgt_embeds
     for lp in params["decoder"]:
         body = T.remat_wrap(
@@ -113,11 +118,16 @@ def encdec_prefill(params: dict, cfg: ModelConfig, tgt_embeds: torch.Tensor,
     positions = _arange(s, dev)
     enc_positions = _arange(skv, dev)
     layers = params["decoder"]
-    self_caches = T.init_cache(cfg, b, max_len, device=dev, n_layers=len(layers))
+    place = cache_layout()
+    self_caches = T.init_cache(cfg, b, max_len, device=dev, n_layers=len(layers), **place)
     shape = (len(layers), b, max(max_len, skv), cfg.n_kv_heads, cfg.hd)
-    cross = {"k": torch.zeros(shape, dtype=cfg.activation_dtype(), device=dev),
-             "v": torch.zeros(shape, dtype=cfg.activation_dtype(), device=dev),
-             "kv_len": torch.full((), skv, dtype=torch.int32, device=dev)}
+    if place:  # each rank's shard only (an expanded zero is never made whole)
+        zero = torch.zeros((), dtype=cfg.activation_dtype(), device=dev).expand(shape)
+        cross = distribute_caches({"k": zero, "v": zero}, place["pcfg"], place["mesh"])
+    else:
+        cross = {n: torch.zeros(shape, dtype=cfg.activation_dtype(), device=dev)
+                 for n in ("k", "v")}
+    cross["kv_len"] = torch.full((), skv, dtype=torch.int32, device=dev)
     h = tgt_embeds
     for i, lp in enumerate(layers):
         a, (k, v) = T.attn_apply(lp["self_attn"], cfg, L.rmsnorm(lp["ln_self"], h, cfg.norm_eps),
@@ -131,8 +141,9 @@ def encdec_prefill(params: dict, cfg: ModelConfig, tgt_embeds: torch.Tensor,
         h = h + c
         h = h + T.ffn_apply(lp["ffn"], cfg, L.rmsnorm(lp["ln_ffn"], h, cfg.norm_eps))
         filled = T.fill_cache(cfg, T._layer_cache(self_caches, i), k, v)
-        cross["k"][i, :, :skv].copy_(whole(ck))
-        cross["v"][i, :, :skv].copy_(whole(cv))
+        rows = torch.arange(skv, device=dev)
+        write_local(cross["k"][i], ck, rows)
+        write_local(cross["v"][i], cv, rows)
     self_caches["len"] = filled["len"]
     return h, {"self": self_caches, "cross": cross}
 

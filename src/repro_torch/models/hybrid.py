@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import constrain, whole
+from repro_torch.dist.context import cache_layout, constrain, write_local
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
@@ -93,14 +93,17 @@ def hybrid_apply(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: tor
     return h, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
-def hybrid_init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cpu") -> dict:
+def hybrid_init_caches(cfg: ModelConfig, batch: int, max_len: int, *, device="cpu", mesh=None,
+                       pcfg=None) -> dict:
     """Zero caches: ``mamba`` states (groups, every, B, ...), the sites'
     contiguous KV caches ``attn`` (groups, B, S, Hkv, hd) and ``len`` 0 (a
-    0-d int32 tensor)."""
+    0-d int32 tensor); with ``mesh`` and ``pcfg`` placed by
+    ``dist.sharding.cache_shardings``."""
     g, e = n_groups(cfg), cfg.ssm.shared_attn_every
+    place = dict(mesh=mesh, pcfg=pcfg)
     return {
-        "mamba": ssm.mamba_init_state(cfg, batch, device=device, lead=(g, e)),
-        "attn": T.init_cache(cfg, batch, max_len, device=device, n_layers=g),
+        "mamba": ssm.mamba_init_state(cfg, batch, device=device, lead=(g, e), **place),
+        "attn": T.init_cache(cfg, batch, max_len, device=device, n_layers=g, **place),
         "len": torch.zeros((), dtype=torch.int32, device=device),
     }
 
@@ -116,14 +119,14 @@ def hybrid_prefill(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: t
     caches)."""
     shared = params["shared"]
     h0 = x
-    caches = hybrid_init_caches(cfg, x.shape[0], max_len, device=x.device)
+    caches = hybrid_init_caches(cfg, x.shape[0], max_len, device=x.device, **cache_layout())
     h = x
     for gi, gp in enumerate(params["mamba"]):
         for ei, lp in enumerate(gp):
             out, st = ssm.mamba_prefill(lp["mamba"], cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
             h = h + out
             for name, t in _layer_state(caches["mamba"], gi, ei).items():
-                t.copy_(whole(st[name]))
+                write_local(t, st[name])
         zin = _proj_in(shared, cfg, h, h0)
         a, (k, v) = T.attn_apply(shared["attn"], cfg,
                                  L.rmsnorm(shared["ln_attn"], zin, cfg.norm_eps),

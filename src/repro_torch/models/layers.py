@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.dist.context import reduce_partial
+from repro_torch.dist.context import grad_placed_like, reduce_partial, seq_gathered
 
 __all__ = [
     "dense_init",
@@ -48,6 +48,11 @@ def dense_init(
 
 
 def dense(p: dict, x: torch.Tensor, *, dtype=None) -> torch.Tensor:
+    # On a mesh a sequence-sharded input is gathered first (Megatron's
+    # sequence parallelism): flattened for the product, its shard would be a
+    # strided one, which DTensor cannot plan on fake tensors. A no-op off a
+    # mesh.
+    x = seq_gathered(x)
     w = p["w"]
     if dtype is not None:
         w = w.to(dtype)
@@ -66,8 +71,11 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     # On a mesh a partial sum (a row-parallel product's output) is reduced
     # first, as Megatron's all-reduce: DTensor would otherwise reduce-scatter
     # it onto the sequence, whose strided shard the next product cannot plan
-    # on fake tensors (the dry-run). A no-op off a mesh.
-    xf = reduce_partial(x).float()
+    # on fake tensors (the dry-run). Its gradient (a partial sum from the
+    # column-parallel products the norm feeds) is reduced on the way back,
+    # Megatron's backward all-reduce, so no product below sees a partial
+    # gradient and runs its backward on gathered operands. A no-op off a mesh.
+    xf = grad_placed_like(reduce_partial(x)).float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)

@@ -51,7 +51,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.context import constrain, placed_like, whole
+from repro_torch.dist.context import (cache_layout, constrain, placed_like, seq_gathered,
+                                      write_local)
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import layers as L
@@ -85,6 +86,7 @@ def _embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tenso
 
 
 def _logits(params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = seq_gathered(h)  # the head is a column-parallel product (a no-op off a mesh)
     if cfg.tie_embeddings:
         out = h @ params["embed"]["table"].to(cfg.activation_dtype()).T
     else:
@@ -291,13 +293,14 @@ def _build_ssm(cfg: ModelConfig, device: torch.device) -> LM:
             h, caches = HY.hybrid_prefill(params["layers"], cfg, x, _positions(b, s, x.device),
                                           max_len)
         else:
-            states = SSM.mamba_init_state(cfg, b, device=x.device, lead=(cfg.n_layers,))
+            states = SSM.mamba_init_state(cfg, b, device=x.device, lead=(cfg.n_layers,),
+                                          **cache_layout())
             h = x
             for i, lp in enumerate(params["layers"]):
                 out, st = SSM.mamba_prefill(lp["mamba"], cfg, L.rmsnorm(lp["ln"], h, cfg.norm_eps))
                 h = h + out
                 for name, t in states.items():
-                    t[i].copy_(whole(st[name]))
+                    write_local(t[i], st[name])
             caches = {"mamba": states,
                       "len": torch.full((), s, dtype=torch.int32, device=x.device)}
         h = L.rmsnorm(params["ln_f"], h[:, -1:], cfg.norm_eps)

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.dist.context import grad_placed_like, placed_like, replicated, whole
+from repro_torch.dist.context import grad_placed_like, placed_like, write_local
+from repro_torch.dist.sharding import distribute_caches
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -210,20 +211,24 @@ def mamba_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, init_state=None) 
     return _finish(cfg, p, y.float(), x_h, z)
 
 
-def mamba_init_state(cfg: ModelConfig, batch: int, *, device="cpu", lead: tuple = ()) -> dict:
+def mamba_init_state(cfg: ModelConfig, batch: int, *, device="cpu", lead: tuple = (),
+                     mesh=None, pcfg=None) -> dict:
     """Zero decode state: ``conv`` (B, width - 1, d_inner + 2N) in the
     activation dtype and ``ssd`` (B, H, P, N) float32, each with the leading
-    dims ``lead`` (one allocation for a stack of layers)."""
+    dims ``lead`` (one allocation for a stack of layers). With ``mesh`` and
+    ``pcfg`` each is a DTensor holding this rank's batch shard
+    (``dist.sharding.distribute_caches``)."""
     m = cfg.ssm
     di = d_inner(cfg)
     h = n_ssm_heads(cfg)
     lead = tuple(lead)
-    return {
-        "conv": torch.zeros(lead + (batch, m.conv_width - 1, di + 2 * m.state_dim),
-                            dtype=cfg.activation_dtype(), device=device),
-        "ssd": torch.zeros(lead + (batch, h, m.head_dim, m.state_dim), dtype=torch.float32,
-                           device=device),
-    }
+    shapes = {"conv": (lead + (batch, m.conv_width - 1, di + 2 * m.state_dim),
+                       cfg.activation_dtype()),
+              "ssd": (lead + (batch, h, m.head_dim, m.state_dim), torch.float32)}
+    if mesh is None:
+        return {k: torch.zeros(shp, dtype=dt, device=device) for k, (shp, dt) in shapes.items()}
+    return distribute_caches({k: torch.zeros((), dtype=dt, device=device).expand(shp)
+                              for k, (shp, dt) in shapes.items()}, pcfg, mesh)
 
 
 def mamba_prefill(p: dict, cfg: ModelConfig, x: torch.Tensor) -> tuple[torch.Tensor, dict]:
@@ -261,12 +266,12 @@ def mamba_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, state: dict) -> tup
     dtf = dt[:, 0]                                                   # (B, H)
     decay = torch.exp(dtf * a[None, :])[..., None, None]
     upd = (dtf[..., None] * x_h[:, 0].float())[..., :, None] * b_in[:, 0, None, None, :].float()
-    # on a mesh the new state is replicated here, not at the copy below:
-    # its head shard, flattened by the einsum, cannot be planned on fake
-    # tensors (a no-op off a mesh; the state is kept whole either way)
-    s_new = replicated(decay * state["ssd"] + upd)
+    # on a mesh the new state takes the state's placements (its batch shard)
+    # here, not at the write below: its head shard, flattened by the einsum,
+    # cannot be planned on fake tensors (a no-op off a mesh)
+    s_new = placed_like(decay * state["ssd"] + upd, state["ssd"])
     y = torch.einsum("bhpn,bn->bhp", s_new, c_in[:, 0].float())[:, None]
     out = _finish(cfg, p, y, x_h, z)
-    state["conv"].copy_(whole(hist[:, 1:]))
-    state["ssd"].copy_(whole(s_new))
+    write_local(state["conv"], hist[:, 1:])
+    write_local(state["ssd"], s_new)
     return out, state

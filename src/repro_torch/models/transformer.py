@@ -42,7 +42,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import compression
-from repro_torch.dist.context import constrain, split_last, whole
+from repro_torch.dist.context import (cache_layout, constrain, placed_like, split_last, whole,
+                                      write_local)
+from repro_torch.dist.sharding import distribute_caches
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import fold_schedule
 from repro_torch.models import layers as L
@@ -314,7 +316,7 @@ def page_geometry(cfg: ModelConfig, max_len: int) -> tuple[int, int]:
 
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, *, dtype=None, device="cpu",
-    n_layers: Optional[int] = None,
+    n_layers: Optional[int] = None, mesh=None, pcfg=None,
 ) -> dict:
     """Zero KV cache of ``batch`` rows for ``max_len`` positions.
 
@@ -325,7 +327,9 @@ def init_cache(
     zero ``len`` (B,); the K/V tensors in the cache's format
     (:func:`kv_buffers`: int8 ones carry scale planes). With ``n_layers``
     the tensors gain a leading layer axis (one allocation for the whole
-    stack); the other entries are shared.
+    stack); the other entries are shared. With ``mesh`` and ``pcfg`` the
+    contiguous K/V are placed by ``dist.sharding.cache_shardings`` (see
+    :func:`kv_buffers`); pools are never placed.
     """
     lead = () if n_layers is None else (n_layers,)
     if cfg.kv_layout == "paged":
@@ -346,36 +350,45 @@ def init_cache(
     size = min(max_len, cfg.window) if cfg.window is not None else max_len
     shape = lead + (batch, size, cfg.n_kv_heads, cfg.hd)
     return {"len": torch.zeros((), dtype=torch.int32, device=device),
-            **kv_buffers(cfg, ("k", "v"), shape, dtype=dtype, device=device)}
+            **kv_buffers(cfg, ("k", "v"), shape, dtype=dtype, device=device, mesh=mesh,
+                         pcfg=pcfg)}
 
 
-def kv_buffers(cfg: ModelConfig, names, shape, *, dtype=None, device="cpu") -> dict:
+def kv_buffers(cfg: ModelConfig, names, shape, *, dtype=None, device="cpu", mesh=None,
+               pcfg=None) -> dict:
     """Zero K/V buffers ``names`` of ``shape`` (..., hd) in the cache's
     format: ``dtype`` (default the activation dtype), or with
     ``kv_cache_dtype="int8"`` int8 payloads each beside a float32
-    ``<name>_scale`` of ones shaped as the payload less the head dim."""
+    ``<name>_scale`` of ones shaped as the payload less the head dim. With
+    ``mesh`` and ``pcfg`` each is a DTensor holding this rank's block only
+    (``dist.sharding.distribute_caches``)."""
+    def full(shp, dt, value):
+        if mesh is None:
+            return torch.full(shp, value, dtype=dt, device=device)
+        return torch.full((), value, dtype=dt, device=device).expand(shp)  # placed below
+
     if cfg.kv_cache_dtype == "int8":
         out = {}
         for name in names:
-            out[name] = torch.zeros(shape, dtype=torch.int8, device=device)
-            out[name + "_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=device)
-        return out
-    dt = dtype or cfg.activation_dtype()
-    return {name: torch.zeros(shape, dtype=dt, device=device) for name in names}
+            out[name] = full(shape, torch.int8, 0)
+            out[name + "_scale"] = full(shape[:-1], torch.float32, 1)
+    else:
+        dt = dtype or cfg.activation_dtype()
+        out = {name: full(shape, dt, 0) for name in names}
+    return out if mesh is None else distribute_caches(out, pcfg, mesh)
 
 
 def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, rows) -> None:
     """Write ``val`` (B, s, H, D) at the cache rows ``rows`` (s,) int64, a
-    device tensor, in place (an int8 cache: quantized, and its scales
-    beside)."""
-    val = whole(val)
+    device tensor of consecutive rows, in place (an int8 cache: quantized,
+    and its scales beside), on this rank's shard of a placed cache
+    (``dist.context.write_local``)."""
     if cfg.kv_cache_dtype == "int8":
         q, scale = _quantize_kv(val)
-        cache[name].index_copy_(1, rows, q)
-        cache[name + "_scale"].index_copy_(1, rows, scale)
+        write_local(cache[name], q, rows)
+        write_local(cache[name + "_scale"], scale, rows)
         return
-    buf = cache[name]
-    buf.index_copy_(1, rows, val.to(buf.dtype))
+    write_local(cache[name], val, rows)
 
 
 def fill_cache(cfg: ModelConfig, cache: dict, k: torch.Tensor, v: torch.Tensor) -> dict:
@@ -513,10 +526,11 @@ def remat_wrap(fn, cfg: ModelConfig):
 def _layer_fwd(lp: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                ffn_apply_fn=None, causal: bool = True):
     """(hidden, aux or None) of one layer."""
-    h = x + attn_apply(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
-                       positions=positions, causal=causal)
+    a = attn_apply(lp["attn"], cfg, L.rmsnorm(lp["ln_attn"], x, cfg.norm_eps),
+                   positions=positions, causal=causal)
+    h = x + placed_like(a, x)
     y, aux = _ffn(ffn_apply_fn, lp, cfg, h)
-    return constrain(h + y, "residual"), aux
+    return constrain(h + placed_like(y, h), "residual"), aux
 
 
 def stack_apply(layers: list[dict], cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -554,13 +568,13 @@ def stack_prefill(
     see :func:`init_cache`). Returns (hidden (B, S, d), caches); an FFN's
     aux is dropped, as in the reference."""
     b = x.shape[0]
-    caches = init_cache(cfg, b, max_len, device=x.device, n_layers=len(layers))
+    caches = init_cache(cfg, b, max_len, device=x.device, n_layers=len(layers), **cache_layout())
     h = x
     for i, lp in enumerate(layers):
         xn = L.rmsnorm(lp["ln_attn"], h, cfg.norm_eps)
         a, (k, v) = attn_apply(lp["attn"], cfg, xn, positions=positions, return_kv=True)
-        h = h + a
-        h = constrain(h + _ffn(ffn_apply_fn, lp, cfg, h)[0], "residual")
+        h = h + placed_like(a, h)
+        h = constrain(h + placed_like(_ffn(ffn_apply_fn, lp, cfg, h)[0], h), "residual")
         filled = fill_cache(cfg, _layer_cache(caches, i), k, v)
     caches["len"] = filled["len"]
     return h, caches

@@ -98,10 +98,13 @@ Sharded serving, as in the reference: with ``mesh`` (a
 ``torch.distributed`` ``DeviceMesh`` named ("data", "model")) the params
 are placed on their ``dist.sharding`` specs as DTensors (default
 ``ParallelConfig(fsdp_axes=("data",), data_axes=("data",))``), and every
-step runs on the mesh: the tokens, pools and caches are plain tensors each
-rank holds whole, replicated implicitly, the kernels run on each rank's
-head shard (``kernels.ops``), and the logits come back whole to every rank,
-which samples the same tokens. Every rank of the mesh runs ``generate``
+step runs on the mesh: the tokens and the continuous engine's pools are
+plain tensors each rank holds whole, replicated implicitly; the static
+engine's caches (the prefill's, and those its captured decode step holds)
+are placed by ``dist.sharding.cache_shardings``, each rank holding its
+shard (batch on the data axes, KV heads or else the sequence on the tensor
+axis); the kernels run on each rank's local blocks (``kernels.ops``), and
+the logits come back whole to every rank, which samples the same tokens. Every rank of the mesh runs ``generate``
 with the same requests. The steps stay captured graphs on the card: DTensor
 dispatch runs on the host at capture, and nothing in it reads a device
 value (``tests/test_torch_dist.py`` holds each sharded step to the
@@ -124,7 +127,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.cache_sim import slot_reuse_stats
 from repro_torch.core.schedule import future_visit_window
 from repro_torch.device import resolve_device
-from repro_torch.dist.context import on_mesh, whole
+from repro_torch.dist.context import gathered_on, is_dtensor, on_mesh, whole
 from repro_torch.models.model import LM, build_model
 from repro_torch.obs.llc import DEFAULT_CAPACITY_BYTES, LLCSampler
 from repro_torch.obs.metrics import Registry
@@ -414,6 +417,8 @@ class ServeEngine:
                                 f"(mesh_dim_names), got {type(mesh).__name__}")
             pcfg = pcfg or ParallelConfig(fsdp_axes=("data",), data_axes=("data",))
             params = shd.distribute(params, shd.param_specs(params, pcfg, mesh), mesh)
+            # a batch the data axes do not divide runs whole on each of them
+            params = gathered_on(params, shd.batch_replica_axes(batch_size, pcfg, mesh))
         self.pcfg = pcfg
         self.params = params
         self.eos = cfg.eos_id
@@ -632,9 +637,12 @@ class ServeEngine:
         overwrites."""
         if self._decode is None:
             self._decode_caches = _tree_map(torch.zeros_like, caches)
+            # the step's state as the graph writes it: each rank's own shard
+            # of a placed cache (its local tensor, the same memory)
+            state = [t.to_local() if is_dtensor(t) else t
+                     for t in _tree_leaves(self._decode_caches)]
             step = self._new_step("static decode step", self._decode_fn(self._decode_caches),
-                                  {"tokens": (self.batch_size, 1)},
-                                  _tree_leaves(self._decode_caches))
+                                  {"tokens": (self.batch_size, 1)}, state)
             step.capture()
             self._decode = step
         _copy_tree(self._decode_caches, caches)
@@ -642,7 +650,7 @@ class ServeEngine:
 
     def _decode_fn(self, caches: dict):
         def step(tokens):
-            with on_mesh(self.mesh):
+            with on_mesh(self.mesh, pcfg=self.pcfg):
                 logits, new = self.lm.decode_step(self.params, tokens, caches)
                 _copy_tree(caches, new)  # the advanced lengths, for the next replay
             last = whole(logits)[:, -1]
@@ -671,7 +679,7 @@ class ServeEngine:
 
         tr = self.tracer
         with tr.span("serve.prefill", rows=n, bucket=bucket):
-            with on_mesh(self.mesh):
+            with on_mesh(self.mesh, pcfg=self.pcfg):
                 logits, caches = self.lm.prefill(self.params, self._prefill_batch(tokens),
                                                  self.max_len)
             last = whole(logits)[:, -1]

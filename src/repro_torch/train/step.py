@@ -19,7 +19,12 @@ mirroring them, ZeRO-style), each microbatch is placed on
 DTensors, which insert the collectives; plain tensors the model makes
 (positions, masks) are replicated implicitly. The kernels run on each
 rank's local block (``kernels.ops``). The step adds the activation rule
-``{"logits": batch on the data axes}`` to ``dist.context.on_mesh``'s.
+``{"logits": batch on the data axes}`` to ``dist.context.on_mesh``'s. A
+batch that the data axes do not divide stays replicated on them (its spec
+tightened, as in the reference), and every rank of those axes runs it
+whole: the step reads its params gathered there
+(``dist.context.gathered_on``; the gradients go back to the shards), so no
+activation takes a shard of the sequence in the batch's place.
 ``pcfg.grad_compression`` and ``zero_grads`` are accepted and, as in the
 reference's step, read by nothing.
 
@@ -39,7 +44,7 @@ import torch
 from repro_torch.configs.base import ParallelConfig, TrainConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist import sharding as shd
-from repro_torch.dist.context import on_mesh, whole
+from repro_torch.dist.context import gathered_on, on_mesh, whole
 from repro_torch.models.model import LM
 from repro_torch.train.optimizer import OptState, make_optimizer, named_leaves
 
@@ -141,7 +146,7 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig = ParallelCo
     rules = None if mesh is None else _loss_rules(pcfg, mesh)
 
     def grads_of(params, leaves, batch):
-        loss, metrics = lm.loss(params, batch)
+        loss, metrics = lm.loss(_on_batch(params, batch, pcfg, mesh), batch)
         grads = torch.autograd.grad(loss, [p for _, p in leaves])
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -184,22 +189,35 @@ def make_train_step(lm: LM, tcfg: TrainConfig, pcfg: ParallelConfig = ParallelCo
     return step
 
 
+def _on_batch(params, batch: dict, pcfg: ParallelConfig, mesh):
+    """``params`` as a step over ``batch`` reads them on ``mesh``: gathered
+    on the data axes the batch's size does not divide (none: the params
+    themselves)."""
+    if mesh is None:
+        return params
+    b = next(iter(batch.values())).shape[0]
+    return gathered_on(params, shd.batch_replica_axes(b, pcfg, mesh))
+
+
 def make_serve_steps(lm: LM, pcfg: ParallelConfig, mesh, *, max_len: int):
     """``prefill(params, batch) -> (logits, caches)`` and ``decode(params,
     tokens, caches) -> (logits, caches)`` on ``mesh`` (None: one device):
     params from ``shard_state``'s placement (``dist.sharding.distribute``
-    with ``param_specs``), the batch placed on its data axes, the caches as
-    the prefill made them. Logits come back whole."""
+    with ``param_specs``), the batch placed on its data axes. Under a mesh
+    the prefill's caches are placed by ``dist.sharding.cache_shardings``
+    (``distribute_caches``: each rank holds its shard), and the decode step
+    writes into them in place. Logits come back whole."""
     def prefill(params, batch):
         if mesh is not None:
             batch = place_batch(batch, pcfg, mesh, lm.device)
-        with on_mesh(mesh):
-            logits, caches = lm.prefill(params, batch, max_len)
+        with on_mesh(mesh, pcfg=pcfg):
+            logits, caches = lm.prefill(_on_batch(params, batch, pcfg, mesh), batch, max_len)
             return whole(logits), caches
 
     def decode(params, tokens, caches):
-        with on_mesh(mesh):
-            logits, caches = lm.decode_step(params, tokens, caches)
+        with on_mesh(mesh, pcfg=pcfg):
+            logits, caches = lm.decode_step(_on_batch(params, {"tokens": tokens}, pcfg, mesh),
+                                            tokens, caches)
             return whole(logits), caches
 
     return prefill, decode

@@ -355,6 +355,51 @@ def test_contig_decode_split_walks_bits_and_stale_tails(cuda, splits, d, g):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("splits", [None, 1, 2, 8])
+@pytest.mark.parametrize("d,g", [(128, 1), (80, 1), (64, 4), (128, 8)])
+def test_contig_decode_lse_and_the_sequence_split(cuda, splits, d, g):
+    """B3 with its lse output (the kLse instantiation): the output equal to
+    the bit to the launch without it; the lse within 2e-3 of the plain
+    version's (``MASK_VALUE`` for a row of length 0); the cache cut in
+    halves and quarters, each run with its local lengths and merged by
+    ``merge_decode_partials``, within 2e-2 (o) and 2e-3 (lse) of the whole;
+    a wrong lse buffer refused."""
+    from repro_torch.core.attention import merge_decode_partials
+
+    gen = torch.Generator(device=cuda).manual_seed(7 * d + g + (splits or 0))
+    b, hkv, s_max = 5, 2, 1024
+    q = _bf16(gen, (b, 1, hkv * g, d), cuda)
+    k, v = _bf16(gen, (b, s_max, hkv, d), cuda), _bf16(gen, (b, s_max, hkv, d), cuda)
+    lens = torch.tensor([1024, 0, 715, 7, 300], dtype=torch.int32, device=cuda)
+    ok = lens > 0
+    lse = torch.empty((b, hkv * g), dtype=torch.float32, device=cuda)
+    n0 = cuda_lib.launch_counts["contig_decode"]
+    out = launch_contig_decode(q, k, v, lens, splits=splits, lse=lse)
+    plain_out = launch_contig_decode(q, k, v, lens, splits=splits)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["contig_decode"] == n0 + 2
+    assert torch.equal(out, plain_out)
+    ref, ref_lse = decode_attention(q.float(), k.float(), v.float(), lens, return_lse=True)
+    assert (lse - ref_lse)[ok].abs().max().item() <= 2e-3
+    assert torch.all(lse[~ok] == MASK_VALUE) and torch.all(out[~ok] == 0)
+    for n in (2, 4):
+        w = s_max // n
+        parts = [flash_decode_fwd(q, k[:, i * w:(i + 1) * w].contiguous(),
+                                  v[:, i * w:(i + 1) * w].contiguous(),
+                                  torch.clamp(lens - i * w, 0, w), return_lse=True)
+                 for i in range(n)]
+        mo, ml = merge_decode_partials(torch.stack([p[0] for p in parts]),
+                                       torch.stack([p[1] for p in parts]))
+        assert (mo.float() - ref)[ok].abs().max().item() <= 2e-2
+        assert (ml - ref_lse)[ok].abs().max().item() <= 2e-3
+        assert torch.all(mo[~ok] == 0)
+    with pytest.raises(ValueError, match="lse"):
+        launch_contig_decode(q, k, v, lens, lse=lse.double())
+    with pytest.raises(ValueError, match="lse"):
+        launch_contig_decode(q, k, v, lens, lse=lse[:, :1])
+
+
+@pytest.mark.gpu
 def test_new_wrappers_reject_what_their_kernels_do_not_take(cuda):
     bf = torch.bfloat16
     q = torch.zeros((1, 8, 2, 128), dtype=bf, device=cuda)

@@ -26,6 +26,12 @@ results; the tests read them:
   equal, and the streams equal the unsharded port's at the reference's tie
   tolerance (``test_multidevice.py:174-215``); one step of each kind under
   the host-read guard of ``test_torch_step_graph.py`` (``NoHostRead``);
+* ``make_serve_steps`` on 2x2 and on a (1, 4) mesh over the same group:
+  the caches placed by ``cache_shardings`` (KV heads, or the sequence where
+  2 KV heads do not divide 4), their local shapes the reference's shard
+  shapes, the prefill and two decode steps' logits against the unsharded
+  port's; the static engine on 1x4 twice, and its decode step under the
+  guard;
 * ``constrain`` inside and outside an activation-rules context.
 
 ``usable_mesh_shape`` on the reference's cases, the mesh builders' refusal
@@ -232,6 +238,33 @@ def body(rank, world, out):
     nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     logits2, _ = decode(dparams, nxt, caches)
     res["serve_steps"] = (logits, logits2, isinstance(logits, DTensor))
+
+    # -- caches placed by cache_shardings: heads on 2x2, the sequence on 1x4
+    mesh14 = make_local_mesh(1, 4, device="cpu")
+    for name, m in (("2x2", mesh), ("1x4", mesh14)):
+        prefill, decode = make_serve_steps(lm, PCFG, m, max_len=32)
+        mparams = distribute(params, param_specs(params, PCFG, m), m)
+        steps = [prefill(mparams, {"tokens": toks})]
+        for _ in range(2):
+            nxt = steps[-1][0][:, -1].argmax(-1).to(torch.int32)[:, None]
+            steps.append(decode(mparams, nxt, steps[-1][1]))
+        res["split " + name] = (
+            [lg for lg, _ in steps],
+            {k: (type(c).__name__, tuple(c.shape), tuple(c.to_local().shape)
+                 if isinstance(c, DTensor) else tuple(c.shape))
+             for k, c in steps[-1][1].items()})
+
+    # -- the static engine on 1x4 (every cache split along its sequence), twice
+    eng = ServeEngine(lm, params, batch_size=4, max_len=64, mesh=mesh14, scheduler="static",
+                      device="cpu")
+    a = eng.generate(reqs)
+    b = eng.generate(reqs)
+    res["static 1x4"] = [[r.tokens.tolist() for r in a], [r.tokens.tolist() for r in b]]
+    res["static 1x4 caches"] = {k: tuple(c.placements) for k, c in eng._decode_caches.items()
+                                if isinstance(c, DTensor)}
+    with NoHostRead():
+        logits, _ = eng.step_graphs()["decode"]()
+    res["guard static 1x4 decode"] = bool(torch.isfinite(logits).all())
 
     # -- constrain
     x = DTensor.from_local(torch.ones(4, 6), mesh, [Replicate(), Replicate()])
@@ -464,6 +497,70 @@ def test_make_serve_steps_on_the_mesh(ranks):
         assert not is_dt
         torch.testing.assert_close(got, logits, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(got2, logits2, atol=1e-4, rtol=1e-4)
+
+
+def _ref_cache_shards(mesh_shape, batch, max_len):
+    """The reference's reduced deepseek-7b caches: per leaf its shard shape
+    under ``cache_shardings`` on an ``AbstractMesh`` of ``mesh_shape``."""
+    from repro.dist import sharding as ref_shd
+
+    rcfg = ref_get_config("deepseek-7b").reduced()
+    rlm = ref_build_model(rcfg)
+    rparams = jax.eval_shape(rlm.init, jax.random.PRNGKey(0))
+    b = {"tokens": jax.ShapeDtypeStruct((batch, 12), jnp.int32)}
+    _, caches = jax.eval_shape(lambda p, x: rlm.prefill(p, x, max_len), rparams, b)
+    sh = ref_shd.cache_shardings(caches, RefParallelConfig(fsdp_axes=("data",),
+                                                           data_axes=("data",)),
+                                 jax.sharding.AbstractMesh(mesh_shape, ("data", "model")))
+    return {k: tuple(sh[k].shard_shape(caches[k].shape)) for k in ("k", "v")}
+
+
+@pytest.mark.parametrize("name,mesh_shape", [("2x2", (2, 2)), ("1x4", (1, 4))])
+def test_make_serve_steps_split_caches(ranks, name, mesh_shape):
+    """``make_serve_steps`` on 2x2 (KV heads on "model") and 1x4 (2 KV
+    heads on 4 ranks: the sequence, each rank's partial decode merged by
+    log-sum-exp): the prefill and 2 decode steps' logits within 1e-4 of the
+    unsharded port's on every rank, and each rank's K/V a DTensor holding
+    the reference's shard shape; ``len`` a plain 0-d tensor."""
+    cfg = get_config("deepseek-7b").reduced()
+    lm = build_model(cfg, device="cpu")
+    params = lm.init(0)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (8, 64))
+                           .astype(np.int32)[:4, :12])
+    logits, caches = lm.prefill(params, {"tokens": toks}, 32)
+    want = [logits]
+    for _ in range(2):
+        nxt = want[-1][:, -1].argmax(-1).to(torch.int32)[:, None]
+        lg, caches = lm.decode_step(params, nxt, caches)
+        want.append(lg)
+    shards = _ref_cache_shards(mesh_shape, 4, 32)
+    for r in ranks:
+        got, leaves = r["split " + name]
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+        assert leaves["len"] == ("Tensor", (), ())
+        for k in ("k", "v"):
+            kind, shape, local = leaves[k]
+            assert kind == "DTensor" and local == shards[k] and local != shape, (k, local)
+
+
+def test_static_engine_on_a_sequence_split_mesh(ranks, single):
+    """The static engine on 1x4: its caches split along the sequence
+    (``Shard(2)`` of the stacked (L, B, S, H, D) on "model", the batch on
+    the one-rank "data"), the same
+    streams on every rank and in both runs, the unsharded port's at the
+    reference's tie tolerance (at least 3 of 4 equal), and its captured
+    decode step under the host-read guard."""
+    from torch.distributed.tensor import Shard
+
+    first = ranks[0]["static 1x4"][0]
+    for r in ranks:
+        a, b = r["static 1x4"]
+        assert a == b == first
+        assert r["static 1x4 caches"] == {"k": (Shard(1), Shard(2)), "v": (Shard(1), Shard(2))}
+        assert r["guard static 1x4 decode"]
+    same = sum(x == y for x, y in zip(first, single["streams"]["static"]))
+    assert same >= 3, (first, single["streams"]["static"])
 
 
 def test_constrain_identity_outside_rules_and_placements_inside(ranks):
