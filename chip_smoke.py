@@ -78,7 +78,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    DeviceMesh over NCCL, the params DTensors on their ``dist.sharding``
    specs, the kernels on each rank's local block) serving the 12
    requests: streams equal to the main path's to the bit, B1 30 a mixed
-   step, every step a replay equal to the eager step; and the static
+   step, every step a replay equal to the eager step on the rank's local
+   pages, the pools DTensors at ``dist.sharding.pool_shardings``' KV-head
+   placement holding POOL_RANK_BYTES on the rank (the whole pool: one
+   card); the int8 pool on the same mesh, its scale planes placed alike,
+   streams and logits equal to the unsharded int8 run's to the bit, its
+   replays equal to eager; and the static
    engine on the same mesh: its caches DTensors placed by
    ``dist.sharding.cache_shardings`` (each rank's bytes printed; on one
    card a shard is the whole cache), streams equal to the static path's,
@@ -88,7 +93,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    on halves and quarters of the cache, merged by log-sum-exp, within
    KERNEL_TOL (o) and LSE_TOL (lse) of B3 on the whole cache and of the
    plain version, halves averaged and one half's lse dropped beyond them,
-   the lse-on and lse-off launches timed in turns; then, with the
+   the lse-on and lse-off launches timed in turns; then B1 on KV-head
+   shards of a pool (``phase_head_split_paged``, t = 2, 4, 8 at the narrow
+   and wide mixed-step shapes, a rank's block of a TP-t mesh): at the whole
+   launch's split count equal to B1 on the whole pool to the bit, at their
+   own within KERNEL_TOL of the plain version, shard 0's q on shard 1's KV
+   heads beyond it, one shard's time against its bytes bound; then, with the
    serving weights released, the MoE family (A13): ``ops.ragged_dot`` (one ``grouped_mm``, the
    counterpart of XLA's ``ragged_dot``; a library call, not a kernel of
    this repository) against its plain masked products at olmoe-1b-7b's
@@ -315,6 +325,14 @@ DRYRUN_USEFUL_MIN = 0.1
 # static decode step's cache; o within KERNEL_TOL and the lse within
 # LSE_TOL, of B3 on the whole cache and of the plain version.
 SEQ_SPLIT_PARTS = (2, 4)
+# The continuous pools split on their KV heads (phase_sharded_serve,
+# phase_head_split_paged): on the 1x1 mesh a rank's block is the whole pool
+# of the main path, K and V of 30 layers x (8 slots x 16 pages + the dummy)
+# pages of 64 positions x 32 heads of 128, bf16; B1 on contiguous head
+# shards of its narrow and wide mixed-step shapes, as each rank of a TP-t
+# mesh runs it.
+POOL_RANK_BYTES = 2 * 30 * (8 * 16 + 1) * 64 * 32 * 128 * 2
+HEAD_SPLIT_PARTS = (2, 4, 8)
 # The card shows less than its data-sheet 80 GB (``CHIP_HBM_BYTES``): the
 # driver and ECC keep some; 5% is ample.
 HBM_VISIBLE_MIN = 0.95
@@ -1277,6 +1295,7 @@ def _warm_engine(cfg, lm, params, **engine_kw):
     with a device counter of the non-finite logits its steps compute
     (captured with them) and both step widths captured in a warm-up with
     the order controller held. Returns (engine, counter)."""
+    from repro_torch.dist.context import whole
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(lm, params, scheduler="continuous", batch_size=8, max_len=1024,
@@ -1286,7 +1305,7 @@ def _warm_engine(cfg, lm, params, **engine_kw):
 
     def checked(p, tokens, caches):
         logits, caches = inner(p, tokens, caches)
-        bad.add_((~torch.isfinite(logits)).sum())
+        bad.add_(whole((~torch.isfinite(logits)).sum()))  # a DTensor on a mesh
         return logits, caches
 
     eng.lm = dataclasses.replace(eng.lm, decode_step=checked)
@@ -4062,14 +4081,43 @@ def phase_sharded_train() -> dict:
     return out
 
 
-def phase_sharded_serve(cfg, lm, params, main: dict, static: dict) -> dict:
+def _pool_placement(pool, label: str) -> dict:
+    """A continuous engine's pool on the 1x1 mesh: every leaf a DTensor at
+    ``pool_shardings``' head placement (``Shard(3)`` on "model",
+    replicated on "data"), each rank's local block the whole leaf, so the
+    rank's bytes are the whole pool's. Prints the placements and bytes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    local = pool.local_pages()
+    leaves = {k: {"dtensor": isinstance(t, DTensor),
+                  "placements": [str(p) for p in getattr(t, "placements", ())],
+                  "shape": list(t.shape), "local_shape": list(local[k].shape)}
+              for k, t in pool.pages.items()}
+    out = {"leaves": leaves, "rank_bytes": pool.rank_bytes(), "nbytes": pool.nbytes()}
+    print(f"[{label}] pools on rank {torch.distributed.get_rank()}: " + json.dumps(out))
+    want = (Replicate(), Shard(3))
+    bad = [k for k, t in pool.pages.items()
+           if not isinstance(t, DTensor) or tuple(t.placements) != want
+           or tuple(local[k].shape) != tuple(t.shape)]
+    if bad or out["rank_bytes"] != out["nbytes"]:
+        raise AssertionError(f"{label}: pools not placed at the head shard {want}: {bad}, "
+                             f"{out['rank_bytes']} of {out['nbytes']} bytes on the rank")
+    return out
+
+
+def phase_sharded_serve(cfg, lm, params, main: dict, static: dict, int8_run: dict) -> dict:
     """The main path on ``make_local_mesh(1, 1)`` over NCCL: the continuous
-    engine with ``mesh`` (params placed as DTensors on their specs), warmed
-    and captured as the main path's, then the 12 main requests. Streams
-    equal to the main path's to the bit, every request ok, ``paged_decode``
-    == layers x mixed steps (30 a step), every mixed step a replay, and
-    each captured step replayed against the eager step to the bit
-    (``phase_graphs``). Then the static engine with the same mesh on the
+    engine with ``mesh`` (params placed as DTensors on their specs, the
+    pools at ``pool_shardings``' KV-head placement), warmed and captured as
+    the main path's, then the 12 main requests. Streams equal to the main
+    path's to the bit, every request ok, ``paged_decode`` == layers x mixed
+    steps (30 a step), every mixed step a replay, each captured step
+    replayed against the eager step to the bit on the rank's local pages
+    (``phase_graphs``), and the pools DTensors whose local blocks hold the
+    whole pool's POOL_RANK_BYTES. Then the int8 pool on the same mesh
+    (``_recorded_run``): its scale planes placed alike, its streams and
+    logits equal to the unsharded int8 run's (``int8_run``) to the bit, its
+    replays equal to eager. Then the static engine with the same mesh on the
     same requests: streams equal to the static path's to the bit,
     ``flash_fwd`` == layers x prefills, ``contig_decode`` == layers x decode
     steps, every decode step a replay equal to the eager step, its caches
@@ -4126,9 +4174,47 @@ def phase_sharded_serve(cfg, lm, params, main: dict, static: dict) -> dict:
     if sum(replayed.values()) != stats.mixed_steps:
         raise AssertionError(f"sharded serving: not every mixed step replayed: {replayed}")
     out["graphs"] = phase_graphs(eng, label)
+    out["pools"] = _pool_placement(eng.last_pool, label)
+    if out["pools"]["rank_bytes"] != POOL_RANK_BYTES:
+        raise AssertionError(f"sharded serving: {out['pools']['rank_bytes']} pool bytes on the "
+                             f"rank, want {POOL_RANK_BYTES}")
     print(f"[{label}] {cfg.name} continuous on the 1x1 {out['backend']} mesh: "
           f"{out['tokens_per_s']:.1f} tokens/s (main path {main['tokens_per_s']:.1f}), streams "
-          f"equal to the bit, paged_decode {out['launches_per_step']:.0f} a mixed step")
+          f"equal to the bit, paged_decode {out['launches_per_step']:.0f} a mixed step, pools "
+          f"DTensors of {out['pools']['rank_bytes']} bytes a rank")
+    del eng
+    torch.cuda.empty_cache()
+
+    from repro_torch.models import build_model
+
+    eng, bad = _warm_engine(cfg, build_model(cfg.with_(kv_cache_dtype="int8"), device="cuda"),
+                            params, mesh=mesh)
+    run = _recorded_run(eng, bad, cfg, label + " int8")
+    _no_retry_or_failure(run)
+    pools8 = _pool_placement(eng.last_pool, label + " int8")
+    differ = sorted(rid for rid, t in run["tokens"].items() if t != int8_run["tokens"][rid])
+    logits_differ = sum(not torch.equal(x, int8_run["logits_at"][key][1])
+                        for key, (_, x) in run["logits_at"].items())
+    graphs8 = phase_graphs(eng, label + " int8")
+    out["int8"] = {"tokens_per_s": run["tokens_per_s"],
+                   "unsharded_tokens_per_s": int8_run["tokens_per_s"],
+                   "mixed_steps": run["mixed_steps"], "launches": run["launches"],
+                   "streams_differ": differ, "logits_differ": logits_differ, "pools": pools8,
+                   "graphs": graphs8}
+    print(f"[{label}] int8 " + json.dumps({k: v for k, v in out["int8"].items()
+                                           if k not in ("pools", "graphs")}))
+    if sorted(pools8["leaves"]) != ["k_pages", "k_pages_scale", "v_pages", "v_pages_scale"]:
+        raise AssertionError(f"sharded int8 serving: pool leaves {sorted(pools8['leaves'])}")
+    if differ or logits_differ:
+        raise AssertionError(f"sharded int8 serving differs from the unsharded int8 run: "
+                             f"streams {differ}, {logits_differ} logits rows")
+    if not all(g["compared"] == 6 for g in graphs8.values()):  # 2 outputs, 4 pool tensors
+        raise AssertionError(f"sharded int8 serving: replays compared {graphs8}")
+    print(f"[{label}] int8 pool on the 1x1 mesh: scale planes placed as the pages, streams and "
+          f"logits equal to the unsharded int8 run's to the bit, "
+          f"{run['tokens_per_s']:.1f} tokens/s (unsharded {int8_run['tokens_per_s']:.1f})")
+    launches = {k: launches.get(k, 0) + run["launches"].get(k, 0)
+                for k in set(launches) | set(run["launches"])}
     del eng
     torch.cuda.empty_cache()
 
@@ -4296,6 +4382,110 @@ def phase_seq_split_decode(dev_info: dict) -> dict:
     print(f"[{label}] halves and quarters merged within {KERNEL_TOL} (o) and {LSE_TOL} (lse) "
           f"of B3 whole and the plain version; both controls caught; lse off "
           f"{out['times']['lse_off_ms']:.4f} ms, on {out['times']['lse_on_ms']:.4f} ms")
+    return out
+
+
+def phase_head_split_paged(dev_info: dict) -> dict:
+    """B1 on KV-head shards of a pool, as each rank of a TP-t mesh runs it
+    (``kernels.ops._paged_on_mesh``), on one card, at B1's narrow and wide
+    mixed-step shapes (``phase_kernel_times``: deepseek-7b's 32 KV heads of
+    128, page 64, lens 560-640). For t in HEAD_SPLIT_PARTS the pool's heads
+    and q's are cut into t contiguous shards, each shard's local block:
+    B1 on every shard at the whole launch's split count (the launcher's
+    ``splits`` override), concatenated, must equal B1 on the whole pool at
+    that split to the bit; at each shard's own split count the shards must
+    lie within KERNEL_TOL of the plain version; shard 0's q heads against
+    shard 1's KV heads must not. Then one shard's launch timed at its own
+    split count and at the whole launch's, in turns (four batched readings
+    each), against its bytes bound: a rank's B1 time on a TP-t mesh."""
+    from repro_torch.core.attention import paged_decode_attention
+    from repro_torch.core.schedule import resolve_order_group
+    from repro_torch.kernels.flash_decode import (
+        decode_kernel_attr,
+        fold_schedule,
+        launch_paged_decode,
+        paged_decode_splits,
+    )
+
+    label = "head-split"
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    b, hq, hkv, d, page, max_len = 8, 32, 32, 128, 64, 1024
+    g, nb = hq // hkv, max_len // page
+    lens0 = [int(x) for x in np.random.default_rng(5).integers(560, 641, size=b)]
+    out = {"shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page": page, "n_blocks": nb,
+                     "lens": lens0}}
+    for key, (c, q_lens) in {"narrow": (1, [1] * b), "wide": (256, [256] + [1] * (b - 1))}.items():
+        q, k, v, bt, lens, qls = _case(gen, b_lens=lens0, q_lens=q_lens, c=c, hq=hq, hkv=hkv,
+                                       d=d, page=page, max_len=max_len)
+        group = resolve_order_group("sawtooth", None, nb)
+        phys, logical = fold_schedule(lens, bt, order_group=group)
+        splits = paged_decode_splits(b, hkv, nb, _sms(), c * g)
+        whole = launch_paged_decode(q, k, v, phys, logical, lens, qls, splits=splits)
+        default = launch_paged_decode(q, k, v, phys, logical, lens, qls)
+        plain = paged_decode_attention(q.float(), k.float(), v.float(), lens, bt, q_lens=qls,
+                                       order_group=group)
+        valid = torch.arange(c, device="cuda")[None, :] < qls[:, None].long()
+        torch.cuda.synchronize()
+
+        def err(o, heads=slice(None)):
+            return (o.float() - plain[:, :, heads]).abs()[valid].max().item()
+
+        rec = {"C": c, "q_lens": q_lens, "splits_whole": splits,
+               "whole_max_abs_err": err(whole),
+               "whole_at_split_equals_default": bool(torch.equal(whole, default)), "parts": {}}
+        for t in HEAD_SPLIT_PARTS:
+            w = hkv // t
+            shards = [(q[:, :, i * w * g:(i + 1) * w * g].contiguous(),
+                       k[:, :, i * w:(i + 1) * w].contiguous(),
+                       v[:, :, i * w:(i + 1) * w].contiguous()) for i in range(t)]
+            own = paged_decode_splits(b, w, nb, _sms(), c * g)
+            at_whole = torch.cat([launch_paged_decode(qs, ks, vs, phys, logical, lens, qls,
+                                                      splits=splits)
+                                  for qs, ks, vs in shards], dim=2)
+            at_own = torch.cat([launch_paged_decode(qs, ks, vs, phys, logical, lens, qls)
+                                for qs, ks, vs in shards], dim=2)
+            q0, (_, k1, v1) = shards[0][0], shards[1]
+            control = launch_paged_decode(q0, k1, v1, phys, logical, lens, qls)
+            torch.cuda.synchronize()
+            nbytes, flops = _work(lens0, q_lens, c, hq // t, w, d)
+            ks0, vs0 = shards[0][1], shards[0][2]
+            runs = _readings({
+                "own": lambda: launch_paged_decode(q0, ks0, vs0, phys, logical, lens, qls),
+                "whole": lambda: launch_paged_decode(q0, ks0, vs0, phys, logical, lens, qls,
+                                                     splits=splits)}, rounds=4)
+            t_bytes, t_ops = nbytes / dev_info["bw"] * 1e3, flops / dev_info["peak"] * 1e3
+            rec["parts"][t] = {
+                "kv_heads_a_shard": w, "splits": own,
+                "equal_bits_at_whole_splits": bool(torch.equal(at_whole, whole)),
+                "max_abs_err_own_splits": err(at_own),
+                "control_max_abs_err": err(control, slice(0, w * g)),
+                "kernel_ms": statistics.median(runs["own"]), "kernel_ms_runs": runs["own"],
+                "kernel_ms_at_whole_splits": statistics.median(runs["whole"]),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
+                "kernel_attr": decode_kernel_attr("paged_decode", (b, c, hq // t, w, d, nb, page)),
+            }
+        out[key] = rec
+    print(f"[{label}] " + json.dumps(out))
+    for key in ("narrow", "wide"):
+        rec = out[key]
+        if rec["whole_max_abs_err"] > KERNEL_TOL:
+            raise AssertionError(f"{label} {key}: B1 at the override split {rec}")
+        for t, part in rec["parts"].items():
+            if not part["equal_bits_at_whole_splits"]:
+                raise AssertionError(f"{label} {key}: {t} head shards at the whole launch's split "
+                                     f"differ from B1 on the whole pool")
+            if part["max_abs_err_own_splits"] > KERNEL_TOL:
+                raise AssertionError(f"{label} {key}: {t} head shards at their own split "
+                                     f"{part['max_abs_err_own_splits']} from the plain version")
+            if part["control_max_abs_err"] <= KERNEL_TOL:
+                raise AssertionError(f"{label} {key}: shard 0's q on shard 1's KV heads passed "
+                                     f"({part['control_max_abs_err']})")
+            print(f"[{label}] {key} t={t}: {part['kv_heads_a_shard']} KV heads a rank, splits "
+                  f"{part['splits']} (whole {rec['splits_whole']}), {part['kernel_ms']:.4f} ms "
+                  f"({part['kernel_ms_at_whole_splits']:.4f} at the whole split) against a "
+                  f"bound of {part['bound_ms']:.4f} ms ({part['bound_by']}); at the "
+                  f"whole split equal to the bit; control {part['control_max_abs_err']:.3f}")
     return out
 
 
@@ -5558,10 +5748,11 @@ def main(argv=None) -> int:
     tiered, tiered_run = phase_tiered_path(cfg, lm, params, fixed, int8_run)
     tier_faults = phase_tier_fault_path(cfg, lm, params, fixed, tiered_run)
     spec = phase_spec_path(cfg, lm, params, fixed)
-    sharded_serve = phase_sharded_serve(cfg, lm, params, main_path, static)
+    sharded_serve = phase_sharded_serve(cfg, lm, params, main_path, static, int8_run)
     del lm, params, fixed, int8_run, tiered_run
     torch.cuda.empty_cache()
     seq_split = phase_seq_split_decode(dev_info)
+    head_split = phase_head_split_paged(dev_info)
     torch.cuda.empty_cache()
     moe_matrix = phase_moe_matrix(dev_info)
     moe_cont, moe_static = phase_moe_path(moe_matrix, profile=args.profile)
@@ -5625,11 +5816,21 @@ def main(argv=None) -> int:
 
     kernels = [
         _entry("paged_decode", launches["paged_decode"],
-               max(worst, narrow["max_abs_err"], wide["max_abs_err"]), narrow,
+               max(worst, narrow["max_abs_err"], wide["max_abs_err"],
+                   *(p["max_abs_err_own_splits"] for key in ("narrow", "wide")
+                     for p in head_split[key]["parts"].values())), narrow,
                wide={k: wide[k] for k in (*timing_keys, "kernel_attr")},
                kernel_attr=narrow["kernel_attr"], alternating_ms=narrow["alternating_ms"],
                one_sequence_splits_ms=split_times["paged_decode"],
-               small_model_max_abs_err=small),
+               small_model_max_abs_err=small,
+               head_split={key: {"splits_whole": head_split[key]["splits_whole"],
+                                 "parts": {t: {k: p[k] for k in (
+                                     "kv_heads_a_shard", "splits", "kernel_ms",
+                                     "kernel_ms_at_whole_splits", "bound_ms", "bound_by",
+                                     "max_abs_err_own_splits")}
+                                     for t, p in head_split[key]["parts"].items()}}
+                           for key in ("narrow", "wide")},
+               launches_per_sharded_mixed_step=sharded_serve["launches_per_step"]),
         _entry("flash_fwd", launches["flash_fwd"],
                max(flash_worst, fwd["max_abs_err"], train_times["flash_fwd"]["max_abs_err"],
                    train80_times["flash_fwd"]["max_abs_err"],

@@ -2,9 +2,9 @@
 ``repro.dist``. Three orthogonal pieces:
 
   * :mod:`repro_torch.dist.sharding` — partition specs for parameters,
-    batches and KV caches (path-pattern rules + divisibility tightening, on
-    a ``DeviceMesh`` or a device-free ``MeshShape``), and their DTensor
-    placements;
+    batches, KV caches and paged pools (path-pattern rules + divisibility
+    tightening, on a ``DeviceMesh`` or a device-free ``MeshShape``), and
+    their DTensor placements;
   * :mod:`repro_torch.dist.context` — context-local activation-sharding
     rules; model code calls ``constrain(x, role)``, a no-op unless a rules
     context is installed;
@@ -31,6 +31,7 @@ from repro_torch.dist.sharding import (
     cache_shardings,
     param_shardings,
     param_specs,
+    pool_shardings,
     spec_for,
     tighten,
 )
@@ -48,6 +49,7 @@ __all__ = [
     "batch_spec",
     "batch_shardings",
     "cache_shardings",
+    "pool_shardings",
     "activation_rules",
     "constrain",
     "quantize_int8",

@@ -27,7 +27,9 @@ choice fails downstream (on torch 2.11 or on fake tensors; ROADMAP §C).
 Each is an exact no-op on plain tensors. ``write_local`` writes a step's
 new K/V rows or recurrent state into a serving cache in place: into this
 rank's shard of a cache placed by ``dist.sharding.distribute_caches``, or
-into a plain cache as before.
+into a plain cache as before; ``write_pages`` writes them into a paged
+pool, on this rank's head shard of one placed by
+``dist.sharding.distribute_pools``.
 
 ``logits`` and ``embed_table`` are the port's own roles: DTensor cannot
 reduce the gather of a label's logit from a vocab-sharded dim, nor (on
@@ -45,8 +47,9 @@ from typing import Mapping, Optional
 import torch
 
 __all__ = ["activation_rules", "cache_layout", "constrain", "current_rules", "gathered_on",
-           "is_dtensor", "on_mesh", "placed_like", "grad_placed_like", "reduce_partial",
-           "replicated", "seq_gathered", "split_last", "whole", "write_local"]
+           "is_dtensor", "local", "on_mesh", "placed_as", "placed_like", "grad_placed_like",
+           "reduce_partial",
+           "replicated", "seq_gathered", "split_last", "whole", "write_local", "write_pages"]
 
 # role -> spec or placements. ContextVar (not a module global) so rules stay
 # scoped under async/threaded drivers.
@@ -162,6 +165,12 @@ def is_dtensor(x) -> bool:
     package)."""
     dt = _dtensor_type()
     return dt is not None and isinstance(x, dt)
+
+
+def local(x):
+    """This rank's block of the DTensor ``x`` (the same memory), ``x``
+    itself otherwise."""
+    return x.to_local() if is_dtensor(x) else x
 
 
 def _placements_of(ref) -> tuple:
@@ -321,6 +330,39 @@ def write_local(dst, val, rows=None) -> None:
     old = local.index_select(1, here)
     mask = keep.reshape((1, w) + (1,) * (val.ndim - 2))
     local.index_copy_(1, here, torch.where(mask, new, old))
+
+
+def placed_as(val, dst):
+    """``val`` as the pool leaf ``dst`` takes it: for a DTensor ``dst`` a
+    DTensor at ``dst``'s placements (a partial sum reduced, a head shard
+    kept where it is; a plain ``val`` is taken as every rank's whole
+    value), for a plain ``dst`` the whole value (:func:`whole`)."""
+    if not is_dtensor(dst):
+        return whole(val)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = dst.device_mesh
+    if not isinstance(val, DTensor):
+        val = DTensor.from_local(val, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    want = tuple(dst.placements)
+    return val if tuple(val.placements) == want else val.redistribute(mesh, want)
+
+
+def write_pages(dst, val, pages, offsets) -> None:
+    """Write ``val`` (B, C, H, ...) into the pool leaf ``dst`` (n_pages,
+    page, H, ...) in place: row (b, t) at page ``pages[b, t]``, offset
+    ``offsets[b, t]`` ((B, C) int64 device tensors, so a captured step
+    reads no host value). Duplicate indices (the invalid rows sent to the
+    dummy page 0) land in no fixed order.
+
+    A plain ``dst`` (every rank holds it whole) takes the whole value of
+    ``val``: on one device, exactly the write it always was. A DTensor
+    ``dst`` (placed by ``dist.sharding.distribute_pools``, its heads on the
+    tensor axis) is written on this rank's head shard only, from ``val``'s
+    block at the same placements (:func:`placed_as`): ``val``'s dims after
+    the first two are ``dst``'s, so a projection's output is there already
+    and nothing moves."""
+    local(dst)[pages, offsets] = local(placed_as(val, dst)).to(dst.dtype)
 
 
 class _GradPlacedLike(torch.autograd.Function):

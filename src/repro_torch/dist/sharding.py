@@ -54,6 +54,9 @@ __all__ = [
     "cache_specs",
     "cache_shardings",
     "distribute_caches",
+    "pool_specs",
+    "pool_shardings",
+    "distribute_pools",
     "placements",
     "distribute",
     "path_str",
@@ -371,6 +374,27 @@ def cache_shardings(caches, pcfg: ParallelConfig, mesh):
                               cache_specs(caches, pcfg, mesh))
 
 
+def _local_block(x, pl, mesh):
+    """This rank's block of the whole tensor ``x`` at placements ``pl`` (a
+    tightened spec's: every split is even), copied alone: an expanded zero,
+    the allocators' form, is never materialised whole."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    block = x.detach()
+    for i, p in enumerate(pl):  # in mesh-dim order, as DTensor splits a dim
+        if isinstance(p, Shard):
+            n = block.shape[p.dim] // mesh.size(i)
+            block = block.narrow(p.dim, mesh.get_local_rank(i) * n, n)
+    return block.clone(memory_format=torch.contiguous_format)
+
+
+def _spec_at(specs, path):
+    for k in path:
+        specs = specs[k]
+    return specs
+
+
 def distribute_caches(caches, pcfg: ParallelConfig, mesh):
     """The serving caches ``caches`` (the tree ``LM.prefill`` returns, each
     leaf whole) with every leaf that :func:`cache_shardings` splits --
@@ -382,23 +406,77 @@ def distribute_caches(caches, pcfg: ParallelConfig, mesh):
     replicates them), so a captured step keeps reading them on the device
     as it does off a mesh."""
     import torch
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor
 
     specs = cache_specs(caches, pcfg, mesh)
 
     def leaf(path, x):
         if not isinstance(x, torch.Tensor) or x.ndim == 0:
             return x
-        spec = specs
-        for k in path:
-            spec = spec[k]
-        pl = placements(spec, mesh)
-        block = x.detach()
-        for i, p in enumerate(pl):  # in mesh-dim order, as DTensor splits a dim
-            if isinstance(p, Shard):  # the spec is tightened: the split is even
-                n = block.shape[p.dim] // mesh.size(i)
-                block = block.narrow(p.dim, mesh.get_local_rank(i) * n, n)
-        return DTensor.from_local(block.clone(memory_format=torch.contiguous_format), mesh, pl,
-                                  run_check=False)
+        pl = placements(_spec_at(specs, path), mesh)
+        return DTensor.from_local(_local_block(x, pl, mesh), mesh, pl, run_check=False)
 
     return tree_map_with_path(leaf, caches)
+
+
+# --------------------------------------------------------------------------
+# the continuous engine's paged pools
+# --------------------------------------------------------------------------
+
+_POOL_LEAVES = ("k_pages", "v_pages", "k_pages_scale", "v_pages_scale")
+
+
+def pool_specs(pages, pcfg: ParallelConfig, mesh):
+    """Specs for the continuous engine's paged pools: ``k_pages`` and
+    ``v_pages`` (L, n_pages, page, Hkv, hd) and the int8 scale planes
+    ``k_pages_scale`` and ``v_pages_scale`` (L, n_pages, page, Hkv).
+
+    The KV heads go on the tensor axis where their count divides it, as
+    :func:`cache_specs` places the heads of a cache of the same model on
+    the same mesh; every other dim is replicated (a pool has no batch dim:
+    its pages are shared by every row through the block tables). Where the
+    heads do not divide the axis the pool is replicated whole: the
+    counterpart of the caches' sequence split, a split inside each page,
+    would need B1 to take a position map and an lse (ROADMAP A)."""
+    sizes = _mesh_sizes(mesh)
+    tp = pcfg.tensor_axis if pcfg.tensor_axis in sizes else None
+
+    def leaf(path, x):
+        name = str(path[-1]) if path else ""
+        shape = _shape(x)
+        spec = [None] * len(shape)
+        if name in _POOL_LEAVES:
+            h_dim = len(shape) - (1 if name.endswith("_scale") else 2)
+            if tp is not None and h_dim >= 0 and shape[h_dim] % sizes[tp] == 0:
+                spec[h_dim] = tp
+        return P(*spec)
+
+    return tree_map_with_path(leaf, pages)
+
+
+def pool_shardings(pages, pcfg: ParallelConfig, mesh):
+    """Placements of :func:`pool_specs` on a ``DeviceMesh``."""
+    return tree_map_with_path(lambda _, s: placements(s, mesh), pool_specs(pages, pcfg, mesh))
+
+
+def distribute_pools(pages, pcfg: ParallelConfig, mesh):
+    """The pool leaves ``pages`` (each whole, or an expanded zero) placed by
+    :func:`pool_shardings`: a leaf that a mesh dim splits becomes a DTensor
+    holding this rank's head shard alone, copied on the rank with no
+    communication; a leaf nothing splits stays a plain tensor every rank
+    holds whole."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    specs = pool_specs(pages, pcfg, mesh)
+
+    def leaf(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        pl = placements(_spec_at(specs, path), mesh)
+        block = _local_block(x, pl, mesh)
+        if not any(isinstance(p, Shard) for p in pl):
+            return block
+        return DTensor.from_local(block, mesh, pl, run_check=False)
+
+    return tree_map_with_path(leaf, pages)

@@ -308,8 +308,9 @@ def attention_decode(
     (:func:`_decode_on_mesh`): over a cache placed by
     ``dist.sharding.cache_shardings``, on its batch and head shards, and
     where the cache's sequence is split, on its slice, the ranks' partial
-    results merged by log-sum-exp; over a plain pool or cache, on its head
-    shard, the indices and lengths whole."""
+    results merged by log-sum-exp; over a pool placed by
+    ``dist.sharding.pool_shardings``, on its local head shard; over a plain
+    pool or cache, on its head shard; the indices and lengths whole."""
     impl = _resolve("torch" if impl == "recompute" else impl, q, "decode")
     kw = dict(
         window=window, scale=scale, block_table=block_table, q_lens=q_lens, order=order,
@@ -336,9 +337,10 @@ def _decode_on_mesh(mesh, impl, q, k_cache, v_cache, cache_len, kw):
     the positions, on which it decodes every head of its rows with its
     local lengths ``clamp(len - offset, 0, S_local)`` and an lse, and the
     slices' results are all-gathered over those mesh dims and merged in
-    float32 (``core.attention.merge_decode_partials``). A plain cache or
-    pool (every rank holds it whole) is read on this rank's head shard, as
-    q's placements allow, with the indices and lengths whole."""
+    float32 (``core.attention.merge_decode_partials``). A placed pool
+    (:func:`_paged_on_mesh`) is read on this rank's head shard. A plain
+    cache or pool (every rank holds it whole) is read on this rank's head
+    shard, as q's placements allow, with the indices and lengths whole."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     rep = (Replicate(),) * mesh.ndim
@@ -348,6 +350,8 @@ def _decode_on_mesh(mesh, impl, q, k_cache, v_cache, cache_len, kw):
                     _to_local(v_cache, mesh, pl), _to_local(cache_len, mesh),
                     {k: _to_local(v, mesh) for k, v in kw.items()})
         return _from_local(o, mesh, pl)
+    if kw["block_table"] is not None:
+        return _paged_on_mesh(mesh, impl, q, k_cache, v_cache, cache_len, kw)
     q_pl, len_pl, split = [], [], []
     for i, p in enumerate(k_cache.placements):
         if isinstance(p, Shard) and p.dim == 1:
@@ -382,6 +386,25 @@ def _decode_on_mesh(mesh, impl, q, k_cache, v_cache, cache_len, kw):
     merged, _ = merge_decode_partials(parts[:, :, :hq * d].reshape(-1, b, 1, hq, d),
                                       parts[:, :, hq * d:])
     return _from_local(merged.to(o.dtype), mesh, q_pl)
+
+
+def _paged_on_mesh(mesh, impl, q, k_pool, v_pool, cache_len, kw):
+    """B1 (or the plain version) on this rank's head shard of a pool placed
+    by ``dist.sharding.distribute_pools``: q's local heads, Hq/t against
+    the pool's Hkv/t (whole GQA groups, since t divides Hkv), the block
+    table, lengths, ``q_lens`` and ``fold`` whole; the output a DTensor on
+    those heads. A pool's dim 0 is pages and dim 1 in-page offsets, not a
+    batch or a sequence, so a pool placed any other way raises."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(k_pool.placements)
+    heads = all(isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim == 2) for p in pl)
+    if not heads or tuple(v_pool.placements) != pl:
+        raise ValueError(f"a paged pool splits its KV heads (Shard(2) of (n_pages, page, Hkv, "
+                         f"D)) or nothing; got k {pl}, v {tuple(v_pool.placements)}")
+    o = _decode(impl, _to_local(q, mesh, pl), k_pool.to_local(), v_pool.to_local(),
+                _to_local(cache_len, mesh), {k: _to_local(v, mesh) for k, v in kw.items()})
+    return _from_local(o, mesh, pl)
 
 
 def _ssd_chunked(x, dt, a, b, c, init_state, chunk):

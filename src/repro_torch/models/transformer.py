@@ -21,7 +21,9 @@ its scan):
     ``block_table`` and per-row ``len`` (B,). Invalid chunk rows (``t >=
     q_len``) are routed to the reserved dummy page 0, which no sequence owns
     and every read masks; duplicate writes there are harmless whichever one
-    lands.
+    lands. Under a mesh the pages are DTensors split on their KV heads
+    (``dist.sharding.pool_shardings``), each rank writing and reading its
+    own head shard.
 
 With ``kv_cache_dtype="int8"`` every K/V vector is stored quantized
 (``dist.compression.quantize_int8_vec``) beside a float32 scale plane
@@ -42,9 +44,10 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import compression
-from repro_torch.dist.context import (cache_layout, constrain, placed_like, split_last, whole,
-                                      write_local)
-from repro_torch.dist.sharding import distribute_caches
+from repro_torch.dist.context import (cache_layout, constrain, is_dtensor, placed_as,
+                                      placed_like, reduce_partial, split_last, write_local,
+                                      write_pages)
+from repro_torch.dist.sharding import distribute_caches, distribute_pools
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_decode import fold_schedule
 from repro_torch.models import layers as L
@@ -213,7 +216,9 @@ def _attn_decode_contiguous(cfg: ModelConfig, cache: dict, q, k, v):
 def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
     """Write chunk k/v (B, C, Hkv, hd) at positions ``starts[b] + t`` for
     ``t < q_lens[b]`` through the block table, in place (int8 pages:
-    quantized, with their scales); invalid rows go to dummy page 0."""
+    quantized, with their scales); invalid rows go to dummy page 0. A pool
+    placed on the mesh is written on this rank's head shard
+    (``dist.context.write_pages``)."""
     b, c = k.shape[:2]
     bt = cache["block_table"]
     page = cache["k_pages"].shape[1]
@@ -226,13 +231,14 @@ def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
     offset = (wpos % page).long()
     phys = torch.gather(bt, 1, page_log.long())
     phys = torch.where(valid, phys, torch.zeros_like(phys)).long()
-    for name, val in (("k_pages", whole(k)), ("v_pages", whole(v))):
+    for name, val in (("k_pages", k), ("v_pages", v)):
+        val = placed_as(val, cache[name])  # quantized as placed: no partial sums
         if cfg.kv_cache_dtype == "int8":
             qv, sc = _quantize_kv(val)
-            cache[name][phys, offset] = qv
-            cache[name + "_scale"][phys, offset] = sc
+            write_pages(cache[name], qv, phys, offset)
+            write_pages(cache[name + "_scale"], sc, phys, offset)
         else:
-            cache[name][phys, offset] = val.to(cache[name].dtype)
+            write_pages(cache[name], val, phys, offset)
     return cache
 
 
@@ -295,6 +301,13 @@ def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """A placed cache or pool is dequantized on this rank's block: its
+    scale planes are placed as its payload, less the head dim."""
+    if is_dtensor(q):
+        from torch.distributed.tensor import DTensor
+
+        out = compression.dequantize_int8_vec(q.to_local(), scale.to_local(), dtype)
+        return DTensor.from_local(out, q.device_mesh, q.placements, run_check=False)
     return compression.dequantize_int8_vec(q, scale, dtype)
 
 
@@ -328,8 +341,8 @@ def init_cache(
     (:func:`kv_buffers`: int8 ones carry scale planes). With ``n_layers``
     the tensors gain a leading layer axis (one allocation for the whole
     stack); the other entries are shared. With ``mesh`` and ``pcfg`` the
-    contiguous K/V are placed by ``dist.sharding.cache_shardings`` (see
-    :func:`kv_buffers`); pools are never placed.
+    contiguous K/V are placed by ``dist.sharding.cache_shardings``, the
+    pages by ``dist.sharding.pool_shardings`` (see :func:`kv_buffers`).
     """
     lead = () if n_layers is None else (n_layers,)
     if cfg.kv_layout == "paged":
@@ -345,7 +358,8 @@ def init_cache(
             "block_table": torch.arange(batch * bpr, dtype=torch.int32, device=device).reshape(
                 batch, bpr
             ),
-            **kv_buffers(cfg, ("k_pages", "v_pages"), shape, dtype=dtype, device=device),
+            **kv_buffers(cfg, ("k_pages", "v_pages"), shape, dtype=dtype, device=device,
+                         mesh=mesh, pcfg=pcfg),
         }
     size = min(max_len, cfg.window) if cfg.window is not None else max_len
     shape = lead + (batch, size, cfg.n_kv_heads, cfg.hd)
@@ -361,7 +375,9 @@ def kv_buffers(cfg: ModelConfig, names, shape, *, dtype=None, device="cpu", mesh
     ``kv_cache_dtype="int8"`` int8 payloads each beside a float32
     ``<name>_scale`` of ones shaped as the payload less the head dim. With
     ``mesh`` and ``pcfg`` each is a DTensor holding this rank's block only
-    (``dist.sharding.distribute_caches``)."""
+    (``dist.sharding.distribute_caches``; pool pages ``k_pages``/``v_pages``
+    by ``distribute_pools``, which leaves a pool whole where its heads do
+    not divide the tensor axis): nothing whole is allocated first."""
     def full(shp, dt, value):
         if mesh is None:
             return torch.full(shp, value, dtype=dt, device=device)
@@ -375,7 +391,10 @@ def kv_buffers(cfg: ModelConfig, names, shape, *, dtype=None, device="cpu", mesh
     else:
         dt = dtype or cfg.activation_dtype()
         out = {name: full(shape, dt, 0) for name in names}
-    return out if mesh is None else distribute_caches(out, pcfg, mesh)
+    if mesh is None:
+        return out
+    place = distribute_pools if "k_pages" in names else distribute_caches
+    return place(out, pcfg, mesh)
 
 
 def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, rows) -> None:
@@ -384,7 +403,7 @@ def _cache_write(cfg: ModelConfig, cache: dict, name: str, val: torch.Tensor, ro
     and its scales beside), on this rank's shard of a placed cache
     (``dist.context.write_local``)."""
     if cfg.kv_cache_dtype == "int8":
-        q, scale = _quantize_kv(val)
+        q, scale = _quantize_kv(reduce_partial(val))  # a partial sum cannot be quantized
         write_local(cache[name], q, rows)
         write_local(cache[name + "_scale"], scale, rows)
         return

@@ -98,18 +98,24 @@ Sharded serving, as in the reference: with ``mesh`` (a
 ``torch.distributed`` ``DeviceMesh`` named ("data", "model")) the params
 are placed on their ``dist.sharding`` specs as DTensors (default
 ``ParallelConfig(fsdp_axes=("data",), data_axes=("data",))``), and every
-step runs on the mesh: the tokens and the continuous engine's pools are
-plain tensors each rank holds whole, replicated implicitly; the static
-engine's caches (the prefill's, and those its captured decode step holds)
-are placed by ``dist.sharding.cache_shardings``, each rank holding its
-shard (batch on the data axes, KV heads or else the sequence on the tensor
-axis); the kernels run on each rank's local blocks (``kernels.ops``), and
-the logits come back whole to every rank, which samples the same tokens. Every rank of the mesh runs ``generate``
-with the same requests. The steps stay captured graphs on the card: DTensor
-dispatch runs on the host at capture, and nothing in it reads a device
-value (``tests/test_torch_dist.py`` holds each sharded step to the
-host-read guard of ``tests/test_torch_step_graph.py``).
-The speculative drafter runs unsharded, on its own params.
+step runs on the mesh: the tokens are plain tensors each rank holds whole,
+replicated implicitly; the continuous engine's pools are placed by
+``dist.sharding.pool_shardings``, each rank holding, writing and reading
+its own KV-head shard (the whole pool where the heads do not divide the
+tensor axis; block tables, lengths and the scheduler's plans are the same
+host state on every rank); the static engine's caches (the prefill's, and
+those its captured decode step holds) are placed by
+``dist.sharding.cache_shardings``, each rank holding its shard (batch on
+the data axes, KV heads or else the sequence on the tensor axis); the
+kernels run on each rank's local blocks (``kernels.ops``), and the logits
+come back whole to every rank, which samples the same tokens. Every rank
+of the mesh runs ``generate`` with the same requests. The steps stay
+captured graphs on the card: DTensor dispatch runs on the host at
+capture, and nothing in it reads a device value
+(``tests/test_torch_dist.py`` and ``tests/test_torch_sharded_pools.py``
+hold each sharded step to the host-read guard of
+``tests/test_torch_step_graph.py``). The speculative drafter runs
+unsharded, on its own params and pool.
 """
 
 from __future__ import annotations
@@ -127,7 +133,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig
 from repro_torch.core.cache_sim import slot_reuse_stats
 from repro_torch.core.schedule import future_visit_window
 from repro_torch.device import resolve_device
-from repro_torch.dist.context import gathered_on, is_dtensor, on_mesh, whole
+from repro_torch.dist.context import gathered_on, local, on_mesh, whole
 from repro_torch.models.model import LM, build_model
 from repro_torch.obs.llc import DEFAULT_CAPACITY_BYTES, LLCSampler
 from repro_torch.obs.metrics import Registry
@@ -364,7 +370,8 @@ class ServeEngine:
         ``mesh`` (a ``DeviceMesh``) serves sharded: ``params`` (whole, the
         same on every rank) are placed on their specs under ``pcfg``
         (default ``ParallelConfig(fsdp_axes=("data",),
-        data_axes=("data",))``, the reference's)."""
+        data_axes=("data",))``, the reference's), and the continuous pools
+        on their KV heads (``dist.sharding.pool_shardings``)."""
         if scheduler not in ("static", "continuous"):
             raise ValueError(f"unknown scheduler {scheduler!r}")
         if drafter is not None and scheduler != "continuous":
@@ -378,9 +385,9 @@ class ServeEngine:
             raise ValueError(f"model built on {lm.device}, engine asked for {self.device}")
         cfg = lm.cfg
         if scheduler == "continuous" and not supports_continuous(cfg):
-            raise NotImplementedError(
-                "continuous scheduling needs a token-only full-attention family "
-                f"{CONTINUOUS_FAMILIES} with no window (got family={cfg.family!r}, "
+            raise ValueError(
+                "continuous scheduling needs a token-only full-attention "
+                f"family {CONTINUOUS_FAMILIES} (got family={cfg.family!r}, "
                 f"window={cfg.window}); use scheduler='static'"
             )
         # The cache capacity model, as in the reference: prefill writes the
@@ -639,8 +646,7 @@ class ServeEngine:
             self._decode_caches = _tree_map(torch.zeros_like, caches)
             # the step's state as the graph writes it: each rank's own shard
             # of a placed cache (its local tensor, the same memory)
-            state = [t.to_local() if is_dtensor(t) else t
-                     for t in _tree_leaves(self._decode_caches)]
+            state = [local(t) for t in _tree_leaves(self._decode_caches)]
             step = self._new_step("static decode step", self._decode_fn(self._decode_caches),
                                   {"tokens": (self.batch_size, 1)}, state)
             step.capture()
@@ -750,9 +756,9 @@ class ServeEngine:
                 f"mixed step (width {width})", self._mixed_fn(pool.pages),
                 {"tokens": (n, width), "block_table": (n, pool.blocks_per_seq), "lens": (n,),
                  "q_lens": (n,), "order_group": ()},
-                # The pages but the dummy page 0: the invalid rows' writes
-                # land there in no fixed order, and nothing reads them.
-                [t[:, 1:] for t in pool.pages.values()],
+                # This rank's pages but the dummy page 0: the invalid rows'
+                # writes land there in no fixed order, and nothing reads them.
+                [t[:, 1:] for t in pool.local_pages().values()],
             )
             step.capture()
             self._mixed[width] = step
@@ -807,7 +813,8 @@ class ServeEngine:
         if pool is None:
             pool_kw = dict(device=self.device, prefix_sharing=self.prefix_sharing,
                            registry=self.obs, admission=self.admission,
-                           n_pages=self.pool_pages, faults=self.faults)
+                           n_pages=self.pool_pages, faults=self.faults, mesh=self.mesh,
+                           pcfg=self.pcfg)
             if tiered:
                 pool = TieredPagePool(cfg, cfg.n_layers, n_slots, cap,
                                       host_pages=self.host_pages, **pool_kw)

@@ -9,7 +9,11 @@ lock step. The device side is one K and one V tensor of shape
 copy-on-write forks (the JAX pool is functional and rebinds fresh arrays).
 An int8 pool (``kv_cache_dtype="int8"``) holds int8 pages and, in the same
 dict, their float32 scale planes (L, n_pages, page, Hkv), so a fork copies
-both and a captured step bakes in both.
+both and a captured step bakes in both. Under a mesh (``mesh``, ``pcfg``)
+every leaf is placed by ``dist.sharding.pool_shardings``: each rank holds,
+writes, forks and reads only its own KV-head shard (a DTensor), or the
+whole pool where the heads do not divide the tensor axis; the host side
+is the same on every rank.
 
 Page 0 is a reserved dummy: free slots and the invalid rows of a ragged
 step point their writes at it. Full prompt pages are registered in a
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import local
 from repro_torch.models import transformer as T
 
 __all__ = [
@@ -125,8 +130,8 @@ class PagePool:
 
 def _copy_page(dst: torch.Tensor, src_id: int, dst_id: int) -> None:
     """In place: physical page ``src_id`` of every layer copied onto
-    ``dst_id`` (dst is (L, n_pages, ...): pages or scale planes); O(page)
-    traffic."""
+    ``dst_id`` (dst is (L, n_pages, ...): pages or scale planes, a rank's
+    local block); O(page) traffic."""
     dst[:, dst_id].copy_(dst[:, src_id])
 
 
@@ -153,7 +158,11 @@ class PagedKVPool:
         admission: str = "reserve",
         n_pages: Optional[int] = None,
         faults=None,
+        mesh=None,
+        pcfg=None,
     ):
+        """With ``mesh`` (a ``DeviceMesh``) and ``pcfg`` the pages are placed
+        on it (``dist.sharding.pool_shardings``)."""
         if cfg.window is not None:
             raise ValueError("paged KV pools require full attention (window=None)")
         if admission not in ("reserve", "optimistic"):
@@ -178,7 +187,7 @@ class PagedKVPool:
 
         shape = (n_layers, n_pages + 1, self.page, cfg.n_kv_heads, cfg.hd)  # +1 dummy page 0
         self.pages: dict[str, torch.Tensor] = T.kv_buffers(
-            cfg, ("k_pages", "v_pages"), shape, dtype=dtype, device=device)
+            cfg, ("k_pages", "v_pages"), shape, dtype=dtype, device=device, mesh=mesh, pcfg=pcfg)
         self.reset()
         self._registry = registry
         if registry is not None:
@@ -218,6 +227,16 @@ class PagedKVPool:
     def nbytes(self) -> int:
         """Device bytes of the pool: pages and scale planes, dummy included."""
         return sum(t.numel() * t.element_size() for t in self.pages.values())
+
+    def local_pages(self) -> dict:
+        """Every leaf as this rank holds it: a placed leaf's head shard (its
+        local tensor, the same memory), a plain leaf itself."""
+        return {name: local(t) for name, t in self.pages.items()}
+
+    def rank_bytes(self) -> int:
+        """Device bytes of the pool on this rank: :meth:`nbytes` over the
+        tensor axis's size where the heads are split, all of it else."""
+        return sum(t.numel() * t.element_size() for t in self.local_pages().values())
 
     def can_admit(self, prompt_len: int, max_new: int) -> bool:
         """Worst-case admissibility ignoring prefix sharing (sharing only
@@ -338,8 +357,8 @@ class PagedKVPool:
                     self.cow_forks += 1
                     if self._registry is not None:
                         self._m_cow.inc()
-                    for name in self.pages:
-                        _copy_page(self.pages[name], pid, nid)
+                    for leaf in self.local_pages().values():
+                        _copy_page(leaf, pid, nid)
                     self._ref[pid] -= 1
                     held[pg] = nid
                     self.block_tables[slot, pg] = nid

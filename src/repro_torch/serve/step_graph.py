@@ -13,9 +13,11 @@ The inputs are int32 tensors, views into one flat buffer (and one pinned
 staging buffer), so staging costs one host-to-device copy a step. A step
 function must read every value that changes from step to step from those
 buffers or from tensors that outlive the graph (a pool's pages, an
-engine's caches): a Python number or a host read inside it would be baked
-into the capture. Capture raises if the function synchronises with the
-host (an ``.item()``, ``int(t)``, ``bool(t)``); it never falls back to eager.
+engine's caches; under a mesh, DTensors, whose local blocks the graph
+reads and writes, DTensor's dispatch having run on the host at capture): a
+Python number or a host read inside it would be baked into the capture.
+Capture raises if the function synchronises with the host (an
+``.item()``, ``int(t)``, ``bool(t)``); it never falls back to eager.
 
 Capture (:meth:`StepGraph.capture`) zeroes the inputs, runs the function
 once on a side stream (the warm-up: it loads and opts in every kernel,

@@ -15,7 +15,10 @@ one is recomputed.
   suspended: ``lens`` is kept, the block-table row is dummied to page 0.
   The wait is what makes the release safe: the next replay may write the
   freed pages at once. Shared pages get a private host copy and a refcount
-  decrement, so prefix donors keep serving adopters.
+  decrement, so prefix donors keep serving adopters. Under a mesh each
+  rank moves its own head shard of the pages (``PagedKVPool.local_pages``)
+  to and from its own pinned buffers; which slot spills and when is
+  decided on the host, the same on every rank.
 * **Known-future prefetch.** The engine fixes a resuming slot's fetch
   order from ``core.schedule.future_visit_window`` (the next step's visit
   order) and stages ``prefetch_depth`` pages per step boundary, issued
@@ -166,7 +169,7 @@ class TieredPagePool(PagedKVPool):
 
     @property
     def _device(self) -> torch.device:
-        return next(iter(self.pages.values())).device
+        return next(iter(self.local_pages().values())).device
 
     # ---- queries -------------------------------------------------------------
 
@@ -236,7 +239,7 @@ class TieredPagePool(PagedKVPool):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
         cols = {}
-        for name, leaf in self.pages.items():
+        for name, leaf in self.local_pages().items():
             # Page-major (k, L, page, ...): each page's row is contiguous, so
             # a fetch copies it without a host-side gather.
             block = leaf.index_select(1, idx).transpose(0, 1).contiguous()
@@ -369,12 +372,13 @@ class TieredPagePool(PagedKVPool):
             self.block_tables[slot, pg] = pids[pg]
         dev = self._device
         main = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+        pages = self.local_pages()
         for pgs, stack, done in sus.chunks:
             if done is not None:
                 main.wait_event(done)
             ids = torch.as_tensor([pids[pg] for pg in pgs], dtype=torch.long, device=dev)
             for name, rows in stack.items():
-                _write_pages(self.pages[name], rows, ids)
+                _write_pages(pages[name], rows, ids)
                 if main is not None:
                     rows.record_stream(main)  # made on the side stream, read here
         self._slot_pages[slot] = list(pids)

@@ -25,7 +25,8 @@ results; the tests read them:
 * a sharded ``ServeEngine`` (static and continuous) twice: the two runs
   equal, and the streams equal the unsharded port's at the reference's tie
   tolerance (``test_multidevice.py:174-215``); one step of each kind under
-  the host-read guard of ``test_torch_step_graph.py`` (``NoHostRead``);
+  the host-read guard of ``test_torch_step_graph.py`` (``NoHostRead``), the
+  continuous ones over pools split on their KV heads;
 * ``make_serve_steps`` on 2x2 and on a (1, 4) mesh over the same group:
   the caches placed by ``cache_shardings`` (KV heads, or the sequence where
   2 KV heads do not divide 4), their local shapes the reference's shard
@@ -222,6 +223,9 @@ def body(rank, world, out):
             with NoHostRead():
                 logits, greedy = st()
             res[f"guard {sched} {name}"] = bool(torch.isfinite(logits).all())
+        if sched == "continuous":
+            res["continuous pools"] = {k: tuple(t.placements)
+                                       for k, t in eng.last_pool.pages.items()}
 
     # -- the MoE (dropless: ragged_dot) and SSM (ssd) families, sharded
     for arch, sched in FAMILIES:
@@ -473,12 +477,18 @@ def test_sharded_moe_and_ssm_serving(ranks, single, arch):
 
 
 def test_sharded_steps_read_no_host_value(ranks):
-    """Each captured kind of step, sharded, under the host-read guard."""
+    """Each captured kind of step, sharded, under the host-read guard: the
+    continuous steps over pools split on their KV heads (each rank's head
+    shard, ``Shard(3)`` of (L, n_pages, page, Hkv, hd) on "model")."""
+    from torch.distributed.tensor import Replicate, Shard
+
     keys = [k for k in ranks[0] if k.startswith("guard ")]
     assert {"guard static decode", "guard continuous mixed/1",
             "guard continuous mixed/16"} <= set(keys), keys
     for r in ranks:
         assert all(r[k] for k in keys)
+        assert r["continuous pools"] == {"k_pages": (Replicate(), Shard(3)),
+                                         "v_pages": (Replicate(), Shard(3))}
 
 
 def test_make_serve_steps_on_the_mesh(ranks):

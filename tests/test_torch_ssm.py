@@ -308,6 +308,6 @@ def test_launcher_serves_on_cpu(arch, capsys):
     out = capsys.readouterr().out
     assert "served 3 requests, 12 tokens" in out
     assert "using static groups" in out
-    with pytest.raises(NotImplementedError, match="continuous"):
+    with pytest.raises(ValueError, match="continuous"):
         launch_serve.main(["--arch", arch, "--reduced", "--device", "cpu",
                            "--scheduler", "continuous"])
