@@ -1,0 +1,9 @@
+"""Mean wall time of the continuous engine's narrow mixed steps (span
+``serve.device_step`` with ``width`` 1: decode rows only), in ms, over the
+window's waves."""
+
+
+def read(run):
+    d = [e.dur_ns for w in run.waves for e in w.spans
+         if e.name == "serve.device_step" and (e.args or {}).get("width") == 1]
+    return sum(d) / len(d) / 1e6 if d else None
