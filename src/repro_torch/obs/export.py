@@ -1,19 +1,21 @@
 """Sinks: registry → JSONL metrics dump, and a shared JSONL record format.
 
-A copy of ``repro.obs.export``, with the same line format.
+The reference's ``repro.obs.export``, with the same line format.
 
-The registry/tracer never write anything themselves; these helpers are the
-only place bytes leave the process, so the no-sink serve path stays free of
-I/O. Two consumers share one line format:
+The registry/tracer never write anything themselves; these helpers (and
+``Tracer.write`` for spans) are the only place bytes leave the process, so
+the no-sink serve path stays free of I/O. Two consumers share one line
+format:
 
 * ``write_metrics_jsonl(registry, path)`` — one line per metric series
   (``{"schema_version", "ts", "kind", "name", "labels", ...value fields}``),
-  the structured companion to BENCH_serve.json that
-  ``benchmarks/check_metrics.py`` validates in CI;
-* ``append_jsonl(path, record)`` — append one stamped record; used by
-  ``benchmarks/hillclimb.py`` to persist sweep winners
-  (``artifacts/hillclimb/autotune_cache.jsonl``), seeding the persistent
-  autotune cache format ROADMAP item 4's engine-start lookup will consult.
+  written by the port's launchers (``launch/serve.py --metrics-out``);
+  the benchmark (``bench/``) reads the engine's spans and results in
+  memory and writes no file;
+* ``append_jsonl(path, record)`` — append one stamped record: the
+  autotune cache's format (``artifacts/hillclimb/autotune_cache.jsonl``),
+  which ``obs.autotune`` reads at engine start to seed the traversal
+  order.
 
 ``SCHEMA_VERSION`` covers both: bump it when a field changes meaning, and
 trend-line tooling can partition on it.

@@ -1,28 +1,48 @@
 """Span-based tracing with a ring buffer and Chrome-trace JSON export.
 
-A copy of ``repro.obs.trace``; the port's engine records the same spans.
+The reference's ``repro.obs.trace``, with two additions: a span yields its
+args dict, to which its body, or code it hands the dict to, may add (a
+step's device times arrive once the card has run it), and the export is
+on the Unix epoch's clock.
 
 A :class:`Tracer` records *complete* spans (``ph="X"``: name, start, wall
-duration) and *instant* events (``ph="i"``: compiles, admissions, watchdog
-trips) into a bounded ``deque`` — long serve streams keep the most recent
-``capacity`` events instead of growing without bound. Recording is a
-``perf_counter_ns`` pair plus one ``deque.append``; no I/O happens until
-:meth:`Tracer.write` exports the buffer as Chrome-trace JSON (the
-``chrome://tracing`` / Perfetto "JSON Array Format": a ``traceEvents`` list
-of events with microsecond ``ts``/``dur``), so a whole serve stream can be
-opened as a timeline.
+duration) and *instant* events (``ph="i"``: compiles, admissions, request
+lifecycles, watchdog trips) into a bounded ``deque`` — long serve streams
+keep the most recent ``capacity`` events instead of growing without bound.
+Recording is a ``perf_counter_ns`` pair plus one ``deque.append``; no I/O
+happens until :meth:`Tracer.write` exports the buffer as Chrome-trace JSON
+(the ``chrome://tracing`` / Perfetto "JSON Array Format": a
+``traceEvents`` list of events with microsecond ``ts``/``dur``), so a
+whole serve stream can be opened as a timeline.
+
+Events keep ``perf_counter_ns`` stamps (``SpanEvent.ts_ns``); the tracer
+holds the offset from that clock to Unix-epoch ns (``epoch_offset_ns``,
+taken when it is created and when it is cleared), and :meth:`chrome_trace`
+writes ``ts`` in epoch microseconds. ``torch.profiler``'s Chrome export
+writes epoch microseconds less the ``baseTimeNanoseconds`` it records:
+with that base added back, both lie on one timeline.
 
 Span nesting needs no explicit parent ids: events on the same pid/tid nest
-by timestamp containment, which is exactly how the engine uses it —
-``serve.step`` wraps ``serve.plan_step`` and ``serve.device_step`` (the
-device span is closed only after the step's outputs are materialized, so it
-covers real device time, not async dispatch).
+by timestamp containment. The port's serve engine (``serve/engine.py``)
+records more spans than the reference's: ``serve.step`` wraps
+``serve.admission``, ``serve.plan_step``, ``serve.device_step`` and
+``serve.commit``, and each step span (``serve.device_step``,
+``serve.decode_step``, ``serve.prefill``) wraps ``serve.stage``,
+``serve.replay`` (eager: ``serve.forward``) and ``serve.sync``; a step span
+closes only after the step's tokens reach the host, so it covers the
+device's work, and on the card carries that work's window from CUDA events
+(``device_ns``, ``gap_ns``). Each request's lifecycle is two instants,
+``serve.request.admit`` and ``serve.request.finish``.
+
+The port's readers: ``launch/serve.py`` and ``launch/train.py`` write the
+buffer out (``--trace-out``); ``bench/`` reads the events in memory, its
+per-layer metrics from the untraced waves' spans and its profiler's idle
+gaps labelled by the innermost span open at each.
 """
 
 from __future__ import annotations
 
 import collections
-import contextlib
 import dataclasses
 import json
 import os
@@ -55,24 +75,14 @@ class Tracer:
         self.capacity = capacity
         self._events: collections.deque[SpanEvent] = collections.deque(maxlen=capacity)
         self.dropped = 0              # events evicted by the ring buffer
+        self.epoch_offset_ns = _epoch_offset_ns()
 
-    @contextlib.contextmanager
-    def span(self, name: str, **args):
+    def span(self, name: str, **args) -> "_Span":
         """Record a complete span around the with-body (exceptions included:
-        the span still closes, so a crashed step is visible in the trace)."""
-        t0 = time.perf_counter_ns()
-        try:
-            yield self
-        finally:
-            self._append(
-                SpanEvent(
-                    name=name,
-                    ts_ns=t0,
-                    dur_ns=time.perf_counter_ns() - t0,
-                    tid=threading.get_ident(),
-                    args=args or None,
-                )
-            )
+        the span still closes, so a crashed step is visible in the trace).
+        The with-statement yields the span's args, a dict the body may add
+        to; the event keeps that dict."""
+        return _Span(self, name, args)
 
     def instant(self, name: str, **args) -> None:
         self._append(
@@ -96,6 +106,7 @@ class Tracer:
     def clear(self) -> None:
         self._events.clear()
         self.dropped = 0
+        self.epoch_offset_ns = _epoch_offset_ns()
 
     # ---- export --------------------------------------------------------------
 
@@ -104,8 +115,8 @@ class Tracer:
 
         Spans export as complete events (``ph="X"``, with ``dur``), instants
         as ``ph="i"`` with thread scope. ``ts``/``dur`` are microseconds
-        (floats are legal per the spec); events are sorted by ``ts`` as the
-        viewers expect.
+        (floats are legal per the spec), ``ts`` since the Unix epoch; events
+        are sorted by ``ts`` as the viewers expect.
         """
         pid = os.getpid()
         out = []
@@ -115,7 +126,7 @@ class Tracer:
                 "cat": "obs",
                 "pid": pid,
                 "tid": ev.tid,
-                "ts": ev.ts_ns / 1e3,
+                "ts": (ev.ts_ns + self.epoch_offset_ns) / 1e3,
             }
             if ev.dur_ns >= 0:
                 rec["ph"] = "X"
@@ -131,6 +142,32 @@ class Tracer:
     def write(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.chrome_trace(), f)
+
+
+class _Span:
+    """The context manager :meth:`Tracer.span` returns (a class, not a
+    generator: the engine opens several a step)."""
+
+    __slots__ = ("_tracer", "_name", "_args", "_t0")
+
+    def __init__(self, tracer: Tracer, name: str, args: dict):
+        self._tracer, self._name, self._args = tracer, name, args
+
+    def __enter__(self) -> dict:
+        self._t0 = time.perf_counter_ns()
+        return self._args
+
+    def __exit__(self, *exc) -> bool:
+        t0 = self._t0
+        self._tracer._append(SpanEvent(name=self._name, ts_ns=t0,
+                                       dur_ns=time.perf_counter_ns() - t0,
+                                       tid=threading.get_ident(), args=self._args or None))
+        return False
+
+
+def _epoch_offset_ns() -> int:
+    """Unix-epoch ns less ``perf_counter_ns``, now."""
+    return time.time_ns() - time.perf_counter_ns()
 
 
 _default = Tracer()

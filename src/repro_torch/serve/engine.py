@@ -116,6 +116,28 @@ capture, and nothing in it reads a device value
 hold each sharded step to the host-read guard of
 ``tests/test_torch_step_graph.py``). The speculative drafter runs
 unsharded, on its own params and pool.
+
+Tracing (``obs.trace``; every run records it, nothing leaves the process
+until the caller writes it out). Each step span (``serve.device_step``,
+``serve.decode_step``, ``serve.prefill``) holds ``serve.stage`` (inputs
+into staging, the copy enqueued), ``serve.replay`` (the graph's launch;
+the eager prefill's forward is ``serve.forward``) and ``serve.sync`` (the
+host's wait for the tokens); ``serve.step`` also holds
+``serve.admission`` and ``serve.commit`` (advance, record, finish, the
+gauges). On the card a step span carries ``device_ns``, its window
+between CUDA events (``step_graph.DeviceClock``), and ``gap_ns``, the
+card's wait since the previous step's window (since ``generate()``'s
+entry for the first): the events are read once done, after the next
+step's launch and at the end of ``generate()``, so no wait is added.
+``positions`` on ``serve.device_step`` (slots x width) and
+``serve.prefill`` (rows x bucket) count what the step computes beside
+its ``tokens``. Each request leaves two instants: ``serve.request.admit``
+(``rid``, ``slot``, ``wait_ns``: from when it became admissible, at its
+arrival step's boundary or its preemption, to its admission; the static
+path's group waits until its prefill starts) and
+``serve.request.finish`` (``rid``, ``status``, ``token_ns``: each token's
+arrival on the host in ns from ``generate()``'s entry, one clock reading
+a step), which ``GenerationResult.queue_s`` and ``token_s`` repeat.
 """
 
 from __future__ import annotations
@@ -147,7 +169,7 @@ from repro_torch.serve.kv_pool import (
     assemble_cache_view,
 )
 from repro_torch.serve.scheduler import ContinuousScheduler
-from repro_torch.serve.step_graph import StepCaptureError, StepGraph
+from repro_torch.serve.step_graph import DeviceClock, StepCaptureError, StepGraph
 from repro_torch.serve.tiering import TieredPagePool, select_spill_victim
 
 __all__ = [
@@ -200,10 +222,15 @@ class GenerationResult:
     tokens: np.ndarray            # generated tokens (without prompt)
     steps: int
     ttft_s: float = 0.0           # wall time, engine start -> first token
+                                  # (token_s[0] where there is one)
     tpot_s: float = 0.0           # mean time per token after the first
                                   # (NaN when <= 1 token was generated)
     status: str = "ok"            # one of REQUEST_STATUSES
     n_preemptions: int = 0        # times preempted and restored
+    queue_s: float = 0.0          # time admissible and waiting for a slot,
+                                  # summed over its admissions
+    token_s: tuple = ()           # each token's arrival on the host, from
+                                  # engine start (one reading a step)
 
 
 @dataclasses.dataclass
@@ -458,6 +485,9 @@ class ServeEngine:
         self._decode_caches: Optional[dict] = None
         self._graph_pool = None
         self.last_pool: Optional[PagedKVPool] = None
+        # Every step's window on the card (the step spans' device_ns and
+        # gap_ns), one clock across the engine's graphs and its prefill.
+        self._clock = DeviceClock(self.device)
 
         # ---- telemetry (same series names as the reference engine) ----
         self.obs = registry if registry is not None else Registry()
@@ -539,13 +569,16 @@ class ServeEngine:
         return self.eos if r.eos_id is None else r.eos_id
 
     def generate(self, requests: Sequence[Request]) -> list[GenerationResult]:
+        self._clock.start()  # the first step's gap_ns counts from here
         if self.scheduler == "continuous":
-            return self._generate_continuous(requests)
-        results: list[GenerationResult] = []
-        t0 = time.perf_counter()  # TTFT includes queueing behind earlier groups
-        for i in range(0, len(requests), self.batch_size):
-            group = list(requests[i : i + self.batch_size])
-            results.extend(self._generate_batch(group, base_idx=i, t0=t0))
+            results = self._generate_continuous(requests)
+        else:
+            results = []
+            t0 = time.perf_counter_ns()  # TTFT includes queueing behind earlier groups
+            for i in range(0, len(requests), self.batch_size):
+                group = list(requests[i : i + self.batch_size])
+                results.extend(self._generate_batch(group, base_idx=i, t0=t0))
+        self._clock.read()  # the last steps' windows: their tokens are on the host
         return results
 
     def compiled_step_count(self) -> int:
@@ -567,7 +600,7 @@ class ServeEngine:
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         step = StepGraph(name, fn, inputs, device=self.device, state=state,
-                         pool=self._graph_pool)
+                         pool=self._graph_pool, clock=self._clock)
         self._m_compiles.inc()
         self.tracer.instant("serve.compile", step=name, variants=self.compiled_step_count() + 1)
         return step
@@ -651,6 +684,9 @@ class ServeEngine:
                                   {"tokens": (self.batch_size, 1)}, state)
             step.capture()
             self._decode = step
+        # Copying the group's caches in is the first decode step's staging:
+        # its device window opens here (the step's own staging keeps it).
+        self._clock.begin()
         _copy_tree(self._decode_caches, caches)
         return self._decode
 
@@ -664,9 +700,10 @@ class ServeEngine:
         return step
 
     @torch.no_grad()
-    def _generate_batch(self, group: Sequence[Request], base_idx: int, t0: float):
+    def _generate_batch(self, group: Sequence[Request], base_idx: int, t0: int):
         # A request whose limit exceeds what the shared bucket leaves of the
-        # cache is clamped (visible via .steps), not failed.
+        # cache is clamped (visible via .steps), not failed. ``t0``:
+        # generate()'s entry (perf_counter_ns), when every request arrived.
         cap = self._cap
         tokens = self._pad_batch([r.tokens for r in group], max_bucket=cap)
         bucket = tokens.shape[1]
@@ -684,17 +721,34 @@ class ServeEngine:
             seeds[j] = base_idx + j if r.seed is None else r.seed
 
         tr = self.tracer
-        with tr.span("serve.prefill", rows=n, bucket=bucket):
-            with on_mesh(self.mesh, pcfg=self.pcfg):
-                logits, caches = self.lm.prefill(self.params, self._prefill_batch(tokens),
-                                                 self.max_len)
-            last = whole(logits)[:, -1]
-            cur = self._sample(last, _argmax(last), temps, seeds, 0)
+        clock = self._clock
+        # The group waited until its prefill starts.
+        wait = time.perf_counter_ns() - t0
+        for j, r in enumerate(group):
+            tr.instant("serve.request.admit", rid=r.rid, slot=j, wait_ns=wait)
+        # positions: what the prefill computes (pad rows and pads included);
+        # tokens: the group's own prompt tokens in the bucket
+        with tr.span("serve.prefill", rows=n, bucket=bucket, positions=tokens.size,
+                     tokens=sum(min(len(r.tokens), bucket) for r in group)) as args:
+            clock.into(args)
+            clock.begin()
+            with tr.span("serve.stage"):
+                batch = self._prefill_batch(tokens)
+            with tr.span("serve.forward"):
+                with on_mesh(self.mesh, pcfg=self.pcfg):
+                    logits, caches = self.lm.prefill(self.params, batch, self.max_len)
+                last = whole(logits)[:, -1]
+                greedy = _argmax(last)
+            clock.end()
+            clock.read()  # the windows before, while the card runs this one
+            with tr.span("serve.sync"):
+                cur = self._sample(last, greedy, temps, seeds, 0)
+            landed = prefilled = time.perf_counter_ns() - t0
             step = self._decode_step(caches)
-            del logits, caches
+            del logits, caches, batch
         self._m_tok_prefill.inc(n * bucket)
-        ttft = time.perf_counter() - t0
         generated = np.zeros((n, max_new), np.int32)
+        token_ns: list[list[int]] = [[] for _ in range(n)]
         done = np.asarray([lim == 0 for lim in new_limits])  # 0-limit rows emit nothing
         steps = np.zeros(n, np.int32)
         status = ["ok"] * n
@@ -702,7 +756,7 @@ class ServeEngine:
         for t in range(max_new):
             # Boundary checks before recording: a request cancelled or past
             # its deadline keeps only what it already has.
-            now_s = time.perf_counter() - t0
+            now_s = (time.perf_counter_ns() - t0) / 1e9
             for j, r in enumerate(group):
                 if done[j]:
                     continue
@@ -716,29 +770,41 @@ class ServeEngine:
             for j in range(n):
                 if not done[j]:
                     generated[j, t] = cur[j]
+                    token_ns[j].append(landed)
                     steps[j] = t + 1
                     if cur[j] == eos_for[j] or t + 1 >= new_limits[j]:
                         done[j] = True
             if done.all():
                 break
-            with tr.span("serve.decode_step", t=t):
-                step.stage(tokens=cur[:, None])
-                last, greedy = step()
-                cur = self._sample(last, greedy, temps, seeds, t + 1)
+            with tr.span("serve.decode_step", t=t) as args:
+                clock.into(args)
+                with tr.span("serve.stage"):
+                    step.stage(tokens=cur[:, None])
+                with tr.span("serve.replay"):
+                    last, greedy = step()
+                clock.read()
+                with tr.span("serve.sync"):
+                    cur = self._sample(last, greedy, temps, seeds, t + 1)
+                landed = time.perf_counter_ns() - t0
             self._m_tok_decode.inc(int((~done).sum()))
-        total = time.perf_counter() - t0
+        clock.end()  # the window _decode_step opened, where no decode step ran
+        total = (time.perf_counter_ns() - t0) / 1e9
 
-        results = [
-            GenerationResult(
+        results = []
+        for j, r in enumerate(group):
+            times = tuple(token_ns[j])
+            ttft = (times[0] if times else prefilled) / 1e9
+            results.append(GenerationResult(
                 rid=r.rid,
                 tokens=generated[j, : steps[j]].copy(),
                 steps=int(steps[j]),
                 ttft_s=ttft,
                 tpot_s=_tpot(total - ttft, int(steps[j])),
                 status=status[j],
-            )
-            for j, r in enumerate(group)
-        ]
+                queue_s=wait / 1e9,
+                token_s=tuple(x / 1e9 for x in times),
+            ))
+            tr.instant("serve.request.finish", rid=r.rid, status=status[j], token_ns=times)
         for res in results:
             self._record_result(res)
         return results
@@ -783,9 +849,13 @@ class ServeEngine:
         a verification row (``ladder[row]``) at every position p with index
         ``counts[row] + p``. ``overlap`` is host work issued once the
         replay is launched, before the host waits for its tokens."""
-        step.stage(tokens=tokens, block_table=pool.block_tables, lens=lens, q_lens=qlens,
-                   order_group=order_group)
-        logits, greedy = step()
+        tr = self.tracer
+        with tr.span("serve.stage"):
+            step.stage(tokens=tokens, block_table=pool.block_tables, lens=lens, q_lens=qlens,
+                       order_group=order_group)
+        with tr.span("serve.replay"):
+            logits, greedy = step()
+        self._clock.read()  # the windows before, while the card runs this one
         if overlap is not None:
             overlap()
         draws = []
@@ -795,7 +865,8 @@ class ServeEngine:
                 idx = int(counts[b]) + (p if ladder[b] else 0)
                 draws.append(((int(b), p), float(temps[b]),
                               sample_seed(self.seed, seeds[b], idx)))
-        return self._pick(logits, greedy, draws)
+        with tr.span("serve.sync"):
+            return self._pick(logits, greedy, draws)
 
     # ---- continuous path -----------------------------------------------------
 
@@ -839,26 +910,49 @@ class ServeEngine:
         temps = np.zeros((n_slots,), np.float32)
         seeds = np.zeros((n_slots,), np.int64)
         counts = np.zeros((n_slots,), np.int64)
-        t0 = time.perf_counter()
-        first_t: dict[int, float] = {}
+        t0 = time.perf_counter_ns()
         tr = self.tracer
+        # Request lifecycles, by id(request), in perf_counter_ns: when it
+        # became admissible (the boundary of its arrival step, generate()'s
+        # entry for step 0, or its preemption) while it waits; its waits
+        # for admission, summed; each token's arrival on the host, from t0.
+        ready_ns: dict[int, int] = {}
+        queue_ns: dict[int, int] = {}
+        token_ns: dict[int, list[int]] = {}
+        by_arrival = sorted(requests, key=lambda r: r.arrival)
+        n_arrived = 0
+
+        def arrive(step: int, now: int) -> None:
+            nonlocal n_arrived
+            while n_arrived < len(by_arrival) and by_arrival[n_arrived].arrival <= step:
+                ready_ns[id(by_arrival[n_arrived])] = now
+                n_arrived += 1
+
+        arrive(0, t0)
 
         def resolve(r, tokens: list, status: str) -> None:
-            now = time.perf_counter()
+            now = time.perf_counter_ns()
+            key = id(r)
+            if key in ready_ns:  # retired while waiting: that wait counts
+                queue_ns[key] = queue_ns.get(key, 0) + now - ready_ns.pop(key)
+            times = tuple(token_ns.pop(key, ()))
             n_tok = len(tokens)
-            ttft = first_t.pop(id(r), now) - t0
+            ttft = times[0] if times else now - t0
             res = GenerationResult(
                 rid=r.rid,
                 tokens=np.asarray(tokens, np.int32),
                 steps=n_tok,
-                ttft_s=ttft,
-                tpot_s=_tpot((now - t0) - ttft, n_tok),
+                ttft_s=ttft / 1e9,
+                tpot_s=_tpot((now - t0 - ttft) / 1e9, n_tok),
                 status=status,
-                n_preemptions=n_preempts.get(id(r), 0),
+                n_preemptions=n_preempts.get(key, 0),
+                queue_s=queue_ns.pop(key, 0) / 1e9,
+                token_s=tuple(x / 1e9 for x in times),
             )
-            results[id(r)] = res
+            results[key] = res
             self._cancelled.discard(r.rid)
             self._record_result(res)
+            tr.instant("serve.request.finish", rid=r.rid, status=status, token_ns=times)
 
         def retire(slot: int):
             st = sched.retire(slot)
@@ -886,6 +980,7 @@ class ServeEngine:
                 return
             resume[id(r)] = list(st.generated)
             sched.requeue(r)
+            ready_ns[id(r)] = time.perf_counter_ns()
             tally["preempt"] += 1
             self._m_preempt.inc()
             self._m_req_requeued.inc()
@@ -971,6 +1066,7 @@ class ServeEngine:
         while sched.has_work():
             t_iter = time.perf_counter()
             with tr.span("serve.step", step=step):
+                arrive(step, time.perf_counter_ns())
                 # ---- step-boundary lifecycle checks ----
                 if faults is not None:
                     faults.begin_step(step)
@@ -982,7 +1078,7 @@ class ServeEngine:
                     for i in list(sched.active_slots()):
                         if sched.slots[i].request.rid in self._cancelled:
                             finish(i, "cancelled")
-                now_s = time.perf_counter() - t0
+                now_s = (time.perf_counter_ns() - t0) / 1e9
                 for r in sched.drain_waiting(
                     lambda r: r.deadline_s is not None and now_s > r.deadline_s
                 ):
@@ -1001,29 +1097,35 @@ class ServeEngine:
                 # pool can reserve what the discipline guarantees; the
                 # watermark pauses it under pressure (never with no slot
                 # active). A preempted request's admission is its restore.
-                paused = pool.occupancy() >= self._watermark and bool(sched.active_slots())
-                self._m_admit_paused.set(float(paused))
-                while not paused and (slot := sched.free_slot()) is not None:
-                    req = sched.pop_admissible(step)
-                    if req is None:
-                        break
-                    restored = id(req) in resume
-                    with (tr.span("serve.preempt_restore", rid=req.rid) if restored
-                          else contextlib.nullcontext()):
-                        st = self._admit(req, slot, sched, pool, temps, seeds, counts,
-                                         idx_of.get(id(req), 0), prior=resume.get(id(req)))
-                    if st is None:
-                        sched.requeue(req)  # no pages yet; retry after retirements
-                        self._m_req_requeued.inc()
-                        break
-                    resume.pop(id(req), None)
-                    self._m_req_admitted.inc()
-                    if restored and st.prompt is not None:
-                        n_re = int(len(st.prompt) - st.prompt_pos)
-                        tally["restore"] += n_re
-                        self._m_restore_tok.inc(n_re)
-                    if st.done:  # zero-limit request: emits nothing
-                        finish(slot)
+                with tr.span("serve.admission"):
+                    paused = pool.occupancy() >= self._watermark and bool(sched.active_slots())
+                    self._m_admit_paused.set(float(paused))
+                    while not paused and (slot := sched.free_slot()) is not None:
+                        req = sched.pop_admissible(step)
+                        if req is None:
+                            break
+                        restored = id(req) in resume
+                        with (tr.span("serve.preempt_restore", rid=req.rid) if restored
+                              else contextlib.nullcontext()):
+                            st = self._admit(req, slot, sched, pool, temps, seeds, counts,
+                                             idx_of.get(id(req), 0), prior=resume.get(id(req)))
+                        if st is None:
+                            sched.requeue(req)  # no pages yet; retry after retirements
+                            self._m_req_requeued.inc()
+                            break
+                        now = time.perf_counter_ns()
+                        wait = now - ready_ns.pop(id(req), now)
+                        queue_ns[id(req)] = queue_ns.get(id(req), 0) + wait
+                        token_ns.setdefault(id(req), [])
+                        tr.instant("serve.request.admit", rid=req.rid, slot=slot, wait_ns=wait)
+                        resume.pop(id(req), None)
+                        self._m_req_admitted.inc()
+                        if restored and st.prompt is not None:
+                            n_re = int(len(st.prompt) - st.prompt_pos)
+                            tally["restore"] += n_re
+                            self._m_restore_tok.inc(n_re)
+                        if st.done:  # zero-limit request: emits nothing
+                            finish(slot)
 
                 if self.max_queue is not None:
                     for r in sched.shed_over(step, self.max_queue):
@@ -1132,8 +1234,11 @@ class ServeEngine:
                                            overlap if tiered else None)
 
                 # The device span closes once the sampled tokens are on the
-                # host, so it brackets the step's device time.
-                with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned):
+                # host, so it brackets the step's device time; positions:
+                # what the step computes (every slot at its width).
+                with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned,
+                             positions=n_slots * width) as args:
+                    self._clock.into(args)
                     try:
                         toks = dispatch()
                     except StepCaptureError:
@@ -1154,81 +1259,84 @@ class ServeEngine:
                                     finish(it.slot, "failed")
                             step += 1
                             continue
-                step += 1
-                n_steps += 1
-                n_wide += width > 1
-                self._m_tok_decode.inc(n_decode)
-                self._m_tok_prefill.inc(n_prefill)
-                (self._m_steps_wide if width > 1 else self._m_steps_narrow).inc()
-                for it in plan:
-                    st = sched.slots[it.slot]
-                    pool.advance(it.slot, it.q_len)
-                    if it.is_prefill:
-                        st.prompt_pos += it.q_len
-                        if not it.finishes_prompt:
+                    # One reading a step: when its tokens reached the host.
+                    landed = time.perf_counter_ns() - t0
+                # Boundary work after the step: advance, record, finish,
+                # the gauges and the order's sampling.
+                with tr.span("serve.commit"):
+                    step += 1
+                    n_steps += 1
+                    n_wide += width > 1
+                    self._m_tok_decode.inc(n_decode)
+                    self._m_tok_prefill.inc(n_prefill)
+                    (self._m_steps_wide if width > 1 else self._m_steps_narrow).inc()
+                    for it in plan:
+                        st = sched.slots[it.slot]
+                        pool.advance(it.slot, it.q_len)
+                        if it.is_prefill:
+                            st.prompt_pos += it.q_len
+                            if not it.finishes_prompt:
+                                continue
+                            # Prompt complete: publish its frozen pages for later
+                            # admissions to adopt, then take the first sample.
+                            pool.register_prompt(it.slot, st.prompt)
+                        if it.n_draft == 0:
+                            tok = int(toks[it.slot, it.q_len - 1])
+                            token_ns[id(st.request)].append(landed)
+                            counts[it.slot] += 1
+                            cur[it.slot] = tok
+                            if st.record(tok):
+                                finish(it.slot)
                             continue
-                        # Prompt complete: publish its frozen pages for later
-                        # admissions to adopt, then take the first sample.
-                        pool.register_prompt(it.slot, st.prompt)
-                    if it.n_draft == 0:
-                        tok = int(toks[it.slot, it.q_len - 1])
-                        if id(st.request) not in first_t:
-                            first_t[id(st.request)] = time.perf_counter()
-                        counts[it.slot] += 1
-                        cur[it.slot] = tok
-                        if st.record(tok):
+                        # A verification row [cur, d_1..d_K]: target t_i =
+                        # toks[slot, i] is what the sequential stream samples
+                        # after the first i drafts. Accept the longest prefix
+                        # with d_{i+1} == t_i, emit t_0..t_a (stopping at EOS or
+                        # the limit as a sequential stream would), roll the rest
+                        # of the chunk back; the sample count advances by the
+                        # tokens emitted.
+                        d = drafts.get(it.slot, [])[: it.n_draft]
+                        k = len(d)
+                        a = 0
+                        while a < k and d[a] == int(toks[it.slot, a]):
+                            a += 1
+                        emitted = 0
+                        finished = False
+                        for p in range(a + 1):
+                            tok = int(toks[it.slot, p])
+                            token_ns[id(st.request)].append(landed)
+                            emitted += 1
+                            cur[it.slot] = tok
+                            if st.record(tok):
+                                finished = True
+                                break
+                        counts[it.slot] += emitted
+                        n_roll = it.q_len - emitted
+                        if n_roll and not finished:
+                            pool.rollback(it.slot, n_roll)
+                        accepted = emitted - 1
+                        tally["draft"] += k
+                        tally["accept"] += accepted
+                        tally["roll"] += k - accepted
+                        self._m_draft_tok.inc(k)
+                        self._m_accept_tok.inc(accepted)
+                        self._m_rollback_tok.inc(k - accepted)
+                        if finished:
                             finish(it.slot)
-                        continue
-                    # A verification row [cur, d_1..d_K]: target t_i =
-                    # toks[slot, i] is what the sequential stream samples
-                    # after the first i drafts. Accept the longest prefix
-                    # with d_{i+1} == t_i, emit t_0..t_a (stopping at EOS or
-                    # the limit as a sequential stream would), roll the rest
-                    # of the chunk back; the sample count advances by the
-                    # tokens emitted.
-                    d = drafts.get(it.slot, [])[: it.n_draft]
-                    k = len(d)
-                    a = 0
-                    while a < k and d[a] == int(toks[it.slot, a]):
-                        a += 1
-                    emitted = 0
-                    finished = False
-                    for p in range(a + 1):
-                        tok = int(toks[it.slot, p])
-                        if id(st.request) not in first_t:
-                            first_t[id(st.request)] = time.perf_counter()
-                        emitted += 1
-                        cur[it.slot] = tok
-                        if st.record(tok):
-                            finished = True
-                            break
-                    counts[it.slot] += emitted
-                    n_roll = it.q_len - emitted
-                    if n_roll and not finished:
-                        pool.rollback(it.slot, n_roll)
-                    accepted = emitted - 1
-                    tally["draft"] += k
-                    tally["accept"] += accepted
-                    tally["roll"] += k - accepted
-                    self._m_draft_tok.inc(k)
-                    self._m_accept_tok.inc(accepted)
-                    self._m_rollback_tok.inc(k - accepted)
-                    if finished:
-                        finish(it.slot)
-                if faults is not None and faults.fired_this_step:
-                    # A step that absorbed a fault is followed by a pool audit.
-                    pool.check_invariants()
-                pool.emit_gauges()
-                # The widest decode or verification chunk (K+1 under
-                # speculation): the query width a KV sweep is amortized over.
-                step_q = max((it.q_len for it in plan if not it.is_prefill), default=1)
-                if ctl.enabled:
-                    # Adaptation samples on its own cadence: the decision
-                    # needs a fresh reading, not the last gauge.
-                    if ctl.maybe_adapt(n_steps, pool, self.llc, step_q=step_q):
-                        tr.instant("serve.order_switch", order=ctl.order.value, step=n_steps)
-                else:
-                    self.llc.maybe_sample(n_steps, pool, step_q=step_q)
+                    if faults is not None and faults.fired_this_step:
+                        # A step that absorbed a fault is followed by a pool audit.
+                        pool.check_invariants()
+                    pool.emit_gauges()
+                    # The widest decode or verification chunk (K+1 under
+                    # speculation): the query width a KV sweep is amortized over.
+                    step_q = max((it.q_len for it in plan if not it.is_prefill), default=1)
+                    if ctl.enabled:
+                        # Adaptation samples on its own cadence: the decision
+                        # needs a fresh reading, not the last gauge.
+                        if ctl.maybe_adapt(n_steps, pool, self.llc, step_q=step_q):
+                            tr.instant("serve.order_switch", order=ctl.order.value, step=n_steps)
+                    else:
+                        self.llc.maybe_sample(n_steps, pool, step_q=step_q)
             self._m_step_time.observe(time.perf_counter() - t_iter)
             if self._log_every and n_steps and n_steps % self._log_every == 0:
                 self._log_stats_line(n_steps, pool, sched)

@@ -32,6 +32,14 @@ itself runs nothing: the launches it issued are taken back out of
 garbage collector is run before the capture and held off during it: a dead
 engine's graphs destroyed mid-capture would invalidate it (the capture is
 in CUDA's global mode, where such a call from any thread is an error).
+
+A :class:`DeviceClock` times the steps on the card without a host wait: a
+step graph given one records a CUDA event before its staged copy and
+another after its replay, and the engine reads a pair once its work is
+done, after launching the step that follows (``device_ns``: the step's
+window on the card; ``gap_ns``: the card's wait since the previous window
+ended). No event is recorded inside a capture; on the CPU the clock
+records nothing.
 """
 
 from __future__ import annotations
@@ -45,22 +53,103 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 
-__all__ = ["StepGraph", "StepCaptureError"]
+__all__ = ["StepGraph", "StepCaptureError", "DeviceClock"]
 
 
 class StepCaptureError(RuntimeError):
     """A step's warm-up, capture or replay failed on the card."""
 
 
+class DeviceClock:
+    """Windows of device time between CUDA events, read without a wait.
+
+    :meth:`begin` and :meth:`end` record an event on the stream that was
+    current at :meth:`start` and open or close a window; a window that
+    ends is sent to the args dict named by :meth:`into` before it ended (a
+    step span's). :meth:`read` adds to each such dict, for every ended
+    window whose end event has completed, ``device_ns`` (its length) and
+    ``gap_ns`` (from the end of the window before it, or from
+    :meth:`start`, to its beginning); a window still running stays for a
+    later read, so the engine reads after launching the next step, while
+    the card works. A ``begin`` while a window is open keeps the earlier
+    one (a step's staging that began before its graph's own). Events come
+    from a ring, reused in turn; none is recorded while the stream is
+    capturing, and off the card none at all."""
+
+    _RING = 16   # events: enough for the windows a read can lag behind
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.on_card = self.device.type == "cuda"
+        self._ring = ([torch.cuda.Event(enable_timing=True) for _ in range(self._RING)]
+                      if self.on_card else [])
+        self._next = 0
+        self._stream = None
+        self._prev = self._open = self._into = None
+        self._closed: list = []          # (begin, end, args): ended, not read
+
+    def _record(self):
+        if not self.on_card or torch.cuda.is_current_stream_capturing():
+            return None
+        ev = self._ring[self._next]
+        self._next = (self._next + 1) % len(self._ring)
+        ev.record(self._stream)
+        return ev
+
+    def start(self) -> None:
+        """Mark the origin of the first window's gap (a ``generate()``'s
+        entry) on the current stream, forgetting every window not read."""
+        if self.on_card:
+            self._stream = torch.cuda.current_stream(self.device)
+        self._prev = self._record()
+        self._open = self._into = None
+        self._closed = []
+
+    def into(self, args: dict) -> None:
+        """Send the next window to end to ``args``."""
+        self._into = args
+
+    def begin(self) -> None:
+        if self._open is None:
+            self._open = self._record()
+
+    def end(self) -> None:
+        if self._open is not None:
+            ev = self._record()
+            if ev is not None:
+                self._closed.append((self._open, ev, self._into))
+                self._into = None
+            self._open = None
+
+    def read(self) -> None:
+        """Put ``device_ns`` and ``gap_ns`` into the args of each ended
+        window whose work is done, oldest first, up to the first still
+        running. Never waits."""
+        n = 0
+        for b, e, args in self._closed:
+            if not e.query():
+                break
+            if args is not None:
+                args["device_ns"] = round(b.elapsed_time(e) * 1e6)
+                if self._prev is not None:
+                    args["gap_ns"] = round(self._prev.elapsed_time(b) * 1e6)
+            self._prev = e
+            n += 1
+        del self._closed[:n]
+
+
 class StepGraph:
-    def __init__(self, name: str, fn: Callable, inputs: dict, *, device, state=(), pool=None):
+    def __init__(self, name: str, fn: Callable, inputs: dict, *, device, state=(), pool=None,
+                 clock: Optional[DeviceClock] = None):
         """``fn(**buffers)`` -> a tuple of tensors, where ``buffers`` maps
         each name of ``inputs`` (name -> shape) to its int32 static
         buffer on ``device``. ``state``: the tensors the step writes in
         place (for :meth:`replay_against_eager`). ``pool`` is a
         ``torch.cuda.graph_pool_handle()`` to share with other steps
-        (default: a pool of its own)."""
+        (default: a pool of its own). ``clock``: a window of it opens
+        before each staged copy and closes after each replay."""
         self.name = name
+        self.clock = clock
         self.fn = fn
         self.state = list(state)
         self.device = torch.device(device)
@@ -89,6 +178,8 @@ class StepGraph:
         previous step's outputs on the host, which waits for the copy."""
         for key, arr in arrays.items():
             self._host[key][...] = arr
+        if self.clock is not None:
+            self.clock.begin()
         if self._staging is not self._flat:
             self._flat.copy_(self._staging, non_blocking=True)
 
@@ -134,15 +225,19 @@ class StepGraph:
         Returns the step's outputs (on the card, the graph's static output
         tensors, overwritten by the next replay)."""
         if self.device.type != "cuda":
-            return tuple(self.fn(**self.inputs))
-        self.capture()
-        try:
-            self.graph.replay()
-        except RuntimeError as err:
-            raise StepCaptureError(f"replay of the {self.name} failed: {err}") from err
-        cuda_lib.add_launches(self.launches)
-        self.replays += 1
-        return self.outputs
+            outputs = tuple(self.fn(**self.inputs))
+        else:
+            self.capture()
+            try:
+                self.graph.replay()
+            except RuntimeError as err:
+                raise StepCaptureError(f"replay of the {self.name} failed: {err}") from err
+            cuda_lib.add_launches(self.launches)
+            self.replays += 1
+            outputs = self.outputs
+        if self.clock is not None:
+            self.clock.end()
+        return outputs
 
     def run_eager(self) -> tuple:
         """The step function itself on the current inputs (no graph): what a
