@@ -31,9 +31,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    against one, a bitwise repeat, and deliberately wrong variants that must
    fail its limits;
 3. main paths on full-width deepseek-7b (random weights from a seed):
-   served by the continuous ServeEngine, every mixed step a replay of one
-   of its two captured CUDA graphs (width 1 and the chunk width), with
-   ``paged_decode`` launches == layers x mixed steps; then the same
+   served by the continuous ServeEngine, every mixed step replays its two
+   captured CUDA graphs (the narrow step of width 1, and the compact step
+   of R rows at the chunk width once a group of wide rows), with
+   ``paged_decode`` launches == layers x replays; then the compact step at
+   the chat cell's 64 slots (COMPACT_WIDE_ROWS wide rows beside one-token
+   rows: each graph's replay equal to its eager step, B1 30 launches a
+   replay, the tokens and logits held to the full-width (64, chunk) step of
+   the same rows by the tie rule, and a step whose first group's tokens go
+   to the wrong slots failing that; both timed); then the same
    requests through new continuous engines with online order adaptation
    (A8): (a) its LLC model at the card's L2, (b) at a capacity small
    enough to switch (it must), (c) the fixed order, (d) (b)'s switches
@@ -456,6 +462,15 @@ INT8_BYTES_LIMIT = 0.75
 # within ADAPT_SHIFT_LIMIT until the flip, as every run's; the verification
 # ladder shifted by one position must still fail the rule.
 TWO_STEP_TIE = 2
+# The compact wide step (phase_compact_step) at the chat cell's geometry: 64
+# slots, chunk 256, page 64, so R = 8 rows a replay; steps of these many
+# wide rows (one group, a full group, and five groups the last of one row)
+# beside one-token rows on every other slot. Against the full-width (64,
+# 256) step of the same rows its rows run in other products, whose bf16
+# K/V and logits may round a step apart; so the tokens are held to it by
+# the tie rule at TWO_STEP_TIE and the logits to ADAPT_SHIFT_LIMIT.
+COMPACT_WIDE_ROWS = (1, 8, 33)
+COMPACT_SLOTS = 64
 # Optimistic admission under real pool pressure (phase_optimistic_path): an
 # allocatable pool of OPT_POOL_PAGES pages of 64 positions (every slot's
 # worst case is 128) on the main requests: decode growth runs out, and
@@ -1216,6 +1231,7 @@ def phase_main_path(cfg, lm, params, profile: bool = False, label: str = "contin
     reqs = _main_requests(cfg.vocab)
     eng.tracer.clear()
     cuda_lib.reset_launch_counts()
+    wide0 = eng.obs.value("serve.wide_replays")
     t0 = time.perf_counter()
     results = eng.generate(reqs)
     torch.cuda.synchronize()
@@ -1225,17 +1241,19 @@ def phase_main_path(cfg, lm, params, profile: bool = False, label: str = "contin
     stats = eng.last_stats
     graphs = eng.step_graphs()
     replayed = {name: g.replays - replays[name] for name, g in graphs.items()}
+    n_replays = _mixed_replays(eng, wide0)
 
     statuses = [r.status for r in results]
     assert all(s == "ok" for s in statuses), statuses
     assert all(r.steps == 32 and len(r.tokens) == 32 for r in results), [r.steps for r in results]
     assert int(bad.item()) == 0, f"{int(bad.item())} non-finite logits"
-    # Every mixed step a replay of one of the two graphs captured before.
+    # Every mixed step replays the two graphs captured before: a narrow
+    # step the narrow one, a wide step the compact one a group of rows and
+    # the narrow one for the one-token rows its last group has no room for.
     assert eng.compiled_step_count() == 2 and list(graphs) == list(replays), graphs
-    assert sum(replayed.values()) == stats.mixed_steps, (replayed, stats)
-    assert replayed["mixed/1"] == stats.mixed_steps - stats.wide_steps, (replayed, stats)
+    assert sum(replayed.values()) == n_replays, (replayed, n_replays, stats)
     assert stats.pages_adopted > 0, stats
-    want = cfg.n_layers * stats.mixed_steps
+    want = cfg.n_layers * n_replays
     assert launches["paged_decode"] == want, (launches, want)
 
     tokens = sum(r.steps for r in results)
@@ -1262,6 +1280,7 @@ def phase_main_path(cfg, lm, params, profile: bool = False, label: str = "contin
         "launches": launches,
         "library": library,
         "launches_per_step": launches["paged_decode"] / max(stats.mixed_steps, 1),
+        "replays": n_replays,
         "graph_replays": replayed,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
@@ -1278,6 +1297,182 @@ def phase_main_path(cfg, lm, params, profile: bool = False, label: str = "contin
     if profile:
         out["profile"] = phase_profile(eng, cfg, label, ("serve.device_step",))
     del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mixed_replays(eng, wide_before: float) -> int:
+    """The mixed-step replays of ``eng``'s last ``generate()``: one a
+    narrow step, and each wide step's (``serve.wide_replays`` less
+    ``wide_before``, its value before that call)."""
+    st = eng.last_stats
+    return st.mixed_steps - st.wide_steps + int(eng.obs.value("serve.wide_replays") - wide_before)
+
+
+def phase_compact_step(cfg, lm, params) -> dict:
+    """The compact wide step at COMPACT_SLOTS slots, chunk 256 (R 8): every
+    slot first writes 64 prompt positions (a step of eight groups), then,
+    for each count in COMPACT_WIDE_ROWS, a step of that many wide rows (256
+    prompt tokens each, slots drawn at random) beside one-token rows on
+    every other slot, through ``ServeEngine._run_mixed`` with the lengths
+    held (each step rewrites the same positions). Each step: B1 launched
+    30 times a replay; both graphs' last replays equal to their eager steps
+    to the bit; against the full-width (64, 256) step of the same inputs
+    (the layout before the compact step, run eagerly), every row's token at
+    its last position equal or tied (the tie rule at TWO_STEP_TIE) and its
+    logits within ADAPT_SHIFT_LIMIT. The wrong control, the first group's
+    tokens and logits handed to the slots one row down, must fail that.
+    Times (host wall, synchronised; medians of 5): the compact step and
+    the full-width graph's replay on the same inputs."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.step_graph import StepGraph
+    from repro_torch.testing import bf16_ulp, top2_margin, within_tie_rule
+
+    n, chunk, pre = COMPACT_SLOTS, 256, 64
+    eng = ServeEngine(lm, params, scheduler="continuous", batch_size=n, max_len=512,
+                      page_size=64, prefill_chunk=chunk, pool_pages=n * 6 + 1, device="cuda")
+    r = eng._rows
+    assert r == 8, r
+    rng = np.random.default_rng(34)
+    eng.generate([Request(tokens=rng.integers(2, cfg.vocab, size=300).astype(np.int32),
+                          max_new_tokens=2, eos_id=-1)])   # captures both graphs
+    assert eng.compiled_step_count() == 2, eng.step_graphs()
+    pool = eng.last_pool
+    pool.reset()
+    prompts = rng.integers(2, cfg.vocab, size=(n, pre + chunk)).astype(np.int32)
+    for b in range(n):
+        assert pool.admit(b, prompts[b], 1) is not None, b
+    group = eng.order_ctl.effective_group(pool.blocks_per_seq)
+    zeros = (np.zeros(n, np.float32), np.zeros(n, np.int64), np.zeros(n, np.int64))
+    ladder = np.zeros(n, bool)
+
+    def step_inputs(wide):
+        qlens = np.ones(n, np.int32)
+        qlens[wide] = chunk
+        tokens = np.full((n, chunk), cfg.eos_id, np.int32)
+        tokens[:, 0] = prompts[:, pre]
+        tokens[wide] = prompts[wide, pre:]
+        return tokens, qlens
+
+    def run(tokens, qlens):
+        return eng._run_mixed(chunk, tokens, pool, qlens, group, *zeros, pool.lens.copy(), ladder)
+
+    # The 64 prompt positions of every slot: eight compact replays.
+    first = np.full((n, chunk), cfg.eos_id, np.int32)
+    first[:, :pre] = prompts[:, :pre]
+    for b in range(n):
+        pool.ensure_writable(b, pre)
+    run(first, np.full(n, pre, np.int32))
+    for b in range(n):
+        pool.advance(b, pre)
+    for b in range(n):
+        pool.ensure_writable(b, chunk)
+    full = StepGraph("full-width mixed step", eng._mixed_fn(pool.pages),
+                     {"tokens": (n, chunk), "block_table": (n, pool.blocks_per_seq),
+                      "lens": (n,), "q_lens": (n,), "order_group": ()},
+                     device="cuda", state=[t[:, 1:] for t in pool.pages.values()])
+    full.capture()
+
+    replay = eng._replay
+    seen: dict = {}   # slot -> logits at its last position, this step
+
+    def replay_rec(step, slots, out, sampling, wrong=False):
+        logits = replay(step, slots, out, sampling)
+        if wrong:   # the first group's rows handed to the slots one row down
+            out.copy_(out.roll(1, 0))
+            logits = logits.roll(1, 0)
+        for j, b in enumerate(slots):
+            if b >= 0:
+                seen[int(b)] = logits[j, int(sampling[0][b]) - 1].float().clone()
+        return logits
+
+    def compare(toks, qlens, want_logits, want_tokens) -> dict:
+        flips, tied, shift = [], 0, 0.0
+        for b in range(n):
+            p = int(qlens[b]) - 1
+            got_row, want_row = seen[b], want_logits[b, p].float()
+            shift = max(shift, float((got_row - want_row).abs().max()))
+            if int(toks[b, p]) != int(want_tokens[b, p]):
+                top, m1 = top2_margin(want_row)
+                _, m2 = top2_margin(got_row)
+                ok = within_tie_rule([m1, m2], top, steps=TWO_STEP_TIE)
+                tied += ok
+                flips.append({"slot": b, "margins": [m1, m2], "ulp": bf16_ulp(top), "tied": ok})
+        return {"flips": flips, "untied": sum(not f["tied"] for f in flips),
+                "logit_shift": shift}
+
+    out = {"rows": r, "cases": {}}
+    for k in COMPACT_WIDE_ROWS:
+        wide = np.sort(rng.choice(n, k, replace=False))
+        tokens, qlens = step_inputs(wide)
+        replays = -(-k // r) + (n - k > -k % r)   # one-token rows past the spare rows
+        seen.clear()
+        eng._replay = replay_rec
+        cuda_lib.reset_launch_counts()
+        try:
+            toks = run(tokens, qlens)
+        finally:
+            eng._replay = replay
+        b1 = cuda_lib.launch_counts["paged_decode"]
+        if b1 != cfg.n_layers * replays:
+            raise AssertionError(f"compact step, {k} wide rows: B1 {b1} launches, want "
+                                 f"{cfg.n_layers} x {replays}")
+        graphs = {name: {key: d["max_abs_diff"] for key, d in g.replay_against_eager().items()
+                         if not d["equal"]} for name, g in eng.step_graphs().items()}
+        if any(graphs.values()):
+            raise AssertionError(f"compact step, {k} wide rows: replay differs from eager: "
+                                 f"{graphs}")
+        full.stage(tokens=tokens, block_table=pool.block_tables, lens=pool.lens, q_lens=qlens,
+                   order_group=group)
+        want_logits, want_tokens = full.run_eager()
+        held = compare(toks, qlens, want_logits, want_tokens.cpu().numpy())
+        # the control: the same step with the first group's rows misplaced
+        seen.clear()
+        calls = []
+
+        def wrong_once(step, slots, o, sampling):
+            calls.append(1)
+            return replay_rec(step, slots, o, sampling, wrong=len(calls) == 1)
+
+        eng._replay = wrong_once
+        try:
+            bad = compare(run(tokens, qlens), qlens, want_logits, want_tokens.cpu().numpy())
+        finally:
+            eng._replay = replay
+        del want_logits, want_tokens
+
+        def full_step():   # staged, replayed and its tokens read, as the engine's
+            full.stage(tokens=tokens, block_table=pool.block_tables, lens=pool.lens,
+                       q_lens=qlens, order_group=group)
+            return full()[1].cpu()
+
+        times = {"compact": [], "full": []}
+        for _ in range(5):
+            for name, fn in (("compact", lambda: run(tokens, qlens)), ("full", full_step)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        case = {"replays": replays, "b1_launches": b1,
+                "positions": r * chunk * -(-k // r) + n * (n - k > -k % r),
+                "tokens": int(qlens.sum()),
+                "compact_ms": float(np.median(times["compact"])),
+                "full_width_ms": float(np.median(times["full"])),
+                "held": held, "control": {k2: bad[k2] for k2 in ("untied", "logit_shift")}}
+        out["cases"][k] = case
+        print(f"[compact] {k} wide rows: " + json.dumps(case))
+        if held["untied"] or held["logit_shift"] > ADAPT_SHIFT_LIMIT:
+            raise AssertionError(f"compact step, {k} wide rows, against the full-width step: "
+                                 f"{held}")
+        if not (bad["untied"] or bad["logit_shift"] > ADAPT_SHIFT_LIMIT):
+            raise AssertionError(f"compact step, {k} wide rows: the misplaced group passed: {bad}")
+    print(f"[compact] checks: R {r}; B1 30 a replay; replays equal to eager; tokens and logits "
+          f"held to the full-width step (tie rule at {TWO_STEP_TIE}, shift <= "
+          f"{ADAPT_SHIFT_LIMIT}); the misplaced group caught at "
+          f"{[out['cases'][k]['control'] for k in COMPACT_WIDE_ROWS]}")
+    del full, eng, pool
     torch.cuda.empty_cache()
     return out
 
@@ -1359,16 +1554,34 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
     staged: list = []
     first: dict = {}
     sched_of: dict = {}
-    admit, run = eng._admit, eng._run_mixed
+    # This step's logits, kept from each replay before the next overwrites
+    # them: (slot, position) -> row at each position a row may sample; the
+    # first step's every valid position, slot -> (q_len, vocab).
+    now: dict = {"idx": -1, "at": {}, "valid": {}}
+    admit, run, replay = eng._admit, eng._run_mixed, eng._replay
 
     def admit_rec(req, slot, sched, *rest, **kw):
         sched_of["sched"] = sched
         return admit(req, slot, sched, *rest, **kw)
 
-    def run_rec(step, tokens, pool, qlens, order_group, *rest):
+    def replay_rec(step, slots, out, sampling):
+        logits = replay(step, slots, out, sampling)
+        qlens, ladder = sampling[0], sampling[4]
+        for j, b in enumerate(slots):
+            if b < 0:
+                continue
+            q = int(qlens[b])
+            for p in (range(q) if ladder[b] else (q - 1,)):
+                now["at"][(int(b), p)] = logits[j, p].clone()
+            if now["idx"] == 0:
+                now["valid"][int(b)] = logits[j, :q].clone()
+        return logits
+
+    def run_rec(width, tokens, pool, qlens, order_group, *rest):
         ladder = rest[4]  # (temps, seeds, counts, lens, ladder, overlap)
         idx = len(staged)
         staged.append(int(order_group))
+        now.update(idx=idx, at={}, valid={})
         if audit:
             pool.check_invariants()
         view = pool
@@ -1378,13 +1591,12 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
                 full = int(pool.lens[b]) // pool.page  # pages written before this step
                 bt[b, 1:full] = bt[b, 0]
             view = _WalkView(pool, bt)
-        toks = run(step, tokens, view, qlens, order_group, *rest)
+        toks = run(width, tokens, view, qlens, order_group, *rest)
         if idx == 0:
             first.update(tokens=tokens.copy(), block_table=view.block_tables.copy(),
                          lens=pool.lens.copy(), q_lens=qlens.copy(),
                          order_group=int(order_group), width=tokens.shape[1],
-                         logits=torch.cat([step.outputs[0][b, :int(qlens[b])]
-                                           for b in np.flatnonzero(qlens > 0)]).clone())
+                         logits=torch.cat([now["valid"][b] for b in np.flatnonzero(qlens > 0)]))
         sched = sched_of["sched"]
         rows, pos, keys = [], [], []
         for b in np.flatnonzero(qlens > 0):
@@ -1397,18 +1609,18 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
                 rows.append(int(b))
                 pos.append(p)
                 keys.append((st.request.rid, len(st.generated) + (p if ladder[b] else 0)))
-        last = step.outputs[0][rows, pos].clone()
         for j, key in enumerate(keys):
             # Positions a verification row did not accept are made again by
             # a later step, whose logits replace theirs.
             assert key not in logits_at or key in speculative, (label, key)
-            logits_at[key] = (idx, last[j])
+            logits_at[key] = (idx, now["at"][(rows[j], pos[j])])
             (speculative.add if ladder[rows[j]] else speculative.discard)(key)
         return toks
 
-    eng._admit, eng._run_mixed = admit_rec, run_rec
+    eng._admit, eng._run_mixed, eng._replay = admit_rec, run_rec, replay_rec
     reqs = _main_requests(cfg.vocab)
     before = {name: eng.obs.value(name) for name in _RUN_COUNTERS}
+    wide0 = eng.obs.value("serve.wide_replays")
     drafter = getattr(eng, "drafter", None)
     drafter_steps = getattr(drafter, "steps", 0)
     bad.zero_()
@@ -1419,7 +1631,7 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
         results = eng.generate(reqs)
         torch.cuda.synchronize()
     finally:
-        eng._admit, eng._run_mixed, eng.llc.sample = admit, run, sample
+        eng._admit, eng._run_mixed, eng._replay, eng.llc.sample = admit, run, replay, sample
     wall = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     library = dict(cuda_lib.library_counts)
@@ -1431,9 +1643,10 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
         assert len(logits_at) == 12 * 32, label
     assert int(bad.item()) == 0, f"{label}: {int(bad.item())} non-finite logits"
     assert eng.compiled_step_count() == 2, (label, eng.step_graphs())
-    # A model drafter's steps run B1 too, one launch a layer each.
-    assert launches["paged_decode"] == cfg.n_layers * (stats.mixed_steps + drafter_steps), \
-        (label, launches, drafter_steps)
+    # B1 launches once a layer a replay; a model drafter's steps run it too.
+    n_replays = _mixed_replays(eng, wide0)
+    assert launches["paged_decode"] == cfg.n_layers * (n_replays + drafter_steps), \
+        (label, launches, n_replays, drafter_steps)
     assert len(staged) == stats.mixed_steps, label
     walls: dict[str, list] = {"narrow": [], "wide": []}
     switches, events = [], []
@@ -1472,6 +1685,7 @@ def _recorded_run(eng, bad, cfg, label: str, *, wrong_walk_from=None, expect_ok=
         "sample_host_ms_max": 1e3 * max(sample_s) if sample_s else None,
         "mixed_steps": stats.mixed_steps,
         "wide_steps": stats.wide_steps,
+        "replays": n_replays,
         "stats": stats.as_dict(),
         "counters": {name: eng.obs.value(name) - before[name] for name in _RUN_COUNTERS},
         "wall_s": wall,
@@ -2654,7 +2868,7 @@ def phase_moe_path(matrix: dict, profile: bool = False) -> tuple[dict, dict]:
 
     # ---- continuous ----
     cont = phase_main_path(cfg, lm, params, profile=profile, label="olmoe continuous")
-    want = per_pass * cont["mixed_steps"]
+    want = per_pass * cont["replays"]
     if cont["library"]["ragged_dot"] != want:
         raise AssertionError(f"olmoe continuous: ragged_dot {cont['library']}, want {want}")
     for g in cont["graphs"].values():
@@ -4143,6 +4357,7 @@ def phase_sharded_serve(cfg, lm, params, main: dict, static: dict, int8_run: dic
     replays = {name: g.replays for name, g in eng.step_graphs().items()}
     eng.tracer.clear()
     cuda_lib.reset_launch_counts()
+    wide0 = eng.obs.value("serve.wide_replays")
     t0 = time.perf_counter()
     results = eng.generate(_main_requests(cfg.vocab))
     torch.cuda.synchronize()
@@ -4150,6 +4365,7 @@ def phase_sharded_serve(cfg, lm, params, main: dict, static: dict, int8_run: dic
     launches = dict(cuda_lib.launch_counts)
     stats = eng.last_stats
     replayed = {name: g.replays - replays[name] for name, g in eng.step_graphs().items()}
+    n_replays = _mixed_replays(eng, wide0)
     streams = {r.rid: r.tokens.tolist() for r in results}
     differ = sorted(rid for rid, t in streams.items() if t != main["streams"][rid])
     tokens = sum(r.steps for r in results)
@@ -4168,10 +4384,10 @@ def phase_sharded_serve(cfg, lm, params, main: dict, static: dict, int8_run: dic
         raise AssertionError(f"sharded serving: {[(r.status, r.steps) for r in results]}")
     if differ:
         raise AssertionError(f"sharded serving streams differ from the main path's: {differ}")
-    if launches.get("paged_decode") != cfg.n_layers * stats.mixed_steps:
+    if launches.get("paged_decode") != cfg.n_layers * n_replays:
         raise AssertionError(f"sharded serving launches {launches}, want paged_decode "
-                             f"{cfg.n_layers} x {stats.mixed_steps}")
-    if sum(replayed.values()) != stats.mixed_steps:
+                             f"{cfg.n_layers} x {n_replays}")
+    if sum(replayed.values()) != n_replays:
         raise AssertionError(f"sharded serving: not every mixed step replayed: {replayed}")
     out["graphs"] = phase_graphs(eng, label)
     out["pools"] = _pool_placement(eng.last_pool, label)
@@ -4795,7 +5011,8 @@ def phase_examples() -> dict:
         stats = sv["stats"]
         launches = {k: v for k, v in cuda_lib.launch_counts.items() if v}
         # each captured step's warm-up runs once for real (serve/step_graph.py)
-        want = {"paged_decode": sv["cfg"].n_layers * (stats.mixed_steps + sv["graphs"])}
+        replayed = stats.mixed_steps - stats.wide_steps + sv["wide_replays"]
+        want = {"paged_decode": sv["cfg"].n_layers * (replayed + sv["graphs"])}
         statuses = sorted({r.status for r in sv["results"]})
         out["serve_lm"] = {"scheduler": sv["scheduler"], "requests": len(sv["results"]),
                            "statuses": statuses, "tokens": sv["tokens"],
@@ -5738,6 +5955,7 @@ def main(argv=None) -> int:
     ssd_check = phase_ssd_matrix()
     cfg, lm, params = build_main_model()
     main_path = phase_main_path(cfg, lm, params, profile=args.profile)
+    compact = phase_compact_step(cfg, lm, params)
     adapt, fixed = phase_adapt_path(cfg, lm, params, main_path)
     static = phase_static_path(cfg, lm, params, profile=args.profile)
     int8_cont = phase_int8_continuous(cfg, params, fixed, main_path)

@@ -115,6 +115,7 @@ def main(argv=None) -> dict:
         print(f"  rid={r.rid}: {r.tokens.tolist()}")
     return {"cfg": cfg, "scheduler": scheduler, "results": results, "stats": eng.last_stats,
             "graphs": eng.compiled_step_count(), "tokens": total, "seconds": dt,
+            "wide_replays": int(eng.obs.value("serve.wide_replays")),
             "restored_step": restored_step}
 
 

@@ -32,19 +32,30 @@ with ``adapt_order=True``, re-picks it every ``adapt_epoch`` mixed steps
 from the modeled-LLC readings of an ``LLCSampler`` (``obs.llc``) on the
 live pool; every step stages the order's reversal group, resolved then.
 A step has one of two widths: 1 when every row decodes, ``prefill_chunk``
-otherwise. Identical prompt prefixes share pages (adoption +
-copy-on-write).
+otherwise. A wide step runs only its wide rows (``q_len > 1``: prompt
+chunks, re-prefills, verification chunks) at the chunk width, in groups of
+``R = clamp(ceil(WIDE_POSITIONS / prefill_chunk), 1, n_slots)`` rows, one
+replay of the (R, chunk) compact step a group (one-token rows fill the
+last group's spare rows), then the one-token rows left in one replay of the
+narrow step (none when none is left: with n_slots <= R a wide step is one
+replay, of the full-width step); the replays go back to back, and the host
+waits once, for the step's tokens. Identical prompt prefixes share pages
+(adoption + copy-on-write).
 
 Steps as captured graphs (``serve.step_graph``), the counterpart of the
 reference's jitted steps: on the card the continuous mixed step is one
-CUDA graph per width (two at most, sharing one memory pool) and the static
-decode step one graph per engine, each captured at its first use and
-replayed for every step after; tokens, block table, lengths, q_lens and
-the reversal group reach it through static buffers, and greedy argmax runs
-inside it. The engine owns what a graph's pointers bake in: the pool's
-pages (its host state is reset at each ``generate()``) and the static
-decode caches of ``max_len``, into which each group's prefill result is
-copied. The static prefill stays eager: its shape changes with each
+CUDA graph per width (two at most, sharing one memory pool: the narrow
+(n_slots, 1) step and the compact (R, chunk) step) and the static decode
+step one graph per engine, each captured at its first use and replayed
+for every step after; tokens, block table, lengths, q_lens and the
+reversal group reach it through static buffers (a wide step's groups in
+one copy, each moved into the compact step's buffers on the device before
+its replay), and greedy argmax runs inside it. Each replay's tokens, and
+the draws of its sampling rows, are copied into one buffer of the engine
+before the next replay, and that buffer reaches the host in one copy. The
+engine owns what a graph's pointers bake in: the pool's pages (its host
+state is reset at each ``generate()``) and the static decode caches of
+``max_len``, into which each group's prefill result is copied. The static prefill stays eager: its shape changes with each
 group's bucket. On the CPU the same step functions run eagerly over the
 same buffers. A failed capture or replay raises; nothing falls back to
 eager.
@@ -120,7 +131,7 @@ unsharded, on its own params and pool.
 Tracing (``obs.trace``; every run records it, nothing leaves the process
 until the caller writes it out). Each step span (``serve.device_step``,
 ``serve.decode_step``, ``serve.prefill``) holds ``serve.stage`` (inputs
-into staging, the copy enqueued), ``serve.replay`` (the graph's launch;
+into staging, the copy enqueued), ``serve.replay`` (the graphs' launches;
 the eager prefill's forward is ``serve.forward``) and ``serve.sync`` (the
 host's wait for the tokens); ``serve.step`` also holds
 ``serve.admission`` and ``serve.commit`` (advance, record, finish, the
@@ -129,9 +140,12 @@ between CUDA events (``step_graph.DeviceClock``), and ``gap_ns``, the
 card's wait since the previous step's window (since ``generate()``'s
 entry for the first): the events are read once done, after the next
 step's launch and at the end of ``generate()``, so no wait is added.
-``positions`` on ``serve.device_step`` (slots x width) and
-``serve.prefill`` (rows x bucket) count what the step computes beside
-its ``tokens``. Each request leaves two instants: ``serve.request.admit``
+``positions`` on ``serve.device_step`` (R x chunk a compact replay, plus
+n_slots where the narrow step runs) and ``serve.prefill`` (rows x
+bucket) count what the step computes beside its ``tokens``; a wide
+``serve.device_step`` also carries ``replays`` (compact replays, plus 1
+where the narrow step runs), which the counter ``serve.wide_replays``
+sums. Each request leaves two instants: ``serve.request.admit``
 (``rid``, ``slot``, ``wait_ns``: from when it became admissible, at its
 arrival step's boundary or its preemption, to its admission; the static
 path's group waits until its prefill starts) and
@@ -187,6 +201,10 @@ __all__ = [
 
 CONTINUOUS_FAMILIES = ("dense", "moe")
 REQUEST_STATUSES = ("ok", "deadline", "cancelled", "shed", "failed")
+# Positions one replay of the compact wide step computes, at most: it takes
+# ceil(WIDE_POSITIONS / prefill_chunk) rows, so at a chunk of 256 its
+# products run 2,048 rows, well above the card's ridge.
+WIDE_POSITIONS = 2048
 
 
 def supports_continuous(cfg: ModelConfig) -> bool:
@@ -436,6 +454,9 @@ class ServeEngine:
             self.lm = build_model(cfg.with_(kv_layout="paged", page_size=page), device=self.device)
             self._page = page
             self._chunk = max(1, min(prefill_chunk or 4 * page, max_len))
+            # The compact wide step's rows, and the groups a step can need.
+            self._rows = max(1, min(-(-WIDE_POSITIONS // self._chunk), batch_size))
+            self._groups = -(-batch_size // self._rows)
         else:
             self.lm = lm
         self._budget = token_budget
@@ -484,6 +505,13 @@ class ServeEngine:
         self._decode: Optional[StepGraph] = None   # static decode step
         self._decode_caches: Optional[dict] = None
         self._graph_pool = None
+        # Each mixed step's tokens, one copy to the host: the narrow step's
+        # (n_slots,) then each compact group's (R, chunk).
+        if scheduler == "continuous":
+            self._mixed_out = torch.zeros(batch_size + self._groups * self._rows * self._chunk,
+                                          dtype=torch.int32, device=self.device)
+            self._narrow_out = self._mixed_out[:batch_size].view(batch_size, 1)
+            self._slot_ids = np.arange(batch_size)
         self.last_pool: Optional[PagedKVPool] = None
         # Every step's window on the card (the step spans' device_ns and
         # gap_ns), one clock across the engine's graphs and its prefill.
@@ -500,6 +528,7 @@ class ServeEngine:
         self._m_generated = r.counter("serve.tokens.generated")
         self._m_steps_wide = r.counter("serve.steps", width="wide")
         self._m_steps_narrow = r.counter("serve.steps", width="narrow")
+        self._m_wide_replays = r.counter("serve.wide_replays")
         self._m_req_admitted = r.counter("serve.requests", event="admitted")
         self._m_req_finished = r.counter("serve.requests", event="finished")
         self._m_req_requeued = r.counter("serve.requests", event="requeued")
@@ -583,7 +612,8 @@ class ServeEngine:
 
     def compiled_step_count(self) -> int:
         """Step graphs the engine holds, over its whole life: continuous, one
-        per mixed-step width used (at most two: 1 and the chunk width);
+        per mixed-step width used (at most two: 1 and the chunk width, the
+        latter the compact step of R rows);
         static, the decode step (at most one). The counterpart of the
         reference's compiled variants. On the CPU they are the same steps'
         buffers, run eagerly."""
@@ -596,11 +626,11 @@ class ServeEngine:
             out["decode"] = self._decode
         return out
 
-    def _new_step(self, name: str, fn, inputs: dict, state) -> StepGraph:
+    def _new_step(self, name: str, fn, inputs: dict, state, groups: int = 0) -> StepGraph:
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         step = StepGraph(name, fn, inputs, device=self.device, state=state,
-                         pool=self._graph_pool, clock=self._clock)
+                         pool=self._graph_pool, clock=self._clock, groups=groups)
         self._m_compiles.inc()
         self.tracer.instant("serve.compile", step=name, variants=self.compiled_step_count() + 1)
         return step
@@ -635,24 +665,18 @@ class ServeEngine:
             out[i, length - len(p) :] = p
         return out
 
-    def _pick(self, logits: torch.Tensor, greedy: torch.Tensor, draws) -> np.ndarray:
-        """``greedy`` (the int32 argmax of ``logits`` over the last axis) as
-        a host array, with the positions of ``draws`` — (index, temperature,
-        seed) — replaced by draws from the logits there."""
-        if draws:
-            greedy = greedy.clone()
-            for idx, temp, seed in draws:
-                greedy[idx] = sample_token(logits[idx], temp, seed)
-        return greedy.cpu().numpy()
-
     def _sample(self, logits: torch.Tensor, greedy: torch.Tensor, temps: np.ndarray,
                 seeds: np.ndarray, count: int) -> np.ndarray:
-        """One token per row of logits (B, V), as a host array: greedy where
-        the temperature is 0, else a draw with sample index ``count``."""
-        return self._pick(logits, greedy, [
-            (int(b), float(temps[b]), sample_seed(self.seed, seeds[b], count))
-            for b in np.flatnonzero(temps > 0.0)
-        ])
+        """One token per row of logits (B, V), as a host array: ``greedy``
+        (their int32 argmax) where the temperature is 0, else a draw with
+        sample index ``count``."""
+        rows = np.flatnonzero(temps > 0.0)
+        if len(rows):
+            greedy = greedy.clone()
+            for b in rows:
+                greedy[b] = sample_token(logits[b], float(temps[b]),
+                                         sample_seed(self.seed, seeds[b], count))
+        return greedy.cpu().numpy()
 
     def _prefill_batch(self, tokens: np.ndarray) -> dict:
         """``LM.prefill``'s batch for the padded prompts (B, bucket), with the
@@ -814,10 +838,12 @@ class ServeEngine:
     def _mixed_step(self, width: int, pool: PagedKVPool) -> StepGraph:
         """The mixed step of ``width`` over the engine's pool, created and
         captured at its first use: every input zeroed, so its warm-up
-        writes only the dummy page 0."""
+        writes only the dummy page 0. Width 1 runs every slot; the chunk
+        width is the compact step, R rows, its inputs staged a group at a
+        time."""
         step = self._mixed.get(width)
         if step is None:
-            n = self.batch_size
+            n = self.batch_size if width == 1 else self._rows
             step = self._new_step(
                 f"mixed step (width {width})", self._mixed_fn(pool.pages),
                 {"tokens": (n, width), "block_table": (n, pool.blocks_per_seq), "lens": (n,),
@@ -825,6 +851,7 @@ class ServeEngine:
                 # This rank's pages but the dummy page 0: the invalid rows'
                 # writes land there in no fixed order, and nothing reads them.
                 [t[:, 1:] for t in pool.local_pages().values()],
+                groups=0 if width == 1 else self._groups,
             )
             step.capture()
             self._mixed[width] = step
@@ -839,34 +866,102 @@ class ServeEngine:
             return logits, _argmax(logits)
         return step
 
+    def _layout(self, width: int, qlens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Which replay runs each row of a step: ``(sel, narrow)``. ``sel``
+        (groups, R): the slot row j of compact replay g serves (-1: none),
+        the wide rows (``q_len > 1``) in slot order, then one-token rows in
+        the last group's spare rows (computed there anyway); ``narrow``:
+        the slots whose rows run the narrow step, the other one-token rows
+        (every row at width 1)."""
+        r = self._rows
+        if width == 1:
+            return np.zeros((0, r), np.int64), qlens > 0
+        wide, ones = np.flatnonzero(qlens > 1), np.flatnonzero(qlens == 1)
+        spare = -len(wide) % r
+        packed = np.concatenate([wide, ones[:spare]])
+        sel = np.full((-(-len(packed) // r) * r,), -1, np.int64)
+        sel[:len(packed)] = packed
+        narrow = np.zeros(len(qlens), bool)
+        narrow[ones[spare:]] = True
+        return sel.reshape(-1, r), narrow
+
     @torch.no_grad()
-    def _run_mixed(self, step: StepGraph, tokens, pool, qlens, order_group, temps, seeds,
-                   counts, lens, ladder, overlap=None) -> np.ndarray:
+    def _run_mixed(self, width: int, tokens, pool, qlens, order_group, temps, seeds, counts,
+                   lens, ladder, overlap=None) -> np.ndarray:
         """One ragged step: (n_slots, width) tokens over ``pool``'s block
         table and the staged lengths ``lens`` -> the sampled token at every
-        chunk position, as a host array. Greedy everywhere; a sampling row
+        chunk position, as a host array. At width 1 the narrow step runs
+        every slot. Wider, the rows run as :meth:`_layout` lays them out:
+        R at a time through the compact step, then the one-token rows left
+        through the narrow step (not at all when none is left), every other
+        row at ``q_len`` 0 there; a row at ``q_len`` 0 in a replay stages
+        length 0, so it reads nothing. Greedy everywhere; a sampling row
         draws at its last valid position with sample index ``counts[row]``,
         a verification row (``ladder[row]``) at every position p with index
         ``counts[row] + p``. ``overlap`` is host work issued once the
-        replay is launched, before the host waits for its tokens."""
+        replays are launched, before the host waits for the tokens."""
         tr = self.tracer
-        with tr.span("serve.stage"):
-            step.stage(tokens=tokens, block_table=pool.block_tables, lens=lens, q_lens=qlens,
-                       order_group=order_group)
+        n = self.batch_size
+        out = self._mixed_out
+        sampling = (qlens, temps, seeds, counts, ladder)
+        sel, narrow_rows = self._layout(width, qlens)
+        n_groups, r = sel.shape
+        on, src = sel >= 0, np.maximum(sel, 0)
+        narrow = self._mixed_step(1, pool) if narrow_rows.any() else None
+        with tr.span("serve.stage"):   # the step's device window opens here
+            if n_groups:
+                compact = self._mixed_step(width, pool)
+                compact.stage_groups(
+                    n_groups, tokens=np.where(on[..., None], tokens[src], self.eos),
+                    block_table=np.where(on[..., None], pool.block_tables[src], 0),
+                    lens=np.where(on, lens[src], 0), q_lens=np.where(on, qlens[src], 0),
+                    order_group=order_group)
+            if narrow is not None:
+                narrow.stage(tokens=tokens[:, :1], block_table=pool.block_tables,
+                             lens=np.where(narrow_rows, lens, 0),
+                             q_lens=np.where(narrow_rows, qlens, 0), order_group=order_group)
         with tr.span("serve.replay"):
-            logits, greedy = step()
+            for g in range(n_groups):
+                compact.load(g)
+                at = n + g * r * width
+                self._replay(compact, sel[g], out[at:at + r * width].view(r, width), sampling)
+            if narrow is not None:
+                self._replay(narrow, np.where(narrow_rows, self._slot_ids, -1),
+                             self._narrow_out, sampling)
+            self._clock.end()
         self._clock.read()  # the windows before, while the card runs this one
         if overlap is not None:
             overlap()
-        draws = []
-        for b in np.flatnonzero((temps > 0.0) & (qlens > 0)):
+        with tr.span("serve.sync"):
+            host = out[:n + n_groups * r * width].cpu().numpy()
+        if width == 1:
+            return host.reshape(n, 1)
+        toks = np.full((n, width), self.eos, np.int32)
+        toks[:, 0] = host[:n]
+        toks[sel[on]] = host[n:].reshape(-1, width)[on.ravel()]
+        return toks
+
+    def _replay(self, step: StepGraph, slots: np.ndarray, out: torch.Tensor,
+                sampling) -> torch.Tensor:
+        """One replay of ``step``, whose row j serves slot ``slots[j]`` (-1:
+        none): its greedy tokens into ``out`` (the step's rows x width),
+        each sampling row's draws in place of its greedy tokens, all
+        ordered before the next replay overwrites the step's outputs.
+        ``sampling``: (q_lens, temperatures, seeds, sample counts, ladder)
+        by slot. Returns the step's logits."""
+        qlens, temps, seeds, counts, ladder = sampling
+        logits, greedy = step.replay()
+        out.copy_(greedy)
+        if not temps.any():
+            return logits
+        for j in np.flatnonzero((slots >= 0) & (temps[np.maximum(slots, 0)] > 0.0)):
+            b = slots[j]
             q = int(qlens[b])
             for p in (range(q) if ladder[b] else (q - 1,)):
                 idx = int(counts[b]) + (p if ladder[b] else 0)
-                draws.append(((int(b), p), float(temps[b]),
-                              sample_seed(self.seed, seeds[b], idx)))
-        with tr.span("serve.sync"):
-            return self._pick(logits, greedy, draws)
+                out[j, p] = sample_token(logits[j, p], float(temps[b]),
+                                         sample_seed(self.seed, seeds[b], idx))
+        return logits
 
     # ---- continuous path -----------------------------------------------------
 
@@ -1199,7 +1294,6 @@ class ServeEngine:
                 self._m_budget.set(planned / sched.token_budget)
 
                 width = 1 if all(it.q_len == 1 for it in plan) else self._chunk
-                mixed = self._mixed_step(width, pool)
                 tokens = np.full((n_slots, width), self.eos, np.int32)
                 qlens = np.zeros((n_slots,), np.int32)
                 ladder = np.zeros((n_slots,), bool)
@@ -1216,6 +1310,16 @@ class ServeEngine:
                         ladder[it.slot] = it.n_draft > 0
                         n_decode += it.q_len
                     qlens[it.slot] = it.q_len
+                # Captured here, outside the step's span: the compact step
+                # and the narrow one, as the step's layout needs them.
+                sel, narrow_rows = self._layout(width, qlens)
+                narrow_runs = bool(narrow_rows.any())
+                if len(sel):
+                    self._mixed_step(width, pool)
+                if narrow_runs:
+                    self._mixed_step(1, pool)
+                replays = len(sel) + narrow_runs
+                positions = self._rows * width * len(sel) + n_slots * narrow_runs
 
                 # The order in effect now (a switch after the last step
                 # takes effect here): one staged int32, nothing captured.
@@ -1229,15 +1333,17 @@ class ServeEngine:
                     # same state.
                     if faults is not None:
                         faults.raise_if("device.step")
-                    return self._run_mixed(mixed, tokens, pool, qlens, order_group, temps,
+                    return self._run_mixed(width, tokens, pool, qlens, order_group, temps,
                                            seeds, counts, lens_op, ladder,
                                            overlap if tiered else None)
 
                 # The device span closes once the sampled tokens are on the
                 # host, so it brackets the step's device time; positions:
-                # what the step computes (every slot at its width).
+                # what the step computes (R x chunk a compact replay, n_slots
+                # the narrow one).
                 with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned,
-                             positions=n_slots * width) as args:
+                             positions=positions,
+                             **({"replays": replays} if width > 1 else {})) as args:
                     self._clock.into(args)
                     try:
                         toks = dispatch()
@@ -1270,6 +1376,8 @@ class ServeEngine:
                     self._m_tok_decode.inc(n_decode)
                     self._m_tok_prefill.inc(n_prefill)
                     (self._m_steps_wide if width > 1 else self._m_steps_narrow).inc()
+                    if width > 1:
+                        self._m_wide_replays.inc(replays)
                     for it in plan:
                         st = sched.slots[it.slot]
                         pool.advance(it.slot, it.q_len)

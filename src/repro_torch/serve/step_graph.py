@@ -11,6 +11,12 @@ the caller names the CPU.
 
 The inputs are int32 tensors, views into one flat buffer (and one pinned
 staging buffer), so staging costs one host-to-device copy a step. A step
+replayed several times in one engine step (``groups`` > 0: the continuous
+engine's compact wide step, one replay a group of rows) stages every
+group's inputs in one host-to-device copy into a device buffer of groups
+(:meth:`StepGraph.stage_groups`), and each replay first moves its group
+into the inputs by a copy on the device (:meth:`StepGraph.load`): no
+staging is overwritten before its copy has run. A step
 function must read every value that changes from step to step from those
 buffers or from tensors that outlive the graph (a pool's pages, an
 engine's caches; under a mesh, DTensors, whose local blocks the graph
@@ -35,7 +41,9 @@ in CUDA's global mode, where such a call from any thread is an error).
 
 A :class:`DeviceClock` times the steps on the card without a host wait: a
 step graph given one records a CUDA event before its staged copy and
-another after its replay, and the engine reads a pair once its work is
+another after its replay (:meth:`StepGraph.replay` replays without
+closing the window, for a step of several replays, whose caller closes it
+after the last), and the engine reads a pair once its work is
 done, after launching the step that follows (``device_ns``: the step's
 window on the card; ``gap_ns``: the card's wait since the previous window
 ended). No event is recorded inside a capture; on the CPU the clock
@@ -140,14 +148,15 @@ class DeviceClock:
 
 class StepGraph:
     def __init__(self, name: str, fn: Callable, inputs: dict, *, device, state=(), pool=None,
-                 clock: Optional[DeviceClock] = None):
+                 clock: Optional[DeviceClock] = None, groups: int = 0):
         """``fn(**buffers)`` -> a tuple of tensors, where ``buffers`` maps
         each name of ``inputs`` (name -> shape) to its int32 static
         buffer on ``device``. ``state``: the tensors the step writes in
         place (for :meth:`replay_against_eager`). ``pool`` is a
         ``torch.cuda.graph_pool_handle()`` to share with other steps
         (default: a pool of its own). ``clock``: a window of it opens
-        before each staged copy and closes after each replay."""
+        before each staged copy and closes after each call. ``groups``:
+        how many groups of inputs :meth:`stage_groups` can stage at once."""
         self.name = name
         self.clock = clock
         self.fn = fn
@@ -161,10 +170,20 @@ class StepGraph:
         self._staging = torch.zeros(n, dtype=torch.int32, pin_memory=True) if on_card else self._flat
         self.inputs: dict[str, torch.Tensor] = {}
         self._host: dict[str, np.ndarray] = {}
+        # Staging of several groups: (groups, n) pinned on the card, copied
+        # whole into a device buffer of the same shape (the same buffer off
+        # the card), one row of which load() moves into the inputs.
+        self._group_staging = (torch.zeros((groups, n), dtype=torch.int32, pin_memory=True)
+                               if on_card else torch.zeros((groups, n), dtype=torch.int32))
+        self._group_flat = (torch.zeros((groups, n), dtype=torch.int32, device=self.device)
+                            if on_card else self._group_staging)
+        self._group_host: dict[str, np.ndarray] = {}
         at = 0
         for key, shape in inputs.items():
             self.inputs[key] = self._flat[at:at + sizes[key]].view(shape)
             self._host[key] = self._staging[at:at + sizes[key]].view(shape).numpy()
+            self._group_host[key] = (self._group_staging[:, at:at + sizes[key]]
+                                     .view((groups, *shape)).numpy())
             at += sizes[key]
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[tuple] = None
@@ -182,6 +201,25 @@ class StepGraph:
             self.clock.begin()
         if self._staging is not self._flat:
             self._flat.copy_(self._staging, non_blocking=True)
+
+    def stage_groups(self, n: int, **arrays) -> None:
+        """Write the first ``n`` groups of inputs, each array with a leading
+        axis of ``n`` groups (or one value for every group), and move them
+        to the device in one copy; :meth:`load` then puts one group into
+        the inputs. Name every input: a group's row keeps nothing from an
+        earlier step. As with :meth:`stage`, call again only after reading
+        the previous step's outputs on the host."""
+        for key, arr in arrays.items():
+            self._group_host[key][:n] = arr
+        if self.clock is not None:
+            self.clock.begin()
+        if self._group_staging is not self._group_flat:
+            self._group_flat[:n].copy_(self._group_staging[:n], non_blocking=True)
+
+    def load(self, group: int) -> None:
+        """Group ``group`` of the last :meth:`stage_groups` into the inputs,
+        a copy on the device ordered before the next replay."""
+        self._flat.copy_(self._group_flat[group])
 
     @torch.no_grad()
     def capture(self) -> None:
@@ -220,24 +258,30 @@ class StepGraph:
 
     @torch.no_grad()
     def __call__(self) -> tuple:
-        """Run the step on the staged inputs: replay the graph on the card
-        (capturing it first if needed), the function itself on the CPU.
-        Returns the step's outputs (on the card, the graph's static output
-        tensors, overwritten by the next replay)."""
-        if self.device.type != "cuda":
-            outputs = tuple(self.fn(**self.inputs))
-        else:
-            self.capture()
-            try:
-                self.graph.replay()
-            except RuntimeError as err:
-                raise StepCaptureError(f"replay of the {self.name} failed: {err}") from err
-            cuda_lib.add_launches(self.launches)
-            self.replays += 1
-            outputs = self.outputs
+        """Run the step on the staged inputs (:meth:`replay`) and close the
+        clock's window."""
+        outputs = self.replay()
         if self.clock is not None:
             self.clock.end()
         return outputs
+
+    @torch.no_grad()
+    def replay(self) -> tuple:
+        """Run the step on the inputs: replay the graph on the card
+        (capturing it first if needed), the function itself on the CPU.
+        Returns the step's outputs (on the card, the graph's static output
+        tensors, overwritten by the next replay). The clock's window stays
+        open."""
+        if self.device.type != "cuda":
+            return tuple(self.fn(**self.inputs))
+        self.capture()
+        try:
+            self.graph.replay()
+        except RuntimeError as err:
+            raise StepCaptureError(f"replay of the {self.name} failed: {err}") from err
+        cuda_lib.add_launches(self.launches)
+        self.replays += 1
+        return self.outputs
 
     def run_eager(self) -> tuple:
         """The step function itself on the current inputs (no graph): what a

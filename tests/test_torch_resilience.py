@@ -395,29 +395,35 @@ def test_engine_rejects_unknown_admission(models):
 def test_a_step_run_twice_is_idempotent(models):
     """The retry's premise on a pool written in place: at every mixed step
     of a run that preempts and restores, the step run a second time on the
-    pages the first run wrote (the staged inputs unchanged, ``len`` not
-    advanced) gives the same logits and leaves the same pages."""
+    pages the first run wrote (the same inputs, ``len`` not advanced) gives
+    the same logits at every replay, the same tokens, and leaves the same
+    pages."""
     _, _, lm, params = models
     eng = ServeEngine(lm, params, device="cpu", admission="optimistic", max_preemptions=10,
                       **GEO)
-    run, pick = eng._run_mixed, eng._pick
-    seen, checked = {}, []
+    run, replay = eng._run_mixed, eng._replay
+    seen, checked = [], []
 
-    def pick_rec(logits, greedy, draws):
-        seen["logits"] = logits.clone()
-        return pick(logits, greedy, draws)
+    def replay_rec(*args):
+        logits = replay(*args)
+        seen.append(logits.clone())
+        return logits
 
-    def twice(step, tokens, pool, *rest):
-        toks = run(step, tokens, pool, *rest)
-        pages = [t.clone() for t in pool.pages.values()]
-        again = step.run_eager()
-        assert torch.equal(seen["logits"], again[0])
+    def twice(width, tokens, pool, *rest):
+        seen.clear()
+        toks = run(width, tokens, pool, *rest)
+        first, pages = list(seen), [t.clone() for t in pool.pages.values()]
+        seen.clear()
+        again = run(width, tokens, pool, *rest)
+        np.testing.assert_array_equal(toks, again)
+        assert len(seen) == len(first) > 0
+        assert all(torch.equal(a, b) for a, b in zip(first, seen))
         for a, b in zip(pages, pool.pages.values()):
             assert torch.equal(a[:, 1:], b[:, 1:])   # page 0: invalid rows, any order
         checked.append(True)
         return toks
 
-    eng._pick, eng._run_mixed = pick_rec, twice
+    eng._replay, eng._run_mixed = replay_rec, twice
     res = eng.generate([Request(**s) for s in _specs(lm.cfg.vocab, 3, seed=11, max_new=24)])
     assert all(r.status == "ok" for r in res) and eng.last_stats.preemptions >= 1
     assert len(checked) == eng.last_stats.mixed_steps

@@ -268,11 +268,20 @@ def test_a_preempted_request_sums_its_waits(model):
 
 
 def test_positions_and_tokens_of_the_continuous_step(runs):
+    """A narrow step computes every slot once; with the 2 slots within R
+    rows, a wide step is one replay of the compact step, every slot at the
+    chunk width."""
     _, eng, _, events, _ = runs["continuous"]
     steps = _spans(events, "serve.device_step")
+    n = ENGINES["continuous"]["batch_size"]
     for e in steps:
-        assert e.args["positions"] == ENGINES["continuous"]["batch_size"] * e.args["width"]
+        if e.args["width"] == 1:
+            assert e.args["positions"] == n and "replays" not in e.args
+        else:
+            assert e.args["positions"] == n * e.args["width"] and e.args["replays"] == 1
         assert e.args["tokens"] <= e.args["positions"]
+    assert any(e.args["width"] > 1 for e in steps)
+    assert eng.obs.value("serve.wide_replays") == sum(e.args.get("replays", 0) for e in steps)
     planned = sum(e.args["tokens"] for e in steps)
     assert planned == (eng.obs.value("serve.step.tokens", kind="decode")
                        + eng.obs.value("serve.step.tokens", kind="prefill"))

@@ -286,6 +286,24 @@ def test_step_graph_stages_into_one_buffer():
     assert len(seen) == 2
 
 
+def test_step_graph_stages_groups():
+    """Groups of inputs staged at once (one value broadcast to every group),
+    each loaded into the inputs before its call; a later staging of fewer
+    groups leaves the inputs to what is loaded."""
+    seen = []
+    step = StepGraph("test step", lambda a, g: seen.append((a.clone(), g.clone())) or (a + g,),
+                     {"a": (2,), "g": ()}, device="cpu", groups=3)
+    step.stage_groups(3, a=np.arange(6).reshape(3, 2), g=10)
+    outs = []
+    for k in (2, 0, 1):
+        step.load(k)
+        outs.append(step()[0].tolist())
+    assert outs == [[14, 15], [10, 11], [12, 13]]
+    step.stage_groups(1, a=[[7, 8]], g=[1])
+    step.load(0)
+    assert step()[0].tolist() == [8, 9] and len(seen) == 4
+
+
 # ---- on the card ----------------------------------------------------------------
 
 
