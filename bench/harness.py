@@ -7,6 +7,11 @@ running to its drawn output length (``eos_id=-1``). Waves run back to back
 until ``seconds`` have passed since the first began; the window is whole
 waves. With ``trace`` one more wave runs under the profiler after them.
 
+What a configuration runs and is judged by (``Model``: the port's config,
+the weights, the plain reference) is this module's ``port_config``,
+``bench.weights.Weights`` and ``bench.reference.model.logits_at``, unless
+its file names a module that defines its own (``model_of``).
+
 Only ``run.py``'s ``main`` looks for the card; the tests drive
 ``run_cell`` on the CPU at a reduced size.
 """
@@ -17,7 +22,7 @@ import dataclasses
 import gc
 import sys
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,12 +31,12 @@ from bench import traffic
 from bench.counts import Shapes
 from bench.profiling import DeviceProfile, profile_call
 from bench.reference.check import numbers, served_sequence, token_gaps
-from bench.reference.model import RefConfig, logits_at
-from bench.spec import Cell, load_reader
+from bench.reference.model import logits_at
+from bench.spec import Cell, load_module, load_reader
 from bench.weights import Weights
 
-__all__ = ["Served", "WaveRecord", "RunRecord", "port_config", "Bench", "run_cell",
-           "forbidden_modules", "FORBIDDEN"]
+__all__ = ["Served", "WaveRecord", "RunRecord", "Model", "model_of", "port_config", "Bench",
+           "run_cell", "forbidden_modules", "FORBIDDEN"]
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 
@@ -96,6 +101,27 @@ def port_config(c: dict):
     return base.with_(**kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class Model:
+    """What one configuration file runs and is judged by:
+    ``port_config(c) -> ModelConfig``; ``Weights(shapes, c, *, device,
+    dtype)``, whose ``.params`` are in the port's layout, ``.fill(seed)``
+    draws them anew in place and ``.device`` is where they live; and
+    ``logits_at(params, c, seqs, *, fp8=False)``, the plain float32 forward
+    (TF32 off) and, with ``fp8``, its e4m3 control."""
+    port_config: Callable
+    Weights: type
+    logits_at: Callable
+
+
+def model_of(config: dict) -> Model:
+    """Each of the three from the module the file names (``"module"``),
+    where that module defines it, else the default."""
+    mod = load_module(config)
+    return Model(getattr(mod, "port_config", port_config), getattr(mod, "Weights", Weights),
+                 getattr(mod, "logits_at", logits_at))
+
+
 class Bench:
     """The engine of one cell on its weights, and the waves it serves."""
 
@@ -113,14 +139,15 @@ class Bench:
 
             build_all()
         self.shapes = Shapes.from_config(cell.config)
-        self.cfg = port_config(cell.config).with_(**cell.settings.get("model", {}))
+        model = model_of(cell.config)
+        self.cfg = model.port_config(cell.config).with_(**cell.settings.get("model", {}))
         e = dict(cell.settings["engine"])
         scheduler = e.pop("scheduler")
         self.slots, self.max_len = int(e.pop("slots")), int(e.pop("max_len"))
         self.continuous = scheduler == "continuous"
         self.sizes = traffic.request_sizes(cell.mix, int(cell.settings["wave"]), self.max_len)
         dtype = getattr(torch, cell.config["dtype"])
-        self.weights = Weights(self.shapes, device=self.device, dtype=dtype)
+        self.weights = model.Weights(self.shapes, cell.config, device=self.device, dtype=dtype)
         self.tracer = Tracer(capacity=1 << 20)
         drafter = cell.settings.get("drafter")
         if drafter:
@@ -208,17 +235,16 @@ def sample(served: list[Served], n: int, seed: int) -> list[Served]:
     return [done[longest]] + [done[rest[i]] for i in sorted(pick)]
 
 
-def reference_numbers(weights: Weights, config: dict, chosen: list[Served], *,
+def reference_numbers(weights, config: dict, chosen: list[Served], *,
                       control: bool = False) -> dict:
-    """The compared numbers of the chosen requests under the plain
-    reference; with ``control`` those of the tokens the fp8 reference puts
-    first, at the same positions."""
-    rc = RefConfig.from_config(config)
-    dev = weights.flat.device
-    seqs = [served_sequence(s.prompt, s.tokens, dev) for s in chosen]
-    ref = logits_at(weights.params, rc, seqs)
+    """The compared numbers of the chosen requests under the configuration's
+    plain reference; with ``control`` those of the tokens its fp8 control
+    puts first, at the same positions."""
+    ref_logits = model_of(config).logits_at
+    seqs = [served_sequence(s.prompt, s.tokens, weights.device) for s in chosen]
+    ref = ref_logits(weights.params, config, seqs)
     if control:
-        ctl = logits_at(weights.params, rc, seqs, fp8=True)
+        ctl = ref_logits(weights.params, config, seqs, fp8=True)
         return numbers([token_gaps(r, c.argmax(dim=-1)) for r, c in zip(ref, ctl)])
     return numbers([token_gaps(r, s.tokens) for r, s in zip(ref, chosen)])
 

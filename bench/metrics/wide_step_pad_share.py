@@ -1,7 +1,9 @@
 """Share of the positions the continuous engine's wide mixed steps compute
 that serve no planned token: 1 - the sum of ``tokens`` over the sum of
-``positions`` (slots x width) of the spans ``serve.device_step`` with
-``width`` > 1, over the window's waves."""
+``positions`` of the spans ``serve.device_step`` with ``width`` > 1, over
+the window's waves. A wide step's ``positions`` are its compact replays'
+rows x the chunk width, plus the slots of its narrow replay where one-token
+rows run there."""
 
 
 def read(run):

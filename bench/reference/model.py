@@ -1,6 +1,8 @@
 """Plain forward of the dense decoder (deepseek-7b) and of a top-k MoE
 decoder whose router softmaxes its top-k logits (Mixtral's routing, the
-port's), computed layer by layer in float32 with TF32 off.
+port's), computed layer by layer in float32 with TF32 off: the reference of
+every configuration file whose module, if it names one, defines no
+``logits_at`` of its own.
 
 It follows the published layer equations, with the departures that the
 configuration files list (those of the program it judges): pre-norm RMSNorm
@@ -124,10 +126,12 @@ def _moe(x: torch.Tensor, p: dict, s: Shapes, fp8: bool) -> torch.Tensor:
 
 
 @torch.no_grad()
-def logits_at(params: dict, rc: RefConfig, seqs, *, fp8: bool = False) -> list[torch.Tensor]:
+def logits_at(params: dict, config: dict, seqs, *, fp8: bool = False) -> list[torch.Tensor]:
     """For each ``(tokens, start)`` in ``seqs`` (tokens a 1-D integer tensor
     on the weights' device), the float32 logits (S - start, vocab) of rows
-    ``start..S-1``: row i predicts the token at i + 1."""
+    ``start..S-1`` of the model of configuration file ``config``: row i
+    predicts the token at i + 1."""
+    rc = RefConfig.from_config(config)
     s = rc.shapes
     with no_tf32():
         table = params["embed"]["table"]

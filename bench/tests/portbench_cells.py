@@ -15,6 +15,11 @@ for _p in (str(ROOT / "src"), str(ROOT)):
 
 from bench.spec import Cell, load_cell  # noqa: E402
 
+# The configuration modules the tests name (paths from the root, as a
+# configuration file's "module" gives them).
+LOWERED = "bench/tests/portbench_lowered.py"
+MODULES = [LOWERED]
+
 
 def tiny_config(c: dict, dtype: str = "float32") -> dict:
     c = dict(c, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
@@ -30,7 +35,11 @@ def moe_config() -> dict:
     """A MoE sibling of deepseek-7b's file (64 experts of width 1024, top 8,
     on the port's MoE family): no cell runs one yet, but the weights, the
     counts and the reference take MoE files, and these tests hold them to
-    the port."""
+    the port. It names no module, so it is judged by the default reference,
+    whose router softmaxes its top-k logits: that is the port's
+    ``olmoe-1b-7b`` family as it routes today, not OLMoE's published routing
+    (a softmax over all 64 logits, the top 8 kept unrenormalized, and q/k
+    RMSNorm), which a configuration file brings with a module of its own."""
     c = load_cell(ROOT, "deepseek-7b.chat").config
     return dict(c, name="moe-test", port_arch="olmoe-1b-7b", num_experts=64,
                 num_experts_per_tok=8, intermediate_size=1024)

@@ -11,10 +11,8 @@ import torch
 
 import portbench_cells
 from bench.counts import Shapes
-from bench.harness import port_config, run_cell
+from bench.harness import model_of, run_cell
 from bench.reference.check import numbers, served_sequence, token_gaps
-from bench.reference.model import RefConfig, logits_at
-from bench.weights import Weights
 
 CELLS = ["deepseek-7b.chat", "deepseek-7b.long-prompt"]
 
@@ -32,10 +30,12 @@ def test_weights_take_the_ports_layout(name):
     from repro_torch.models.model import build_model
 
     c = portbench_cells.tiny_config(portbench_cells.config_of(name))
-    cfg = port_config(c)
-    w = Weights(Shapes.from_config(c), device="cpu", dtype=torch.float32).fill(3)
+    model = model_of(c)
+    cfg = model.port_config(c)
+    w = model.Weights(Shapes.from_config(c), c, device="cpu", dtype=torch.float32).fill(3)
     assert _tree(w.params) == _tree(build_model(cfg, device="cpu").init(0))
-    again = Weights(Shapes.from_config(c), device="cpu", dtype=torch.float32).fill(3)
+    assert w.device == torch.device("cpu")
+    again = model.Weights(Shapes.from_config(c), c, device="cpu", dtype=torch.float32).fill(3)
     assert torch.equal(w.flat, again.flat)
     assert not torch.equal(w.flat, again.fill(4).flat)
     # the port's scales: 1/sqrt(fan-in) for q, 0.02 for the embedding
@@ -49,11 +49,12 @@ def test_reference_equals_the_ports_forward(name):
     from repro_torch.models.model import build_model
 
     c = portbench_cells.tiny_config(portbench_cells.config_of(name))
-    lm = build_model(port_config(c), device="cpu")
-    w = Weights(Shapes.from_config(c), device="cpu", dtype=torch.float32).fill(11)
+    model = model_of(c)
+    lm = build_model(model.port_config(c), device="cpu")
+    w = model.Weights(Shapes.from_config(c), c, device="cpu", dtype=torch.float32).fill(11)
     tokens = torch.randint(0, c["vocab_size"], (24,), generator=torch.Generator().manual_seed(0))
     start = 9
-    ref = logits_at(w.params, RefConfig.from_config(c), [(tokens, start)])[0]
+    ref = model.logits_at(w.params, c, [(tokens, start)])[0]
     port = torch.stack([lm.prefill(w.params, {"tokens": tokens[None, :k + 1]}, 64)[0][0, -1]
                         for k in range(start, len(tokens))]).float()
     assert ref.shape == port.shape
@@ -101,19 +102,21 @@ def test_static_padding_is_what_the_reference_sees():
     short = min(rec.served, key=lambda s: s.prompt_len)
     assert short.prompt_len < bucket
     assert (short.prompt[: bucket - short.prompt_len] == b.cfg.eos_id).all()
-    rc = RefConfig.from_config(cell.config)
-    padded = logits_at(b.weights.params, rc, [served_sequence(short.prompt, short.tokens, "cpu")])
-    bare = logits_at(b.weights.params, rc, [served_sequence(short.prompt[bucket - short.prompt_len:],
-                                                            short.tokens, "cpu")])
+    logits_at = model_of(cell.config).logits_at
+    padded = logits_at(b.weights.params, cell.config,
+                       [served_sequence(short.prompt, short.tokens, "cpu")])
+    bare = logits_at(b.weights.params, cell.config,
+                     [served_sequence(short.prompt[bucket - short.prompt_len:], short.tokens,
+                                      "cpu")])
     assert float(token_gaps(padded[0], short.tokens).max()) < 1e-4
     assert not torch.allclose(padded[0], bare[0], atol=1e-3)
 
 
 def test_run_cell_config_is_the_file():
     cell = portbench_cells.load_cell(portbench_cells.ROOT, "deepseek-7b.chat")
-    cfg = port_config(cell.config)
+    cfg = model_of(cell.config).port_config(cell.config)
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.vocab,
             cfg.norm_eps) == (30, 4096, 32, 32, 11008, 102400, 1e-6)
-    moe = port_config(portbench_cells.moe_config())
+    moe = model_of(portbench_cells.moe_config()).port_config(portbench_cells.moe_config())
     assert dataclasses.astuple(moe.moe)[:3] == (64, 8, 1024)
     assert moe.family == "moe" and moe.param_dtype == "bfloat16"

@@ -25,9 +25,10 @@ _CHUNK = 1 << 30   # elements a fill call takes at most
 class Weights:
     """The flat buffers and the params dict of views into them. ``fill(seed)``
     draws every weight anew in place, so a step graph that baked their
-    pointers sees the new values."""
+    pointers sees the new values. The configuration file ``config`` adds
+    nothing to this layout: the shapes give all of it."""
 
-    def __init__(self, s: Shapes, *, device, dtype=torch.bfloat16):
+    def __init__(self, s: Shapes, config: dict, *, device, dtype=torch.bfloat16):
         self.shapes = s
         L, d, hd = s.layers, s.d, s.head_dim
         qd, kvd = s.heads * hd, s.kv_heads * hd
@@ -44,6 +45,7 @@ class Weights:
                      ("w_down", (L, ff, d), ff ** -0.5)]
         total = sum(math.prod(shape) for _, shape, _ in segs)
         self.flat = torch.empty(total, dtype=dtype, device=device)
+        self.device = self.flat.device
         self.segments: dict[str, tuple[torch.Tensor, float]] = {}
         at = 0
         for name, shape, scale in segs:
@@ -56,7 +58,7 @@ class Weights:
         self.params = self._tree()
 
     def fill(self, seed: int) -> "Weights":
-        gen = torch.Generator(device=self.flat.device)
+        gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed) & ((1 << 63) - 1))
         for buf in [self.flat] + ([self.router] if self.router is not None else []):
             flat = buf.view(-1)
