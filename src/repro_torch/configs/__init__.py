@@ -8,7 +8,7 @@ from repro_torch.configs.base import (
     TrainConfig,
     torch_dtype,
 )
-from repro_torch.configs.registry import ARCH_IDS, all_configs, get_config
+from repro_torch.configs.registry import ARCH_IDS, PORT_ARCH_IDS, all_configs, get_config
 
 __all__ = [
     "ModelConfig",
@@ -20,6 +20,7 @@ __all__ = [
     "TrainConfig",
     "torch_dtype",
     "ARCH_IDS",
+    "PORT_ARCH_IDS",
     "all_configs",
     "get_config",
 ]

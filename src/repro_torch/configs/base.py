@@ -3,6 +3,15 @@ defaults as ``repro.configs.base.ModelConfig``, dtypes resolved to torch
 dtypes; ``ShapeConfig`` and the dry-run's four ``SHAPES``,
 ``ParallelConfig`` and ``TrainConfig`` as the reference's.
 
+Two fields are the port's own, off by default so that every config the
+reference has reads as it does there:
+``ModelConfig.qk_norm`` (an RMSNorm over the whole q and k projections,
+before the heads are split and roped, as OLMoE has) and
+``MoEConfig.norm_topk_prob`` (False: the experts' weights are the softmax
+over all E router logits taken at the top k, not renormalized, as OLMoE
+routes; True, the default: the softmax of the top-k logits, the
+reference's).
+
 Every assigned architecture is a ``ModelConfig`` in its own module under
 ``repro_torch.configs``; ``repro_torch.configs.registry`` maps ``--arch`` ids
 to them. The data is copied from the JAX package, not imported from it.
@@ -41,6 +50,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_z_coef: float = 1e-3
     aux_loss_coef: float = 1e-2
+    norm_topk_prob: bool = True              # False: softmax over all E, not renormalized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +102,7 @@ class ModelConfig:
     page_size: Optional[int] = None          # KV page rows; default kv_block
     scan_layers: bool = True
     logit_softcap: Optional[float] = None
+    qk_norm: bool = False                    # RMSNorm over the whole q and k projections
 
     @property
     def hd(self) -> int:
@@ -140,6 +151,8 @@ class ModelConfig:
             kw["n_prefix_embeds"] = 8
         if self.window is not None:
             kw["window"] = 32
+        if self.eos_id >= kw["vocab"]:   # a published eos past the reduced vocab
+            kw["eos_id"] = 1
         return self.with_(**kw)
 
 

@@ -177,6 +177,10 @@ _RULES: list[tuple[re.Pattern, tuple]] = [
     (re.compile(r"router(?:/w)?$"), ("fsdp", None)),  # router stays f32/replicated-out
     (re.compile(r"router/b$"), (None,)),
     (re.compile(r"conv_w$"), (None, "tp")),  # depthwise conv: channel dim
+    # q/k norm scales (the port's ``qk_norm``): whole, as the norm reduces
+    # over the whole projection, which a head split shards; DTensor reduces
+    # the sharded projection's squares across the tensor axis.
+    (re.compile(r"(?:q_norm|k_norm)/scale$"), (None,)),
 ]
 
 # Everything else (norm scales, biases, SSM scalars, factored optimizer

@@ -19,6 +19,15 @@ Both read no value on the host: group sizes come from a scatter-add of
 fixed length E, the repeat of each token k times is an expand, the inverse
 of the sort a scatter. So the dropless step runs inside the serve engine's
 captured CUDA graphs.
+
+Both route alike (``_route``, ``_choice_weights``): the top k of the
+float32 router logits, weighted by the softmax of those k logits (the
+reference's, Mixtral's), or with ``MoEConfig.norm_topk_prob`` off by the
+softmax over all E logits taken at the chosen k, not renormalized
+(OLMoE's). The aux losses read the full softmax either way. The dropless
+path hands its group sizes to ``obs.moe.record_groups``, which adds them
+into the serve engine's expert counters inside its steps, and does nothing
+elsewhere.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from repro_torch.dist.context import (
 )
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.obs.moe import record_groups
 
 __all__ = ["moe_init", "moe_apply", "expert_capacity"]
 
@@ -72,6 +82,16 @@ def _route(p: dict, cfg: ModelConfig, xf: torch.Tensor):
     logits = L.dense(p["router"], xf.float())
     top_logits, sel = torch.topk(logits, cfg.moe.top_k, dim=-1)
     return logits, top_logits, sel
+
+
+def _choice_weights(cfg: ModelConfig, logits: torch.Tensor, top_logits: torch.Tensor,
+                    sel: torch.Tensor) -> torch.Tensor:
+    """(T, k) float32 weights of each row's chosen experts: the softmax of
+    the top-k logits, or with ``norm_topk_prob`` off the softmax over all E
+    logits gathered at the choices (summing to less than one)."""
+    if cfg.moe.norm_topk_prob:
+        return torch.softmax(top_logits, dim=-1)
+    return torch.gather(torch.softmax(logits, dim=-1), 1, sel)
 
 
 def _repeat_k(xf: torch.Tensor, k: int) -> torch.Tensor:
@@ -111,7 +131,7 @@ def moe_apply(p: dict, cfg: ModelConfig, x: torch.Tensor, *, dropless: bool = Fa
     xf = grad_placed_like(x.reshape(t, d))
     logits, top_logits, sel = _route(p, cfg, xf)
     probs = torch.softmax(logits, dim=-1)
-    weights = torch.softmax(top_logits, dim=-1)
+    weights = _choice_weights(cfg, logits, top_logits, sel)
 
     e_flat = sel.reshape(-1)
     w_flat = weights.reshape(-1)
@@ -154,8 +174,8 @@ def _dropless_routing(p: dict, cfg: ModelConfig, xf: torch.Tensor):
     the stable sort ``order`` of the flat expert ids (T·k,), its inverse,
     group sizes (E,) int32). Nothing is read on the host."""
     e = cfg.moe.num_experts
-    _, top_logits, sel = _route(p, cfg, xf)
-    w_flat = torch.softmax(top_logits, dim=-1).reshape(-1)
+    logits, top_logits, sel = _route(p, cfg, xf)
+    w_flat = _choice_weights(cfg, logits, top_logits, sel).reshape(-1)
     e_flat = sel.reshape(-1)
     order = torch.argsort(e_flat, stable=True)
     inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=xf.device))
@@ -172,6 +192,7 @@ def _moe_dropless(p: dict, cfg: ModelConfig, x: torch.Tensor):
     t, k = b * s, cfg.moe.top_k
     xf = x.reshape(t, d)
     w_flat, order, inv, sizes = _dropless_routing(p, cfg, xf)
+    record_groups(sizes)
     x_sorted = constrain(_repeat_k(xf, k).index_select(0, order).to(dt), "moe_tokens")
 
     g = ops.ragged_dot(x_sorted, p["w_gate"].to(dt), sizes)

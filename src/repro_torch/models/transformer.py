@@ -33,6 +33,12 @@ call, so the decode kernels see the activation dtype.
 
 Full-sequence attention goes through ``repro_torch.kernels.ops.attention``,
 decode through ``ops.attention_decode``.
+
+With ``cfg.qk_norm`` (OLMoE) the attention params hold ``q_norm`` and
+``k_norm`` scales (n_heads·hd and n_kv_heads·hd), and the q and k
+projections are RMS-normed whole (eps ``norm_eps``) before they are split
+into heads and roped, in the prefill, the training forward and both decode
+layouts (:func:`_project_qk`).
 """
 
 from __future__ import annotations
@@ -81,12 +87,26 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig, *, d_in: Optional[int] = N
     d = d_in or cfg.d_model
     hd = cfg.hd
     pd = cfg.parameter_dtype()
-    return {
+    p = {
         "wq": L.dense_init(gen, d, cfg.n_heads * hd, bias=cfg.qkv_bias, dtype=pd),
         "wk": L.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=pd),
         "wv": L.dense_init(gen, d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, dtype=pd),
         "wo": L.dense_init(gen, cfg.n_heads * hd, d, dtype=pd),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = L.rmsnorm_init(cfg.n_heads * hd, pd, gen.device)
+        p["k_norm"] = L.rmsnorm_init(cfg.n_kv_heads * hd, pd, gen.device)
+    return p
+
+
+def _project_qk(p: dict, cfg: ModelConfig, which: str, x: torch.Tensor, n: int):
+    """The ``which`` ("q" or "k") projection of x (..., d) split into n
+    heads (..., n, hd); with ``qk_norm`` the flat projection is RMS-normed
+    by its ``q_norm``/``k_norm`` scale first, over all of its heads."""
+    y = L.dense(p["w" + which], x, dtype=cfg.activation_dtype())
+    if cfg.qk_norm:
+        y = L.rmsnorm(p[which + "_norm"], y, cfg.norm_eps)
+    return split_last(y, n, cfg.hd)
 
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_src: torch.Tensor,
@@ -97,8 +117,8 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor, kv_src: torch.Tensor,
     ``positions`` and ``kv_positions``."""
     dt = cfg.activation_dtype()
     hd = cfg.hd
-    q = split_last(L.dense(p["wq"], x, dtype=dt), cfg.n_heads, hd)
-    k = split_last(L.dense(p["wk"], kv_src, dtype=dt), cfg.n_kv_heads, hd)
+    q = _project_qk(p, cfg, "q", x, cfg.n_heads)
+    k = _project_qk(p, cfg, "k", kv_src, cfg.n_kv_heads)
     v = split_last(L.dense(p["wv"], kv_src, dtype=dt), cfg.n_kv_heads, hd)
     if use_rope:
         q = L.rope(q, positions, theta=cfg.rope_theta)
@@ -173,7 +193,7 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
     dt = cfg.activation_dtype()
     b = x.shape[0]
     hd = cfg.hd
-    q = split_last(L.dense(p["wq"], x, dtype=dt), cfg.n_heads, hd)
+    q = _project_qk(p, cfg, "q", x, cfg.n_heads)
     if cross:
         if q.shape[1] != 1:
             raise ValueError(f"cross decode takes a single query position, got {q.shape[1]}")
@@ -181,7 +201,7 @@ def attn_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, *,
         return L.dense(p["wo"], o.reshape(b, 1, -1), dtype=dt), cache
     if "valid" not in cache:
         cache = decode_view(cfg, cache, b, x.shape[1])
-    k = split_last(L.dense(p["wk"], x, dtype=dt), cfg.n_kv_heads, hd)
+    k = _project_qk(p, cfg, "k", x, cfg.n_kv_heads)
     v = split_last(L.dense(p["wv"], x, dtype=dt), cfg.n_kv_heads, hd)
     if "k_pages" in cache:
         o, cache = _attn_decode_paged(cfg, cache, q, k, v)

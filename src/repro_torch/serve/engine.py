@@ -152,6 +152,18 @@ path's group waits until its prefill starts) and
 ``serve.request.finish`` (``rid``, ``status``, ``token_ns``: each token's
 arrival on the host in ns from ``generate()``'s entry, one clock reading
 a step), which ``GenerationResult.queue_s`` and ``token_s`` repeat.
+
+A MoE model served dropless (the grouped products) also runs every step
+and prefill under an ``obs.moe.MoETally``: each MoE layer adds its group
+sizes into the engine's device buffers (L, E) inside the step, the
+captured graphs included (a capture's warm-up adds are taken back out).
+They are zeroed at ``generate()``'s entry and read once at its end, after
+its last sync, into the instant ``serve.moe`` (``layers``, ``launches``:
+grouped products of one expert product, ``rows``: the sorted choices they
+ran, pad positions counted, ``groups``: the non-empty expert groups,
+``rows_max``: the largest (layer, expert) total) and the counters
+``serve.moe.rows`` and ``serve.moe.groups``. A model without experts has
+none of this.
 """
 
 from __future__ import annotations
@@ -173,6 +185,7 @@ from repro_torch.dist.context import gathered_on, local, on_mesh, whole
 from repro_torch.models.model import LM, build_model
 from repro_torch.obs.llc import DEFAULT_CAPACITY_BYTES, LLCSampler
 from repro_torch.obs.metrics import Registry
+from repro_torch.obs.moe import MoETally
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve.adapt import OrderAdaptController
 from repro_torch.serve.faults import FaultPlan
@@ -559,6 +572,12 @@ class ServeEngine:
         for name in ("tier.host_pages", "tier.device_pages", "tier.suspended_slots",
                      "tier.overlap_frac"):
             r.gauge(name)
+        # The expert layer's counters: a dropless MoE only.
+        self._moe: Optional[MoETally] = None
+        if cfg.moe is not None and cfg.moe_serve_dropless:
+            self._moe = MoETally(cfg.n_layers, cfg.moe.num_experts, device=self.device)
+            self._m_moe_rows = r.counter("serve.moe.rows")
+            self._m_moe_groups = r.counter("serve.moe.groups")
         self.llc: Optional[LLCSampler] = None
         self.order_ctl: Optional[OrderAdaptController] = None
         if scheduler == "continuous":
@@ -599,6 +618,8 @@ class ServeEngine:
 
     def generate(self, requests: Sequence[Request]) -> list[GenerationResult]:
         self._clock.start()  # the first step's gap_ns counts from here
+        if self._moe is not None:
+            self._moe.zero()
         if self.scheduler == "continuous":
             results = self._generate_continuous(requests)
         else:
@@ -608,6 +629,11 @@ class ServeEngine:
                 group = list(requests[i : i + self.batch_size])
                 results.extend(self._generate_batch(group, base_idx=i, t0=t0))
         self._clock.read()  # the last steps' windows: their tokens are on the host
+        if self._moe is not None:
+            got = self._moe.read()
+            self.tracer.instant("serve.moe", **got)
+            self._m_moe_rows.inc(got["rows"])
+            self._m_moe_groups.inc(got["groups"])
         return results
 
     def compiled_step_count(self) -> int:
@@ -625,6 +651,19 @@ class ServeEngine:
         if self._decode is not None:
             out["decode"] = self._decode
         return out
+
+    def _tally(self):
+        """The block a step or prefill runs its model in: the expert
+        counters' recording (a dropless MoE), else nothing."""
+        return self._moe.recording() if self._moe is not None else contextlib.nullcontext()
+
+    def _capture(self, step: StepGraph) -> None:
+        """Capture ``step``; the counts its warm-up run added are taken
+        back out (the capture itself runs nothing)."""
+        saved = self._moe.snapshot() if self._moe is not None else None
+        step.capture()
+        if saved is not None:
+            self._moe.restore(saved)
 
     def _new_step(self, name: str, fn, inputs: dict, state, groups: int = 0) -> StepGraph:
         if self.device.type == "cuda" and self._graph_pool is None:
@@ -706,7 +745,7 @@ class ServeEngine:
             state = [local(t) for t in _tree_leaves(self._decode_caches)]
             step = self._new_step("static decode step", self._decode_fn(self._decode_caches),
                                   {"tokens": (self.batch_size, 1)}, state)
-            step.capture()
+            self._capture(step)
             self._decode = step
         # Copying the group's caches in is the first decode step's staging:
         # its device window opens here (the step's own staging keeps it).
@@ -716,7 +755,7 @@ class ServeEngine:
 
     def _decode_fn(self, caches: dict):
         def step(tokens):
-            with on_mesh(self.mesh, pcfg=self.pcfg):
+            with on_mesh(self.mesh, pcfg=self.pcfg), self._tally():
                 logits, new = self.lm.decode_step(self.params, tokens, caches)
                 _copy_tree(caches, new)  # the advanced lengths, for the next replay
             last = whole(logits)[:, -1]
@@ -759,7 +798,7 @@ class ServeEngine:
             with tr.span("serve.stage"):
                 batch = self._prefill_batch(tokens)
             with tr.span("serve.forward"):
-                with on_mesh(self.mesh, pcfg=self.pcfg):
+                with on_mesh(self.mesh, pcfg=self.pcfg), self._tally():
                     logits, caches = self.lm.prefill(self.params, batch, self.max_len)
                 last = whole(logits)[:, -1]
                 greedy = _argmax(last)
@@ -853,14 +892,14 @@ class ServeEngine:
                 [t[:, 1:] for t in pool.local_pages().values()],
                 groups=0 if width == 1 else self._groups,
             )
-            step.capture()
+            self._capture(step)
             self._mixed[width] = step
         return step
 
     def _mixed_fn(self, pages: dict):
         def step(tokens, block_table, lens, q_lens, order_group):
             caches = assemble_cache_view(pages, block_table, lens, q_lens, order_group)
-            with on_mesh(self.mesh):
+            with on_mesh(self.mesh), self._tally():
                 logits, _ = self.lm.decode_step(self.params, tokens, caches)
             logits = whole(logits)
             return logits, _argmax(logits)

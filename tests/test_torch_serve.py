@@ -38,7 +38,7 @@ OTHER_DENSE = ["qwen2-72b", "codeqwen1_5-7b", "llama3-405b", "paper-gb10"]
 MOE = ["olmoe-1b-7b"]
 # Series of the port's own mechanisms, which the reference has not: the
 # compact wide step's replays.
-PORT_ONLY_SERIES = {"serve.wide_replays"}
+PORT_ONLY_SERIES = {"serve.wide_replays", "serve.moe.rows", "serve.moe.groups"}
 
 
 @pytest.fixture(autouse=True)
