@@ -1255,6 +1255,7 @@ def phase_main_path(cfg, lm, params, profile: bool = False, label: str = "contin
     assert stats.pages_adopted > 0, stats
     want = cfg.n_layers * n_replays
     assert launches["paged_decode"] == want, (launches, want)
+    assert launches["rope_kv_write"] == want, (launches, want)   # bf16 pools: fused prologue
 
     tokens = sum(r.steps for r in results)
     steps_by_width: dict[str, list] = {"narrow": [], "wide": []}
@@ -5335,6 +5336,108 @@ def phase_kernel_times(dev_info: dict, main: dict) -> dict:
     return out
 
 
+def _graph_ms(launch, n: int = 20, reps: int = 10) -> float:
+    """Device time of one ``launch()`` with no host time in it: ``n``
+    launches captured in one CUDA graph (the way the engine's steps run
+    them), the median of ``reps`` replays between CUDA events, over ``n``.
+    Where a kernel is shorter than the host's time to issue it, the batched
+    readings of ``_median_ms`` read the host instead."""
+    from repro_torch.kernels import cuda_lib
+
+    graph = torch.cuda.CUDAGraph()
+    with cuda_lib.recording(), torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+# The prologue's shapes: deepseek-7b chat's narrow step (64 slots, 32
+# heads), olmoe chat's (256 slots, 16 heads), and a compact wide replay of 8
+# rows of 256 at both head counts; head dim 128, page 64.
+ROPE_KV_SHAPES = ((64, 1, 32), (256, 1, 16), (8, 256, 32), (8, 256, 16))
+
+
+def phase_rope_kv_times(dev_info: dict) -> dict:
+    """The fused prologue (``ops.rope_kv_write``) at the chat cells'
+    shapes: held to its plain version to the bit (q, every page but page
+    0), then timed as the other kernels (``_time_record``; no PyTorch call
+    computes it). Bytes: q read and written, k and v read and written into
+    their pages, cos and sin, the slots and q_len."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.configs import get_config
+
+    d, page, max_len = 128, 64, 1024
+    out = {}
+    for b, c, h in ROPE_KV_SHAPES:
+        rng = np.random.default_rng(b + c + h)
+        gen = torch.Generator(device="cuda").manual_seed(b + c + h)
+        nb = max_len // page
+        q_lens = np.ones(b, np.int64) if c == 1 else rng.integers(1, c + 1, size=b)
+        q_lens[-1] = c
+        caches = {
+            "k_pages": torch.randn((1 + b * nb, page, h, d), generator=gen, device="cuda")
+            .to(torch.bfloat16),
+            "block_table": (1 + torch.from_numpy(rng.permutation(b * nb))).to("cuda")
+            .to(torch.int32).reshape(b, nb),
+            "len": torch.as_tensor(rng.integers(0, max_len - c + 1, size=b), dtype=torch.int32,
+                                   device="cuda"),
+            "q_len": torch.as_tensor(q_lens, dtype=torch.int32, device="cuda"),
+        }
+        caches["v_pages"] = torch.randn_like(caches["k_pages"])
+        cfg = get_config("deepseek-7b").with_(n_heads=h, n_kv_heads=h, head_dim=d)
+        view = T.decode_view(cfg, caches, b, c)
+        q, k, v = (torch.randn((b, c, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        rest = (view["cos"], view["sin"], view["phys"], view["offset"], view["q_len"])
+
+        def run(impl, q_, kp, vp):
+            return ops.rope_kv_write(q_, k, v, kp, vp, *rest, impl=impl)
+
+        pools = [(caches["k_pages"].clone(), caches["v_pages"].clone()) for _ in range(2)]
+        qs = [q.clone(), q.clone()]
+        run("cuda", qs[0], *pools[0])
+        run("torch", qs[1], *pools[1])
+        torch.cuda.synchronize()
+        equal = (torch.equal(qs[0], qs[1])
+                 and all(torch.equal(a[1:], b_[1:]) for a, b_ in zip(pools[0], pools[1])))
+        if not equal:
+            raise AssertionError(f"rope_kv_write at {b}x{c}, {h} heads: kernel != plain")
+        positions = b * c
+        valid = int(q_lens.sum())
+        nbytes = (2 * positions * h * d * 2            # q read and written
+                  + 2 * 2 * valid * h * d * 2          # k and v read and written
+                  + 2 * positions * (d // 2) * 4       # cos and sin
+                  + 2 * positions * 8 + b * 4)         # phys, offset, q_len
+        flops = 6.0 * positions * h * (d // 2) + 6.0 * valid * h * (d // 2)
+        kp, vp = pools[0]
+        rec = _time_record({
+            "kernel": lambda: ops._launch_rope_kv_write(q, k, v, kp, vp, *rest),
+            "wrapper": lambda: run("cuda", q, kp, vp),
+            "plain": lambda: run("torch", q, kp, vp),
+            "library": None}, nbytes, flops, dev_info)
+        rec.update(shape={"B": b, "C": c, "H": h, "D": d, "page": page, "valid_rows": valid},
+                   equal_to_plain=equal, graph_ms=_graph_ms(
+                       lambda: ops._launch_rope_kv_write(q, k, v, kp, vp, *rest)),
+                   plain_graph_ms=_graph_ms(lambda: run("torch", q, kp, vp)))
+        key = f"{b}x{c}_h{h}"
+        print(f"[time] rope_kv_write {key}: " + json.dumps(rec))
+        out[key] = rec
+        del caches, view, pools, qs, kp, vp
+        torch.cuda.empty_cache()
+    return out
+
+
 def _time_record(fns: dict, nbytes: int, flops: float, dev_info: dict) -> dict:
     """The kernel and the library call (``fns["library"]``, None where no
     PyTorch call computes the same function) are read alike and in turns:
@@ -5999,6 +6102,7 @@ def main(argv=None) -> int:
     train_zamba = phase_train_ssm("zamba2-2_7b")
     phase_unsafe_capture()
     times = phase_kernel_times(dev_info, main_path)
+    rope_times = phase_rope_kv_times(dev_info)
     static_times = phase_static_kernel_times(dev_info)
     d80_times = phase_static_kernel_times(dev_info, d=80)
     train_times = phase_train_kernel_times(dev_info)
@@ -6161,6 +6265,12 @@ def main(argv=None) -> int:
         backward="none: the SSD's backward re-runs the plain chunked scan under autograd, as "
                  "the reference's does (no backward kernel there either)",
         wrong_variants=ssd_check["controls"]))
+    kernels.append(_entry(
+        "rope_kv_write", launches["rope_kv_write"], 0.0, rope_times["64x1_h32"],
+        max_abs_err_is="0: equal to the plain version to the bit (q, every page but page 0)",
+        shapes={key: shape_rec(rec) for key, rec in rope_times.items()},
+        launches_per_mixed_step=main_path["launches"]["rope_kv_write"]
+        / max(main_path["mixed_steps"], 1)))
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s; training "

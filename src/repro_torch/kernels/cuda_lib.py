@@ -64,7 +64,8 @@ class Kernel:
     source: str        # file under csrc/
     entry: str         # exported C function
     argtypes: tuple    # ctypes argument types of ``entry``
-    replaces: str      # the Pallas kernel this one replaces (file:line)
+    replaces: str      # the Pallas kernel this one replaces (file:line), or the
+                       # plain functions of the reference it fuses (space-separated)
     extra: tuple = ()  # further C entries of the library: (name, argtypes) pairs
 
 
@@ -144,6 +145,16 @@ KERNELS = {
         # launch's attributes at (B, H, N, out)
         extra=(("ssd_fwd_bf16_visit", (_P,) * 8 + (_I,) * 5 + (_P, _P)),
                ("ssd_attr", (_I,) * 3 + (_P,))),
+    ),
+    "rope_kv_write": Kernel(
+        name="rope_kv_write",
+        source="rope_kv_write.cu",
+        entry="rope_kv_write_bf16",
+        # q, k, v, k_pages, v_pages, cos, sin, phys, offset, q_len, B, C, Hq,
+        # Hkv, D, page, stream
+        argtypes=(_P,) * 10 + (_I,) * 6 + (_P,),
+        # no Pallas kernel: the reference's rope and paged write, fused
+        replaces="src/repro/models/layers.py:90 src/repro/models/transformer.py:168",
     ),
 }
 

@@ -40,6 +40,12 @@ kernel for the SSD, so neither has the port: whatever the forward impl, the
 backward re-runs ``ssd_chunked`` under autograd on the saved inputs, as the
 reference's does (``repro/kernels/ops.py:316-321``).
 
+``rope_kv_write`` is the paged decode step's attention prologue: q and k
+roped and the K/V written into the pools, one launch of the hand-written
+kernel for CUDA tensors (``csrc/rope_kv_write.cu``), the composed ops it
+fuses (``models.layers.rope_rotate`` and the pool's index write) for CPU
+tensors and for ``torch``; ``reference`` and ``recompute`` are ``torch``.
+
 ``ragged_dot`` takes ``auto``, ``cuda`` and ``torch`` only: ``cuda`` is one
 ``torch.nn.functional.grouped_mm`` (bf16, offsets on the device; a library
 call, counted in ``cuda_lib.library_counts`` apart from the hand-written
@@ -72,7 +78,7 @@ from repro_torch.kernels.flash_decode import flash_decode_fwd
 from repro_torch.kernels.ref import flash_attention_ref, ssd_ref
 from repro_torch.kernels.ssd import ssd_fwd
 
-__all__ = ["attention", "attention_decode", "ssd", "ragged_dot"]
+__all__ = ["attention", "attention_decode", "rope_kv_write", "ssd", "ragged_dot"]
 
 _IMPLS = ("auto", "cuda", "torch", "reference")
 _VALID = {"attention": _IMPLS + ("recompute",), "ragged_dot": ("auto", "cuda", "torch")}
@@ -405,6 +411,68 @@ def _paged_on_mesh(mesh, impl, q, k_pool, v_pool, cache_len, kw):
     o = _decode(impl, _to_local(q, mesh, pl), k_pool.to_local(), v_pool.to_local(),
                 _to_local(cache_len, mesh), {k: _to_local(v, mesh) for k, v in kw.items()})
     return _from_local(o, mesh, pl)
+
+
+def rope_kv_write(q, k, v, k_pages, v_pages, cos, sin, phys, offset, q_len, *,
+                  impl: str = "auto") -> torch.Tensor:
+    """The paged decode step's attention prologue, in place: q (B, C, Hq,
+    D) and k (B, C, Hkv, D) rotated by the half-split RoPE of ``cos`` and
+    ``sin`` (B, C, D // 2) float32 (``models.layers.rope_angles``), in
+    float32 and rounded to their dtype; q rotated in its own buffer
+    (returned), the rotated k and v written into the pools ``k_pages`` and
+    ``v_pages`` (n_pages, page, Hkv, D) at the slots ``phys``, ``offset``
+    (B, C) int64 (``models.transformer._page_slots``). Rows ``t >=
+    q_len[b]`` are sent to the dummy page 0 by ``phys``: the plain version
+    writes them there, the kernel writes nothing for them. Every q row is
+    rotated. The caller owns q's buffer: nothing else may read it unroped."""
+    impl = _resolve("torch" if impl in ("recompute", "reference") else impl, q, "rope_kv_write")
+    if impl == "cuda":
+        return _launch_rope_kv_write(q, k, v, k_pages, v_pages, cos, sin, phys, offset, q_len)
+    return _rope_kv_write_plain(q, k, v, k_pages, v_pages, cos, sin, phys, offset, q_len)
+
+
+def _rope_kv_write_plain(q, k, v, k_pages, v_pages, cos, sin, phys, offset, q_len):
+    """:func:`rope_kv_write` as the composed ops it fuses (``q_len`` is
+    in ``phys`` already)."""
+    from repro_torch.models.layers import rope_rotate  # lazy: models import this module
+
+    q.copy_(rope_rotate(q, cos, sin))
+    k_pages[phys, offset] = rope_rotate(k, cos, sin).to(k_pages.dtype)
+    v_pages[phys, offset] = v.to(v_pages.dtype)
+    return q
+
+
+def _launch_rope_kv_write(q, k, v, k_pages, v_pages, cos, sin, phys, offset, q_len):
+    b, c, hq, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    for name, t, dtype, shape in (
+        ("q", q, torch.bfloat16, (b, c, hq, d)), ("k", k, torch.bfloat16, (b, c, hkv, d)),
+        ("v", v, torch.bfloat16, (b, c, hkv, d)),
+        ("k_pages", k_pages, torch.bfloat16, tuple(k_pages.shape)),
+        ("v_pages", v_pages, torch.bfloat16, tuple(k_pages.shape)),
+        ("cos", cos, torch.float32, (b, c, d // 2)), ("sin", sin, torch.float32, (b, c, d // 2)),
+        ("phys", phys, torch.int64, (b, c)), ("offset", offset, torch.int64, (b, c)),
+        ("q_len", q_len, torch.int32, (b,)),
+    ):
+        if t.device != q.device:
+            raise ValueError(f"rope_kv_write: {name} is on {t.device}, q on {q.device}")
+        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"rope_kv_write kernel takes a contiguous {dtype} {name} of shape "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+    if d % 16:
+        raise ValueError(f"rope_kv_write kernel takes a head dim that 16 divides, got {d}")
+    if b * c == 0:
+        return q
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), phys.data_ptr(), offset.data_ptr(), q_len.data_ptr(),
+            b, c, hq, hkv, d, page, torch.cuda.current_stream(q.device).cuda_stream)
+    lib = cuda_lib.load("rope_kv_write")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, cuda_lib.KERNELS["rope_kv_write"].entry)(*args)
+    if err != 0:
+        raise RuntimeError(f"rope_kv_write kernel launch failed: cudaError_t {err}")
+    cuda_lib.launch_counts["rope_kv_write"] += 1
+    return q
 
 
 def _ssd_chunked(x, dt, a, b, c, init_state, chunk):

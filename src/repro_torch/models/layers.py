@@ -23,6 +23,8 @@ __all__ = [
     "rmsnorm",
     "embed_init",
     "rope",
+    "rope_angles",
+    "rope_rotate",
     "cross_entropy",
 ]
 
@@ -85,20 +87,34 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=torch.float32) 
     return {"table": _normal(gen, (vocab, dim), 0.02, dtype)}
 
 
+def rope_angles(positions: torch.Tensor, half: int, *,
+                theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin (..., S, half) float32 of the half-split RoPE at
+    ``positions`` (..., S), ``half`` frequencies."""
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device)
+                      / half)
+    angles = positions[..., :, None].float() * freqs       # (..., S, half)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) rotated by the half-split RoPE of :func:`rope_angles`'
+    cos and sin (..., S, half), shared by the heads; in float32, rounded to
+    x's dtype. An odd head dim's last element passes through."""
+    half = cos.shape[-1]
+    cos, sin = cos[..., :, None, :], sin[..., :, None, :]  # (..., S, 1, half)
+    xf1, xf2 = x[..., :half].float(), x[..., half : 2 * half].float()
+    parts = [xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin]
+    if 2 * half != x.shape[-1]:  # odd head_dim tail passes through
+        parts.append(x[..., 2 * half :].float())
+    return torch.cat(parts, dim=-1).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000.0) -> torch.Tensor:
     """Rotary position embedding, half-split (not interleaved).
     x: (..., S, H, D), positions: (..., S)."""
-    d = x.shape[-1]
-    half = d // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    angles = positions[..., :, None].float() * freqs       # (..., S, half)
-    cos = torch.cos(angles)[..., :, None, :]               # (..., S, 1, half)
-    sin = torch.sin(angles)[..., :, None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half : 2 * half].float()
-    parts = [xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin]
-    if 2 * half != d:  # odd head_dim tail passes through
-        parts.append(x[..., 2 * half :].float())
-    return torch.cat(parts, dim=-1).to(x.dtype)
+    cos, sin = rope_angles(positions, x.shape[-1] // 2, theta=theta)
+    return rope_rotate(x, cos, sin)
 
 
 def cross_entropy(

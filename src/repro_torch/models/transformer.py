@@ -21,7 +21,8 @@ its scan):
     ``block_table`` and per-row ``len`` (B,). Invalid chunk rows (``t >=
     q_len``) are routed to the reserved dummy page 0, which no sequence owns
     and every read masks; duplicate writes there are harmless whichever one
-    lands. Under a mesh the pages are DTensors split on their KV heads
+    lands (the fused prologue, ``ops.rope_kv_write``, writes nothing for
+    them). Under a mesh the pages are DTensors split on their KV heads
     (``dist.sharding.pool_shardings``), each rank writing and reading its
     own head shard.
 
@@ -32,7 +33,11 @@ reference, a decode step dequantizes the whole cache before the attention
 call, so the decode kernels see the activation dtype.
 
 Full-sequence attention goes through ``repro_torch.kernels.ops.attention``,
-decode through ``ops.attention_decode``.
+decode through ``ops.attention_decode``. A paged step's prologue (RoPE on q
+and k, the K/V page write) is one ``ops.rope_kv_write`` a layer over the
+positions, cos/sin and page slots :func:`decode_view` makes once a step,
+where the pools are plain tensors in the activations' dtype; int8 and
+placed pools keep the composed ops (:func:`_fused_prologue`).
 
 With ``cfg.qk_norm`` (OLMoE) the attention params hold ``q_norm`` and
 ``k_norm`` scales (n_heads·hd and n_kv_heads·hd), and the q and k
@@ -233,24 +238,29 @@ def _attn_decode_contiguous(cfg: ModelConfig, cache: dict, q, k, v):
     return o, dict(cache, len=pos + 1)
 
 
-def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
-    """Write chunk k/v (B, C, Hkv, hd) at positions ``starts[b] + t`` for
-    ``t < q_lens[b]`` through the block table, in place (int8 pages:
-    quantized, with their scales); invalid rows go to dummy page 0. A pool
-    placed on the mesh is written on this rank's head shard
-    (``dist.context.write_pages``)."""
-    b, c = k.shape[:2]
-    bt = cache["block_table"]
-    page = cache["k_pages"].shape[1]
-    capacity = bt.shape[1] * page
-    tq = torch.arange(c, dtype=torch.int32, device=k.device)[None, :]
+def _page_slots(block_table, page: int, starts, q_lens, c: int):
+    """(positions, phys, offset) of a chunk of C rows a sequence: positions
+    ``starts[b] + t`` (B, C) int32, and the (B, C) int64 physical page and
+    in-page offset each is written at through ``block_table`` (B, n_blocks),
+    a position past the capacity clamped onto its last slot and an invalid
+    row (``t >= q_lens[b]``) sent to the dummy page 0."""
+    capacity = block_table.shape[1] * page
+    tq = torch.arange(c, dtype=torch.int32, device=block_table.device)[None, :]
     pos = starts[:, None] + tq                               # (B, C)
     valid = tq < q_lens[:, None]
     wpos = torch.clamp(pos, max=capacity - 1)
     page_log = torch.div(wpos, page, rounding_mode="floor")
     offset = (wpos % page).long()
-    phys = torch.gather(bt, 1, page_log.long())
+    phys = torch.gather(block_table, 1, page_log.long())
     phys = torch.where(valid, phys, torch.zeros_like(phys)).long()
+    return pos, phys, offset
+
+
+def _write_slots(cfg: ModelConfig, cache: dict, k, v, phys, offset) -> dict:
+    """Write chunk k/v (B, C, Hkv, hd) at the pool slots (``phys``,
+    ``offset``) of :func:`_page_slots`, in place (int8 pages: quantized,
+    with their scales). A pool placed on the mesh is written on this rank's
+    head shard (``dist.context.write_pages``)."""
     for name, val in (("k_pages", k), ("v_pages", v)):
         val = placed_as(val, cache[name])  # quantized as placed: no partial sums
         if cfg.kv_cache_dtype == "int8":
@@ -262,15 +272,34 @@ def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
     return cache
 
 
-def _attn_decode_paged(cfg: ModelConfig, cache: dict, q, k, v):
-    c = q.shape[1]
-    lens, q_lens = cache["len"], cache["q_len"]
-    positions = lens[:, None] + torch.arange(c, dtype=torch.int32, device=q.device)[None, :]
-    q = L.rope(q, positions, theta=cfg.rope_theta)
-    k = L.rope(k, positions, theta=cfg.rope_theta)
+def _paged_write(cfg: ModelConfig, cache: dict, k, v, starts, q_lens) -> dict:
+    """Write chunk k/v (B, C, Hkv, hd) at positions ``starts[b] + t`` for
+    ``t < q_lens[b]`` through the block table, in place; invalid rows go to
+    dummy page 0 (:func:`_page_slots`, :func:`_write_slots`)."""
+    _, phys, offset = _page_slots(cache["block_table"], cache["k_pages"].shape[1], starts,
+                                  q_lens, k.shape[1])
+    return _write_slots(cfg, cache, k, v, phys, offset)
 
-    cache = _paged_write(cfg, dict(cache), k, v, lens, q_lens)
-    cache["len"] = lens + q_lens
+
+def _fused_prologue(cfg: ModelConfig, cache: dict, q, k, v) -> bool:
+    """Whether the paged step's rope and page write run as one
+    ``ops.rope_kv_write``: pools of plain tensors in the activations' dtype.
+    An int8 pool (a quantized write) and a pool or activations placed on a
+    mesh (a head shard's write) keep the composed ops."""
+    pools = (cache["k_pages"], cache["v_pages"])
+    return (all(p.dtype == cfg.activation_dtype() for p in pools)
+            and not any(is_dtensor(t) for t in (q, k, v, *pools)))
+
+
+def _attn_decode_paged(cfg: ModelConfig, cache: dict, q, k, v):
+    cos, sin, phys, offset = cache["cos"], cache["sin"], cache["phys"], cache["offset"]
+    if _fused_prologue(cfg, cache, q, k, v):
+        q = ops.rope_kv_write(q, k, v, cache["k_pages"], cache["v_pages"], cos, sin, phys,
+                              offset, cache["q_len"], impl=cfg.attn_impl)
+    else:
+        q = L.rope_rotate(q, cos, sin)
+        _write_slots(cfg, cache, L.rope_rotate(k, cos, sin), v, phys, offset)
+    cache = dict(cache, len=cache["next_len"])
     o = ops.attention_decode(
         q,
         _cache_read(cfg, cache, "k_pages"),
@@ -280,7 +309,7 @@ def _attn_decode_paged(cfg: ModelConfig, cache: dict, q, k, v):
         snake_group=cfg.snake_group,
         impl=cfg.attn_impl,
         block_table=cache["block_table"],
-        q_lens=q_lens,
+        q_lens=cache["q_len"],
         fold=cache["fold"],
     )
     return o, cache
@@ -291,23 +320,32 @@ def decode_view(cfg: ModelConfig, caches: dict, b: int, c: int) -> dict:
     once for the step, on the device (nothing is read by the host, so the
     step can be captured as a CUDA graph). Paged: ``q_len`` (all C when
     absent), ``valid`` (B,) the lengths after the step's writes clamped to
-    the capacity (the parity driver of the page walk), and ``fold``, the
+    the capacity (the page walk takes its parity from them), ``fold``, the
     (B, n_blocks) int32 physical and logical page ids in each row's visit
     order (``order_group`` when given, else the config's order), which the
-    kernel takes as they are. Contiguous: ``write_row`` (1,) the cache row
-    the token goes to (a ring buffer's ``len % S`` with a window; clamped
-    into the cache, as the reference's ``dynamic_update_slice`` clamps) and
-    ``valid`` (B,) the positions attended, ``min(len + 1, S)``."""
+    kernel takes as they are, the chunk's ``positions`` (B, C) int32, their
+    RoPE ``cos`` and ``sin`` (B, C, hd // 2) float32 (``L.rope_angles``),
+    the pool slots ``phys`` and ``offset`` (B, C) int64 their K/V go to
+    (:func:`_page_slots`) and ``next_len`` (B,), ``len + q_len``.
+    Contiguous: ``write_row`` (1,) the cache row the token goes to (a ring
+    buffer's ``len % S`` with a window; clamped into the cache, as the
+    reference's ``dynamic_update_slice`` clamps) and ``valid`` (B,) the
+    positions attended, ``min(len + 1, S)``."""
     pos = caches["len"]
     if "k_pages" in caches:
         q_lens = caches.get("q_len")
         if q_lens is None:
             q_lens = torch.full((b,), c, dtype=torch.int32, device=pos.device)
         bt = caches["block_table"]
-        valid = torch.clamp(pos + q_lens, max=bt.shape[1] * caches["k_pages"].shape[-3])
+        page = caches["k_pages"].shape[-3]
+        next_len = pos + q_lens
+        valid = torch.clamp(next_len, max=bt.shape[1] * page)
         fold = fold_schedule(valid, bt, order=cfg.attn_order, snake_group=cfg.snake_group,
                              order_group=caches.get("order_group"))
-        return dict(caches, q_len=q_lens, valid=valid, fold=fold)
+        positions, phys, offset = _page_slots(bt, page, pos, q_lens, c)
+        cos, sin = L.rope_angles(positions, cfg.hd // 2, theta=cfg.rope_theta)
+        return dict(caches, q_len=q_lens, valid=valid, fold=fold, positions=positions, cos=cos,
+                    sin=sin, phys=phys, offset=offset, next_len=next_len)
     s_max = caches["k"].shape[-3]
     write = pos % s_max if cfg.window is not None else pos  # SWA ring buffer
     row = torch.clamp(write, 0, s_max - 1).reshape(1).long()

@@ -249,19 +249,24 @@ def test_ops_attention_dispatch_and_no_backward():
 
 
 def test_kernel_registry_names_the_replaced_tpu_kernels():
-    """Each CUDA kernel's ``replaces`` line is the Pallas kernel's def, and
+    """Each CUDA kernel's ``replaces`` line is the Pallas kernel's def (the
+    fused prologue's: the defs of the reference functions it fuses), and
     its library name hashes the shared header too."""
     from pathlib import Path
 
     root = Path(__file__).resolve().parents[1]
-    for name, fn in (("paged_decode", "_paged_decode_kernel"), ("flash_fwd", "_fwd_kernel"),
-                     ("contig_decode", "_decode_kernel"), ("flash_bwd_delta", "_delta_kernel"),
-                     ("flash_bwd_dq", "_dq_kernel"), ("flash_bwd_dkv", "_dkv_kernel"),
-                     ("ssd", "_ssd_kernel")):
+    for name, fns in (("paged_decode", ("_paged_decode_kernel",)), ("flash_fwd", ("_fwd_kernel",)),
+                      ("contig_decode", ("_decode_kernel",)),
+                      ("flash_bwd_delta", ("_delta_kernel",)), ("flash_bwd_dq", ("_dq_kernel",)),
+                      ("flash_bwd_dkv", ("_dkv_kernel",)), ("ssd", ("_ssd_kernel",)),
+                      ("rope_kv_write", ("rope", "_paged_write"))):
         spec = cuda_lib.KERNELS[name]
-        path, line = spec.replaces.split(":")
-        assert (root / path).read_text().splitlines()[int(line) - 1].startswith(f"def {fn}(")
+        places = spec.replaces.split()
+        assert len(places) == len(fns), (name, spec.replaces)
+        for place, fn in zip(places, fns):
+            path, line = place.split(":")
+            assert (root / path).read_text().splitlines()[int(line) - 1].startswith(f"def {fn}(")
         assert (cuda_lib.CSRC / spec.source).is_file()
         assert cuda_lib.library_path(name).name.startswith(f"{name}-")
-    assert set(cuda_lib.KERNELS) == set(cuda_lib.launch_counts) and len(cuda_lib.KERNELS) == 7
+    assert set(cuda_lib.KERNELS) == set(cuda_lib.launch_counts) and len(cuda_lib.KERNELS) == 8
     assert set(cuda_lib.ORDER_CODES) == {o.value for o in port_sched.Order}
