@@ -71,39 +71,26 @@ those three numbers, not on its slot or its neighbours.
 Resilience, continuous path, as in the reference: ``admission=
 "optimistic"`` reserves only prompts, so decode growth can oversubscribe
 the pool; a ``PoolExhausted`` while a step is made writable preempts a
-victim (``select_victim``: lowest priority, then not a prefix donor, then
-fewest generated tokens, then slot), which is requeued at the queue head
-and restored by a chunked re-prefill of prompt + generated-so-far through
-the same two mixed-step widths (nothing is captured anew), or fails once
-past its preemption bound. A failed step dispatch is retried once, then
-the step's rows fail (``status="failed"``) and serving goes on. The pool
-is written in place, so the retry relies on a step being idempotent: it
+victim (``select_victim``), restored by a chunked re-prefill through the
+same two mixed-step widths or failed past its preemption bound. A failed
+step dispatch is retried once, then the step's rows fail. The pool is
+written in place, so the retry relies on a step being idempotent: it
 writes positions ``len..len+q_len`` that only it reads, and ``len``
 advances on the host after success only. On the card a replay that fails
 raises (a CUDA error is sticky; no retry could succeed). ``faults`` (a
-``serve.faults.FaultPlan``) injects pool exhaustion, admission refusals,
-step failures and cancels at planned steps.
+``serve.faults.FaultPlan``) injects faults at planned steps.
 
 Tiered KV memory, continuous path, as in the reference: ``host_pages``
-puts a ``serve.tiering.TieredPagePool`` host tier under the device pool.
-At ``spill_watermark`` occupancy, and before a preemption, the coldest
-slot (largest modeled reuse distance, ``core.cache_sim.slot_reuse_stats``)
-is spilled to pinned host memory and suspended; a suspended slot resumes
-when the pool is calm, its pages fetched ``prefetch_depth`` a boundary in
-the next step's visit order (``core.schedule.future_visit_window``), the
-copies issued on a side stream after the step's replay is launched and
-before the host waits for its tokens, and it rejoins the plans only once
-every page is back, written into the pool's own tensors: the captured
-steps never see a new one.
+puts a ``serve.tiering.TieredPagePool`` host tier under the device pool
+(whose module describes it). At ``spill_watermark`` occupancy, and before
+a preemption, the coldest slot is spilled and suspended; the slot the
+pool lets resume (``TieredPagePool.next_resume``) gets its pages back
+``prefetch_depth`` a boundary, beside the step in flight.
 
 Speculative decoding, continuous path, as in the reference: ``drafter`` (a
-``serve.spec.Drafter``) proposes up to ``draft_len`` tokens a decode row
-once a step boundary; the row runs as a ``q_len = K+1`` verification chunk
-in the same two captured widths, the target token at each chunk position
-is read from the one step (a sampling row draws at position p with sample
-index ``count + p``, the index sequential steps would use), the longest
-matching draft prefix and one token more are committed, and the rest is
-rolled back out of the pool (``PagedKVPool.rollback``).
+``serve.spec.Drafter``, whose module describes it) proposes up to
+``draft_len`` tokens a decode row once a step boundary, verified in one
+``q_len = K+1`` chunk of the same two captured widths.
 
 Sharded serving, as in the reference: with ``mesh`` (a
 ``torch.distributed`` ``DeviceMesh`` named ("data", "model")) the params
@@ -168,11 +155,12 @@ none of this.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import math
 import time
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -555,10 +543,9 @@ class ServeEngine:
         self._m_preempt = r.counter("serve.preemptions")
         self._m_restore_tok = r.counter("serve.restore_tokens")
         self._m_retries = r.counter("serve.step_retries")
-        self._m_shed = r.counter("serve.shed")
-        self._m_deadline = r.counter("serve.deadline_miss")
-        self._m_cancel = r.counter("serve.cancelled")
-        self._m_failed = r.counter("serve.failed")
+        self._m_status = {status: r.counter(name) for status, name in (  # but "ok"
+            ("shed", "serve.shed"), ("deadline", "serve.deadline_miss"),
+            ("cancelled", "serve.cancelled"), ("failed", "serve.failed"))}
         self._m_admit_paused = r.gauge("serve.admission_paused")
         # The speculative and tier series exist on every engine, at zero
         # where nothing drafts or spills (the tiered pool increments the
@@ -680,14 +667,8 @@ class ServeEngine:
         if res.status == "ok":
             self._m_ttft.observe(res.ttft_s)
             self._m_tpot.observe(res.tpot_s)
-        elif res.status == "deadline":
-            self._m_deadline.inc()
-        elif res.status == "cancelled":
-            self._m_cancel.inc()
-        elif res.status == "shed":
-            self._m_shed.inc()
-        elif res.status == "failed":
-            self._m_failed.inc()
+        else:
+            self._m_status[res.status].inc()
 
     # ---- static path ---------------------------------------------------------
 
@@ -1005,514 +986,28 @@ class ServeEngine:
     # ---- continuous path -----------------------------------------------------
 
     def _generate_continuous(self, requests: Sequence[Request]) -> list[GenerationResult]:
-        cfg = self.lm.cfg
-        n_slots = self.batch_size
-        cap = self._cap
-        sched = ContinuousScheduler(
-            n_slots, token_budget=self._budget, prefill_chunk=self._chunk
-        )
-        sched.submit(list(requests))
-        idx_of = {id(r): i for i, r in enumerate(requests)}  # default seeds
-        tiered = self.host_pages is not None and self.host_pages > 0
+        """One :class:`_ContinuousRun` over the engine's pool, made once (a
+        captured step bakes its tensors) and reset at every later call."""
         pool = self.last_pool
         if pool is None:
-            pool_kw = dict(device=self.device, prefix_sharing=self.prefix_sharing,
-                           registry=self.obs, admission=self.admission,
-                           n_pages=self.pool_pages, faults=self.faults, mesh=self.mesh,
-                           pcfg=self.pcfg)
-            if tiered:
-                pool = TieredPagePool(cfg, cfg.n_layers, n_slots, cap,
-                                      host_pages=self.host_pages, **pool_kw)
+            cfg = self.lm.cfg
+            kw = dict(device=self.device, prefix_sharing=self.prefix_sharing,
+                      registry=self.obs, admission=self.admission, n_pages=self.pool_pages,
+                      faults=self.faults, mesh=self.mesh, pcfg=self.pcfg)
+            if self.host_pages is not None and self.host_pages > 0:
+                pool = TieredPagePool(cfg, cfg.n_layers, self.batch_size, self._cap,
+                                      host_pages=self.host_pages, **kw)
             else:
-                pool = PagedKVPool(cfg, cfg.n_layers, n_slots, cap, **pool_kw)
+                pool = PagedKVPool(cfg, cfg.n_layers, self.batch_size, self._cap, **kw)
             self.last_pool = pool
         else:
             pool.faults = self.faults
             pool.reset()
             pool.emit_gauges()
-        ctl = self.order_ctl
-        faults = self.faults
-        drafter = self.drafter
-        if drafter is not None:
-            drafter.reset()
-
-        results: dict[int, GenerationResult] = {}
-        resume: dict[int, list] = {}       # preempted: id(request) -> generated
-        n_preempts: dict[int, int] = {}    # id(request) -> times preempted
-        tally = {"preempt": 0, "restore": 0, "draft": 0, "accept": 0, "roll": 0}
-        cur = np.full((n_slots,), self.eos, np.int32)  # last sampled token
-        temps = np.zeros((n_slots,), np.float32)
-        seeds = np.zeros((n_slots,), np.int64)
-        counts = np.zeros((n_slots,), np.int64)
-        t0 = time.perf_counter_ns()
-        tr = self.tracer
-        # Request lifecycles, by id(request), in perf_counter_ns: when it
-        # became admissible (the boundary of its arrival step, generate()'s
-        # entry for step 0, or its preemption) while it waits; its waits
-        # for admission, summed; each token's arrival on the host, from t0.
-        ready_ns: dict[int, int] = {}
-        queue_ns: dict[int, int] = {}
-        token_ns: dict[int, list[int]] = {}
-        by_arrival = sorted(requests, key=lambda r: r.arrival)
-        n_arrived = 0
-
-        def arrive(step: int, now: int) -> None:
-            nonlocal n_arrived
-            while n_arrived < len(by_arrival) and by_arrival[n_arrived].arrival <= step:
-                ready_ns[id(by_arrival[n_arrived])] = now
-                n_arrived += 1
-
-        arrive(0, t0)
-
-        def resolve(r, tokens: list, status: str) -> None:
-            now = time.perf_counter_ns()
-            key = id(r)
-            if key in ready_ns:  # retired while waiting: that wait counts
-                queue_ns[key] = queue_ns.get(key, 0) + now - ready_ns.pop(key)
-            times = tuple(token_ns.pop(key, ()))
-            n_tok = len(tokens)
-            ttft = times[0] if times else now - t0
-            res = GenerationResult(
-                rid=r.rid,
-                tokens=np.asarray(tokens, np.int32),
-                steps=n_tok,
-                ttft_s=ttft / 1e9,
-                tpot_s=_tpot((now - t0 - ttft) / 1e9, n_tok),
-                status=status,
-                n_preemptions=n_preempts.get(key, 0),
-                queue_s=queue_ns.pop(key, 0) / 1e9,
-                token_s=tuple(x / 1e9 for x in times),
-            )
-            results[key] = res
-            self._cancelled.discard(r.rid)
-            self._record_result(res)
-            tr.instant("serve.request.finish", rid=r.rid, status=status, token_ns=times)
-
-        def retire(slot: int):
-            st = sched.retire(slot)
-            pool.release(slot)
-            if drafter is not None:
-                drafter.release(slot)
-            cur[slot] = self.eos
-            temps[slot] = 0.0
-            return st
-
-        def finish(slot: int, status: str = "ok") -> None:
-            st = retire(slot)
-            resolve(st.request, list(st.generated), status)
-
-        def preempt(slot: int) -> None:
-            # Evict a live slot under pool pressure: release its pages and
-            # requeue it at the queue head (restored by a chunked re-prefill
-            # of prompt + generated-so-far), or fail it past its bound.
-            st = retire(slot)
-            r = st.request
-            n_pre = n_preempts[id(r)] = n_preempts.get(id(r), 0) + 1
-            limit = self.max_preemptions if r.max_preemptions is None else r.max_preemptions
-            if n_pre > limit:
-                resolve(r, list(st.generated), "failed")
-                return
-            resume[id(r)] = list(st.generated)
-            sched.requeue(r)
-            ready_ns[id(r)] = time.perf_counter_ns()
-            tally["preempt"] += 1
-            self._m_preempt.inc()
-            self._m_req_requeued.inc()
-            tr.instant("serve.preempt", rid=r.rid, slot=slot, generated=len(st.generated))
-
-        def preempt_victim() -> bool:
-            # Suspended slots are no candidates: they hold no device page.
-            cands = [
-                (i, sched.slots[i].request.priority, len(sched.slots[i].generated),
-                 pool.shared_donor(i))
-                for i in sched.runnable_slots()
-                if not sched.slots[i].done
-            ]
-            if not cands:
-                return False
-            preempt(select_victim(cands))
-            return True
-
-        def spill_one(keep: int) -> bool:
-            # Spill the coldest runnable slot, keeping at least ``keep``
-            # runnable (the watermark pass keeps one so the stream advances;
-            # under pressure it may go to zero: the freed pages are what
-            # lets a resume complete). A slot resumed and not yet stepped is
-            # no candidate: its fetches would be wasted.
-            run = [i for i in sched.runnable_slots() if not sched.slots[i].done]
-            cands = [i for i in run if pool.can_spill(i) and not pool.shielded(i)]
-            if not cands or len(run) <= keep:
-                return False
-            stats = slot_reuse_stats(ctl.order.value, [int(n) for n in pool.lens], pool.page,
-                                     snake_group=ctl.snake_group)
-            victim = select_spill_victim([
-                (i, sched.slots[i].request.priority, pool.shared_donor(i), stats[i]["mean"])
-                for i in cands
-            ])
-            if victim is None or not pool.spill_slot(victim):
-                return False  # host full, or an injected tier.spill stall
-            sched.suspend(victim)
-            tr.instant("serve.spill", slot=victim, pages=pool._offslot_pages(victim))
-            return True
-
-        def tier_boundary() -> None:
-            # In resolution order: splice finished resumes back in, spill
-            # down to the watermark, then open the fetch queue of at most
-            # one suspended slot, in the next step's visit order.
-            for i in pool.suspended_slots():
-                if pool.resume_ready(i) and pool.complete_resume(i):
-                    sched.resume(i)
-                    tr.instant("serve.tier_resume", slot=i)
-            while pool.occupancy() >= self._spill_wm and spill_one(keep=1):
-                pass
-            suspended = pool.suspended_slots()
-            if not suspended or any(pool._suspended[i].started for i in suspended):
-                return
-            runnable = [i for i in sched.runnable_slots() if not sched.slots[i].done]
-            n_alloc = pool.alloc.n_pages - 1
-            held = n_alloc - pool.alloc.free_count
-            for i in suspended:
-                n_pgs = pool._offslot_pages(i)
-                # Resume only into calm (one that pushes occupancy back over
-                # the spill watermark just moves the pressure to another
-                # victim), unless nothing is runnable.
-                calm = (held + n_pgs) / max(n_alloc, 1) < self._spill_wm
-                if pool.alloc.available >= pool.resume_need(i) and (calm or not runnable):
-                    group = ctl.effective_group(max(n_pgs, 1))
-                    pool.start_resume(i, order=future_visit_window(
-                        int(pool.lens[i]) // pool.page, n_pgs, n_pgs, group))
-                    break
-
-        def prefetch(overlapped: bool) -> None:
-            with tr.span("serve.prefetch", overlapped=overlapped):
-                for i in pool.suspended_slots():
-                    pool.issue_fetches(i, self.prefetch_depth, overlapped=overlapped)
-
-        def overlap() -> None:
-            # Issued after the replay is launched: the copies run on the
-            # pool's side stream beside the step, into staged rows that are
-            # spliced at a later boundary, never into the pages it reads.
-            if pool.fetch_backlog():
-                prefetch(True)
-
-        step = 0
-        n_steps = n_wide = 0
-        while sched.has_work():
-            t_iter = time.perf_counter()
-            with tr.span("serve.step", step=step):
-                arrive(step, time.perf_counter_ns())
-                # ---- step-boundary lifecycle checks ----
-                if faults is not None:
-                    faults.begin_step(step)
-                    for rid in faults.take_cancels():
-                        self._cancelled.add(int(rid))
-                if self._cancelled:
-                    for r in sched.drain_waiting(lambda r: r.rid in self._cancelled):
-                        resolve(r, resume.pop(id(r), []), "cancelled")
-                    for i in list(sched.active_slots()):
-                        if sched.slots[i].request.rid in self._cancelled:
-                            finish(i, "cancelled")
-                now_s = (time.perf_counter_ns() - t0) / 1e9
-                for r in sched.drain_waiting(
-                    lambda r: r.deadline_s is not None and now_s > r.deadline_s
-                ):
-                    resolve(r, resume.pop(id(r), []), "deadline")
-                for i in list(sched.active_slots()):
-                    r = sched.slots[i].request
-                    if r.deadline_s is not None and now_s > r.deadline_s:
-                        finish(i, "deadline")
-
-                # The tier's boundary work comes before admission: spilling
-                # down to the spill watermark is what un-pauses admission.
-                if tiered:
-                    tier_boundary()
-
-                # Admission: fill free slots with arrived requests while the
-                # pool can reserve what the discipline guarantees; the
-                # watermark pauses it under pressure (never with no slot
-                # active). A preempted request's admission is its restore.
-                with tr.span("serve.admission"):
-                    paused = pool.occupancy() >= self._watermark and bool(sched.active_slots())
-                    self._m_admit_paused.set(float(paused))
-                    while not paused and (slot := sched.free_slot()) is not None:
-                        req = sched.pop_admissible(step)
-                        if req is None:
-                            break
-                        restored = id(req) in resume
-                        with (tr.span("serve.preempt_restore", rid=req.rid) if restored
-                              else contextlib.nullcontext()):
-                            st = self._admit(req, slot, sched, pool, temps, seeds, counts,
-                                             idx_of.get(id(req), 0), prior=resume.get(id(req)))
-                        if st is None:
-                            sched.requeue(req)  # no pages yet; retry after retirements
-                            self._m_req_requeued.inc()
-                            break
-                        now = time.perf_counter_ns()
-                        wait = now - ready_ns.pop(id(req), now)
-                        queue_ns[id(req)] = queue_ns.get(id(req), 0) + wait
-                        token_ns.setdefault(id(req), [])
-                        tr.instant("serve.request.admit", rid=req.rid, slot=slot, wait_ns=wait)
-                        resume.pop(id(req), None)
-                        self._m_req_admitted.inc()
-                        if restored and st.prompt is not None:
-                            n_re = int(len(st.prompt) - st.prompt_pos)
-                            tally["restore"] += n_re
-                            self._m_restore_tok.inc(n_re)
-                        if st.done:  # zero-limit request: emits nothing
-                            finish(slot)
-
-                if self.max_queue is not None:
-                    for r in sched.shed_over(step, self.max_queue):
-                        resolve(r, resume.pop(id(r), []), "shed")
-
-                # Drafting, once a boundary and before the plan loop (a
-                # model drafter runs steps of its own, so a re-plan must not
-                # call it again). K is clamped so the verification chunk
-                # stays inside the row's limit and capacity (its writes
-                # stay inside the reservation) and the wide width.
-                drafts: dict[int, list[int]] = {}
-                if drafter is not None:
-                    want = []
-                    for i in sched.runnable_slots():
-                        st = sched.slots[i]
-                        if st.done or st.prefilling:
-                            continue
-                        kmax = min(self.draft_len, st.new_limit - len(st.generated) - 1,
-                                   cap - int(pool.lens[i]) - 1, self._chunk - 1)
-                        if kmax < 1:
-                            continue
-                        ctx = np.concatenate(
-                            [st.prompt, np.asarray(st.generated[st.n_prior:], np.int32)])
-                        want.append((i, ctx, kmax))
-                    if want:
-                        with tr.span("serve.draft", rows=len(want)):
-                            out = drafter.draft_batch(want)
-                        for i, _, kmax in want:
-                            d = [int(t) for t in out.get(i, [])][:kmax]
-                            if d:
-                                drafts[i] = d
-
-                # Plan under pressure: make every planned row writable; a
-                # PoolExhausted (optimistic growth or an injected fault)
-                # spills a victim to the host tier when there is one, else
-                # preempts one, possibly the failing slot, and plans again.
-                # Each round removes a runnable slot, so this ends;
-                # ensure_writable is idempotent for the rows it already did.
-                draft_lens = {i: len(d) for i, d in drafts.items()} or None
-                while True:
-                    with tr.span("serve.plan_step"):
-                        plan = sched.plan_step(draft_lens)
-                    if not plan:
-                        break
-                    try:
-                        for it in plan:
-                            pool.ensure_writable(it.slot, it.q_len)
-                    except PoolExhausted:
-                        if tiered and spill_one(keep=0):
-                            continue
-                        if not preempt_victim():
-                            raise
-                        continue
-                    break
-                self._m_queue.set(len(sched.waiting))
-                self._m_active.set(len(sched.active_slots()))
-                if not plan:
-                    if tiered and pool.suspended_slots():
-                        # Nothing runnable but suspended work: spend the
-                        # boundary streaming pages back (nothing to overlap
-                        # with) and splice at the next one.
-                        prefetch(False)
-                        step += 1
-                        continue
-                    if sched.waiting:
-                        nxt = sched.next_arrival()
-                        step = max(step + 1, nxt if nxt is not None else step + 1)
-                        continue
-                    break
-                planned = sum(it.q_len for it in plan)
-                self._m_budget.set(planned / sched.token_budget)
-
-                width = 1 if all(it.q_len == 1 for it in plan) else self._chunk
-                tokens = np.full((n_slots, width), self.eos, np.int32)
-                qlens = np.zeros((n_slots,), np.int32)
-                ladder = np.zeros((n_slots,), bool)
-                n_decode = n_prefill = 0
-                for it in plan:
-                    st = sched.slots[it.slot]
-                    if it.is_prefill:
-                        seg = st.prompt[st.prompt_pos : st.prompt_pos + it.q_len]
-                        tokens[it.slot, : len(seg)] = seg
-                        n_prefill += it.q_len
-                    else:
-                        row = [int(cur[it.slot])] + drafts.get(it.slot, [])[: it.n_draft]
-                        tokens[it.slot, : len(row)] = row
-                        ladder[it.slot] = it.n_draft > 0
-                        n_decode += it.q_len
-                    qlens[it.slot] = it.q_len
-                # Captured here, outside the step's span: the compact step
-                # and the narrow one, as the step's layout needs them.
-                sel, narrow_rows = self._layout(width, qlens)
-                narrow_runs = bool(narrow_rows.any())
-                if len(sel):
-                    self._mixed_step(width, pool)
-                if narrow_runs:
-                    self._mixed_step(1, pool)
-                replays = len(sel) + narrow_runs
-                positions = self._rows * width * len(sel) + n_slots * narrow_runs
-
-                # The order in effect now (a switch after the last step
-                # takes effect here): one staged int32, nothing captured.
-                # A suspended row stages length 0 over its dummied table.
-                order_group = ctl.effective_group(pool.blocks_per_seq)
-                lens_op = pool.step_lens() if tiered else pool.lens
-
-                def dispatch():
-                    # An injected device fault fires before anything is
-                    # staged or run, so the retry runs the same step on the
-                    # same state.
-                    if faults is not None:
-                        faults.raise_if("device.step")
-                    return self._run_mixed(width, tokens, pool, qlens, order_group, temps,
-                                           seeds, counts, lens_op, ladder,
-                                           overlap if tiered else None)
-
-                # The device span closes once the sampled tokens are on the
-                # host, so it brackets the step's device time; positions:
-                # what the step computes (R x chunk a compact replay, n_slots
-                # the narrow one).
-                with tr.span("serve.device_step", width=width, rows=len(plan), tokens=planned,
-                             positions=positions,
-                             **({"replays": replays} if width > 1 else {})) as args:
-                    self._clock.into(args)
-                    try:
-                        toks = dispatch()
-                    except StepCaptureError:
-                        raise
-                    except Exception as err:
-                        # One transient failure is retried; a second fails
-                        # the step's rows, and serving goes on.
-                        self._m_retries.inc()
-                        tr.instant("serve.step_retry", step=step, error=repr(err))
-                        try:
-                            toks = dispatch()
-                        except StepCaptureError:
-                            raise
-                        except Exception as again:
-                            tr.instant("serve.step_failed", step=step, error=repr(again))
-                            for it in plan:
-                                if sched.slots[it.slot] is not None:
-                                    finish(it.slot, "failed")
-                            step += 1
-                            continue
-                    # One reading a step: when its tokens reached the host.
-                    landed = time.perf_counter_ns() - t0
-                # Boundary work after the step: advance, record, finish,
-                # the gauges and the order's sampling.
-                with tr.span("serve.commit"):
-                    step += 1
-                    n_steps += 1
-                    n_wide += width > 1
-                    self._m_tok_decode.inc(n_decode)
-                    self._m_tok_prefill.inc(n_prefill)
-                    (self._m_steps_wide if width > 1 else self._m_steps_narrow).inc()
-                    if width > 1:
-                        self._m_wide_replays.inc(replays)
-                    for it in plan:
-                        st = sched.slots[it.slot]
-                        pool.advance(it.slot, it.q_len)
-                        if it.is_prefill:
-                            st.prompt_pos += it.q_len
-                            if not it.finishes_prompt:
-                                continue
-                            # Prompt complete: publish its frozen pages for later
-                            # admissions to adopt, then take the first sample.
-                            pool.register_prompt(it.slot, st.prompt)
-                        if it.n_draft == 0:
-                            tok = int(toks[it.slot, it.q_len - 1])
-                            token_ns[id(st.request)].append(landed)
-                            counts[it.slot] += 1
-                            cur[it.slot] = tok
-                            if st.record(tok):
-                                finish(it.slot)
-                            continue
-                        # A verification row [cur, d_1..d_K]: target t_i =
-                        # toks[slot, i] is what the sequential stream samples
-                        # after the first i drafts. Accept the longest prefix
-                        # with d_{i+1} == t_i, emit t_0..t_a (stopping at EOS or
-                        # the limit as a sequential stream would), roll the rest
-                        # of the chunk back; the sample count advances by the
-                        # tokens emitted.
-                        d = drafts.get(it.slot, [])[: it.n_draft]
-                        k = len(d)
-                        a = 0
-                        while a < k and d[a] == int(toks[it.slot, a]):
-                            a += 1
-                        emitted = 0
-                        finished = False
-                        for p in range(a + 1):
-                            tok = int(toks[it.slot, p])
-                            token_ns[id(st.request)].append(landed)
-                            emitted += 1
-                            cur[it.slot] = tok
-                            if st.record(tok):
-                                finished = True
-                                break
-                        counts[it.slot] += emitted
-                        n_roll = it.q_len - emitted
-                        if n_roll and not finished:
-                            pool.rollback(it.slot, n_roll)
-                        accepted = emitted - 1
-                        tally["draft"] += k
-                        tally["accept"] += accepted
-                        tally["roll"] += k - accepted
-                        self._m_draft_tok.inc(k)
-                        self._m_accept_tok.inc(accepted)
-                        self._m_rollback_tok.inc(k - accepted)
-                        if finished:
-                            finish(it.slot)
-                    if faults is not None and faults.fired_this_step:
-                        # A step that absorbed a fault is followed by a pool audit.
-                        pool.check_invariants()
-                    pool.emit_gauges()
-                    # The widest decode or verification chunk (K+1 under
-                    # speculation): the query width a KV sweep is amortized over.
-                    step_q = max((it.q_len for it in plan if not it.is_prefill), default=1)
-                    if ctl.enabled:
-                        # Adaptation samples on its own cadence: the decision
-                        # needs a fresh reading, not the last gauge.
-                        if ctl.maybe_adapt(n_steps, pool, self.llc, step_q=step_q):
-                            tr.instant("serve.order_switch", order=ctl.order.value, step=n_steps)
-                    else:
-                        self.llc.maybe_sample(n_steps, pool, step_q=step_q)
-            self._m_step_time.observe(time.perf_counter() - t_iter)
-            if self._log_every and n_steps and n_steps % self._log_every == 0:
-                self._log_stats_line(n_steps, pool, sched)
-
-        self._m_admit_paused.set(0.0)
-        by_status: dict[str, int] = {}
-        for res in results.values():
-            by_status[res.status] = by_status.get(res.status, 0) + 1
-        self.last_stats = StepStats(
-            mixed_steps=n_steps,
-            wide_steps=n_wide,
-            pages_adopted=pool.shared_hits,
-            prompt_tokens_adopted=pool.shared_tokens,
-            cow_forks=pool.cow_forks,
-            preemptions=tally["preempt"],
-            restore_tokens=tally["restore"],
-            shed=by_status.get("shed", 0),
-            deadline_miss=by_status.get("deadline", 0),
-            cancelled=by_status.get("cancelled", 0),
-            failed=by_status.get("failed", 0),
-            spills=getattr(pool, "spills", 0),
-            tier_fetches=getattr(pool, "fetches", 0),
-            prefetch_hits=getattr(pool, "prefetch_hits", 0),
-            prefetch_wasted=getattr(pool, "prefetch_wasted", 0),
-            draft_tokens=tally["draft"],
-            accepted_tokens=tally["accept"],
-            rollback_tokens=tally["roll"],
-        )
-        return [results[id(r)] for r in requests]
+        run = _ContinuousRun(self, pool, requests)
+        results = run.serve()
+        self.last_stats = run.stats()
+        return results
 
     def _log_stats_line(self, n_steps: int, pool, sched) -> None:
         v = self.obs.value
@@ -1600,3 +1095,486 @@ def _copy_tree(dst: dict, src: dict) -> None:
             _copy_tree(d, src[k])
         elif src[k] is not d:
             d.copy_(src[k])
+
+
+class _Step(NamedTuple):
+    """One mixed step's plan and host inputs, by slot."""
+
+    plan: list            # the step's rows (scheduler StepItems)
+    width: int            # 1, or the chunk width
+    tokens: np.ndarray    # (n_slots, width): a verification row is [cur, d_1..d_K]
+    qlens: np.ndarray
+    ladder: np.ndarray    # verification rows
+    replays: int          # what the step runs: compact replays + the narrow one
+    positions: int        # what it computes: R x chunk a compact replay, n_slots the narrow
+    n_decode: int         # the planned tokens of decode and verification rows
+    n_prefill: int        # and of prompt chunks
+
+
+class _ContinuousRun:
+    """One ``generate()`` of the continuous engine: the scheduler, the pool
+    and every request's lifecycle, one method a phase of a step in the order
+    of the spans a step opens. It calls the engine's seams (``_admit``,
+    ``_run_mixed``, ...) through the engine, where tests replace them."""
+
+    def __init__(self, eng: ServeEngine, pool: PagedKVPool, requests: Sequence[Request]):
+        n_slots = eng.batch_size
+        self.eng, self.tr, self.pool, self.requests = eng, eng.tracer, pool, requests
+        self.tier = pool if isinstance(pool, TieredPagePool) else None
+        self.sched = ContinuousScheduler(n_slots, token_budget=eng._budget,
+                                         prefill_chunk=eng._chunk)
+        self.sched.submit(list(requests))
+        self.ctl, self.faults, self.drafter = eng.order_ctl, eng.faults, eng.drafter
+        if self.drafter is not None:
+            self.drafter.reset()
+        self.idx_of = {id(r): i for i, r in enumerate(requests)}  # default seeds
+        self.cur = np.full((n_slots,), eng.eos, np.int32)  # last sampled token
+        self.temps = np.zeros((n_slots,), np.float32)
+        self.seeds = np.zeros((n_slots,), np.int64)
+        self.counts = np.zeros((n_slots,), np.int64)
+        self.results: dict[int, GenerationResult] = {}
+        self.resume: dict[int, list] = {}       # preempted: id(request) -> generated
+        self.n_preempts: dict[int, int] = {}    # id(request) -> times preempted
+        self.work = StepStats()                 # the run's own counts
+        self.step, self.t0 = 0, time.perf_counter_ns()
+        self.deadlines = any(r.deadline_s is not None for r in requests)
+        # Request lifecycles, by id(request), in perf_counter_ns: when it
+        # became admissible (the boundary of its arrival step, generate()'s
+        # entry for step 0, or its preemption) while it waits; its waits
+        # for admission, summed; each token's arrival on the host, from t0.
+        self.ready_ns, self.queue_ns, self.token_ns = {}, {}, {}
+        self.arriving = collections.deque(sorted(requests, key=lambda r: r.arrival))
+        self.arrive(self.t0)
+
+    def serve(self) -> list[GenerationResult]:
+        """Step until no request is left; the results in request order."""
+        eng, sched = self.eng, self.sched
+        while sched.has_work():
+            t_iter = time.perf_counter()
+            with self.tr.span("serve.step", step=self.step):
+                self.boundary()
+                self.admit()
+                drafts = self.draft()
+                plan = self.plan(drafts)
+                if not plan:
+                    if self.tier is not None and self.tier.suspended_slots():
+                        # Suspended work only: stream pages back, splice later.
+                        self.prefetch(False)
+                        self.step += 1
+                        continue
+                    if sched.waiting:
+                        self.step = max(self.step + 1, sched.next_arrival())
+                        continue
+                    break
+                s = self.inputs(plan, drafts)
+                got = self.device_step(s)
+                if got is None:  # failed twice: its rows failed, serving goes on
+                    continue
+                self.commit(s, *got)
+            eng._m_step_time.observe(time.perf_counter() - t_iter)
+            n = self.work.mixed_steps
+            if eng._log_every and n % eng._log_every == 0:
+                eng._log_stats_line(n, self.pool, sched)
+        eng._m_admit_paused.set(0.0)
+        return [self.results[id(r)] for r in self.requests]
+
+    # ---- request lifecycle -------------------------------------------------------
+
+    def arrive(self, now: int) -> None:
+        while self.arriving and self.arriving[0].arrival <= self.step:
+            self.ready_ns[id(self.arriving.popleft())] = now
+
+    def resolve(self, r: Request, tokens: list, status: str) -> None:
+        now = time.perf_counter_ns()
+        key = id(r)
+        if key in self.ready_ns:  # retired while waiting: that wait counts
+            self.queue_ns[key] = self.queue_ns.get(key, 0) + now - self.ready_ns.pop(key)
+        times = tuple(self.token_ns.pop(key, ()))
+        n_tok = len(tokens)
+        ttft = times[0] if times else now - self.t0
+        res = GenerationResult(
+            rid=r.rid, tokens=np.asarray(tokens, np.int32), steps=n_tok, ttft_s=ttft / 1e9,
+            tpot_s=_tpot((now - self.t0 - ttft) / 1e9, n_tok), status=status,
+            n_preemptions=self.n_preempts.get(key, 0), queue_s=self.queue_ns.pop(key, 0) / 1e9,
+            token_s=tuple(x / 1e9 for x in times))
+        self.results[key] = res
+        self.eng._cancelled.discard(r.rid)
+        self.eng._record_result(res)
+        self.tr.instant("serve.request.finish", rid=r.rid, status=status, token_ns=times)
+
+    def retire(self, slot: int):
+        st = self.sched.retire(slot)
+        self.pool.release(slot)
+        if self.drafter is not None:
+            self.drafter.release(slot)
+        self.cur[slot] = self.eng.eos
+        self.temps[slot] = 0.0
+        return st
+
+    def finish(self, slot: int, status: str = "ok") -> None:
+        st = self.retire(slot)
+        self.resolve(st.request, list(st.generated), status)
+
+    def drop(self, pred, status: str) -> None:
+        """Resolve waiting and finish active requests matching ``pred``, as ``status``."""
+        for r in self.sched.drain_waiting(pred):
+            self.resolve(r, self.resume.pop(id(r), []), status)
+        for i in list(self.sched.active_slots()):
+            if pred(self.sched.slots[i].request):
+                self.finish(i, status)
+
+    def live(self) -> list[int]:
+        """Runnable slots whose request is not done."""
+        return [i for i in self.sched.runnable_slots() if not self.sched.slots[i].done]
+
+    def preempt_one(self) -> bool:
+        """Evict a live slot under pool pressure (``select_victim``; a
+        suspended slot holds no device page, so it is no candidate):
+        release its pages and requeue it at the queue head (restored by a
+        chunked re-prefill of prompt + generated-so-far), or fail it past
+        its bound. False when no slot is live."""
+        eng, slots = self.eng, self.sched.slots
+        cands = [(i, slots[i].request.priority, len(slots[i].generated),
+                  self.pool.shared_donor(i)) for i in self.live()]
+        if not cands:
+            return False
+        slot = select_victim(cands)
+        st = self.retire(slot)
+        r = st.request
+        n_pre = self.n_preempts[id(r)] = self.n_preempts.get(id(r), 0) + 1
+        limit = eng.max_preemptions if r.max_preemptions is None else r.max_preemptions
+        if n_pre > limit:
+            self.resolve(r, list(st.generated), "failed")
+            return True
+        self.resume[id(r)] = list(st.generated)
+        self.sched.requeue(r)
+        self.ready_ns[id(r)] = time.perf_counter_ns()
+        self.work.preemptions += 1
+        eng._m_preempt.inc()
+        eng._m_req_requeued.inc()
+        self.tr.instant("serve.preempt", rid=r.rid, slot=slot, generated=len(st.generated))
+        return True
+
+    # ---- the host tier ------------------------------------------------------------
+
+    def spill_one(self, keep: int) -> bool:
+        """Spill the coldest runnable slot, keeping at least ``keep``
+        runnable (the watermark pass keeps one so the stream advances;
+        under pressure it may go to zero: the freed pages are what lets a
+        resume complete). A slot resumed and not yet stepped is no
+        candidate: its fetches would be wasted."""
+        pool, ctl = self.tier, self.ctl
+        run = self.live()
+        cands = [i for i in run if pool.can_spill(i) and not pool.shielded(i)]
+        if not cands or len(run) <= keep:
+            return False
+        stats = slot_reuse_stats(ctl.order.value, [int(n) for n in pool.lens], pool.page,
+                                 snake_group=ctl.snake_group)
+        victim = select_spill_victim([(i, self.sched.slots[i].request.priority,
+                                       pool.shared_donor(i), stats[i]["mean"]) for i in cands])
+        if victim is None or not pool.spill_slot(victim):
+            return False  # host full, or an injected tier.spill stall
+        self.sched.suspend(victim)
+        self.tr.instant("serve.spill", slot=victim, pages=pool.offslot_pages(victim))
+        return True
+
+    def tier_boundary(self) -> None:
+        """In resolution order: splice finished resumes back in, spill down
+        to the watermark, then open the fetch queue of the slot the pool
+        lets resume, if any, in the next step's visit order."""
+        pool, wm = self.tier, self.eng._spill_wm
+        for i in pool.suspended_slots():
+            if pool.resume_ready(i) and pool.complete_resume(i):
+                self.sched.resume(i)
+                self.tr.instant("serve.tier_resume", slot=i)
+        while pool.occupancy() >= wm and self.spill_one(keep=1):
+            pass
+        if (i := pool.next_resume(wm, runnable=bool(self.live()))) is not None:
+            n = pool.offslot_pages(i)
+            group = self.ctl.effective_group(max(n, 1))
+            pool.start_resume(i, order=future_visit_window(pool.lens[i] // pool.page, n, n, group))
+
+    def prefetch(self, overlapped: bool) -> None:
+        with self.tr.span("serve.prefetch", overlapped=overlapped):
+            for i in self.tier.suspended_slots():
+                self.tier.issue_fetches(i, self.eng.prefetch_depth, overlapped=overlapped)
+
+    def overlap(self) -> None:
+        """Issued after the replay is launched: the copies run on the
+        pool's side stream beside the step, into staged rows that are
+        spliced at a later boundary, never into the pages it reads."""
+        if self.tier.fetch_backlog():
+            self.prefetch(True)
+
+    # ---- a step, phase by phase -----------------------------------------------------
+
+    def boundary(self) -> None:
+        """Arrivals, the fault plan's cancels, then cancels and deadlines;
+        then the tier's work, before admission: spilling down to the spill
+        watermark is what un-pauses admission."""
+        eng, faults = self.eng, self.faults
+        self.arrive(time.perf_counter_ns())
+        if faults is not None:
+            faults.begin_step(self.step)
+            eng._cancelled.update(int(rid) for rid in faults.take_cancels())
+        if eng._cancelled:
+            self.drop(lambda r: r.rid in eng._cancelled, "cancelled")
+        if self.deadlines:
+            now_s = (time.perf_counter_ns() - self.t0) / 1e9
+            self.drop(lambda r: r.deadline_s is not None and now_s > r.deadline_s, "deadline")
+        if self.tier is not None:
+            self.tier_boundary()
+
+    def admit(self) -> None:
+        """Fill free slots with arrived requests while the pool can reserve
+        what the discipline guarantees; the watermark pauses it under
+        pressure (never with no slot active). A preempted request's
+        admission is its restore. Then shed past the queue bound."""
+        eng, tr, sched, pool = self.eng, self.tr, self.sched, self.pool
+        with tr.span("serve.admission"):
+            paused = pool.occupancy() >= eng._watermark and bool(sched.active_slots())
+            eng._m_admit_paused.set(float(paused))
+            while not paused and (slot := sched.free_slot()) is not None:
+                req = sched.pop_admissible(self.step)
+                if req is None:
+                    break
+                key = id(req)
+                restored = key in self.resume
+                with (tr.span("serve.preempt_restore", rid=req.rid) if restored
+                      else contextlib.nullcontext()):
+                    st = eng._admit(req, slot, sched, pool, self.temps, self.seeds, self.counts,
+                                    self.idx_of.get(key, 0), prior=self.resume.get(key))
+                if st is None:
+                    sched.requeue(req)  # no pages yet; retry after retirements
+                    eng._m_req_requeued.inc()
+                    break
+                now = time.perf_counter_ns()
+                wait = now - self.ready_ns.pop(key, now)
+                self.queue_ns[key] = self.queue_ns.get(key, 0) + wait
+                self.token_ns.setdefault(key, [])
+                tr.instant("serve.request.admit", rid=req.rid, slot=slot, wait_ns=wait)
+                self.resume.pop(key, None)
+                eng._m_req_admitted.inc()
+                if restored and st.prompt is not None:
+                    n_re = int(len(st.prompt) - st.prompt_pos)
+                    self.work.restore_tokens += n_re
+                    eng._m_restore_tok.inc(n_re)
+                if st.done:  # zero-limit request: emits nothing
+                    self.finish(slot)
+        if eng.max_queue is not None:
+            for r in sched.shed_over(self.step, eng.max_queue):
+                self.resolve(r, self.resume.pop(id(r), []), "shed")
+
+    def draft(self) -> dict[int, list[int]]:
+        """Drafts by slot, once a boundary and before the plan loop (a model
+        drafter runs steps of its own, so a re-plan must not call it
+        again). K is clamped so the verification chunk stays inside the
+        row's limit and capacity (its writes stay inside the reservation)
+        and the wide width."""
+        if self.drafter is None:
+            return {}
+        eng, sched = self.eng, self.sched
+        want = []
+        for i in sched.runnable_slots():
+            st = sched.slots[i]
+            if st.done or st.prefilling:
+                continue
+            kmax = min(eng.draft_len, st.new_limit - len(st.generated) - 1,
+                       eng._cap - int(self.pool.lens[i]) - 1, eng._chunk - 1)
+            if kmax >= 1:
+                ctx = np.concatenate([st.prompt, np.asarray(st.generated[st.n_prior:], np.int32)])
+                want.append((i, ctx, kmax))
+        if not want:
+            return {}
+        with self.tr.span("serve.draft", rows=len(want)):
+            out = self.drafter.draft_batch(want)
+        drafts = {i: [int(t) for t in out.get(i, [])][:kmax] for i, _, kmax in want}
+        return {i: d for i, d in drafts.items() if d}
+
+    def plan(self, drafts: dict[int, list[int]]) -> list:
+        """Plan under pressure: make every planned row writable; a
+        PoolExhausted (optimistic growth or an injected fault) spills a
+        victim to the host tier when there is one, else preempts one, and
+        plans again. Each round removes a runnable slot, so this ends;
+        ensure_writable is idempotent for the rows it already did."""
+        draft_lens = {i: len(d) for i, d in drafts.items()} or None
+        while True:
+            with self.tr.span("serve.plan_step"):
+                plan = self.sched.plan_step(draft_lens)
+            try:
+                for it in plan:
+                    self.pool.ensure_writable(it.slot, it.q_len)
+            except PoolExhausted:
+                if (self.tier is not None and self.spill_one(keep=0)) or self.preempt_one():
+                    continue
+                raise
+            break
+        self.eng._m_queue.set(len(self.sched.waiting))
+        self.eng._m_active.set(len(self.sched.active_slots()))
+        return plan
+
+    def inputs(self, plan: list, drafts: dict[int, list[int]]) -> _Step:
+        """The step's width and host inputs; captures the steps its layout
+        needs here, outside the step's span."""
+        eng, slots, cur = self.eng, self.sched.slots, self.cur
+        n_slots = eng.batch_size
+        width = 1 if all(it.q_len == 1 for it in plan) else eng._chunk
+        tokens = np.full((n_slots, width), eng.eos, np.int32)
+        qlens = np.zeros((n_slots,), np.int32)
+        ladder = np.zeros((n_slots,), bool)
+        n_decode = n_prefill = 0
+        for it in plan:
+            st = slots[it.slot]
+            if it.is_prefill:
+                row = st.prompt[st.prompt_pos : st.prompt_pos + it.q_len]
+                n_prefill += it.q_len
+            else:
+                row = [int(cur[it.slot])] + drafts.get(it.slot, [])[: it.n_draft]
+                ladder[it.slot] = it.n_draft > 0
+                n_decode += it.q_len
+            tokens[it.slot, : len(row)] = row
+            qlens[it.slot] = it.q_len
+        eng._m_budget.set((n_decode + n_prefill) / self.sched.token_budget)
+        sel, narrow_rows = eng._layout(width, qlens)
+        narrow_runs = bool(narrow_rows.any())
+        if len(sel):
+            eng._mixed_step(width, self.pool)
+        if narrow_runs:
+            eng._mixed_step(1, self.pool)
+        return _Step(plan, width, tokens, qlens, ladder, replays=len(sel) + narrow_runs,
+                     positions=eng._rows * width * len(sel) + n_slots * narrow_runs,
+                     n_decode=n_decode, n_prefill=n_prefill)
+
+    def device_step(self, s: _Step) -> Optional[tuple[np.ndarray, int]]:
+        """Run the step: its tokens and when they reached the host (ns from
+        t0), or None when it failed twice (one transient failure is
+        retried): its rows fail and the step is spent. The span closes once
+        the tokens are on the host, so it brackets the step's device time."""
+        eng, tr, pool = self.eng, self.tr, self.pool
+        # The order in effect now (a switch after the last step takes
+        # effect here): one staged int32, nothing captured. A suspended
+        # row stages length 0 over its dummied table.
+        order_group = self.ctl.effective_group(pool.blocks_per_seq)
+        lens = pool.step_lens()
+        with tr.span("serve.device_step", width=s.width, rows=len(s.plan),
+                     tokens=s.n_decode + s.n_prefill, positions=s.positions,
+                     **({"replays": s.replays} if s.width > 1 else {})) as args:
+            eng._clock.into(args)
+            for attempt in range(2):
+                try:
+                    # An injected device fault fires before anything is
+                    # staged or run, so the retry runs the same step on the
+                    # same state.
+                    if self.faults is not None:
+                        self.faults.raise_if("device.step")
+                    toks = eng._run_mixed(s.width, s.tokens, pool, s.qlens, order_group,
+                                          self.temps, self.seeds, self.counts, lens, s.ladder,
+                                          self.overlap if self.tier is not None else None)
+                    # One reading a step: when its tokens reached the host.
+                    return toks, time.perf_counter_ns() - self.t0
+                except StepCaptureError:
+                    raise
+                except Exception as err:
+                    if attempt == 0:
+                        eng._m_retries.inc()
+                        tr.instant("serve.step_retry", step=self.step, error=repr(err))
+                    else:
+                        tr.instant("serve.step_failed", step=self.step, error=repr(err))
+            for it in s.plan:
+                if self.sched.slots[it.slot] is not None:
+                    self.finish(it.slot, "failed")
+        self.step += 1
+        return None
+
+    def commit(self, s: _Step, toks: np.ndarray, landed: int) -> None:
+        """Boundary work after the step: advance, record, finish, the
+        gauges and the order's sampling."""
+        eng, pool, slots, ctl = self.eng, self.pool, self.sched.slots, self.ctl
+        counts, cur, token_ns = self.counts, self.cur, self.token_ns
+        with self.tr.span("serve.commit"):
+            self.step += 1
+            self.work.mixed_steps += 1
+            self.work.wide_steps += s.width > 1
+            eng._m_tok_decode.inc(s.n_decode)
+            eng._m_tok_prefill.inc(s.n_prefill)
+            (eng._m_steps_wide if s.width > 1 else eng._m_steps_narrow).inc()
+            if s.width > 1:
+                eng._m_wide_replays.inc(s.replays)
+            for it in s.plan:
+                st = slots[it.slot]
+                pool.advance(it.slot, it.q_len)
+                if it.is_prefill:
+                    st.prompt_pos += it.q_len
+                    if not it.finishes_prompt:
+                        continue
+                    # Prompt complete: publish its frozen pages for later
+                    # admissions to adopt, then take the first sample.
+                    pool.register_prompt(it.slot, st.prompt)
+                if it.n_draft:
+                    self.verify(it, s.tokens[it.slot, 1:it.q_len].tolist(), toks, landed)
+                    continue
+                tok = int(toks[it.slot, it.q_len - 1])
+                token_ns[id(st.request)].append(landed)
+                counts[it.slot] += 1
+                cur[it.slot] = tok
+                if st.record(tok):
+                    self.finish(it.slot)
+            if self.faults is not None and self.faults.fired_this_step:
+                # A step that absorbed a fault is followed by a pool audit.
+                pool.check_invariants()
+            pool.emit_gauges()
+            # The widest decode or verification chunk (K+1 under
+            # speculation): the query width a KV sweep is amortized over.
+            step_q = max((it.q_len for it in s.plan if not it.is_prefill), default=1)
+            n = self.work.mixed_steps
+            if ctl.enabled:
+                # Adaptation samples on its own cadence: the decision needs
+                # a fresh reading, not the last gauge.
+                if ctl.maybe_adapt(n, pool, eng.llc, step_q=step_q):
+                    self.tr.instant("serve.order_switch", order=ctl.order.value, step=n)
+            else:
+                eng.llc.maybe_sample(n, pool, step_q=step_q)
+
+    def verify(self, it, drafts: list[int], toks: np.ndarray, landed: int) -> None:
+        """Commit a verification row [cur, d_1..d_K]: t_i = toks[slot, i] is
+        what the sequential stream samples after the first i drafts. Accept
+        the longest prefix with d_{i+1} == t_i, emit t_0..t_a (stopping at
+        EOS or the limit as a sequential stream would), roll the rest of
+        the chunk back; the sample count advances by the tokens emitted."""
+        eng, slot, k = self.eng, it.slot, len(drafts)
+        st = self.sched.slots[slot]
+        times = self.token_ns[id(st.request)]
+        a = 0
+        while a < k and drafts[a] == int(toks[slot, a]):
+            a += 1
+        for emitted, tok in enumerate(toks[slot, : a + 1].tolist(), 1):
+            times.append(landed)
+            if finished := st.record(tok):
+                break
+        self.cur[slot] = tok
+        self.counts[slot] += emitted
+        n_roll = it.q_len - emitted
+        if n_roll and not finished:
+            self.pool.rollback(slot, n_roll)
+        accepted = emitted - 1
+        self.work.draft_tokens += k
+        self.work.accepted_tokens += accepted
+        self.work.rollback_tokens += k - accepted
+        eng._m_draft_tok.inc(k)
+        eng._m_accept_tok.inc(accepted)
+        eng._m_rollback_tok.inc(k - accepted)
+        if finished:
+            self.finish(slot)
+
+    def stats(self) -> StepStats:
+        """The run's counts, with the pool's and the results' by status."""
+        s, pool = self.work, self.pool
+        s.pages_adopted, s.prompt_tokens_adopted = pool.shared_hits, pool.shared_tokens
+        s.cow_forks = pool.cow_forks
+        if (t := self.tier) is not None:
+            s.spills, s.tier_fetches = t.spills, t.fetches
+            s.prefetch_hits, s.prefetch_wasted = t.prefetch_hits, t.prefetch_wasted
+        by = collections.Counter(r.status for r in self.results.values())
+        s.shed, s.deadline_miss = by["shed"], by["deadline"]
+        s.cancelled, s.failed = by["cancelled"], by["failed"]
+        return s

@@ -450,6 +450,10 @@ class PagedKVPool:
         prefers other victims."""
         return any(self._ref[pid] > 1 for pid in self._slot_pages[slot])
 
+    def step_lens(self) -> np.ndarray:
+        """The lengths a step stages (a tiered pool zeroes a suspended slot's)."""
+        return self.lens
+
     def occupancy(self) -> float:
         """Held fraction of the allocatable pool (admission watermark)."""
         n_alloc = self.alloc.n_pages - 1
@@ -478,7 +482,7 @@ class PagedKVPool:
 
     # ---- invariants ----------------------------------------------------------
 
-    def _offslot_pages(self, slot: int) -> int:
+    def offslot_pages(self, slot: int) -> int:
         """Logical pages of ``slot`` held outside its block table: 0 here;
         the tiered pool counts a suspended slot's host pages, so the
         coverage invariant below holds across both tiers."""
@@ -510,8 +514,8 @@ class PagedKVPool:
         assert self.alloc.reserved == sum(self._slot_reserved) >= 0
         for slot in range(self.n_slots):
             n_logical = -(-int(self.lens[slot]) // self.page)
-            assert len(self._slot_pages[slot]) + self._offslot_pages(slot) >= n_logical, (
-                slot, len(self._slot_pages[slot]), self._offslot_pages(slot), n_logical
+            assert len(self._slot_pages[slot]) + self.offslot_pages(slot) >= n_logical, (
+                slot, len(self._slot_pages[slot]), self.offslot_pages(slot), n_logical
             )
             for pg, pid in enumerate(self._slot_pages[slot]):
                 assert self.block_tables[slot, pg] == pid

@@ -197,6 +197,27 @@ class TieredPagePool(PagedKVPool):
         sus = self._suspended[slot]
         return len(sus.handles) + sus.reserved
 
+    def offslot_pages(self, slot: int) -> int:
+        """Host pages of ``slot`` (0 unless it is suspended)."""
+        sus = self._suspended.get(slot)
+        return 0 if sus is None else len(sus.handles)
+
+    def next_resume(self, watermark: float, runnable: bool) -> Optional[int]:
+        """The suspended slot that may open its fetch queue now, or None:
+        none while another resume has started, else the first the pool can
+        cover, and only into calm (a resume that pushes occupancy back over
+        ``watermark`` moves the pressure to another victim) unless no slot
+        is ``runnable``."""
+        if any(sus.started for sus in self._suspended.values()):
+            return None
+        n_alloc = self.alloc.n_pages - 1
+        held = n_alloc - self.alloc.free_count
+        for i in self.suspended_slots():
+            calm = (held + self.offslot_pages(i)) / max(n_alloc, 1) < watermark
+            if self.alloc.available >= self.resume_need(i) and (calm or not runnable):
+                return i
+        return None
+
     def can_spill(self, slot: int) -> bool:
         return (
             slot not in self._suspended
@@ -271,7 +292,7 @@ class TieredPagePool(PagedKVPool):
         self._slot_pages[slot] = []
         self.block_tables[slot] = 0
         # lens[slot] is kept: the suspended row's logical length, the resume
-        # target, covered in check_invariants through _offslot_pages.
+        # target, covered in check_invariants through offslot_pages.
         self._suspended[slot] = _Suspended(handles=handles, reserved=res)
         self.spills += 1
         if self._registry is not None:
@@ -421,10 +442,6 @@ class TieredPagePool(PagedKVPool):
         return self.alloc.available + self.host.free >= worst
 
     # ---- invariants ----------------------------------------------------------
-
-    def _offslot_pages(self, slot: int) -> int:
-        sus = self._suspended.get(slot)
-        return 0 if sus is None else len(sus.handles)
 
     def check_invariants(self) -> None:
         super().check_invariants()

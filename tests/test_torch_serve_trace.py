@@ -43,20 +43,30 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
 from repro_torch.obs import Tracer
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import NgramDrafter, Request, ServeEngine
 from repro_torch.serve.step_graph import DeviceClock
 from test_torch_step_graph import NoHostRead
 
-ENGINES = {
-    "continuous": dict(scheduler="continuous", batch_size=2, max_len=96, page_size=8,
-                       prefill_chunk=16),
-    "static": dict(scheduler="static", batch_size=2, max_len=64),
-}
-STEP = {"continuous": ("serve.device_step",), "static": ("serve.decode_step", "serve.prefill")}
 # The optimistic geometry of tests/test_torch_resilience.py: 4 allocatable
 # pages of 16 for 2 slots whose rows grow to 4 pages each.
 TINY_POOL = dict(scheduler="continuous", batch_size=2, max_len=64, page_size=16,
                  prefill_chunk=16, pool_pages=4, admission="optimistic", max_preemptions=10)
+ENGINES = {
+    "continuous": dict(scheduler="continuous", batch_size=2, max_len=96, page_size=8,
+                       prefill_chunk=16),
+    "static": dict(scheduler="static", batch_size=2, max_len=64),
+    # Under pressure: preemptions, a spill to a one-page host tier and its
+    # prefetch, and n-gram drafts verified (some accepted).
+    "continuous_tiered_spec": dict(TINY_POOL, host_pages=1, drafter=NgramDrafter()),
+}
+# The requests an engine of ENGINES serves in ``runs``, where not the default.
+REQUESTS = {"continuous_tiered_spec": dict(plen=lambda i: 24, new=lambda i: 12)}
+STEP = {"continuous": ("serve.device_step",), "static": ("serve.decode_step", "serve.prefill")}
+
+
+def _kind(name: str) -> str:
+    """The scheduler of engine ``name`` of ENGINES."""
+    return ENGINES[name]["scheduler"]
 
 
 @pytest.fixture(autouse=True)
@@ -120,7 +130,8 @@ def _serve(model, engine_kw, requests, events=True):
 @pytest.fixture(scope="module")
 def runs(model):
     vocab = model[0].cfg.vocab
-    return {name: (_requests(vocab),) + _serve(model, kw, _requests(vocab))
+    return {name: (_requests(vocab, **REQUESTS.get(name, {})),)
+            + _serve(model, kw, _requests(vocab, **REQUESTS.get(name, {})))
             for name, kw in ENGINES.items()}
 
 
@@ -142,7 +153,7 @@ def _inside(a, b) -> bool:
 @pytest.mark.parametrize("scheduler", list(ENGINES))
 def test_sub_spans_nest_in_their_step(runs, scheduler):
     _, _, _, events, _ = runs[scheduler]
-    steps = _spans(events, *STEP[scheduler])
+    steps = _spans(events, *STEP[_kind(scheduler)])
     subs = _spans(events, "serve.stage", "serve.replay", "serve.forward", "serve.sync")
     assert steps and len(subs) == 3 * len(steps)
     for s in subs:
@@ -152,7 +163,7 @@ def test_sub_spans_nest_in_their_step(runs, scheduler):
         middle = "serve.forward" if st.name == "serve.prefill" else "serve.replay"
         assert [s.name for s in inner] == ["serve.stage", middle, "serve.sync"]
         assert all(a.end_ns <= b.ts_ns for a, b in zip(inner, inner[1:]))
-    if scheduler == "continuous":
+    if _kind(scheduler) == "continuous":
         bounds = _spans(events, "serve.step")
         for b in bounds:
             within = sorted((s for s in _spans(events) if s is not b and _inside(s, b)
@@ -166,7 +177,7 @@ def test_sub_spans_nest_in_their_step(runs, scheduler):
 @pytest.mark.parametrize("scheduler", list(ENGINES))
 def test_existing_spans_keep_their_args(runs, scheduler):
     _, _, _, events, _ = runs[scheduler]
-    if scheduler == "continuous":
+    if _kind(scheduler) == "continuous":
         for e in _spans(events, "serve.device_step"):
             assert {"width", "rows", "tokens", "positions"} <= set(e.args)
     else:
@@ -192,7 +203,7 @@ def test_each_request_is_admitted_and_finishes_once(runs, scheduler):
 
 @pytest.mark.parametrize("scheduler", list(ENGINES))
 def test_token_times(runs, scheduler):
-    _, _, res, events, wall = runs[scheduler]
+    _, eng, res, events, wall = runs[scheduler]
     by_rid = {e.args["rid"]: e.args["token_ns"] for e in _instants(events, "serve.request.finish")}
     for r in res:
         ns = by_rid[r.rid]
@@ -202,9 +213,13 @@ def test_token_times(runs, scheduler):
         assert r.token_s == tuple(x / 1e9 for x in ns)
         assert r.token_s[0] == r.ttft_s
     # one clock reading a step: a step's tokens share it, two steps differ
-    steps = len(_spans(events, *STEP[scheduler]))
+    steps = len(_spans(events, *STEP[_kind(scheduler)]))
     assert len({x for ns in by_rid.values() for x in ns}) <= steps
-    assert all(len(set(ns)) == len(ns) for ns in by_rid.values())
+    if eng.drafter is None:
+        assert all(len(set(ns)) == len(ns) for ns in by_rid.values())
+    else:  # a verification row's tokens: the first and each accepted draft's
+        repeats = sum(len(ns) - len(set(ns)) for ns in by_rid.values())
+        assert repeats == eng.last_stats.accepted_tokens > 0
 
 
 def test_queue_waits_of_the_continuous_engine(runs):
@@ -245,6 +260,19 @@ def test_arrival_step_sets_when_a_request_is_ready(model):
     boundary = next(e for e in _spans(events, "serve.step") if e.args["step"] == 3)
     assert boundary.ts_ns <= late.ts_ns - late.args["wait_ns"] <= late.ts_ns <= boundary.end_ns
     assert res[1].queue_s < boundary.dur_ns / 1e9
+
+
+def test_the_pressure_engine_preempts_spills_prefetches_and_drafts(runs):
+    """What the third engine of ENGINES is there for: every test over
+    ENGINES also runs on preemption, the host tier and drafting."""
+    _, eng, res, events, _ = runs["continuous_tiered_spec"]
+    st = eng.last_stats
+    assert st.preemptions and st.spills and st.tier_fetches and st.accepted_tokens
+    assert all(r.status == "ok" for r in res) and any(r.n_preemptions for r in res)
+    for name in ("serve.preempt", "serve.spill", "serve.tier_resume"):
+        assert _instants(events, name), name
+    for name in ("serve.preempt_restore", "serve.prefetch", "serve.draft"):
+        assert _spans(events, name), name
 
 
 def test_a_preempted_request_sums_its_waits(model):
@@ -306,14 +334,14 @@ def test_positions_and_tokens_of_the_static_prefill(runs):
 def test_no_device_window_off_the_card(model, scheduler):
     _, _, events, _ = _serve(model, ENGINES[scheduler], _requests(model[0].cfg.vocab, 3),
                              events=False)
-    for e in _spans(events, *STEP[scheduler]):
+    for e in _spans(events, *STEP[_kind(scheduler)]):
         assert "device_ns" not in e.args and "gap_ns" not in e.args
 
 
 @pytest.mark.parametrize("scheduler", list(ENGINES))
 def test_device_windows_sit_at_their_steps(runs, scheduler):
     _, _, _, events, wall = runs[scheduler]
-    steps = sorted(_spans(events, *STEP[scheduler]), key=lambda e: e.ts_ns)
+    steps = sorted(_spans(events, *STEP[_kind(scheduler)]), key=lambda e: e.ts_ns)
     assert all(e.args["device_ns"] >= 0 and e.args["gap_ns"] >= 0 for e in steps)
     assert sum(e.args["device_ns"] + e.args["gap_ns"] for e in steps) <= wall
 
@@ -419,7 +447,7 @@ def test_request_instants_export_as_json(runs, scheduler, tmp_path):
         ev = finishes[r.rid]
         assert ev["ph"] == "i" and ev["args"]["status"] == "ok"
         assert [x / 1e9 for x in ev["args"]["token_ns"]] == list(r.token_s)
-    steps = [e for e in trace["traceEvents"] if e["name"] in STEP[scheduler]]
+    steps = [e for e in trace["traceEvents"] if e["name"] in STEP[_kind(scheduler)]]
     assert all(isinstance(e["args"]["gap_ns"], int) for e in steps)
 
 

@@ -288,6 +288,42 @@ def test_release_while_suspended_counts_wasted():
     assert port.fetches == port.prefetch_hits + port.prefetch_wasted
 
 
+def test_next_resume_picks_one_slot_into_calm():
+    """``next_resume``, the tier's resume policy: with two suspended slots,
+    the first the pool can cover; none while another resume has started;
+    none where the pool cannot cover the slot's pages and reservation; and
+    under the spill watermark only (calm) while a slot is runnable, the
+    rule waived when none is."""
+    _, pool = _pools(n_pages=10)
+    rng = np.random.default_rng(3)
+    for slot in (0, 1):
+        assert pool.admit(slot, rng.integers(2, 100, size=8).astype(np.int32), 8) == 0
+        _grow(pool, slot, 8)
+        assert pool.spill_slot(slot)
+    assert pool.suspended_slots() == [0, 1] and pool.resume_need(0) == 2
+    assert pool.next_resume(0.5, runnable=True) == 0
+    # Slot 2 holds 6 of 10 pages: a resume of 2 would bring occupancy to 0.8.
+    assert pool.admit(2, rng.integers(2, 100, size=24).astype(np.int32), 8) == 0
+    _grow(pool, 2, 24)
+    assert pool.occupancy() == 0.6 and pool.alloc.available == 4
+    assert pool.next_resume(0.85, runnable=True) == 0
+    assert pool.next_resume(0.75, runnable=True) is None
+    assert pool.next_resume(0.75, runnable=False) == 0
+    pool.start_resume(0)
+    for wm, runnable in ((1.0, True), (1.0, False), (0.5, False)):
+        assert pool.next_resume(wm, runnable=runnable) is None
+    assert pool.issue_fetches(0, 8) == 2 and pool.complete_resume(0)
+    assert pool.next_resume(1.0, runnable=True) is None   # 8 + 2 of 10 pages
+    assert pool.next_resume(1.0, runnable=False) == 1
+    # Slot 2 grows to take every free page: slot 1 cannot be covered.
+    _grow(pool, 2, 8)
+    assert pool.alloc.available < pool.resume_need(1)
+    assert pool.next_resume(1.0, runnable=False) is None
+    pool.release(2)
+    assert pool.next_resume(1.0, runnable=False) == 1
+    pool.check_invariants()
+
+
 def test_complete_resume_is_atomic_under_pressure():
     pools = _pools(n_pages=13)
     rng = np.random.default_rng(7)
@@ -446,7 +482,7 @@ def test_cross_tier_lifecycle_lock_step_walk(seed):
         _same_pools(ref, port)
         for slot, (length, _) in live.items():
             assert int(port.lens[slot]) == length
-            assert port._offslot_pages(slot) == (
+            assert port.offslot_pages(slot) == (
                 len(port._suspended[slot].handles) if port.is_suspended(slot) else 0)
     for slot in list(live):
         for p in pools:
